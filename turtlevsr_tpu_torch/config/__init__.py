@@ -1,0 +1,7 @@
+from turtlevsr_tpu_torch.config.options import (  # noqa: F401
+    LevelSpec,
+    ModelConfig,
+    OptionsError,
+    load_options,
+    model_config_from_options,
+)

@@ -1,0 +1,115 @@
+"""Builds and loads the CUDA kernels of ``csrc/`` at first use.
+
+Each ``csrc/<name>.cu`` has a plain C interface and becomes one shared
+library: ``nvcc`` compiles it for ``sm_90a`` into ``_build/`` (a few
+seconds per file, all files started together), and ``ctypes`` loads it.
+Nothing is built when the package is imported, and nothing stands in for a
+kernel that does not build: a missing compiler or a failed compile raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+CSRC_DIR = os.path.join(_HERE, "csrc")
+BUILD_DIR = os.path.join(_HERE, "_build")
+KERNEL_SOURCES = ("ffn", "qkv_stats", "split_proj", "conv3x3")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+
+_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}
+
+_VP, _IP = ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int)
+_LAUNCH_ARGS = [_VP, _IP, ctypes.c_int, ctypes.c_void_p]
+_SIGNATURES = {
+    "ffn": {"turtle_ffn_launch": (_LAUNCH_ARGS, ctypes.c_int),
+            "turtle_ffn_smem": ([ctypes.c_int] * 4, ctypes.c_size_t)},
+    "qkv_stats": {"turtle_qkv_stats_launch": (_LAUNCH_ARGS, ctypes.c_int),
+                  "turtle_qkv_stats_smem": ([ctypes.c_int] * 3,
+                                            ctypes.c_size_t),
+                  "turtle_reduce_rows": ([ctypes.c_void_p, ctypes.c_void_p]
+                                         + [ctypes.c_int] * 4
+                                         + [ctypes.c_void_p], ctypes.c_int)},
+    "split_proj": {"turtle_split_proj_launch": (_LAUNCH_ARGS, ctypes.c_int),
+                   "turtle_split_proj_smem": ([ctypes.c_int] * 2,
+                                              ctypes.c_size_t)},
+    "conv3x3": {"turtle_conv3x3_launch": (_LAUNCH_ARGS, ctypes.c_int),
+                "turtle_conv3x3_smem": ([ctypes.c_int] * 2,
+                                        ctypes.c_size_t)},
+}
+
+
+def find_nvcc() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc")):
+        if cand and os.path.isfile(cand):
+            return cand
+    raise RuntimeError(
+        "nvcc not found: the CUDA kernels of turtlevsr_tpu_torch are built "
+        "from source at first use and need the CUDA toolkit")
+
+
+def _lib_path(name: str) -> str:
+    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for fn in (name + ".cu", "common.cuh"):
+        with open(os.path.join(CSRC_DIR, fn), "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:12]}.so")
+
+
+def declare(lib: ctypes.CDLL, name: str) -> ctypes.CDLL:
+    """Set argtypes/restype of every function of library ``name``."""
+    for fn, (argtypes, restype) in _SIGNATURES[name].items():
+        f = getattr(lib, fn)
+        f.argtypes, f.restype = argtypes, restype
+    return lib
+
+
+def build_all(verbose: bool = False) -> dict[str, str]:
+    """Compile every kernel source that has no library yet, in parallel.
+    Returns {name: path of the shared library}."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    paths = {n: _lib_path(n) for n in KERNEL_SOURCES}
+    todo = {n: p for n, p in paths.items() if not os.path.isfile(p)}
+    if todo:
+        nvcc = find_nvcc()
+        extra = ["-Xptxas", "-v"] if verbose else []
+        procs = {}
+        for n, p in todo.items():
+            tmp = f"{p}.{os.getpid()}.tmp"
+            cmd = [nvcc, *NVCC_FLAGS, *extra, "-o", tmp,
+                   os.path.join(CSRC_DIR, n + ".cu")]
+            procs[n] = (tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True))
+        failed = []
+        for n, (tmp, proc) in procs.items():
+            out, _ = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"{n}.cu:\n{out}")
+                continue
+            if verbose:
+                print(f"[nvcc {n}.cu]\n{out}", flush=True)
+            os.replace(tmp, todo[n])
+        if failed:
+            raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return paths
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu`` (built on first use)."""
+    with _lock:
+        if name not in _libs:
+            paths = build_all()
+            for n, p in paths.items():
+                if n not in _libs:
+                    _libs[n] = declare(ctypes.CDLL(p), n)
+        return _libs[name]
