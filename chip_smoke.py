@@ -4,21 +4,24 @@
     python3 chip_smoke.py [--frames 6] [--size 1280x720] [--phase all]
                           [--profile] [--ptxas]
 
+(--profile traces three more frames of `gopro` with torch.profiler.)
+
 Phases, one JSON object per line on standard output:
 
   device   the card's name and power limit as nvidia-smi gives them
-  build    nvcc builds the four kernels of turtlevsr_tpu_torch/kernels/csrc
+  build    nvcc builds the seven sources of turtlevsr_tpu_torch/kernels/csrc
   kernels  each kernel's wrapper against its plain PyTorch version on the
-           card at the shapes the 720p serving path gives it (bf16): errors
+           card at the shapes the 720p serving paths give it (bf16): errors
            beside the stated tolerance, the kernel's time, the plain
            version's, a PyTorch library call's where one computes the same
            function, and the least time the card could take (bound)
-  slice    the `gopro_t1_fhr` configuration (options/Turtle_Deblur_Gopro.yml
-           with the last block of each decoder level set to Channel) at full
-           width and depth, seeded random weights, frames streamed through
-           InferenceEngine.step: shape, finiteness, kernel launches per
-           frame (51 / 37 / 2 / 8), agreement with the same frames run
-           through the plain versions on the card, ms per frame
+  slice    two configurations at full width and depth, seeded random
+           weights, frames streamed through InferenceEngine.step: `gopro`
+           (options/Turtle_Deblur_Gopro.yml unchanged: CHM blocks end the
+           decoder levels) and `gopro_t1_fhr` (the same file with those
+           blocks set to Channel). For each: shape, finiteness, the exact
+           kernel launches per frame, agreement with the same frames run
+           through the plain versions on the card, ms per frame, peak memory
 
 then, when both the kernels and the slice ran, the line {"kernels": [...]}
 and, last, {"ok": true, "device": {...}}.
@@ -45,21 +48,37 @@ from turtlevsr_tpu_torch.config.options import (
     model_config_from_options,
 )
 from turtlevsr_tpu_torch.eval.engine import InferenceEngine
+from turtlevsr_tpu_torch import kernels as kernels_pkg
 from turtlevsr_tpu_torch.kernels import build
 from turtlevsr_tpu_torch.kernels import ffn as K
+from turtlevsr_tpu_torch.kernels import lattice as L
+from turtlevsr_tpu_torch.kernels import sab as S
 from turtlevsr_tpu_torch.models import blocks as blocks_mod
 from turtlevsr_tpu_torch.models import build_model
 from turtlevsr_tpu_torch.models import turtle as turtle_mod
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OPTION_FILE = os.path.join(ROOT, "options", "Turtle_Deblur_Gopro.yml")
-# gopro_t1_fhr: the shipped GoPro model with the CHM blocks (not ported yet)
-# replaced by Channel blocks; applied by the caller, the file is unchanged
+# gopro: the shipped GoPro model as the file gives it. gopro_t1_fhr: the
+# same with the CHM blocks replaced by Channel blocks; applied by the
+# caller, the file is unchanged
 GOPRO_T1_FHR = {"decoder1_attn_type2": "Channel",
                 "decoder2_attn_type2": "Channel",
                 "decoder3_attn_type2": "Channel"}
-LAUNCHES_PER_FRAME = {"ffn": 51, "qkv_stats": 37, "split_proj": 2,
-                      "conv3x3": 8}
+# exact launches per frame: a CHM block launches each of its kernels once
+# (q, k split projection, composite v conv, lattice split, probabilities,
+# lattice merge, statistics, FFN); a Channel block the statistics and the FFN
+LAUNCHES_PER_FRAME = {
+    "gopro": {"ffn": 51, "qkv_stats": 34, "split_proj": 5, "conv3x3": 11,
+              "chm_stats": 3, "sab": 3, "lattice_merge": 3,
+              "lattice_split": 3},
+    "gopro_t1_fhr": {"ffn": 51, "qkv_stats": 37, "split_proj": 2,
+                     "conv3x3": 8, "chm_stats": 0, "sab": 0,
+                     "lattice_merge": 0, "lattice_split": 0},
+}
+# the decoder levels of `gopro`: (scale, C, heads, window, cached frames)
+CHM_LEVELS = {"dec3": (4, 256, 4, 4, 3), "dec2": (2, 128, 2, 8, 3),
+              "dec1": (1, 64, 1, 16, 2)}
 
 # published peaks of one H100 SXM (dense): the bound of a kernel is the
 # larger of its bytes over the memory rate and its operations over the
@@ -76,6 +95,16 @@ BF16_FLOP_PER_S = 989e12
 # products that each may carry such a flip in q or k.
 KERNEL_REL_TOL = 2.0 ** -7
 STATS_REL_TOL = 2.0 ** -9
+# the probabilities of the alignment attention: another order of the fp32
+# sum moves a score now and then across a bf16 rounding boundary and so
+# changes which five entries of a row are kept (bf16 scores of unit vectors
+# take a few hundred values: near-ties are the normal case). On normal
+# inputs the share of rows whose support differs is held under this limit
+# and the other rows to SAB_TOL; on inputs whose scores are exact in fp32 the
+# support must be equal bit for bit.
+SAB_MAX_FLIP_SHARE = 0.25
+SAB_TOL = 2.0 ** -6
+SAB_EXACT_TOL = 2.0 ** -9
 # the slice: 41 blocks deep, rounding flips feed forward through every later
 # block; PSNR of the kernel path against the plain path on the card, on
 # pictures in [0, 1]
@@ -90,6 +119,14 @@ KERNEL_INFO = {
                    "turtlevsr_tpu/kernels/ffn.py:1732"),
     "conv3x3": ("turtlevsr_tpu_torch/kernels/csrc/conv3x3.cu",
                 "turtlevsr_tpu/kernels/ffn.py:1622"),
+    "chm_stats": ("turtlevsr_tpu_torch/kernels/csrc/chm_stats.cu",
+                  "turtlevsr_tpu/kernels/ffn.py:1267"),
+    "sab": ("turtlevsr_tpu_torch/kernels/csrc/sab.cu",
+            "turtlevsr_tpu/kernels/sab.py:138"),
+    "lattice_merge": ("turtlevsr_tpu_torch/kernels/csrc/lattice.cu",
+                      "turtlevsr_tpu/kernels/lattice.py:59"),
+    "lattice_split": ("turtlevsr_tpu_torch/kernels/csrc/lattice.cu",
+                      "turtlevsr_tpu/kernels/lattice.py:79"),
 }
 
 
@@ -153,7 +190,8 @@ def numel_bytes(*tensors) -> int:
 
 
 def ffn_case(inp: Inputs, name, h, w, c, e, mode, *, pair=False, po=False,
-             biases=False, scale=False, ffw2=False, dw=True, iters=5):
+             biases=False, scale=False, ffw2=False, dw=True, iters=5,
+             stacked=0):
     ch = 2 * e if mode == "gate" else e
     x = inp(1, h, w, c)
     kw = dict(ln_w=1.0 + inp(c, scale=0.2), ln_b=inp(c, scale=0.2),
@@ -171,6 +209,11 @@ def ffn_case(inp: Inputs, name, h, w, c, e, mode, *, pair=False, po=False,
         kw["x2"] = inp(1, h, w, c)
     if po:
         kw["po_w"] = inp(1, c, c, scale=c ** -0.5)
+    n_maps = int(pair)
+    if stacked:  # the CHM block's call: `stacked` history maps and one more
+        n_maps = stacked + 1
+        kw["x2"] = [inp(1, stacked, h, w, c), inp(1, h, w, c)]
+        kw["po_w"] = [inp(1, c, c, scale=c ** -0.5) for _ in range(n_maps)]
     f = 2 * c
     if ffw2:
         kw["ffw2"] = dict(ln_w=1.0 + inp(c, scale=0.2), ln_b=inp(c, scale=0.2),
@@ -183,10 +226,13 @@ def ffn_case(inp: Inputs, name, h, w, c, e, mode, *, pair=False, po=False,
     err, rel = rel_err(got, want)
     px = h * w
     flops = 2.0 * px * (c * ch + (9 * ch if dw else 0) + e * c
-                        + (c * c if po else 0) + (2 * c * f if ffw2 else 0))
+                        + (n_maps * c * c if po or stacked else 0)
+                        + (2 * c * f if ffw2 else 0))
     weights = [v for v in kw.values() if torch.is_tensor(v) and v.dim() < 4]
     weights += list(kw.get("ffw2", {}).values())
-    n_bytes = numel_bytes(x, kw.get("x2"), got, *weights)
+    if stacked:
+        weights += kw["x2"] + kw["po_w"]
+    n_bytes = numel_bytes(x, None if stacked else kw.get("x2"), got, *weights)
     b_ms, b_by = bound(n_bytes, flops)
     return dict(kernel="ffn", case=name, shape=[1, h, w, c], hidden=ch,
                 max_abs_err=err, rel_err=rel, tol_rel=KERNEL_REL_TOL,
@@ -248,28 +294,167 @@ def split_case(inp: Inputs, name, h, w, c, n_out, iters=5):
                 library_ms=None, bound_ms=b_ms, bound_by=b_by)
 
 
-def conv_case(inp: Inputs, name, h, w, cin, cout, bias, iters=5):
+def conv_case(inp: Inputs, name, h, w, cin, cout, bias, iters=5, ln=False):
     x = inp(1, h, w, cin)
     wt = inp(3, 3, cin, cout, scale=(9 * cin) ** -0.5)
     bb = inp(cout, scale=0.2) if bias else None
-    got = K.fused_conv3x3(x, wt, bb)
+    lnk = dict(ln_w=1.0 + inp(cin, scale=0.2),
+               ln_b=inp(cin, scale=0.2)) if ln else {}
+    got = K.fused_conv3x3(x, wt, bb, **lnk)
     torch.cuda.synchronize()
-    want = K.conv3x3_plain(x, wt, bb)
+    want = K.conv3x3_plain(x, wt, bb, **lnk)
     err, rel = rel_err(got, want)
     # the library's call for the same function: cuDNN through F.conv2d on
-    # the same NHWC memory (channels_last), bf16; timed here, used nowhere
-    x_nchw = x.permute(0, 3, 1, 2)
-    w_oihw = wt.permute(3, 2, 0, 1).contiguous(
-        memory_format=torch.channels_last)
-    lib = cuda_ms(lambda: F.conv2d(x_nchw, w_oihw, bb, padding=1), iters)
-    b_ms, b_by = bound(numel_bytes(x, wt, bb, got),
-                       2.0 * h * w * 9 * cin * cout)
+    # the same NHWC memory (channels_last), bf16; timed here, used nowhere.
+    # With the LayerNorm in front no single call computes the function.
+    lib = None
+    if not ln:
+        x_nchw = x.permute(0, 3, 1, 2)
+        w_oihw = wt.permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        lib = cuda_ms(lambda: F.conv2d(x_nchw, w_oihw, bb, padding=1), iters)
+    b_ms, b_by = bound(numel_bytes(x, wt, bb, got, *lnk.values()),
+                       2.0 * h * w * (9 * cin * cout + (8 * cin if ln else 0)))
     return dict(kernel="conv3x3", case=name, shape=[1, h, w, cin], cout=cout,
                 max_abs_err=err, rel_err=rel, tol_rel=KERNEL_REL_TOL,
                 ok=rel <= KERNEL_REL_TOL,
-                ms=cuda_ms(lambda: K.fused_conv3x3(x, wt, bb), iters),
-                plain_ms=cuda_ms(lambda: K.conv3x3_plain(x, wt, bb), 2, 1),
+                ms=cuda_ms(lambda: K.fused_conv3x3(x, wt, bb, **lnk), iters),
+                plain_ms=cuda_ms(lambda: K.conv3x3_plain(x, wt, bb, **lnk),
+                                 2, 1),
                 library_ms=lib, bound_ms=b_ms, bound_by=b_by)
+
+
+def chm_case(inp: Inputs, name, h, w, c, heads, nf, iters=3):
+    x, x_sp = inp(1, h, w, c), inp(1, nf, h, w, c)
+    kw = dict(ln_w=1.0 + inp(c, scale=0.2), ln_b=inp(c, scale=0.2),
+              w_qkv=inp(c, 3 * c, scale=c ** -0.5),
+              wd_qkv=inp(3, 3, 3 * c, scale=0.3),
+              w_kv=inp(c, 2 * c, scale=c ** -0.5),
+              wd_kv=inp(3, 3, 2 * c, scale=0.3), heads=heads)
+    got = K.fused_chm_stats(x, x_sp, **kw)
+    torch.cuda.synchronize()
+    want = K.chm_stats_plain(x, x_sp, **kw)
+    (err_v, rel_v), (err_vh, rel_vh) = (rel_err(got[i], want[i])
+                                        for i in (0, 1))
+    rel_stats = max(rel_err(got[i], want[i])[1] for i in (2, 3, 4))
+    err_stats = max(rel_err(got[i], want[i])[0] for i in (2, 3, 4))
+    del want
+    # per pixel: pw1 and nine taps for the 3 + 2 NF chains, the per-head
+    # diagonal blocks of the NF + 1 Grams, the NF + 2 sums of squares
+    px, ctok = h * w, c // heads
+    flops = 2.0 * px * ((3 + 2 * nf) * (c * c + 9 * c) + (nf + 1) * c * ctok
+                        + (nf + 2) * c)
+    tensors = [v for v in kw.values() if torch.is_tensor(v)]
+    b_ms, b_by = bound(numel_bytes(x, x_sp, *got, *tensors), flops)
+    return dict(kernel="chm_stats", case=name, shape=[1, nf, h, w, c],
+                heads=heads, max_abs_err=max(err_v, err_vh, err_stats / px),
+                rel_err=max(rel_v, rel_vh), rel_err_stats=rel_stats,
+                tol_rel=KERNEL_REL_TOL, tol_rel_stats=STATS_REL_TOL,
+                ok=(max(rel_v, rel_vh) <= KERNEL_REL_TOL
+                    and rel_stats <= STATS_REL_TOL),
+                ms=cuda_ms(lambda: K.fused_chm_stats(x, x_sp, **kw), iters),
+                plain_ms=cuda_ms(lambda: K.chm_stats_plain(x, x_sp, **kw),
+                                 1, 0),
+                library_ms=None, bound_ms=b_ms, bound_by=b_by)
+
+
+def sab_inputs(inp: Inputs, nf, hw, d, exact: bool):
+    """Unit vectors, or (exact) small integers over 8 with a temperature of
+    one half: every score is then exact in fp32 whatever the order of the
+    sum, and rows tie many times."""
+    if exact:
+        q = torch.from_numpy(inp.rng.randint(-2, 3, (1, hw, d)) / 8.0)
+        k = torch.from_numpy(inp.rng.randint(-2, 3, (1, nf, hw, d)) / 8.0)
+        temp = torch.tensor([0.5], device="cuda")
+        return (q.to("cuda", torch.bfloat16), k.to("cuda", torch.bfloat16),
+                temp)
+    q, k = inp(1, hw, d).float(), inp(1, nf, hw, d).float()
+    q = (q / q.norm(dim=-1, keepdim=True)).bfloat16()
+    k = (k / k.norm(dim=-1, keepdim=True)).bfloat16()
+    return q, k, torch.tensor([1.7], device="cuda")
+
+
+def sab_compare(got, want):
+    """(share of rows whose support differs, largest error on the others)."""
+    same = ((got != 0) == (want != 0)).all(dim=-1)
+    err = ((got.float() - want.float()).abs().amax(dim=-1) * same).max().item()
+    return 1.0 - same.float().mean().item(), err
+
+
+def sab_case(inp: Inputs, name, hq, wq, d, nf, iters=3):
+    hw = hq * wq
+    fv = torch.ones(nf, device="cuda")
+    # (a) exact scores: the same support, bit for bit
+    q, k, temp = sab_inputs(inp, nf, hw, d, exact=True)
+    got = S.sab_attn_probs(q, k, temp, fv, grid_wq=wq)
+    torch.cuda.synchronize()
+    want = S.sab_attn_probs_plain(q, k, temp, fv, grid_wq=wq)
+    exact_same = bool(torch.equal(got != 0, want != 0))
+    exact_err = (got.float() - want.float()).abs().max().item()
+    # (b) unit vectors, the last frame invalid
+    q, k, temp = sab_inputs(inp, nf, hw, d, exact=False)
+    fv[-1] = 0.0 if nf > 1 else 1.0
+    got = S.sab_attn_probs(q, k, temp, fv, grid_wq=wq)
+    torch.cuda.synchronize()
+    want = S.sab_attn_probs_plain(q, k, temp, fv, grid_wq=wq)
+    share, err = sab_compare(got, want)
+    rows_ok = bool(((got.float().sum(-1) - fv[None, :, None]).abs()
+                    <= 0.02).all())
+    del want
+    b_ms, b_by = bound(numel_bytes(q, k, got), 2.0 * nf * hw * hw * d)
+    return dict(kernel="sab", case=name, shape=[1, nf, hw, d], grid=[hq, wq],
+                max_abs_err=max(err, exact_err), rel_err=err,
+                exact_inputs_same_support=exact_same,
+                exact_inputs_max_abs_err=exact_err, tol_exact=SAB_EXACT_TOL,
+                rows_support_differs_share=share,
+                max_flip_share=SAB_MAX_FLIP_SHARE, tol=SAB_TOL,
+                ok=(exact_same and exact_err <= SAB_EXACT_TOL and rows_ok
+                    and share <= SAB_MAX_FLIP_SHARE and err <= SAB_TOL),
+                ms=cuda_ms(lambda: S.sab_attn_probs(q, k, temp, fv,
+                                                    grid_wq=wq), iters),
+                plain_ms=cuda_ms(lambda: S.sab_attn_probs_plain(
+                    q, k, temp, fv, grid_wq=wq), 1, 0),
+                library_ms=None, bound_ms=b_ms, bound_by=b_by)
+
+
+def lattice_case(inp: Inputs, name, h, w, c, ws, n, merge: bool, iters=5):
+    hh, ww = h // ws, w // ws
+    if merge:
+        src = inp(n, hh * ww, ws * ws * c)
+        fn = lambda: L.lattice_merge(src, ws, h, w)  # noqa: E731
+        plain = lambda: L.lattice_merge_plain(src, ws, h, w)  # noqa: E731
+    else:
+        src = inp(n, h, w, c)
+        fn = lambda: L.lattice_split(src, ws)  # noqa: E731
+        plain = lambda: L.lattice_split_plain(src, ws)  # noqa: E731
+    got = fn()
+    torch.cuda.synchronize()
+    want = plain()  # the library's call too: permute(...) and one copy
+    exact = bool(torch.equal(got, want))
+    err = 0.0 if exact else rel_err(got, want)[0]
+    b_ms, b_by = bound(2 * numel_bytes(src), 0.0)
+    plain_ms = cuda_ms(plain, iters)
+    return dict(kernel="lattice_merge" if merge else "lattice_split",
+                case=name, shape=list(src.shape), window=ws,
+                max_abs_err=err, rel_err=err, tol_rel=0.0, ok=exact,
+                ms=cuda_ms(fn, iters), plain_ms=plain_ms,
+                library_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+
+
+def attn_v_times(inp: Inputs, h: int, w: int) -> dict:
+    """attention @ v of the alignment attention is torch.matmul, as the JAX
+    package leaves it to its compiler: its time at the three levels, per
+    frame of video (NF products each), beside its operations bound."""
+    out = {}
+    for name, (s, c, _, ws, ring) in CHM_LEVELS.items():
+        hw, dv, nf = (h // s // ws) * (w // s // ws), ws * ws * c, ring + 1
+        a, v = inp(1, hw, hw), inp(1, hw, dv)
+        dst = torch.empty(1, hw, dv, device="cuda", dtype=torch.bfloat16)
+        ms = cuda_ms(lambda: torch.matmul(a, v, out=dst), 5) * nf
+        out[name] = dict(shape=[nf, hw, hw, dv], ms_per_frame=ms,
+                         bound_ms=2.0 * nf * hw * hw * dv / BF16_FLOP_PER_S
+                         * 1e3)
+    return out
 
 
 def kernel_cases(seed: int, h: int, w: int) -> list[dict]:
@@ -316,12 +501,39 @@ def kernel_cases(seed: int, h: int, w: int) -> list[dict]:
         lambda: conv_case(inp, "up3_2 256->512", h3, w3, 256, 512, False),
         lambda: conv_case(inp, "up2_1 128->256", h2, w2, 128, 256, False),
     ]
+    # the CHM blocks of `gopro`: the four kernels of the alignment and the
+    # routing, and the new shapes of the FFN (lists), the split projection
+    # (two maps) and the conv (with LayerNorm), level by level
+    for lvl, (s, c, heads, ws, ring) in CHM_LEVELS.items():
+        hl, wl, nf = h // s, w // s, ring + 1
+        it = 3 if s == 1 else 5
+        cases += [
+            lambda lvl=lvl, hl=hl, wl=wl, c=c, heads=heads, nf=nf: chm_case(
+                inp, lvl, hl, wl, c, heads, nf),
+            lambda lvl=lvl, hl=hl, wl=wl, c=c, ws=ws, nf=nf: sab_case(
+                inp, lvl, hl // ws, wl // ws, 2 * c, nf),
+            lambda lvl=lvl, hl=hl, wl=wl, c=c, ws=ws, nf=nf, it=it:
+                lattice_case(inp, lvl, hl, wl, c, ws, nf, True, it),
+            lambda lvl=lvl, hl=hl, wl=wl, c=c, ws=ws, it=it: lattice_case(
+                inp, lvl, hl, wl, c, ws, 1, False, it),
+            lambda lvl=lvl, hl=hl, wl=wl, c=c, nf=nf, it=it: ffn_case(
+                inp, f"gate + {nf} stacked + 1 maps, po(B,C,C) each (CHM "
+                f"{lvl})", hl, wl, c, int(c * 2.5), "gate", stacked=nf,
+                iters=it),
+            lambda lvl=lvl, hl=hl, wl=wl, c=c, it=it: split_case(
+                inp, f"SAB q,k {lvl}", hl, wl, c, 2, it),
+            lambda lvl=lvl, hl=hl, wl=wl, c=c, it=it: conv_case(
+                inp, f"LN + composite v {lvl} {c}->{c}", hl, wl, c, c, False,
+                it, ln=True),
+        ]
     out = []
     for make in cases:
         res = make()
         emit({"phase": "kernel_case", **res})
         out.append(res)
         torch.cuda.empty_cache()
+    emit({"phase": "attention_at_v_matmul", "route": "torch.matmul",
+          **attn_v_times(inp, h, w)})
     return out
 
 
@@ -347,17 +559,25 @@ def randomise_scales(model: torch.nn.Module, seed: int) -> None:
 def plain_versions():
     """Route the model's fused calls to the plain versions on the card, for
     the comparison only (the port itself has no such switch)."""
-    saved = (blocks_mod.fused_block_ffn, blocks_mod.fused_qkv_stats,
-             blocks_mod.fused_ln_split_proj, turtle_mod.fused_conv3x3)
-    blocks_mod.fused_block_ffn = K.ffn_plain
-    blocks_mod.fused_qkv_stats = K.qkv_stats_plain
-    blocks_mod.fused_ln_split_proj = K.split_proj_plain
-    turtle_mod.fused_conv3x3 = K.conv3x3_plain
+    plain = {"fused_block_ffn": K.ffn_plain,
+             "fused_qkv_stats": K.qkv_stats_plain,
+             "fused_ln_split_proj": K.split_proj_plain,
+             "fused_conv3x3": K.conv3x3_plain,
+             "fused_chm_stats": K.chm_stats_plain,
+             "sab_attn_probs": S.sab_attn_probs_plain,
+             "lattice_split": L.lattice_split_plain,
+             "lattice_merge": L.lattice_merge_plain}
+    saved = []
+    for mod in (blocks_mod, turtle_mod):
+        for name, fn in plain.items():
+            if hasattr(mod, name):
+                saved.append((mod, name, getattr(mod, name)))
+                setattr(mod, name, fn)
     try:
         yield
     finally:
-        (blocks_mod.fused_block_ffn, blocks_mod.fused_qkv_stats,
-         blocks_mod.fused_ln_split_proj, turtle_mod.fused_conv3x3) = saved
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
 
 
 def make_frames(seed: int, n: int, h: int, w: int) -> list[np.ndarray]:
@@ -379,14 +599,15 @@ def psnr(a: np.ndarray, b: np.ndarray) -> float:
     return 99.0 if mse == 0 else 10.0 * np.log10(1.0 / mse)
 
 
-def gopro_t1_fhr_options() -> dict:
+def options_of(config: str) -> dict:
     opt = load_options(OPTION_FILE, is_train=False)
-    opt.update(GOPRO_T1_FHR)
+    if config == "gopro_t1_fhr":
+        opt.update(GOPRO_T1_FHR)
     return opt
 
 
 def profile_frames(engine: InferenceEngine, frames: list,
-                   untraced_ms: float) -> None:
+                   untraced_ms: float, config: str) -> None:
     """Device time by kernel name over a few steady frames, from
     torch.profiler, and the device's idle share: busy time against the ms
     per frame taken WITHOUT the tracer (tracing multiplies the host time)."""
@@ -411,7 +632,14 @@ def profile_frames(engine: InferenceEngine, frames: list,
             rows.append((evt.key, dev_us / 1e3 / len(frames), evt.count))
     rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
-    emit({"phase": "profile", "frames": len(frames),
+    # the library's matrix products (attention @ v above all) by name
+    gemm = sum(ms for k, ms, _ in rows if any(
+        tag in k.lower() for tag in ("gemm", "cutlass", "nvjet", "xmma",
+                                     "cublas")))
+    own = sum(ms for k, ms, _ in rows if "turtle" in k)
+    emit({"phase": "profile", "config": config, "frames": len(frames),
+          "library_matmul_ms_per_frame": gemm,
+          "own_kernels_ms_per_frame": own,
           "wall_ms_per_frame_traced": wall_ms,
           "device_busy_ms_per_frame": busy if rows else "not measured",
           "ms_per_frame_untraced": untraced_ms,
@@ -422,21 +650,23 @@ def profile_frames(engine: InferenceEngine, frames: list,
               for k, ms, n in rows[:24]]})
 
 
-def run_slice(opt: dict, seed: int, n_frames: int, width: int,
+def run_slice(config: str, seed: int, n_frames: int, width: int,
               height: int, trace: bool = False) -> dict:
+    opt = options_of(config)
     model = build_model(opt, device="cuda",
                         generator=torch.Generator().manual_seed(seed))
     randomise_scales(model, seed + 1)
     cfg = model.cfg
     engine = InferenceEngine(model, mode="whole", dtype=torch.bfloat16)
     frames = make_frames(seed + 2, n_frames, height, width)
-    ring = cfg.latent.num_frames_tocache
-    require(n_frames > ring, f"need more than {ring} frames to wrap the ring")
+    ring = max(lvl.num_frames_tocache for lvl in (cfg.latent, cfg.dec3,
+                                                   cfg.dec2, cfg.dec1))
+    require(n_frames > ring, f"need more than {ring} frames to wrap the rings")
 
     # main path: counts set to 0 just before, read just after; the peak of
     # device memory is that of the stream, not of the phases before it
     torch.cuda.reset_peak_memory_stats()
-    K.reset_launch_counts()
+    kernels_pkg.reset_launch_counts()
     outs, times = [], []
     for fr in frames:
         torch.cuda.synchronize()
@@ -445,14 +675,14 @@ def run_slice(opt: dict, seed: int, n_frames: int, width: int,
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         outs.append(out)
-    counts = K.launch_counts()
+    counts = kernels_pkg.launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
 
     for i, out in enumerate(outs):
         require(out.shape == (height, width, 3),
                 f"frame {i}: output shape {out.shape}")
         require(bool(np.isfinite(out).all()), f"frame {i}: non-finite output")
-    for name, per_frame in LAUNCHES_PER_FRAME.items():
+    for name, per_frame in LAUNCHES_PER_FRAME[config].items():
         require(counts[name] == per_frame * n_frames,
                 f"{name}: {counts[name]} launches over {n_frames} frames, "
                 f"expected {per_frame} per frame")
@@ -464,13 +694,13 @@ def run_slice(opt: dict, seed: int, n_frames: int, width: int,
         plain_outs = [engine.step(fr) for fr in frames]
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3 / n_frames
-    require(K.launch_counts() == counts,
+    require(kernels_pkg.launch_counts() == counts,
             "the plain run must launch no kernel")
     psnrs = [psnr(a, b) for a, b in zip(outs, plain_outs)]
     max_err = max(float(np.abs(a - b).max()) for a, b in zip(outs, plain_outs))
     change = [float(np.abs(o - f).mean()) for o, f in zip(outs, frames)]
     res = dict(
-        phase="slice", config="gopro_t1_fhr", frame=[height, width, 3],
+        phase="slice", config=config, frame=[height, width, 3],
         padded=list(turtle_mod.padded_hw(cfg, height, width)), dtype="bfloat16",
         frames=n_frames, ring_frames=ring, params=sum(
             p.numel() for p in model.parameters()),
@@ -483,17 +713,20 @@ def run_slice(opt: dict, seed: int, n_frames: int, width: int,
         peak_memory_gib=peak_gb)
     emit(res)
     if trace:
-        profile_frames(engine, frames[:3], res["ms_per_frame_after_warmup"])
+        profile_frames(engine, frames[:3], res["ms_per_frame_after_warmup"],
+                       config)
     require(min(psnrs) >= SLICE_MIN_PSNR,
             f"kernel path and plain path disagree: PSNR {psnrs}")
     require(min(change) > 0, "the model returned its input unchanged")
+    del engine, model
+    torch.cuda.empty_cache()
     return res
 
 
 # ---------------------------------------------------------------------------
 
 
-def kernel_rows(cases: list[dict], counts: dict) -> list[dict]:
+def kernel_rows(cases: list[dict], counts: dict, by_path: dict) -> list[dict]:
     rows = []
     for name, (source, replaces) in KERNEL_INFO.items():
         mine = [c for c in cases if c["kernel"] == name]
@@ -501,6 +734,7 @@ def kernel_rows(cases: list[dict], counts: dict) -> list[dict]:
         rows.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=counts[name],
+            launches_by_path={p: c[name] for p, c in by_path.items()},
             max_abs_err=max(c["max_abs_err"] for c in mine),
             ms=head["ms"], plain_ms=head["plain_ms"],
             bound_ms=head["bound_ms"], bound_by=head["bound_by"],
@@ -514,7 +748,8 @@ def kernel_rows(cases: list[dict], counts: dict) -> list[dict]:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--frames", type=int, default=6)
+    ap.add_argument("--frames", type=int, default=6,
+                    help="frames of `gopro`; `gopro_t1_fhr` streams 4")
     ap.add_argument("--size", default="1280x720", help="WIDTHxHEIGHT")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--phase", default="all",
@@ -548,27 +783,34 @@ def main(argv=None) -> int:
         emit({"phase": "build", "seconds": time.perf_counter() - t0,
               "sources": [f"{n}.cu" for n in build.KERNEL_SOURCES],
               "flags": list(build.NVCC_FLAGS)})
-        opt = gopro_t1_fhr_options()
-        hp, wp = turtle_mod.padded_hw(model_config_from_options(opt), height,
-                                      width)
-        cases, counts = [], {}
+        hp, wp = turtle_mod.padded_hw(
+            model_config_from_options(options_of("gopro")), height, width)
+        cases, counts, by_path = [], {}, {}
         if args.phase in ("all", "kernels"):
             cases = kernel_cases(args.seed, hp, wp)
             bad = [c["case"] for c in cases if not c["ok"]]
             require(not bad, f"kernels disagree with their plain versions: "
                              f"{bad}")
         if args.phase in ("all", "slice"):
-            counts = run_slice(opt, args.seed, args.frames, width, height,
-                               trace=args.profile)["launches"]
+            # the earlier path first (4 frames wrap its 3-frame ring), then
+            # this slice's main path
+            for config, n in (("gopro_t1_fhr", 4), ("gopro", args.frames)):
+                by_path[config] = run_slice(
+                    config, args.seed, n, width, height,
+                    trace=args.profile and config == "gopro")["launches"]
+            counts = by_path["gopro"]
         if args.phase == "all":
             for name in KERNEL_INFO:
                 require(counts.get(name, 0) > 0,
                         f"the main path never launched {name}")
+            for name in ("ffn", "qkv_stats", "split_proj", "conv3x3"):
+                require(by_path["gopro_t1_fhr"][name] > 0,
+                        f"the gopro_t1_fhr path never launched {name}")
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
     if cases and counts:  # launches are those of this run's main path
-        emit({"kernels": kernel_rows(cases, counts)})
+        emit({"kernels": kernel_rows(cases, counts, by_path)})
     print(smi_line, flush=True)
     emit({"ok": True,
           "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

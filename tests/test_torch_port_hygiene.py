@@ -30,6 +30,8 @@ def test_port_has_the_expected_modules():
     rel = {os.path.relpath(f, ROOT) for f in _port_sources()}
     for want in ("chip_smoke.py", "turtlevsr_tpu_torch/kernels/ffn.py",
                  "turtlevsr_tpu_torch/kernels/build.py",
+                 "turtlevsr_tpu_torch/kernels/sab.py",
+                 "turtlevsr_tpu_torch/kernels/lattice.py",
                  "turtlevsr_tpu_torch/models/blocks.py",
                  "turtlevsr_tpu_torch/models/turtle.py",
                  "turtlevsr_tpu_torch/eval/engine.py",
@@ -37,9 +39,12 @@ def test_port_has_the_expected_modules():
                  "turtlevsr_tpu_torch/core/cache.py",
                  "turtlevsr_tpu_torch/config/options.py"):
         assert want in rel, want
-    for cu in ("common.cuh", "ffn.cu", "qkv_stats.cu", "split_proj.cu",
-               "conv3x3.cu"):
+    from turtlevsr_tpu_torch.kernels import build
+
+    assert len(build.KERNEL_SOURCES) == 7
+    for cu in ("common.cuh", *(n + ".cu" for n in build.KERNEL_SOURCES)):
         assert os.path.isfile(os.path.join(PORT, "kernels", "csrc", cu)), cu
+        assert cu == "common.cuh" or cu[:-3] in build._SIGNATURES
 
 
 @pytest.mark.parametrize("path", _port_sources(),
@@ -77,11 +82,46 @@ def test_importing_the_port_loads_no_jax():
     assert out.stdout.startswith("clean")
 
 
-def test_chm_config_raises_not_implemented():
+@pytest.mark.parametrize("yml", ["Turtle_Deblur_Gopro.yml",
+                                 "Turtle_Desnow.yml", "Turtle_Derain.yml"])
+def test_shipped_t1_configs_build_unchanged(yml):
+    """The shipped option files of the t1 variant build as they are: CHM
+    blocks end their decoder levels."""
+    from turtlevsr_tpu_torch.config.options import load_options
+    from turtlevsr_tpu_torch.models import build_model
+    from turtlevsr_tpu_torch.models.blocks import CausalHistoryModel
+
+    opt = load_options(os.path.join(ROOT, "options", yml), is_train=False)
+    if opt["model"] != "Turtle_t1_arch":
+        with pytest.raises(NotImplementedError, match="not ported yet"):
+            build_model(opt, device="meta")
+        return
+    with torch.device("meta"):  # shapes only: 59 M parameters stay unmade
+        from turtlevsr_tpu_torch.config.options import (
+            model_config_from_options,
+        )
+        from turtlevsr_tpu_torch.models.turtle import Turtle
+
+        model = Turtle(model_config_from_options(opt))
+    for level in (model.decoder_level1, model.decoder_level2,
+                  model.decoder_level3):
+        assert isinstance(level.transformer_blocks[-1].attn,
+                          CausalHistoryModel)
+    ws = model.decoder_level1.transformer_blocks[-1].spec.window_size
+    assert ws == 16
+    cache = model.init_cache(1, 64, 64, torch.bfloat16)
+    assert cache[7]["v"].shape == (1, 2, 16, 16 * 16 * opt["dim"])
+    # dec3: a 16 x 16 map of 4 dim channels under a window of 4
+    assert cache[5]["k"].shape == (1, opt["num_frames_tocache"], 16,
+                                   8 * opt["dim"])
+
+
+def test_tiny_chm_config_builds():
     from turtlevsr_tpu_torch.models import build_model
 
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        build_model(tiny_opt(), device="cpu")  # the shipped CHM decoder
+    model = build_model(tiny_opt(), device="cpu")  # CHM in the decoder
+    assert [s is None for s in model.init_cache(1, 32, 32)] == [
+        True, True, True, False, False, False, False, False]
 
 
 @pytest.mark.parametrize("model", ["Turtle_arch", "TurtleSuper_t1_arch"])
@@ -115,11 +155,15 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card():
         InferenceEngine(model)
 
 
-@pytest.mark.parametrize("fn", ["ffn", "qkv_stats", "split_proj", "conv3x3"])
+@pytest.mark.parametrize("fn", ["ffn", "qkv_stats", "split_proj", "conv3x3",
+                                "chm_stats", "sab", "lattice_split",
+                                "lattice_merge"])
 def test_kernel_call_without_a_card_raises(fn):
     """A tensor that is neither on the CPU nor on a CUDA device gets no
     plain version: the wrapper raises."""
     from turtlevsr_tpu_torch.kernels import ffn as K
+    from turtlevsr_tpu_torch.kernels import lattice as L
+    from turtlevsr_tpu_torch.kernels import sab as S
 
     x = torch.zeros(1, 8, 8, 8, device="meta")
     w = torch.zeros(8, device="meta")
@@ -132,8 +176,18 @@ def test_kernel_call_without_a_card_raises(fn):
         elif fn == "split_proj":
             K.fused_ln_split_proj(x, ln_w=w, w1=x[0, 0], wd=x[0, :3, :3],
                                   n_out=1)
-        else:
+        elif fn == "conv3x3":
             K.fused_conv3x3(x, x[0, :3, :3].unsqueeze(-1))
+        elif fn == "chm_stats":
+            K.fused_chm_stats(x, x[None], ln_w=w, w_qkv=x[0, 0],
+                              wd_qkv=x[0, :3, :3], w_kv=x[0, 0],
+                              wd_kv=x[0, :3, :3], heads=1)
+        elif fn == "sab":
+            S.sab_attn_probs(x[0], x, w[:1], grid_wq=4)
+        elif fn == "lattice_split":
+            L.lattice_split(x, 2)
+        else:
+            L.lattice_merge(x[0], 2, 4, 8)
 
 
 def test_building_kernels_without_nvcc_raises():

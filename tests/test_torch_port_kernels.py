@@ -25,7 +25,10 @@ from torch_port_util import (
 )
 from turtlevsr_tpu.kernels import ffn as jffn
 from turtlevsr_tpu.kernels import vjp as jvjp
+from turtlevsr_tpu_torch import kernels as KP
 from turtlevsr_tpu_torch.kernels import ffn as K
+from turtlevsr_tpu_torch.kernels import lattice as L
+from turtlevsr_tpu_torch.kernels import sab as S
 
 torch.set_num_threads(1)
 # float64 against the plain twin: the same formula, sums in another order
@@ -294,13 +297,14 @@ def test_conv3x3_matches_pallas_interpret_float32():
 
 
 def test_launch_counters_do_not_count_plain_runs():
-    K.reset_launch_counts()
+    KP.reset_launch_counts()
     rng = np.random.RandomState(11)
     x, p, mode = _ffn_inputs(rng, "gate_no_pair", False)
     K.fused_block_ffn(t(x), mode=mode, **_tree(p, t))
     K.fused_conv3x3(t(x), t(rng.standard_normal((3, 3, 8, 4))))
-    assert K.launch_counts() == {"ffn": 0, "qkv_stats": 0, "split_proj": 0,
-                                 "conv3x3": 0}
+    assert KP.launch_counts() == {
+        "ffn": 0, "qkv_stats": 0, "split_proj": 0, "conv3x3": 0,
+        "chm_stats": 0, "sab": 0, "lattice_merge": 0, "lattice_split": 0}
 
 
 def _no_dw(p):
@@ -443,6 +447,8 @@ def _refusals():
                b2=None, scale=None, mode="gelu", ffw2=None)
     chain = dict(ln_w=m(16), ln_b=None, w1=m(16, 48), b1=None,
                  wd=m(3, 3, 48), bd=None)
+    chm = dict(ln_w=m(16), ln_b=None, w_qkv=m(16, 48), wd_qkv=m(3, 3, 48),
+               w_kv=m(16, 32), wd_kv=m(3, 3, 32))
 
     def ffn_with(x_=x, **over):
         return lambda: K._ffn_launch(x_, **{**ffn, **over})
@@ -471,10 +477,55 @@ def _refusals():
         "split_unequal_maps": (
             lambda: K._split_proj_launch(x, n_out=5, **chain), "1..4 maps"),
         "conv_weight_shape": (
-            lambda: K._conv3x3_launch(x, m(3, 3, 8, 4), None), "weight must"),
+            lambda: K._conv3x3_launch(x, m(3, 3, 8, 4), None, None, None),
+            "weight must"),
         "conv_bias_shape": (
-            lambda: K._conv3x3_launch(x, m(3, 3, 16, 4), m(3)),
+            lambda: K._conv3x3_launch(x, m(3, 3, 16, 4), m(3), None, None),
             "expected shape"),
+        "conv_ln_width_not_16n": (
+            lambda: K._conv3x3_launch(m(1, 8, 8, 24), m(3, 3, 24, 4), None,
+                                      m(24), None), "multiple of 16"),
+        "conv_ln_b_without_ln_w": (
+            lambda: K._conv3x3_launch(x, m(3, 3, 16, 4), None, None, m(16)),
+            "ln_b needs ln_w"),
+        "ffn_six_maps": (
+            ffn_with(x2=[m(1, 6, 8, 8, 16)],
+                     po_w=[m(16, 16) for _ in range(6)]), "up to 5"),
+        "ffn_maps_without_matrices": (
+            ffn_with(x2=[m(1, 8, 8, 16), m(1, 8, 8, 16)]),
+            "need their po_w"),
+        "ffn_matrices_do_not_match_maps": (
+            ffn_with(x2=[m(1, 2, 8, 8, 16)], po_w=[m(16, 16)]),
+            "one matrix per x2 map"),
+        "ffn_stacked_maps_shape": (
+            ffn_with(x2=[m(1, 2, 8, 9, 16)],
+                     po_w=[m(16, 16), m(16, 16)]), "expected shape"),
+        "chm_heads_do_not_divide": (
+            lambda: K._chm_stats_launch(x, m(1, 2, 8, 8, 16), heads=3, **chm),
+            "C / heads"),
+        "chm_frames_shape": (
+            lambda: K._chm_stats_launch(x, m(1, 2, 8, 9, 16), heads=2, **chm),
+            "expected shape"),
+        "chm_frames_not_stacked": (
+            lambda: K._chm_stats_launch(x, x, heads=2, **chm), "NF >= 1"),
+        "chm_float32_wide": (
+            lambda: K._chm_stats_launch(m(1, 8, 8, 256), m(1, 1, 8, 8, 256),
+                                        heads=4, **chm), "up to 128"),
+        "sab_width_not_16n": (
+            lambda: S._launch(m(1, 8, 24), m(1, 1, 8, 24), m(1), None, 4, 5,
+                              4), "multiple of 16"),
+        "sab_k_top_too_large": (
+            lambda: S._launch(m(1, 8, 16), m(1, 1, 8, 16), m(1), None, 4, 6,
+                              4), "k_top must be"),
+        "sab_float64": (
+            lambda: S._launch(m(1, 8, 16).double(), m(1, 1, 8, 16).double(),
+                              m(1), None, 4, 5, 4), "bfloat16 or float32"),
+        "lattice_channels_not_16_bytes": (
+            lambda: L._launch(m(1, 4, 4, 2), (1, 4, 8), 1, 2, 2, 2, 2, False),
+            "multiple of 8"),
+        "lattice_float64": (
+            lambda: L._launch(m(1, 4, 4, 8).double(), (1, 4, 32), 1, 2, 2, 2,
+                              8, False), "bfloat16 or float32"),
     }
 
 
@@ -486,8 +537,8 @@ def test_launch_code_refuses_before_it_builds(name, monkeypatch):
         raise AssertionError(f"reached the build of {lib}")
 
     monkeypatch.setattr(K.build, "load", no_build)
-    K.reset_launch_counts()
+    KP.reset_launch_counts()
     call, reason = _refusals()[name]
     with pytest.raises(ValueError, match=reason):
         call()
-    assert not any(K.launch_counts().values())
+    assert not any(KP.launch_counts().values())

@@ -9,8 +9,8 @@ import torch
 
 from reference_oracle import tiny_opt
 
-# the tiny model of the parity tests with the CHM blocks (not ported yet)
-# replaced by Channel blocks: the shape of the `gopro_t1_fhr` configuration
+# the tiny model of the parity tests with the CHM blocks replaced by Channel
+# blocks: the shape of the `gopro_t1_fhr` configuration
 FHR_OVERRIDES = {"decoder1_attn_type2": "Channel",
                  "decoder2_attn_type2": "Channel",
                  "decoder3_attn_type2": "Channel"}
@@ -158,3 +158,90 @@ def chain_kernel_case(m: Maker, b, h, w, c, ch, biases, ln_bias=True):
     if biases:
         kw.update(b1=m(ch), bd=m(ch))
     return x, kw
+
+
+# ---------------------------------------------------------------------------
+# Cases of the kernels of the causal history model (CHM) path
+# ---------------------------------------------------------------------------
+
+# name: (B, H, W, C, E, maps in the stacked entry, single maps, per-batch
+#        matrices, po_b, ln_bias)
+FFN_LIST_CASES = {
+    "stack3_single_batched": (2, 11, 13, 16, 20, 3, 1, True, True, True),
+    "stack1_single_shared_c48": (1, 8, 9, 48, 24, 1, 1, False, False, False),
+    "stack4_single_c144": (1, 8, 8, 144, 16, 4, 1, True, False, True),
+    "two_singles": (1, 9, 8, 32, 16, 0, 2, True, False, True),
+}
+# (B, H, W, C, heads, NF, ln_bias)
+CHM_KERNEL_SHAPES = [(2, 11, 13, 16, 2, 1, True), (1, 8, 9, 48, 1, 3, False),
+                     (1, 9, 8, 144, 3, 2, True), (1, 8, 8, 32, 4, 4, True)]
+# (B, H, W, Cin, Cout, bias, ln_bias)
+CONV_LN_KERNEL_SHAPES = [(2, 11, 13, 16, 16, False, True),
+                         (1, 9, 9, 48, 20, True, False),
+                         (1, 8, 9, 144, 144, False, True)]
+# (B, NF, hq, wq, D): HW not a multiple of the 16-row tile, HW < 5
+SAB_KERNEL_SHAPES = [(1, 1, 3, 5, 32), (2, 3, 5, 8, 144), (1, 2, 2, 2, 16),
+                     (1, 3, 9, 7, 64)]
+# (N, hh, ww, ws, C)
+LATTICE_KERNEL_SHAPES = [(2, 3, 5, 2, 8), (1, 2, 3, 4, 64), (3, 4, 2, 2, 128),
+                         (1, 3, 2, 2, 48), (1, 2, 2, 8, 16), (2, 1, 3, 2, 144)]
+
+
+def ffn_list_case(name, m: Maker):
+    """(x, keyword arguments of fused_block_ffn) with lists of x2 maps."""
+    b, h, w, c, e, n_stack, n_single, batched, po_b, lnb = FFN_LIST_CASES[name]
+    x = m(b, h, w, c)
+    kw = dict(ln_w=m(c), ln_b=m(c) if lnb else None,
+              w1=m(c, 2 * e, scale=c ** -0.5), wd=m(3, 3, 2 * e, scale=0.3),
+              w2=m(e, c, scale=e ** -0.5), mode="gate")
+    x2 = ([m(b, n_stack, h, w, c)] if n_stack else []) + [
+        m(b, h, w, c) for _ in range(n_single)]
+    shape = (b, c, c) if batched else (c, c)
+    kw["x2"] = x2
+    kw["po_w"] = [m(*shape, scale=c ** -0.5)
+                  for _ in range(n_stack + n_single)]
+    if po_b:
+        kw["po_b"] = m(c)
+    return x, kw
+
+
+def chm_kernel_case(m: Maker, b, h, w, c, heads, nf, ln_bias):
+    """(x, x_sp, keyword arguments of fused_chm_stats)."""
+    kw = dict(ln_w=m(c), ln_b=m(c) if ln_bias else None,
+              w_qkv=m(c, 3 * c, scale=c ** -0.5),
+              wd_qkv=m(3, 3, 3 * c, scale=0.3),
+              w_kv=m(c, 2 * c, scale=c ** -0.5),
+              wd_kv=m(3, 3, 2 * c, scale=0.3), heads=heads)
+    return m(b, h, w, c), m(b, nf, h, w, c), kw
+
+
+def sab_kernel_case(m: Maker, b, nf, hq, wq, d, exact: bool):
+    """(q, k, temp, fvalid) of one SAB case. exact: entries are small
+    integers over 8 and the temperature a power of two, so every score is
+    exact in fp32 whatever the order of the sum, and many scores tie."""
+    hw = hq * wq
+    if exact:
+        q = torch.from_numpy(m.rng.randint(-2, 3, (b, hw, d)) / 8.0)
+        k = torch.from_numpy(m.rng.randint(-2, 3, (b, nf, hw, d)) / 8.0)
+        temp = torch.tensor([0.5])
+    else:
+        q = torch.from_numpy(m.rng.standard_normal((b, hw, d)))
+        k = torch.from_numpy(m.rng.standard_normal((b, nf, hw, d)))
+        q = q / q.norm(dim=-1, keepdim=True)
+        k = k / k.norm(dim=-1, keepdim=True)
+        temp = torch.tensor([1.7])
+    fvalid = torch.ones(nf)
+    if nf > 1:
+        fvalid[1] = 0.0  # one invalid frame: zero rows
+    to = dict(device=m.device, dtype=m.dtype)
+    return (q.to(**to), k.to(**to), temp.to(m.device),
+            fvalid.to(m.device))
+
+
+def sab_compare(got, want):
+    """(share of rows whose support differs, largest error on the rows whose
+    support agrees) of two (B, NF, HW, HW) probability tensors."""
+    got, want = got.float(), want.float()
+    same = ((got != 0) == (want != 0)).all(dim=-1)
+    err = ((got - want).abs().amax(dim=-1) * same).max().item()
+    return 1.0 - same.float().mean().item(), err

@@ -6,13 +6,17 @@ slot is preallocated at its maximum size with a count ``n`` of frames ever
 appended: the append writes one frame's block at position ``n % N``, and
 positions not yet written are masked out of every softmax, which is
 numerically identical to the reference's shorter concatenations. Position
-order is NOT age order; FHR's token softmax is order-invariant.
+order is NOT age order; every consumer (SAB's per-frame attention, FHR's
+token softmax) is order-invariant.
 
 Slot layout (the same as the JAX package's ``core/cache.py``):
   FHR slot: k, v of shape (B, heads, N * ctok, L), ctok = dim // heads
+  SAB slot (the CHM blocks): k of shape (B, N, HW, 2 * dim), the
+            l2-normalised window keys of each cached frame, and v of shape
+            (B, N, HW, ws * ws * dim), its projected window values; HW =
+            (H / ws) * (W / ws) window tokens, ws = the level's window size
   n: int64 scalar tensor on the slot's device (write pointer = n % N;
      min(n, N) positions are valid)
-Only the FHR slots are ported; the SAB slots belong to the CHM blocks.
 """
 
 from __future__ import annotations
@@ -48,6 +52,36 @@ def fhr_slot_append(slot: dict, k_new: torch.Tensor,
     slot["k"].index_copy_(2, idx, k_new.to(slot["k"].dtype))
     slot["v"].index_copy_(2, idx, v_new.to(slot["v"].dtype))
     return {"k": slot["k"], "v": slot["v"], "n": slot["n"] + 1}
+
+
+def sab_slot_init(batch: int, n_frames: int, hw_q: int, dk: int, hw_v: int,
+                  dv: int, dtype: torch.dtype = torch.float32,
+                  device: torch.device | str = "cuda") -> dict:
+    return {
+        "k": torch.zeros((batch, n_frames, hw_q, dk), dtype=dtype,
+                         device=device),
+        "v": torch.zeros((batch, n_frames, hw_v, dv), dtype=dtype,
+                         device=device),
+        "n": torch.zeros((), dtype=torch.int64, device=device),
+    }
+
+
+def sab_slot_append(slot: dict, k_new: torch.Tensor,
+                    v_new: torch.Tensor) -> dict:
+    """Write one frame (k_new, v_new have no frame axis) at the ring
+    position. IN PLACE like :func:`fhr_slot_append`: the slot passed in must
+    not be used again; the position comes from the device-side count
+    without a host read."""
+    n_frames = slot["v"].shape[1]
+    idx = (slot["n"] % n_frames).reshape(1)
+    slot["k"].index_copy_(1, idx, k_new[:, None].to(slot["k"].dtype))
+    slot["v"].index_copy_(1, idx, v_new[:, None].to(slot["v"].dtype))
+    return {"k": slot["k"], "v": slot["v"], "n": slot["n"] + 1}
+
+
+def frame_valid_mask(n: torch.Tensor, n_frames: int) -> torch.Tensor:
+    """(n_frames,) bool: ring position i holds a real frame iff i < n."""
+    return torch.arange(n_frames, device=n.device) < n
 
 
 def token_valid_mask(n: torch.Tensor, n_frames: int,

@@ -19,7 +19,8 @@ import threading
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
-KERNEL_SOURCES = ("ffn", "qkv_stats", "split_proj", "conv3x3")
+KERNEL_SOURCES = ("ffn", "qkv_stats", "split_proj", "conv3x3", "chm_stats",
+                  "sab", "lattice")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -30,7 +31,7 @@ _VP, _IP = ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int)
 _LAUNCH_ARGS = [_VP, _IP, ctypes.c_int, ctypes.c_void_p]
 _SIGNATURES = {
     "ffn": {"turtle_ffn_launch": (_LAUNCH_ARGS, ctypes.c_int),
-            "turtle_ffn_smem": ([ctypes.c_int] * 4, ctypes.c_size_t)},
+            "turtle_ffn_smem": ([ctypes.c_int] * 5, ctypes.c_size_t)},
     "qkv_stats": {"turtle_qkv_stats_launch": (_LAUNCH_ARGS, ctypes.c_int),
                   "turtle_qkv_stats_smem": ([ctypes.c_int] * 3,
                                             ctypes.c_size_t),
@@ -43,6 +44,14 @@ _SIGNATURES = {
     "conv3x3": {"turtle_conv3x3_launch": (_LAUNCH_ARGS, ctypes.c_int),
                 "turtle_conv3x3_smem": ([ctypes.c_int] * 2,
                                         ctypes.c_size_t)},
+    "chm_stats": {"turtle_chm_stats_launch": (_LAUNCH_ARGS, ctypes.c_int),
+                  "turtle_chm_stats_smem": ([ctypes.c_int] * 3,
+                                            ctypes.c_size_t)},
+    "sab": {"turtle_sab_launch": (_LAUNCH_ARGS, ctypes.c_int),
+            "turtle_sab_smem": ([ctypes.c_int] * 4, ctypes.c_size_t)},
+    "lattice": {"turtle_lattice_launch": (
+        [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 6
+        + [ctypes.c_void_p], ctypes.c_int)},
 }
 
 

@@ -221,30 +221,46 @@ __device__ __forceinline__ size_t halo_offset(int p, int W, int C, int y0, int x
   return ((size_t)(y0 - 1 + p / PH) * W + (x0 - 1 + p % PH)) * C;
 }
 
-// Prologue of the chain kernels: x' = x (+ x2, or + x2 @ po (+ po_b)), rounded
-// to T; xn = LN(x') rounded to T, for the 100 halo pixels of the tile, into
-// shared memory (row stride C + XPAD). Halo pixels outside the image get zero
-// rows (their hidden values are forced to zero later, never computed from
-// these). xres (optional, row stride C) receives x' of the 64 interior
-// pixels. x, x2 point at this batch's map, po at its (C, C) matrix [k][c].
-// CR: channels per lane (C <= 32 CR); C is a multiple of 16.
-template <class T, int CR>
-__device__ void ln_prologue(const T* __restrict__ x, const T* __restrict__ x2,
-                            const T* __restrict__ po, const T* __restrict__ po_b,
+// Prologue of the chain kernels: x' = x (+ x2, or + sum_j x2_j @ po_j (+ po_b
+// once)), rounded to T; xn = LN(x') rounded to T, for the 100 halo pixels of
+// the tile, into shared memory (row stride C + XPAD). Halo pixels outside the
+// image get zero rows (their hidden values are forced to zero later, never
+// computed from these). xres (optional, row stride C) receives x' of the 64
+// interior pixels. x and the n_x2 maps x2s[j] point at this batch's maps, pos[j]
+// at its (C, C) matrix [k][c] (all null: x' = x + x2s[0], one map only). Each
+// product x2_j @ po_j is rounded to T and the sum x + sum_j runs in fp32; with
+// more than one map the running sum lives in `acc` (float[NPH * C], shared
+// memory that nothing else uses before the LN pass). ln_w null: no LayerNorm,
+// xn = x' (the aligned frames of the CHM statistics).
+// CR: channels per lane (C <= 32 CR); C is a multiple of 16. NX: the most
+// maps the instantiation takes (1: the single-map code, no loop, no acc).
+constexpr int MAX_X2 = 5;
+
+template <class T, int CR, int NX = 1>
+__device__ void ln_prologue(const T* __restrict__ x, const T* const (&x2s)[NX],
+                            const T* const (&pos)[NX], int n_x2,
+                            const T* __restrict__ po_b,
                             const T* __restrict__ ln_w, const T* __restrict__ ln_b,
-                            int H, int W, int C, int y0, int x0, T* xn, T* xres) {
+                            int H, int W, int C, int y0, int x0, T* xn, T* xres,
+                            float* acc = nullptr) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int XS = C + XPAD;
-  if (po != nullptr) {
+  if (NX == 1) n_x2 = min(n_x2, 1);
+  const bool has_po = n_x2 > 0 && pos[0] != nullptr;
+  const T* x2 = (n_x2 > 0 && !has_po) ? x2s[0] : nullptr;
+  // one map: stage it, multiply, add (first: onto x; last: into xn)
+  auto po_step = [&](int m, bool first, bool last) {
     // stage the x2 halo tile in the xn buffer, then x' = x + x2 @ po in
     // place: warp w owns rows 16 w .. 16 w + 15, keeps all their k in
     // registers and overwrites them column tile by column tile
+    const T* xm = x2s[m];
+    const T* po = pos[m];
     const int c8n = C / 8;
     for (int idx = tid; idx < NPH * c8n; idx += NT) {
       const int p = idx / c8n, c8 = (idx - p * c8n) * 8;
       if (halo_inside(p, H, W, y0, x0))
-        copy8(xn + p * XS + c8, x2 + halo_offset(p, W, C, y0, x0) + c8);
+        copy8(xn + p * XS + c8, xm + halo_offset(p, W, C, y0, x0) + c8);
       else
         zero8(xn + p * XS + c8);
     }
@@ -276,13 +292,22 @@ __device__ void ln_prologue(const T* __restrict__ x, const T* __restrict__ x2,
           const int row = (i < 2) ? rlo : rhi, c = n0 + 2 * t + (i & 1);
           if (!halo_inside(row, H, W, y0, x0)) continue;
           float a2 = round_to<T>(d[i]);
-          if (po_b != nullptr) a2 = round_to<T>(a2 + to_f(po_b[c]));
-          const float xv = to_f(x[halo_offset(row, W, C, y0, x0) + c]);
-          xn[row * XS + c] = from_f<T>(xv + a2);
+          if (first && po_b != nullptr) a2 = round_to<T>(a2 + to_f(po_b[c]));
+          // every (row, c) belongs to one lane for all maps: no barrier
+          const float sum = (first ? to_f(x[halo_offset(row, W, C, y0, x0) + c])
+                                   : acc[row * C + c]) + a2;
+          if (last) xn[row * XS + c] = from_f<T>(sum);
+          else acc[row * C + c] = sum;
         }
       }
     }
     __syncthreads();
+  };
+  if constexpr (NX == 1) {
+    if (has_po) po_step(0, true, true);  // the single-map code, no loop
+  } else {
+#pragma unroll 1
+    for (int m = 0; has_po && m < n_x2; ++m) po_step(m, m == 0, m == n_x2 - 1);
   }
   // LN pass: a pixel's C channels go over a group of GL lanes in vectors of
   // 8 (lane l of the group holds channels 8 (l + GL j) ..); 32 / GL pixels
@@ -297,7 +322,7 @@ __device__ void ln_prologue(const T* __restrict__ x, const T* __restrict__ x2,
     const int c8 = (l + GL * j) * 8;
 #pragma unroll
     for (int i = 0; i < 8; ++i) { gw[j][i] = 0.f; bt[j][i] = 0.f; }
-    if (c8 < C) {
+    if (c8 < C && ln_w != nullptr) {
       load8(ln_w + c8, gw[j]);
       if (ln_b != nullptr) load8(ln_b + c8, bt[j]);
     }
@@ -315,7 +340,7 @@ __device__ void ln_prologue(const T* __restrict__ x, const T* __restrict__ x2,
 #pragma unroll
       for (int i = 0; i < 8; ++i) v[j][i] = 0.f;
       if (inside && c8 < C) {
-        if (po != nullptr) {
+        if (has_po) {
           load8(row + c8, v[j]);
         } else {
           load8(x + goff + c8, v[j]);
@@ -356,6 +381,7 @@ __device__ void ln_prologue(const T* __restrict__ x, const T* __restrict__ x2,
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
         if (!inside) v[j][i] = 0.f;  // halo pixels outside the image: zero rows
+        else if (ln_w == nullptr) continue;  // no LayerNorm: xn = x'
         else if (ln_b != nullptr) v[j][i] = (v[j][i] - mu) * inv * gw[j][i] + bt[j][i];
         else v[j][i] = v[j][i] * inv * gw[j][i];
       }
@@ -363,6 +389,15 @@ __device__ void ln_prologue(const T* __restrict__ x, const T* __restrict__ x2,
     }
   }
   __syncthreads();
+}
+
+// the prologue of a kernel that takes no x2 maps
+template <class T, int CR>
+__device__ __forceinline__ void ln_prologue(const T* __restrict__ x, const T* __restrict__ ln_w,
+                                            const T* __restrict__ ln_b, int H, int W, int C,
+                                            int y0, int x0, T* xn) {
+  const T* const none[1] = {nullptr};
+  ln_prologue<T, CR, 1>(x, none, none, 0, nullptr, ln_w, ln_b, H, W, C, y0, x0, xn, nullptr);
 }
 
 // The hidden channel of chunk column col: two segments of 32 columns,

@@ -2,8 +2,11 @@
 // (3, 3, Cin, Cout), optional bias: the input projection, the ending conv and
 // the bodies of the down- and upsamplers.
 //
-// Replaces fused_conv3x3 in turtlevsr_tpu/kernels/ffn.py (_conv3_kernel),
-// without its LayerNorm prologue (only the SAB composite conv uses that).
+// Replaces fused_conv3x3 in turtlevsr_tpu/kernels/ffn.py (_conv3_kernel).
+// With ln_w the conv runs on LN(x): channel LayerNorm of the halo tile as it
+// lands in shared memory (fp32 statistics, rounded to T, zero rows outside
+// the image: the border is zero padding of LN(x)); the composite v chain of
+// the SAB front takes this path.
 // On an H100 the wide convs (128->256 .. 512->1024) are bound by operations
 // (18*Cin*Cout flop per pixel), the 3->64 and 64->3 ends by bytes. A block
 // holds its 10x10 halo tile of the input in shared memory once and walks
@@ -17,14 +20,16 @@
 namespace turtle {
 
 struct ConvArgs {
-  const void *x, *w, *bias;
+  const void *x, *w, *bias, *ln_w, *ln_b;
   void* out;
   int B, H, W, Cin, Cout;
 };
 
 constexpr int COR = 4;  // output channels per lane and pass
 
-template <class T>
+// CR: 0 without LayerNorm, else the channels per lane of its prologue
+// (Cin <= 32 CR, Cin a multiple of 16)
+template <class T, int CR>
 __global__ void __launch_bounds__(NT) conv3x3_kernel(ConvArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int H = a.H, W = a.W, Cin = a.Cin, Cout = a.Cout;
@@ -36,7 +41,10 @@ __global__ void __launch_bounds__(NT) conv3x3_kernel(ConvArgs a) {
   const int XS = tiled ? Cin + XPAD : Cin;
   T* xs = reinterpret_cast<T*>(smem);  // T[NPH * XS], zero outside the image
   const T* x = static_cast<const T*>(a.x) + (size_t)b * H * W * Cin;
-  if (tiled) {
+  if constexpr (CR > 0) {
+    ln_prologue<T, CR>(x, static_cast<const T*>(a.ln_w), static_cast<const T*>(a.ln_b), H, W,
+                       Cin, y0, x0, xs);
+  } else if (tiled) {
     const int c8n = Cin / 8;
     for (int idx = tid; idx < NPH * c8n; idx += NT) {
       const int p = idx / c8n, c8 = (idx - p * c8n) * 8;
@@ -148,15 +156,28 @@ __global__ void __launch_bounds__(NT) conv3x3_kernel(ConvArgs a) {
   }
 }
 
-template <class T>
+template <class T, int CR>
 static int launch_conv(const ConvArgs& a, size_t smem, cudaStream_t stream) {
-  auto kern = conv3x3_kernel<T>;
+  auto kern = conv3x3_kernel<T, CR>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(((a.H + TS - 1) / TS) * ((a.W + TS - 1) / TS), a.B);
   kern<<<grid, dim3(NT), smem, stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+template <class T>
+static int dispatch_conv(const ConvArgs& a, size_t smem, cudaStream_t stream) {
+  if (a.ln_w == nullptr) return a.ln_b ? -1 : launch_conv<T, 0>(a, smem, stream);
+  if (a.Cin % 16 != 0) return -1;
+  if (a.Cin <= 64) return launch_conv<T, 2>(a, smem, stream);
+  if (a.Cin <= 128) return launch_conv<T, 4>(a, smem, stream);
+  if constexpr (sizeof(T) == 2) {  // float (the comparison type): Cin <= 128 only
+    if (a.Cin <= 256) return launch_conv<T, 8>(a, smem, stream);
+    if (a.Cin <= 512) return launch_conv<T, 16>(a, smem, stream);
+  }
+  return -1;
 }
 
 }  // namespace turtle
@@ -168,14 +189,15 @@ extern "C" size_t turtle_conv3x3_smem(int Cin, int is_bf16) {
   return ((size_t)NPH * xs * (is_bf16 ? 2 : 4) + 15) / 16 * 16;
 }
 
-// ptrs: x, weight (3, 3, Cin, Cout), bias, out; ints: B, H, W, Cin, Cout
+// ptrs: x, weight (3, 3, Cin, Cout), bias, out, ln_w, ln_b; ints: B, H, W, Cin, Cout
 extern "C" int turtle_conv3x3_launch(void* const* ptrs, const int* ints, int is_bf16,
                                      void* stream) {
   using namespace turtle;
   ConvArgs a;
   a.x = ptrs[0]; a.w = ptrs[1]; a.bias = ptrs[2]; a.out = ptrs[3];
+  a.ln_w = ptrs[4]; a.ln_b = ptrs[5];
   a.B = ints[0]; a.H = ints[1]; a.W = ints[2]; a.Cin = ints[3]; a.Cout = ints[4];
   const size_t smem = turtle_conv3x3_smem(a.Cin, is_bf16);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch_conv<__nv_bfloat16>(a, smem, s) : launch_conv<float>(a, smem, s);
+  return is_bf16 ? dispatch_conv<__nv_bfloat16>(a, smem, s) : dispatch_conv<float>(a, smem, s);
 }

@@ -1,6 +1,7 @@
 // Fused conv-FFN half of a Turtle block, one pass over the map.
 //
-//   x'  = x + x2 @ po (+ po_b)      (x2, po optional; po per batch or shared)
+//   x'  = x + sum_j x2_j @ po_j (+ po_b)   (up to 5 maps x2_j, each with its
+//         own matrix, per batch or shared; or one map x2 added as it is)
 //   out = x' + scale * (pw2(act(dw3x3(pw1(LN x') + b1) + bd)) + b2)
 //   (without wd: no dw3x3, the pointwise FFW of a block on its own)
 //   act = gelu(a) * b on the two halves of the hidden axis (gate), or gelu
@@ -26,17 +27,20 @@
 namespace turtle {
 
 struct FfnArgs {
-  const void *x, *x2, *po_w, *po_b, *ln_w, *ln_b, *w1, *b1, *wd, *bd, *w2, *b2, *scale;
+  const void *x, *po_w, *po_b, *ln_w, *ln_b, *w1, *b1, *wd, *bd, *w2, *b2, *scale;
   const void *f_ln_w, *f_ln_b, *f_w1, *f_b1, *f_w2, *f_b2, *f_scale;
   void* out;
-  int B, H, W, C, CH, E, F, gate, po_batched;
+  const void* x2[MAX_X2];  // map j of batch b starts at x2[j] + b * x2_bs[j] elements
+  int x2_bs[MAX_X2];
+  int B, H, W, C, CH, E, F, gate, po_batched, n_x2;
 };
 
 // NTW: 8-column output tiles per warp (C <= 64 NTW). The narrow levels
 // (NTW <= 2) are held to 128 registers so that two blocks share an SM: they
 // are bound by instruction issue and latency, and measured faster so (enc2's
 // block 3.15 -> 1.9 ms on an H100) in spite of a few spilled registers.
-template <class T, int NTW, bool FFW2>
+// NX: the most x2 maps the instantiation takes (1, or MAX_X2 for the lists).
+template <class T, int NTW, bool FFW2, int NX>
 __global__ void __launch_bounds__(NT, (NTW <= 2 ? 2 : 1)) ffn_kernel(FfnArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int CR = 2 * NTW;
@@ -58,12 +62,22 @@ __global__ void __launch_bounds__(NT, (NTW <= 2 ? 2 : 1)) ffn_kernel(FfnArgs a) 
 
   const size_t boff = (size_t)b * H * W * C;
   const T* x = static_cast<const T*>(a.x) + boff;
-  const T* x2 = a.x2 ? static_cast<const T*>(a.x2) + boff : nullptr;
-  const T* po = a.po_w ? static_cast<const T*>(a.po_w) + (a.po_batched ? (size_t)b * C * C : 0)
-                       : nullptr;
-  ln_prologue<T, CR>(x, x2, po, static_cast<const T*>(a.po_b),
-                     static_cast<const T*>(a.ln_w), static_cast<const T*>(a.ln_b), H, W, C,
-                     y0, x0, xn, xres);
+  // po_w holds one (C, C) matrix per map: (n_x2, B, C, C) or (n_x2, C, C)
+  const T* x2s[NX];
+  const T* pos[NX];
+#pragma unroll
+  for (int j = 0; j < NX; ++j) {
+    const bool on = j < a.n_x2;
+    x2s[j] = on ? static_cast<const T*>(a.x2[j]) + (size_t)b * a.x2_bs[j] : nullptr;
+    pos[j] = (on && a.po_w)
+                 ? static_cast<const T*>(a.po_w) +
+                       ((size_t)j * (a.po_batched ? a.B : 1) + (a.po_batched ? b : 0)) * C * C
+                 : nullptr;
+  }
+  // the running sum over several maps borrows the space of xres, hid and act
+  ln_prologue<T, CR, NX>(x, x2s, pos, a.n_x2, static_cast<const T*>(a.po_b),
+                         static_cast<const T*>(a.ln_w), static_cast<const T*>(a.ln_b), H, W,
+                         C, y0, x0, xn, xres, reinterpret_cast<float*>(xres));
 
   const T* w1 = static_cast<const T*>(a.w1);
   const T* b1 = static_cast<const T*>(a.b1);
@@ -224,9 +238,9 @@ __global__ void __launch_bounds__(NT, (NTW <= 2 ? 2 : 1)) ffn_kernel(FfnArgs a) 
   }
 }
 
-template <class T, int NTW, bool FFW2>
+template <class T, int NTW, bool FFW2, int NX = 1>
 static int launch_ffn(const FfnArgs& a, size_t smem, cudaStream_t stream) {
-  auto kern = ffn_kernel<T, NTW, FFW2>;
+  auto kern = ffn_kernel<T, NTW, FFW2, NX>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -241,9 +255,18 @@ static int dispatch_ffn(const FfnArgs& a, size_t smem, cudaStream_t stream) {
   constexpr bool wide = sizeof(T) == 2;
   if (a.C % 16 != 0) return -1;
   if (a.f_w1 != nullptr) {  // the chained FFW is built for the narrow levels only
-    if (a.F > 2 * a.C || a.F % 16 != 0) return -1;
+    if (a.F > 2 * a.C || a.F % 16 != 0 || a.n_x2 > 1) return -1;
     if (a.C <= 64) return launch_ffn<T, 1, true>(a, smem, stream);
     if (a.C <= 128) return launch_ffn<T, 2, true>(a, smem, stream);
+    return -1;
+  }
+  if (a.n_x2 > 1) {  // lists of maps: their own instantiations
+    if (a.C <= 64) return launch_ffn<T, 1, false, MAX_X2>(a, smem, stream);
+    if (a.C <= 128) return launch_ffn<T, 2, false, MAX_X2>(a, smem, stream);
+    if constexpr (wide) {
+      if (a.C <= 256) return launch_ffn<T, 4, false, MAX_X2>(a, smem, stream);
+      if (a.C <= 512) return launch_ffn<T, 8, false, MAX_X2>(a, smem, stream);
+    }
     return -1;
   }
   if (a.C <= 64) return launch_ffn<T, 1, false>(a, smem, stream);
@@ -257,30 +280,40 @@ static int dispatch_ffn(const FfnArgs& a, size_t smem, cudaStream_t stream) {
 
 }  // namespace turtle
 
-// ptrs: x, x2, po_w, po_b, ln_w, ln_b, w1, b1, wd, bd, w2, b2, scale,
-//       f_ln_w, f_ln_b, f_w1, f_b1, f_w2, f_b2, f_scale, out   (null = absent)
-// ints: B, H, W, C, CH, E, F, gate, po_batched
+// ptrs: x, po_w, po_b, ln_w, ln_b, w1, b1, wd, bd, w2, b2, scale,
+//       f_ln_w, f_ln_b, f_w1, f_b1, f_w2, f_b2, f_scale, out, x2_0 .. x2_4
+//       (null = absent)
+// ints: B, H, W, C, CH, E, F, gate, po_batched, n_x2, x2_bs_0 .. x2_bs_4
 // is_bf16: element type of every tensor. Returns the CUDA error code
 // (0 = launched), -1 for a width the kernel does not take.
-extern "C" size_t turtle_ffn_smem(int C, int F, int has_ffw2, int is_bf16) {
+extern "C" size_t turtle_ffn_smem(int C, int F, int has_ffw2, int is_bf16, int n_x2) {
   using namespace turtle;
   const size_t ts = is_bf16 ? 2 : 4;
-  return ((size_t)NPH * (C + XPAD) + (size_t)P * C + (size_t)P * AS) * ts +
-         (size_t)NPH * HS * 4 + (has_ffw2 ? (size_t)P * (F + XPAD) * ts : 0);
+  const size_t xn = (size_t)NPH * (C + XPAD) * ts;
+  const size_t rest = ((size_t)P * C + (size_t)P * AS) * ts + (size_t)NPH * HS * 4 +
+                      (has_ffw2 ? (size_t)P * (F + XPAD) * ts : 0);
+  const size_t acc = n_x2 > 1 ? (size_t)NPH * C * 4 : 0;  // borrows `rest`
+  return xn + (rest > acc ? rest : acc);
 }
 
 extern "C" int turtle_ffn_launch(void* const* ptrs, const int* ints, int is_bf16,
                                  void* stream) {
   using namespace turtle;
   FfnArgs a;
-  a.x = ptrs[0]; a.x2 = ptrs[1]; a.po_w = ptrs[2]; a.po_b = ptrs[3];
-  a.ln_w = ptrs[4]; a.ln_b = ptrs[5]; a.w1 = ptrs[6]; a.b1 = ptrs[7];
-  a.wd = ptrs[8]; a.bd = ptrs[9]; a.w2 = ptrs[10]; a.b2 = ptrs[11]; a.scale = ptrs[12];
-  a.f_ln_w = ptrs[13]; a.f_ln_b = ptrs[14]; a.f_w1 = ptrs[15]; a.f_b1 = ptrs[16];
-  a.f_w2 = ptrs[17]; a.f_b2 = ptrs[18]; a.f_scale = ptrs[19]; a.out = ptrs[20];
+  a.x = ptrs[0]; a.po_w = ptrs[1]; a.po_b = ptrs[2];
+  a.ln_w = ptrs[3]; a.ln_b = ptrs[4]; a.w1 = ptrs[5]; a.b1 = ptrs[6];
+  a.wd = ptrs[7]; a.bd = ptrs[8]; a.w2 = ptrs[9]; a.b2 = ptrs[10]; a.scale = ptrs[11];
+  a.f_ln_w = ptrs[12]; a.f_ln_b = ptrs[13]; a.f_w1 = ptrs[14]; a.f_b1 = ptrs[15];
+  a.f_w2 = ptrs[16]; a.f_b2 = ptrs[17]; a.f_scale = ptrs[18]; a.out = ptrs[19];
   a.B = ints[0]; a.H = ints[1]; a.W = ints[2]; a.C = ints[3]; a.CH = ints[4];
   a.E = ints[5]; a.F = ints[6]; a.gate = ints[7]; a.po_batched = ints[8];
-  const size_t smem = turtle_ffn_smem(a.C, a.F, a.f_w1 != nullptr, is_bf16);
+  a.n_x2 = ints[9];
+  if (a.n_x2 < 0 || a.n_x2 > MAX_X2 || (a.n_x2 > 1 && a.po_w == nullptr)) return -1;
+  for (int j = 0; j < MAX_X2; ++j) {
+    a.x2[j] = j < a.n_x2 ? ptrs[20 + j] : nullptr;
+    a.x2_bs[j] = ints[10 + j];
+  }
+  const size_t smem = turtle_ffn_smem(a.C, a.F, a.f_w1 != nullptr, is_bf16, a.n_x2);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return is_bf16 ? dispatch_ffn<__nv_bfloat16>(a, smem, s) : dispatch_ffn<float>(a, smem, s);
 }

@@ -44,8 +44,8 @@ __global__ void __launch_bounds__(NT) qkv_stats_kernel(QkvArgs a) {
 
   const size_t boff = (size_t)b * H * W * C;
   const T* x = static_cast<const T*>(a.x) + boff;
-  ln_prologue<T, CR>(x, nullptr, nullptr, nullptr, static_cast<const T*>(a.ln_w),
-                     static_cast<const T*>(a.ln_b), H, W, C, y0, x0, xn, nullptr);
+  ln_prologue<T, CR>(x, static_cast<const T*>(a.ln_w), static_cast<const T*>(a.ln_b), H, W, C,
+                     y0, x0, xn);
 
   const T* w1 = static_cast<const T*>(a.w1);
   const T* b1 = static_cast<const T*>(a.b1);

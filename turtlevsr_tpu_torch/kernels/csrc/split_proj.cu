@@ -1,5 +1,6 @@
 // N chains dw3x3(pw1(LN x)) from one read of x, each written as its own map
-// (the q, k, v maps of the latent FHR blocks).
+// (the q, k, v maps of the latent FHR blocks, the q, k maps of the SAB front).
+// Without ln_w the chains run on x itself.
 //
 // Replaces fused_ln_split_proj in turtlevsr_tpu/kernels/ffn.py
 // (_multi_dw_kernel). Bound by operations on an H100 (2*C*N*E flop per pixel
@@ -26,8 +27,8 @@ __global__ void __launch_bounds__(NT) split_proj_kernel(SplitArgs a) {
   T* xn = reinterpret_cast<T*>(smem);
   float* hid = reinterpret_cast<float*>(xn + NPH * (C + XPAD));
   const T* x = static_cast<const T*>(a.x) + (size_t)b * H * W * C;
-  ln_prologue<T, CR>(x, nullptr, nullptr, nullptr, static_cast<const T*>(a.ln_w),
-                     static_cast<const T*>(a.ln_b), H, W, C, y0, x0, xn, nullptr);
+  ln_prologue<T, CR>(x, static_cast<const T*>(a.ln_w), static_cast<const T*>(a.ln_b), H, W, C,
+                     y0, x0, xn);
   for (int n = 0; n < a.n_out; ++n) {
     T* out = static_cast<T*>(a.out[n]) + (size_t)b * H * W * E;
     for (int cb = 0; cb < E; cb += HC)

@@ -16,9 +16,21 @@ with its fused path taken:
                       applies po' to the v map and adds the residual
   FHR + GFFW          split projection pass, history attention as plain
                       tensor products, project_out, then one FFN pass
+  CHM + GFFW          the causal history model: the StateAlignBlock aligns
+                      the cached frames to the current one (q, k split
+                      projection pass, the v chain as one composite 3x3 conv
+                      with LayerNorm, the lattice split, the probabilities
+                      kernel, attention @ v as plain matrix products, the
+                      lattice merge), one statistics pass over the current
+                      map and the aligned frames, a small softmax, and one
+                      FFN pass that takes the NF + 1 value maps with the
+                      attention folded into per-map matrices. With
+                      ``bias: true`` (no shipped configuration) the
+                      projections keep their biases and the block takes the
+                      unfolded route, as the JAX package does.
 
-Other block types (CHM, NoAttn, Channel/FHR with FFW) are not ported yet
-and raise ``NotImplementedError`` when the block is built.
+Other block types (NoAttn, Channel/FHR/CHM with FFW) are not ported yet and
+raise ``NotImplementedError`` when the block is built.
 """
 
 from __future__ import annotations
@@ -29,13 +41,26 @@ from typing import Optional
 import torch
 from torch import nn
 
-from turtlevsr_tpu_torch.core.cache import fhr_slot_append, token_valid_mask
+from turtlevsr_tpu_torch.core.cache import (
+    fhr_slot_append,
+    frame_valid_mask,
+    sab_slot_append,
+    token_valid_mask,
+)
 from turtlevsr_tpu_torch.kernels.ffn import (
     fused_block_ffn,
+    fused_chm_stats,
+    fused_conv3x3,
     fused_ln_split_proj,
     fused_qkv_stats,
 )
-from turtlevsr_tpu_torch.ops.attn_utils import acc_dtype, masked_softmax
+from turtlevsr_tpu_torch.kernels.lattice import lattice_merge, lattice_split
+from turtlevsr_tpu_torch.kernels.sab import sab_attn_probs
+from turtlevsr_tpu_torch.ops.attn_utils import (
+    acc_dtype,
+    l2_normalize,
+    masked_softmax,
+)
 from turtlevsr_tpu_torch.ops.conv import conv2d
 
 _NORM_EPS = 1e-12  # torch.nn.functional.normalize default clamp
@@ -45,7 +70,7 @@ _NORM_EPS = 1e-12  # torch.nn.functional.normalize default clamp
 class BlockSpec:
     """Static per-block configuration."""
 
-    attn_type: str  # Channel | ReducedAttn | FHR
+    attn_type: str  # Channel | ReducedAttn | FHR | CHM
     ffw_type: str  # FFW | GFFW
     dim: int
     num_heads: int
@@ -53,6 +78,12 @@ class BlockSpec:
     bias: bool
     layernorm_bias: bool
     num_frames_tocache: int
+    scale_patchsize: int = 1
+
+    @property
+    def window_size(self) -> int:
+        """Window of the StateAlignBlock (CHM blocks)."""
+        return 2 * self.scale_patchsize
 
 
 # kernel-layout views of conv parameters ------------------------------------
@@ -161,6 +192,62 @@ class ChannelAttention(nn.Module):
         self.project_out = nn.Conv2d(dim, dim, 1, bias=bias)
 
 
+class StateAlignBlock(nn.Module):
+    """Projection stack of the windowed cross-frame alignment attention
+    (turtle_t1_arch.py:290-310): one head, a scalar temperature; q2/k2 embed
+    each window with a depthwise conv of kernel = stride = window."""
+
+    def __init__(self, dim: int, bias: bool, window_size: int):
+        super().__init__()
+        ws = window_size
+        self.temperature = nn.Parameter(torch.ones(1, 1, 1))
+        self.qk = nn.Conv2d(dim, dim * 2, 1, bias=bias)
+        self.qk_dwconv = nn.Conv2d(dim * 2, dim * 2, 3, padding=1,
+                                   groups=dim * 2, bias=bias)
+        self.v = nn.Conv2d(dim, dim, 1, bias=bias)
+        self.v_dwconv = nn.Conv2d(dim, dim, 3, padding=1, groups=dim,
+                                  bias=bias)
+        self.k2 = nn.Conv2d(dim, dim * 2, 1, bias=bias)
+        self.k2_dwconv = nn.Conv2d(dim * 2, dim * 2, ws, stride=ws, padding=1,
+                                   groups=dim * 2, bias=bias)
+        self.q2 = nn.Conv2d(dim, dim * 2, 1, bias=bias)
+        self.q2_dwconv = nn.Conv2d(dim * 2, dim * 2, ws, stride=ws, padding=1,
+                                   groups=dim * 2, bias=bias)
+        self.project_out = nn.Conv2d(dim, dim, 1, bias=bias)
+
+
+class CausalHistoryModel(nn.Module):
+    """CHM (turtle_arch.py:535-585): SAB alignment of the cached frames,
+    then FHR-style routing of the current frame over them."""
+
+    def __init__(self, dim: int, heads: int, bias: bool, window_size: int):
+        super().__init__()
+        self.spatial_aligner = StateAlignBlock(dim, bias, window_size)
+        self.ChanAttn = ChannelAttention(dim, heads, bias)
+        self.kv = nn.Conv2d(dim, dim * 2, 1, bias=bias)
+        self.kv_dwconv = nn.Conv2d(dim * 2, dim * 2, 3, padding=1,
+                                   groups=dim * 2, bias=bias)
+
+
+def _patch_kernel(pw: nn.Conv2d, dw: nn.Conv2d) -> torch.Tensor:
+    """1x1 conv then depthwise conv of kernel = stride = ws, folded into one
+    (ws, ws, C, E) patch kernel: K[h, w, c, e] = W1[c, e] * wd[h, w, e]."""
+    return (dw.weight[:, 0].permute(1, 2, 0)[:, :, None, :]
+            * pw_matrix(pw)[None, None]).contiguous()
+
+
+def _strided_patch_proj(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
+    """The SAB window embedding (1x1, then depthwise kernel = stride = ws,
+    padding 1) as one patchify contraction: with stride == kernel the windows
+    tile the image padded by one at the top and the left and cropped to
+    (H, W). (B, H, W, C) -> (B, H / ws, W / ws, E). Bias-free only."""
+    b, h, w, c = x.shape
+    ws = kernel.shape[0]
+    xp = torch.nn.functional.pad(x, (0, 0, 1, 0, 1, 0))[:, :h, :w]
+    xw = xp.reshape(b, h // ws, ws, w // ws, ws, c)
+    return torch.einsum("bihjwc,hwce->bije", xw, kernel.to(x.dtype))
+
+
 def _safe_norms(ss: torch.Tensor) -> torch.Tensor:
     """max(sqrt(ss), 1e-12): zero rows (nothing to normalise) stay finite."""
     return torch.sqrt(ss).clamp_min(_NORM_EPS)
@@ -173,10 +260,10 @@ class TurtleAttnBlock(nn.Module, KernelWeights):
     def __init__(self, spec: BlockSpec):
         super().__init__()
         t, f = spec.attn_type, spec.ffw_type
-        if t not in ("Channel", "ReducedAttn", "FHR"):
+        if t not in ("Channel", "ReducedAttn", "FHR", "CHM"):
             raise NotImplementedError(
                 f"not ported yet: attention type {t!r} (the port serves "
-                "Channel, ReducedAttn and FHR blocks)")
+                "Channel, ReducedAttn, FHR and CHM blocks)")
         if f not in ("FFW", "GFFW"):
             raise ValueError(f"unknown FFW type {f!r}")
         if t != "ReducedAttn" and f != "GFFW":
@@ -187,6 +274,9 @@ class TurtleAttnBlock(nn.Module, KernelWeights):
         self.norm2 = LayerNorm(spec.dim, spec.layernorm_bias)
         if t in ("Channel", "FHR"):  # the same projection stack
             self.attn = ChannelAttention(spec.dim, spec.num_heads, spec.bias)
+        elif t == "CHM":
+            self.attn = CausalHistoryModel(spec.dim, spec.num_heads,
+                                           spec.bias, spec.window_size)
         else:
             self.attn = ReducedAttn(spec.dim)
         if f == "GFFW":
@@ -221,12 +311,56 @@ class TurtleAttnBlock(nn.Module, KernelWeights):
                 w1=pw_matrix(a.conv1), b1=a.conv1.bias, wd=dw_taps(a.conv2),
                 bd=a.conv2.bias, w2=pw_matrix(a.conv3), b2=a.conv3.bias,
                 scale=a.beta.reshape(c).contiguous(), mode="gelu")
+        elif isinstance(a, CausalHistoryModel):
+            kw.update(self._chm_kernel_weights(a))
         else:
             kw["qkv"] = dict(
                 ln_w=self.norm1.body.weight, ln_b=self.norm1.body.bias,
                 w1=pw_matrix(a.qkv), b1=a.qkv.bias, wd=dw_taps(a.qkv_dwconv),
                 bd=a.qkv_dwconv.bias)
             kw["wpo"] = pw_matrix(a.project_out)  # (C_in, C_out)
+        return kw
+
+    def _chm_kernel_weights(self, a: CausalHistoryModel) -> dict:
+        sab, ca = a.spatial_aligner, a.ChanAttn
+        ln = dict(ln_w=self.norm1.body.weight, ln_b=self.norm1.body.bias)
+        dt = self.norm1.body.weight.dtype
+        ad = acc_dtype(dt)
+        kw = {"sab_ln": ln, "wpo": pw_matrix(ca.project_out)}
+        if self.spec.bias:
+            # the unfolded route: q, k and the unprojected v of the SAB from
+            # one split projection, the kv embedding and the ChanAttn
+            # projections as split projections with their biases
+            def cat(*ts):
+                return None if ts[0] is None else torch.cat(ts).contiguous()
+
+            kw["sab_qkv"] = dict(
+                w1=torch.cat([pw_matrix(sab.qk), pw_matrix(sab.v)],
+                             dim=1).contiguous(),
+                b1=cat(sab.qk.bias, sab.v.bias),
+                wd=torch.cat([dw_taps(sab.qk_dwconv), dw_taps(sab.v_dwconv)],
+                             dim=2).contiguous(),
+                bd=cat(sab.qk_dwconv.bias, sab.v_dwconv.bias), **ln)
+            kw["kv"] = dict(w1=pw_matrix(a.kv), b1=a.kv.bias,
+                            wd=dw_taps(a.kv_dwconv), bd=a.kv_dwconv.bias)
+            kw["qkv"] = dict(w1=pw_matrix(ca.qkv), b1=ca.qkv.bias,
+                             wd=dw_taps(ca.qkv_dwconv),
+                             bd=ca.qkv_dwconv.bias, **ln)
+            return kw
+        kw["sab_qk"] = dict(w1=pw_matrix(sab.qk), wd=dw_taps(sab.qk_dwconv),
+                            **ln)
+        # the bias-free chain project_out o v_dwconv o v as one dense 3x3
+        # kernel K[t] = W_v diag(wd_v[t]) W_po, built in the accumulation
+        # type and rounded to the map's type
+        kw["sab_v3"] = torch.einsum(
+            "im,tsm,mo->tsio", pw_matrix(sab.v).to(ad),
+            dw_taps(sab.v_dwconv).to(ad),
+            pw_matrix(sab.project_out).to(ad)).to(dt).contiguous()
+        kw["sab_q2"] = _patch_kernel(sab.q2, sab.q2_dwconv)
+        kw["sab_k2"] = _patch_kernel(sab.k2, sab.k2_dwconv)
+        kw["chm"] = dict(w_qkv=pw_matrix(ca.qkv), wd_qkv=dw_taps(ca.qkv_dwconv),
+                         w_kv=pw_matrix(a.kv), wd_kv=dw_taps(a.kv_dwconv),
+                         **ln)
         return kw
 
     # -- attention halves --------------------------------------------------
@@ -300,6 +434,137 @@ class TurtleAttnBlock(nn.Module, KernelWeights):
             new_slot = fhr_slot_append(slot, k_cache, v.permute(0, 2, 3, 1))
         return out, new_slot
 
+    def _sab(self, x: torch.Tensor, kw: dict, slot: Optional[dict]):
+        """StateAlignBlock, t1 semantics (turtle_t1_arch.py:548-610): q and k
+        are embedded per window into tokens of width 2C and l2-normalised,
+        v is the lattice-windowed (projected) value map; every cached frame
+        and the current one are attended with the top-5 + local-window
+        clipped softmax and merged back into a map. Returns (aligned frames
+        (B, NF, H, W, C), frame validity (NF,) bool, new slot)."""
+        b, h, w, c = x.shape
+        sab = self.attn.spatial_aligner
+        ws = self.spec.window_size
+        if h % ws or w % ws:
+            raise ValueError(f"the SAB window {ws} must divide the map "
+                             f"{h} x {w}")
+        hq, wq = h // ws, w // ws
+        if self.spec.bias:
+            q_, k_, v_map = fused_ln_split_proj(x, n_out=3, **kw["sab_qkv"])
+            k2 = conv2d(conv2d(k_, sab.k2.weight, sab.k2.bias),
+                        sab.k2_dwconv.weight, sab.k2_dwconv.bias, stride=ws,
+                        padding=1, groups=2 * c)
+            q2 = conv2d(conv2d(q_, sab.q2.weight, sab.q2.bias),
+                        sab.q2_dwconv.weight, sab.q2_dwconv.bias, stride=ws,
+                        padding=1, groups=2 * c)
+            if tuple(q2.shape[1:3]) != (hq, wq):  # a window of 2
+                raise ValueError(
+                    f"SAB window grid mismatch: the strided conv gives "
+                    f"{q2.shape[1]}x{q2.shape[2]}, the lattice needs "
+                    f"{hq}x{wq} (h={h}, w={w}, ws={ws})")
+        else:
+            q_, k_ = fused_ln_split_proj(x, n_out=2, **kw["sab_qk"])
+            v_map = fused_conv3x3(x, kw["sab_v3"], **kw["sab_ln"])
+            k2 = _strided_patch_proj(k_, kw["sab_k2"])
+            q2 = _strided_patch_proj(q_, kw["sab_q2"])
+        q = l2_normalize(q2.reshape(b, hq * wq, 2 * c)).contiguous()
+        k = l2_normalize(k2.reshape(b, hq * wq, 2 * c))
+        v = lattice_split(v_map.contiguous(), ws)  # (B, HW, ws * ws * C)
+
+        if slot is not None:
+            n_ring = slot["k"].shape[1]
+            k_all = torch.cat([slot["k"].to(k.dtype), k[:, None]], dim=1)
+            v_frames = [slot["v"][:, i] for i in range(n_ring)] + [v]
+            fvalid = torch.cat([
+                frame_valid_mask(slot["n"], n_ring),
+                torch.ones(1, dtype=torch.bool, device=x.device)])
+        else:
+            k_all, v_frames = k[:, None].contiguous(), [v]
+            fvalid = torch.ones(1, dtype=torch.bool, device=x.device)
+        nf = len(v_frames)
+        a = sab_attn_probs(q, k_all, sab.temperature, fvalid, grid_wq=wq)
+        # attention @ v, one matrix product per ring position: the stacked
+        # copy of the ring's values with the current ones is never made
+        out_tok = torch.empty((b, nf) + tuple(v.shape[1:]), dtype=x.dtype,
+                              device=x.device)
+        for i, vi in enumerate(v_frames):
+            torch.matmul(a[:, i], vi.to(x.dtype), out=out_tok[:, i])
+        new_slot = None if slot is None else sab_slot_append(slot, k, v)
+        maps = lattice_merge(out_tok.reshape(b * nf, hq * wq, -1), ws, h, w)
+        if self.spec.bias:
+            # unprojected values: project each frame, then zero the invalid
+            # ones (their bias would not stay zero)
+            maps = conv2d(maps, sab.project_out.weight, sab.project_out.bias)
+            maps = maps.reshape(b, nf, h, w, c)
+            maps = maps * fvalid.to(maps.dtype)[None, :, None, None, None]
+            return maps.contiguous(), fvalid, new_slot
+        # projected before the windowing and already zero where invalid:
+        # the probabilities carry the frame validity
+        return maps.reshape(b, nf, h, w, c), fvalid, new_slot
+
+    def _chm(self, x: torch.Tensor, kw: dict, slot: Optional[dict]):
+        """CausalHistoryModel + the block's FFN half (turtle_arch.py:535-585):
+        channel-token attention of the current frame over the K, V
+        embeddings of the aligned frames and its own. Returns (block output,
+        new slot)."""
+        b, h, w, c = x.shape
+        heads = self.spec.num_heads
+        ctok = c // heads
+        l = h * w
+        dt = x.dtype
+        ad = acc_dtype(dt)
+        ca = self.attn.ChanAttn
+        x_sp, fvalid, new_slot = self._sab(x, kw, slot)
+        nf = x_sp.shape[1]
+        if self.spec.bias:
+            q, k, v = fused_ln_split_proj(x, n_out=3, **kw["qkv"])
+            kh, vh = fused_ln_split_proj(x_sp.reshape(b * nf, h, w, c),
+                                         n_out=2, **kw["kv"])
+            q = q.reshape(b, l, heads, ctok).to(ad)
+            k = k.reshape(b, l, heads, ctok).to(ad)
+            kh = kh.reshape(b, nf, l, heads, ctok).to(ad)
+            sq = torch.einsum("blhc,blhc->bhc", q, q)
+            sk = torch.einsum("blhc,blhc->bhc", k, k)
+            skh = torch.einsum("bnlhc,bnlhc->bnhc", kh, kh)
+            g = torch.einsum("blhc,blhd->bhcd", q, k)
+            gh = torch.einsum("blhc,bnlhd->bnhcd", q, kh)
+        else:
+            v, vh, g, gh, stats = fused_chm_stats(x, x_sp, heads=heads,
+                                                  **kw["chm"])
+            g, gh, stats = g.to(ad), gh.to(ad), stats.to(ad)
+            sq = stats[:, 0].reshape(b, heads, ctok)
+            sk = stats[:, 1].reshape(b, heads, ctok)
+            skh = stats[:, 2:].reshape(b, nf, heads, ctok)
+        nq, nk, nkh = _safe_norms(sq), _safe_norms(sk), _safe_norms(skh)
+        # (B, heads, ctok, NF, ctok): frame-major keys of the history
+        gh = gh.permute(0, 2, 3, 1, 4) / (
+            nq[:, :, :, None, None] * nkh.permute(0, 2, 1, 3)[:, :, None])
+        g = g / (nq[..., None] * nk[..., None, :])
+        scores = torch.cat([gh.reshape(b, heads, ctok, nf * ctok), g], dim=-1)
+        valid = torch.cat([
+            fvalid.repeat_interleave(ctok),
+            torch.ones(ctok, dtype=torch.bool, device=x.device)])
+        temp = ca.temperature.to(ad)[None]
+        attn = masked_softmax(scores * temp, valid[None, None, None]).to(dt)
+        a_h = attn[..., :nf * ctok].reshape(b, heads, ctok, nf, ctok).to(ad)
+        a_c = attn[..., nf * ctok:].to(ad)
+        if self.spec.bias:
+            out = torch.einsum("bhcnd,bnlhd->blhc", a_h,
+                               vh.reshape(b, nf, l, heads, ctok).to(ad))
+            out = out + torch.einsum("bhcd,blhd->blhc", a_c,
+                                     v.reshape(b, l, heads, ctok).to(ad))
+            out = conv2d(out.to(dt).reshape(b, h, w, c),
+                         ca.project_out.weight, ca.project_out.bias)
+            return fused_block_ffn(x, x2=out.contiguous(),
+                                   **kw["ffn"]), new_slot
+        # the apply folded into the FFN pass: out @ W_po = sum_n vh_n @ P_n
+        # + v @ P_c with P_n[(h, d), z] = sum_c a_h[h, c, n, d] W_po[(h, c), z]
+        wpo = kw["wpo"].reshape(heads, ctok, c).to(ad)
+        pn = torch.einsum("bhcnd,hcz->nbhdz", a_h, wpo).reshape(
+            nf, b, c, c).to(dt)
+        pc = torch.einsum("bhcd,hcz->bhdz", a_c, wpo).reshape(b, c, c).to(dt)
+        return fused_block_ffn(x, x2=[vh, v], po_w=[*pn, pc],
+                               **kw["ffn"]), new_slot
+
     def forward(self, x: torch.Tensor, slot: Optional[dict] = None):
         """(B, H, W, C) -> (same, new cache slot or None)."""
         kw = self.kernel_weights()
@@ -313,5 +578,7 @@ class TurtleAttnBlock(nn.Module, KernelWeights):
             v_map, po_w, po_b = self._channel_po(x, kw)
             return fused_block_ffn(x, x2=v_map, po_w=po_w, po_b=po_b,
                                    **kw["ffn"]), None
+        if t == "CHM":
+            return self._chm(x, kw, slot)
         a, new_slot = self._fhr(x, kw, slot)
         return fused_block_ffn(x, x2=a.contiguous(), **kw["ffn"]), new_slot

@@ -7,8 +7,10 @@ mirroring ``turtlevsr_tpu/models/turtle.py``. The 8 cache slots are a tuple
   (enc1, enc2, enc3, latent_first, latent_last, dec3, dec2, dec1)
 
 in which a slot is ``None`` when the level's cached block keeps no history
-(Channel, ReducedAttn). The t0 and sr variants and the CHM blocks are not
-ported yet and raise ``NotImplementedError`` when the model is built.
+(Channel, ReducedAttn), an FHR slot in the latent and a SAB slot where the
+level ends in a CHM block (the decoder levels of every shipped
+configuration). The t0 and sr variants are not ported yet and raise
+``NotImplementedError`` when the model is built.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from turtlevsr_tpu_torch.config.options import LevelSpec, ModelConfig
-from turtlevsr_tpu_torch.core.cache import fhr_slot_init
+from turtlevsr_tpu_torch.core.cache import fhr_slot_init, sab_slot_init
 from turtlevsr_tpu_torch.kernels.ffn import fused_conv3x3
 from turtlevsr_tpu_torch.models.blocks import (
     BlockSpec,
@@ -74,7 +76,8 @@ def _block_spec(cfg: ModelConfig, lvl: LevelSpec, attn_type: str) -> BlockSpec:
         num_heads=lvl.num_heads,
         ffn_expansion_factor=cfg.ffn_expansion_factor, bias=cfg.bias,
         layernorm_bias=cfg.layernorm_bias,
-        num_frames_tocache=lvl.num_frames_tocache)
+        num_frames_tocache=lvl.num_frames_tocache,
+        scale_patchsize=lvl.scale_patchsize)
 
 
 class LevelBlock(nn.Module):
@@ -133,6 +136,11 @@ def _slot_for_level(lvl: LevelSpec, attn_type: str, batch: int, h: int,
         ctok = lvl.dim // lvl.num_heads
         return fhr_slot_init(batch, lvl.num_heads, lvl.num_frames_tocache,
                              ctok, h * w, dtype, device)
+    if attn_type == "CHM":
+        ws = 2 * lvl.scale_patchsize
+        hw = (h // ws) * (w // ws)
+        return sab_slot_init(batch, lvl.num_frames_tocache, hw, 2 * lvl.dim,
+                             hw, ws * ws * lvl.dim, dtype, device)
     return None
 
 
@@ -202,7 +210,7 @@ class Turtle(nn.Module):
     def forward(self, x_pair: torch.Tensor, cache: tuple):
         """One frame step. x_pair: (B, 2, H, W, C) = [previous, current]
         frames, NHWC, [0, 1]; cache: 8 slots from init_cache or a previous
-        step (its FHR slots are written in place). Returns (out (B, H, W, C),
+        step (its FHR and SAB slots are written in place). Returns (out (B, H, W, C),
         new cache). Mirrors Turtle.forward (turtle_arch.py:968-1056)."""
         cfg = self.cfg
         if x_pair.dim() != 5 or x_pair.shape[1] != 2:

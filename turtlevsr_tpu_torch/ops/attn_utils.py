@@ -33,3 +33,54 @@ def masked_softmax(scores: torch.Tensor, valid: torch.Tensor | None = None,
     denom = e.sum(dim=dim, keepdim=True)
     out = e / denom.clamp_min(torch.finfo(ad).tiny)
     return out.to(dtype)
+
+
+_NORM_EPS = 1e-12  # torch.nn.functional.normalize default clamp
+
+
+def l2_normalize(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """torch F.normalize(p=2): x / max(||x||, 1e-12). The sum of squares
+    runs in the accumulation type, the scaling in x's type; zero rows (empty
+    cache frames) stay zero."""
+    ad = acc_dtype(x.dtype)
+    ss = x.to(ad).square().sum(dim=dim, keepdim=True)
+    inv = (1.0 / torch.sqrt(ss).clamp_min(_NORM_EPS)).to(x.dtype)
+    return x * inv
+
+
+def clipped_softmax(combined: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """Softmax over the entries that are not exactly zero, zeros elsewhere
+    (turtle_arch.py:115-135); a row of zeros gives zeros, not NaN."""
+    return masked_softmax(combined, valid=combined != 0, dim=dim)
+
+
+def topk_keep(scores: torch.Tensor, k: int) -> torch.Tensor:
+    """Zero out everything but the top-k entries of the last axis
+    (turtle_t1_arch.py:327-332), as k rounds of a running maximum. Ties:
+    each round keeps the FIRST occurrence of its maximum, so k distinct
+    positions survive."""
+    n = scores.shape[-1]
+    k = min(k, n)
+    idx = torch.arange(n, device=scores.device).expand(scores.shape)
+    remaining = scores.clone()
+    keep = torch.zeros_like(scores, dtype=torch.bool)
+    for _ in range(k):
+        m = remaining.amax(dim=-1, keepdim=True)
+        first = torch.where(remaining == m, idx, n).amin(dim=-1, keepdim=True)
+        hit = idx == first
+        keep |= hit
+        remaining = remaining.masked_fill(hit, float("-inf"))
+    return scores * keep.to(scores.dtype)
+
+
+def local_window_mask(h: int, w: int, n: int = 4,
+                      dtype: torch.dtype = torch.float32,
+                      device: torch.device | str = "cpu",
+                      rows: slice | None = None) -> torch.Tensor:
+    """(h*w, h*w) 0/1 mask: L1 distance <= n between token grid coordinates
+    (turtle_arch.py:441-457). ``rows`` restricts it to those query rows."""
+    idx = torch.arange(h * w, device=device)
+    q = idx if rows is None else idx[rows]
+    dy = (q[:, None] // w - idx[None, :] // w).abs()
+    dx = (q[:, None] % w - idx[None, :] % w).abs()
+    return (dy + dx <= n).to(dtype)
