@@ -4,27 +4,38 @@
     python3 chip_smoke.py [--frames 6] [--size 1280x720] [--phase all]
                           [--profile] [--ptxas]
 
-(--profile traces three more frames of `gopro` with torch.profiler.)
+(--profile traces a few more frames of `gopro` and `gopro_t1_fhr` whole-frame
+and of `gopro` tiled under both plans, with torch.profiler.)
 
 Phases, one JSON object per line on standard output:
 
   device   the card's name and power limit as nvidia-smi gives them
-  build    nvcc builds the seven sources of turtlevsr_tpu_torch/kernels/csrc
+  build    nvcc builds the nine sources of turtlevsr_tpu_torch/kernels/csrc
   kernels  each kernel's wrapper against its plain PyTorch version on the
-           card at the shapes the 720p serving paths give it (bf16): errors
-           beside the stated tolerance, the kernel's time, the plain
+           card at the shapes the 720p serving paths give it (bf16), whole
+           padded frames and chunks of 15 tiles alike: errors beside the
+           stated tolerance, the kernel's time, the plain
            version's, a PyTorch library call's where one computes the same
            function, and the least time the card could take (bound)
   slice    two configurations at full width and depth, seeded random
            weights, frames streamed through InferenceEngine.step: `gopro`
            (options/Turtle_Deblur_Gopro.yml unchanged: CHM blocks end the
            decoder levels) and `gopro_t1_fhr` (the same file with those
-           blocks set to Channel). For each: shape, finiteness, the exact
-           kernel launches per frame, agreement with the same frames run
-           through the plain versions on the card, ms per frame, peak memory
+           blocks set to Channel) and `gopro_enc3_ffw` (the same file with
+           encoder level 3's FFN set to the pointwise FFW: the FFN kernel's
+           branch without a depthwise stage). For each: shape, finiteness,
+           the exact kernel launches per frame, agreement with the same
+           frames run through the plain versions on the card, ms per frame,
+           peak memory
+  tiled    `gopro` through `turtlevsr_tpu_torch.cli.infer.main` on a folder
+           of frames written from the seed, at the reference's deblur preset
+           (tile 320, overlap 192: 45 tiles of a 1280x720 frame in three
+           chunks of 15), once with the fused plan empty and once with
+           ("channel_runs", "attn_v_merge"); each against the same frames
+           through the plain versions on the card
 
-then, when both the kernels and the slice ran, the line {"kernels": [...]}
-and, last, {"ok": true, "device": {...}}.
+then, when the kernels, the slice and the tiled phase ran, the line
+{"kernels": [...]} and, last, {"ok": true, "device": {...}}.
 Any failed check exits non-zero; without a CUDA device the script exits 2
 before it prints any result.
 """
@@ -35,8 +46,10 @@ import argparse
 import contextlib
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -49,9 +62,11 @@ from turtlevsr_tpu_torch.config.options import (
 )
 from turtlevsr_tpu_torch.eval.engine import InferenceEngine
 from turtlevsr_tpu_torch import kernels as kernels_pkg
+from turtlevsr_tpu_torch.cli import infer as infer_cli
 from turtlevsr_tpu_torch.kernels import build
 from turtlevsr_tpu_torch.kernels import ffn as K
 from turtlevsr_tpu_torch.kernels import lattice as L
+from turtlevsr_tpu_torch.kernels import level as LV
 from turtlevsr_tpu_torch.kernels import sab as S
 from turtlevsr_tpu_torch.models import blocks as blocks_mod
 from turtlevsr_tpu_torch.models import build_model
@@ -65,17 +80,37 @@ OPTION_FILE = os.path.join(ROOT, "options", "Turtle_Deblur_Gopro.yml")
 GOPRO_T1_FHR = {"decoder1_attn_type2": "Channel",
                 "decoder2_attn_type2": "Channel",
                 "decoder3_attn_type2": "Channel"}
-# exact launches per frame: a CHM block launches each of its kernels once
-# (q, k split projection, composite v conv, lattice split, probabilities,
-# lattice merge, statistics, FFN); a Channel block the statistics and the FFN
-LAUNCHES_PER_FRAME = {
-    "gopro": {"ffn": 51, "qkv_stats": 34, "split_proj": 5, "conv3x3": 11,
-              "chm_stats": 3, "sab": 3, "lattice_merge": 3,
-              "lattice_split": 3},
+# gopro_enc3_ffw: the same with encoder level 3's FFN set to the pointwise
+# FFW, whose pass is the FFN kernel without a depthwise stage
+GOPRO_ENC3_FFW = {"encoder3_ffw_type": "FFW"}
+CONFIG_OVERRIDES = {"gopro": {}, "gopro_t1_fhr": GOPRO_T1_FHR,
+                    "gopro_enc3_ffw": GOPRO_ENC3_FFW}
+# exact launches per model call: a CHM block launches each of its kernels
+# once (q, k split projection, composite v conv, lattice split,
+# probabilities, lattice merge, statistics, FFN); a Channel block the
+# statistics and the FFN. Under the fused plan the 33 Channel blocks of the
+# four runs (enc3 10, latent 9, dec3 9, dec2 5) are 4 run launches, and
+# attention @ v with the merge is one launch per CHM block.
+_NONE = {"attn_v_slots": 0, "attn_v_merge": 0, "level_run": 0, "ffn_no_dw": 0}
+_GOPRO = {"ffn": 51, "qkv_stats": 34, "split_proj": 5, "conv3x3": 11,
+          "chm_stats": 3, "sab": 3, "lattice_merge": 3, "lattice_split": 3}
+LAUNCHES_PER_CALL = {
+    "gopro": {**_GOPRO, **_NONE},
     "gopro_t1_fhr": {"ffn": 51, "qkv_stats": 37, "split_proj": 2,
                      "conv3x3": 8, "chm_stats": 0, "sab": 0,
-                     "lattice_merge": 0, "lattice_split": 0},
+                     "lattice_merge": 0, "lattice_split": 0, **_NONE},
+    "gopro_enc3_ffw": {**_GOPRO, **_NONE, "ffn_no_dw": 10},
+    "gopro_fused": {**_GOPRO, **_NONE, "ffn": 18, "qkv_stats": 1,
+                    "lattice_merge": 0, "attn_v_merge": 3, "level_run": 4},
 }
+# tiled streaming at the reference's deblur preset (tile 320, overlap 192)
+TILE = infer_cli.TASK_PRESETS["deblur"]["tile"]
+TILE_OVERLAP = infer_cli.TASK_PRESETS["deblur"]["tile_overlap"]
+MAX_TILE_BATCH, TILED_FRAMES = 15, 6  # the engine's default chunk
+FUSED_PLAN = ("channel_runs", "attn_v_merge")
+# the runs of Channel+GFFW blocks of `gopro`: (scale, C, heads, blocks)
+RUN_LEVELS = {"enc3": (4, 256, 4, 10), "latent": (8, 512, 8, 9),
+              "dec3": (4, 256, 4, 9), "dec2": (2, 128, 2, 5)}
 # the decoder levels of `gopro`: (scale, C, heads, window, cached frames)
 CHM_LEVELS = {"dec3": (4, 256, 4, 4, 3), "dec2": (2, 128, 2, 8, 3),
               "dec1": (1, 64, 1, 16, 2)}
@@ -109,6 +144,13 @@ SAB_EXACT_TOL = 2.0 ** -9
 # block; PSNR of the kernel path against the plain path on the card, on
 # pictures in [0, 1]
 SLICE_MIN_PSNR = 40.0
+# attention @ v: fp32 sums of exact products in another order, one rounding
+ATTN_V_REL_TOL = 2.0 ** -7
+# a run of N blocks against its plain version: a flip of one block feeds the
+# next (KERNEL_REL_TOL a block); against the split kernels, whose device code
+# and rounding points it shares, only the exp and the divide of the small
+# softmax differ: one limit whatever the length of the run
+RUN_SPLIT_REL_TOL = 2.0 ** -7
 
 KERNEL_INFO = {
     "ffn": ("turtlevsr_tpu_torch/kernels/csrc/ffn.cu",
@@ -127,6 +169,16 @@ KERNEL_INFO = {
                       "turtlevsr_tpu/kernels/lattice.py:59"),
     "lattice_split": ("turtlevsr_tpu_torch/kernels/csrc/lattice.cu",
                       "turtlevsr_tpu/kernels/lattice.py:79"),
+    # the FFN kernel's branch without a depthwise stage (wd absent)
+    "ffn_no_dw": ("turtlevsr_tpu_torch/kernels/csrc/ffn.cu",
+                  "turtlevsr_tpu/kernels/ffn.py:1843"),
+    # one kernel with two epilogues and a wrapper for each (the model calls
+    # sab_attn_v_merge, turtlevsr_tpu/kernels/sab.py:282, which reaches the
+    # same pallas_call there): its launches are those of both wrappers
+    "attn_v": ("turtlevsr_tpu_torch/kernels/csrc/attn_v.cu",
+               "turtlevsr_tpu/kernels/sab.py:223"),
+    "level_run": ("turtlevsr_tpu_torch/kernels/csrc/level.cu",
+                  "turtlevsr_tpu/kernels/level.py:315"),
 }
 
 
@@ -163,14 +215,16 @@ def bound(n_bytes: float, flops: float) -> tuple[float, str]:
 
 
 class Inputs:
-    """Seeded inputs, made with numpy and moved to the card as bf16."""
+    """Seeded normal inputs, drawn on the card (the cases at 15 tiles hold
+    some 10^10 values in all) and rounded to bf16."""
 
     def __init__(self, seed: int):
-        self.rng = np.random.RandomState(seed)
+        self.rng = np.random.RandomState(seed)  # the integer inputs
+        self.gen = torch.Generator("cuda").manual_seed(seed)
 
     def __call__(self, *shape, scale: float = 1.0) -> torch.Tensor:
-        a = self.rng.standard_normal(shape).astype(np.float32) * scale
-        return torch.from_numpy(a).to("cuda", torch.bfloat16)
+        a = torch.randn(*shape, device="cuda", generator=self.gen)
+        return (a * scale).bfloat16()
 
 
 def rel_err(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
@@ -191,9 +245,9 @@ def numel_bytes(*tensors) -> int:
 
 def ffn_case(inp: Inputs, name, h, w, c, e, mode, *, pair=False, po=False,
              biases=False, scale=False, ffw2=False, dw=True, iters=5,
-             stacked=0):
+             stacked=0, batch=1):
     ch = 2 * e if mode == "gate" else e
-    x = inp(1, h, w, c)
+    x = inp(batch, h, w, c)
     kw = dict(ln_w=1.0 + inp(c, scale=0.2), ln_b=inp(c, scale=0.2),
               w1=inp(c, ch, scale=c ** -0.5), wd=inp(3, 3, ch, scale=0.3),
               w2=inp(e, c, scale=e ** -0.5), mode=mode)
@@ -206,14 +260,15 @@ def ffn_case(inp: Inputs, name, h, w, c, e, mode, *, pair=False, po=False,
     if scale:
         kw["scale"] = inp(c, scale=0.5)
     if pair:
-        kw["x2"] = inp(1, h, w, c)
+        kw["x2"] = inp(batch, h, w, c)
     if po:
-        kw["po_w"] = inp(1, c, c, scale=c ** -0.5)
+        kw["po_w"] = inp(batch, c, c, scale=c ** -0.5)
     n_maps = int(pair)
     if stacked:  # the CHM block's call: `stacked` history maps and one more
         n_maps = stacked + 1
-        kw["x2"] = [inp(1, stacked, h, w, c), inp(1, h, w, c)]
-        kw["po_w"] = [inp(1, c, c, scale=c ** -0.5) for _ in range(n_maps)]
+        kw["x2"] = [inp(batch, stacked, h, w, c), inp(batch, h, w, c)]
+        kw["po_w"] = [inp(batch, c, c, scale=c ** -0.5)
+                      for _ in range(n_maps)]
     f = 2 * c
     if ffw2:
         kw["ffw2"] = dict(ln_w=1.0 + inp(c, scale=0.2), ln_b=inp(c, scale=0.2),
@@ -224,7 +279,8 @@ def ffn_case(inp: Inputs, name, h, w, c, e, mode, *, pair=False, po=False,
     torch.cuda.synchronize()
     want = K.ffn_plain(x, **kw)
     err, rel = rel_err(got, want)
-    px = h * w
+    del want
+    px = batch * h * w
     flops = 2.0 * px * (c * ch + (9 * ch if dw else 0) + e * c
                         + (n_maps * c * c if po or stacked else 0)
                         + (2 * c * f if ffw2 else 0))
@@ -234,7 +290,8 @@ def ffn_case(inp: Inputs, name, h, w, c, e, mode, *, pair=False, po=False,
         weights += kw["x2"] + kw["po_w"]
     n_bytes = numel_bytes(x, None if stacked else kw.get("x2"), got, *weights)
     b_ms, b_by = bound(n_bytes, flops)
-    return dict(kernel="ffn", case=name, shape=[1, h, w, c], hidden=ch,
+    return dict(kernel="ffn" if dw else "ffn_no_dw", case=name,
+                shape=[batch, h, w, c], hidden=ch,
                 max_abs_err=err, rel_err=rel, tol_rel=KERNEL_REL_TOL,
                 ok=rel <= KERNEL_REL_TOL and bool(torch.isfinite(got.float()).all()),
                 ms=cuda_ms(lambda: K.fused_block_ffn(x, **kw), iters),
@@ -247,8 +304,8 @@ def chain_weights(inp: Inputs, c, ch):
                 w1=inp(c, ch, scale=c ** -0.5), wd=inp(3, 3, ch, scale=0.3))
 
 
-def qkv_case(inp: Inputs, name, h, w, c, heads, iters=5):
-    x = inp(1, h, w, c)
+def qkv_case(inp: Inputs, name, h, w, c, heads, iters=5, batch=1):
+    x = inp(batch, h, w, c)
     kw = chain_weights(inp, c, 3 * c)
     v, g, s = K.fused_qkv_stats(x, heads=heads, **kw)
     torch.cuda.synchronize()
@@ -259,9 +316,9 @@ def qkv_case(inp: Inputs, name, h, w, c, heads, iters=5):
     # per pixel: pw1 C x 3C, nine taps on 3C channels, the per-head diagonal
     # blocks of the Gram (heads x ctok x ctok = C x ctok), the two norms
     px, ctok = h * w, c // heads
-    flops = 2.0 * px * (c * 3 * c + 9 * 3 * c + c * ctok + 2 * c)
+    flops = 2.0 * batch * px * (c * 3 * c + 9 * 3 * c + c * ctok + 2 * c)
     b_ms, b_by = bound(numel_bytes(x, v, g, s, *kw.values()), flops)
-    return dict(kernel="qkv_stats", case=name, shape=[1, h, w, c],
+    return dict(kernel="qkv_stats", case=name, shape=[batch, h, w, c],
                 heads=heads, max_abs_err=max(err_v, err_g / px, err_s / px),
                 rel_err=rel_v, rel_err_gram=rel_g, rel_err_norms=rel_s,
                 tol_rel=KERNEL_REL_TOL, tol_rel_stats=STATS_REL_TOL,
@@ -274,17 +331,17 @@ def qkv_case(inp: Inputs, name, h, w, c, heads, iters=5):
                 library_ms=None, bound_ms=b_ms, bound_by=b_by)
 
 
-def split_case(inp: Inputs, name, h, w, c, n_out, iters=5):
-    x = inp(1, h, w, c)
+def split_case(inp: Inputs, name, h, w, c, n_out, iters=5, batch=1):
+    x = inp(batch, h, w, c)
     kw = chain_weights(inp, c, n_out * c)
     got = K.fused_ln_split_proj(x, n_out=n_out, **kw)
     torch.cuda.synchronize()
     want = K.split_proj_plain(x, n_out=n_out, **kw)
     errs = [rel_err(a, b) for a, b in zip(got, want)]
     err, rel = max(e[0] for e in errs), max(e[1] for e in errs)
-    flops = 2.0 * h * w * (c * n_out * c + 9 * n_out * c)
+    flops = 2.0 * batch * h * w * (c * n_out * c + 9 * n_out * c)
     b_ms, b_by = bound(numel_bytes(x, *got, *kw.values()), flops)
-    return dict(kernel="split_proj", case=name, shape=[1, h, w, c],
+    return dict(kernel="split_proj", case=name, shape=[batch, h, w, c],
                 n_out=n_out, max_abs_err=err, rel_err=rel,
                 tol_rel=KERNEL_REL_TOL, ok=rel <= KERNEL_REL_TOL,
                 ms=cuda_ms(lambda: K.fused_ln_split_proj(x, n_out=n_out, **kw),
@@ -294,8 +351,9 @@ def split_case(inp: Inputs, name, h, w, c, n_out, iters=5):
                 library_ms=None, bound_ms=b_ms, bound_by=b_by)
 
 
-def conv_case(inp: Inputs, name, h, w, cin, cout, bias, iters=5, ln=False):
-    x = inp(1, h, w, cin)
+def conv_case(inp: Inputs, name, h, w, cin, cout, bias, iters=5, ln=False,
+              batch=1):
+    x = inp(batch, h, w, cin)
     wt = inp(3, 3, cin, cout, scale=(9 * cin) ** -0.5)
     bb = inp(cout, scale=0.2) if bias else None
     lnk = dict(ln_w=1.0 + inp(cin, scale=0.2),
@@ -314,8 +372,10 @@ def conv_case(inp: Inputs, name, h, w, cin, cout, bias, iters=5, ln=False):
             memory_format=torch.channels_last)
         lib = cuda_ms(lambda: F.conv2d(x_nchw, w_oihw, bb, padding=1), iters)
     b_ms, b_by = bound(numel_bytes(x, wt, bb, got, *lnk.values()),
-                       2.0 * h * w * (9 * cin * cout + (8 * cin if ln else 0)))
-    return dict(kernel="conv3x3", case=name, shape=[1, h, w, cin], cout=cout,
+                       2.0 * batch * h * w * (9 * cin * cout
+                                              + (8 * cin if ln else 0)))
+    return dict(kernel="conv3x3", case=name, shape=[batch, h, w, cin],
+                cout=cout,
                 max_abs_err=err, rel_err=rel, tol_rel=KERNEL_REL_TOL,
                 ok=rel <= KERNEL_REL_TOL,
                 ms=cuda_ms(lambda: K.fused_conv3x3(x, wt, bb, **lnk), iters),
@@ -324,8 +384,8 @@ def conv_case(inp: Inputs, name, h, w, cin, cout, bias, iters=5, ln=False):
                 library_ms=lib, bound_ms=b_ms, bound_by=b_by)
 
 
-def chm_case(inp: Inputs, name, h, w, c, heads, nf, iters=3):
-    x, x_sp = inp(1, h, w, c), inp(1, nf, h, w, c)
+def chm_case(inp: Inputs, name, h, w, c, heads, nf, iters=3, batch=1):
+    x, x_sp = inp(batch, h, w, c), inp(batch, nf, h, w, c)
     kw = dict(ln_w=1.0 + inp(c, scale=0.2), ln_b=inp(c, scale=0.2),
               w_qkv=inp(c, 3 * c, scale=c ** -0.5),
               wd_qkv=inp(3, 3, 3 * c, scale=0.3),
@@ -342,11 +402,11 @@ def chm_case(inp: Inputs, name, h, w, c, heads, nf, iters=3):
     # per pixel: pw1 and nine taps for the 3 + 2 NF chains, the per-head
     # diagonal blocks of the NF + 1 Grams, the NF + 2 sums of squares
     px, ctok = h * w, c // heads
-    flops = 2.0 * px * ((3 + 2 * nf) * (c * c + 9 * c) + (nf + 1) * c * ctok
-                        + (nf + 2) * c)
+    flops = 2.0 * batch * px * ((3 + 2 * nf) * (c * c + 9 * c)
+                                + (nf + 1) * c * ctok + (nf + 2) * c)
     tensors = [v for v in kw.values() if torch.is_tensor(v)]
     b_ms, b_by = bound(numel_bytes(x, x_sp, *got, *tensors), flops)
-    return dict(kernel="chm_stats", case=name, shape=[1, nf, h, w, c],
+    return dict(kernel="chm_stats", case=name, shape=[batch, nf, h, w, c],
                 heads=heads, max_abs_err=max(err_v, err_vh, err_stats / px),
                 rel_err=max(rel_v, rel_vh), rel_err_stats=rel_stats,
                 tol_rel=KERNEL_REL_TOL, tol_rel_stats=STATS_REL_TOL,
@@ -358,17 +418,17 @@ def chm_case(inp: Inputs, name, h, w, c, heads, nf, iters=3):
                 library_ms=None, bound_ms=b_ms, bound_by=b_by)
 
 
-def sab_inputs(inp: Inputs, nf, hw, d, exact: bool):
+def sab_inputs(inp: Inputs, nf, hw, d, exact: bool, batch: int = 1):
     """Unit vectors, or (exact) small integers over 8 with a temperature of
     one half: every score is then exact in fp32 whatever the order of the
     sum, and rows tie many times."""
     if exact:
-        q = torch.from_numpy(inp.rng.randint(-2, 3, (1, hw, d)) / 8.0)
-        k = torch.from_numpy(inp.rng.randint(-2, 3, (1, nf, hw, d)) / 8.0)
+        q = torch.from_numpy(inp.rng.randint(-2, 3, (batch, hw, d)) / 8.0)
+        k = torch.from_numpy(inp.rng.randint(-2, 3, (batch, nf, hw, d)) / 8.0)
         temp = torch.tensor([0.5], device="cuda")
         return (q.to("cuda", torch.bfloat16), k.to("cuda", torch.bfloat16),
                 temp)
-    q, k = inp(1, hw, d).float(), inp(1, nf, hw, d).float()
+    q, k = inp(batch, hw, d).float(), inp(batch, nf, hw, d).float()
     q = (q / q.norm(dim=-1, keepdim=True)).bfloat16()
     k = (k / k.norm(dim=-1, keepdim=True)).bfloat16()
     return q, k, torch.tensor([1.7], device="cuda")
@@ -381,18 +441,18 @@ def sab_compare(got, want):
     return 1.0 - same.float().mean().item(), err
 
 
-def sab_case(inp: Inputs, name, hq, wq, d, nf, iters=3):
+def sab_case(inp: Inputs, name, hq, wq, d, nf, iters=3, batch=1):
     hw = hq * wq
     fv = torch.ones(nf, device="cuda")
     # (a) exact scores: the same support, bit for bit
-    q, k, temp = sab_inputs(inp, nf, hw, d, exact=True)
+    q, k, temp = sab_inputs(inp, nf, hw, d, exact=True, batch=batch)
     got = S.sab_attn_probs(q, k, temp, fv, grid_wq=wq)
     torch.cuda.synchronize()
     want = S.sab_attn_probs_plain(q, k, temp, fv, grid_wq=wq)
     exact_same = bool(torch.equal(got != 0, want != 0))
     exact_err = (got.float() - want.float()).abs().max().item()
     # (b) unit vectors, the last frame invalid
-    q, k, temp = sab_inputs(inp, nf, hw, d, exact=False)
+    q, k, temp = sab_inputs(inp, nf, hw, d, exact=False, batch=batch)
     fv[-1] = 0.0 if nf > 1 else 1.0
     got = S.sab_attn_probs(q, k, temp, fv, grid_wq=wq)
     torch.cuda.synchronize()
@@ -401,8 +461,10 @@ def sab_case(inp: Inputs, name, hq, wq, d, nf, iters=3):
     rows_ok = bool(((got.float().sum(-1) - fv[None, :, None]).abs()
                     <= 0.02).all())
     del want
-    b_ms, b_by = bound(numel_bytes(q, k, got), 2.0 * nf * hw * hw * d)
-    return dict(kernel="sab", case=name, shape=[1, nf, hw, d], grid=[hq, wq],
+    b_ms, b_by = bound(numel_bytes(q, k, got),
+                       2.0 * batch * nf * hw * hw * d)
+    return dict(kernel="sab", case=name, shape=[batch, nf, hw, d],
+                grid=[hq, wq],
                 max_abs_err=max(err, exact_err), rel_err=err,
                 exact_inputs_same_support=exact_same,
                 exact_inputs_max_abs_err=exact_err, tol_exact=SAB_EXACT_TOL,
@@ -441,6 +503,101 @@ def lattice_case(inp: Inputs, name, h, w, c, ws, n, merge: bool, iters=5):
                 library_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
 
 
+def attn_v_case(inp: Inputs, name, b, nf, hq, wq, ws, c, merge=True, iters=5):
+    """Attention @ v at the shape a CHM block gives it: nf - 1 ring positions
+    (views of one buffer, as the cache stores them) and the current frame's
+    values. library: torch.matmul per position and, for the merge, the
+    library's permuted copy."""
+    hw, d, h, w = hq * wq, ws * ws * c, hq * ws, wq * ws
+    a = torch.rand(b * nf, hw, hw, device="cuda",
+                   generator=torch.Generator("cuda").manual_seed(hw + d))
+    a = a * (a > 0.88)  # some 48 of 400 entries a row, as the softmax leaves
+    a = (a / a.sum(-1, keepdim=True).clamp_min(1e-6)).bfloat16()
+    ring = inp(b, max(nf - 1, 1), hw, d)
+    vs = [ring[:, i] for i in range(nf - 1)] + [inp(b, hw, d)]
+    if merge:
+        fn = lambda: S.sab_attn_v_merge(a, vs, ws, h, w)  # noqa: E731
+        plain = lambda: S.attn_v_merge_plain(a, vs, ws, h, w)  # noqa: E731
+    else:
+        fn = lambda: S.sab_attn_v_slots(a, vs, c)  # noqa: E731
+        plain = lambda: S.attn_v_slots_plain(a, vs, c)  # noqa: E731
+    got = fn()
+    torch.cuda.synchronize()
+    want = plain()
+    err, rel = rel_err(got, want)
+    del want
+    a4 = a.reshape(b, nf, hw, hw)
+    tok = torch.empty(b, nf, hw, d, device="cuda", dtype=torch.bfloat16)
+
+    def library():
+        for i, vi in enumerate(vs):
+            torch.matmul(a4[:, i], vi, out=tok[:, i])
+        if merge:
+            return L.lattice_merge_plain(tok.reshape(b * nf, hw, d), ws, h, w
+                                         ).contiguous()
+        return tok.reshape(b * nf, hw, ws * ws, c).permute(0, 2, 1, 3
+                                                           ).contiguous()
+
+    b_ms, b_by = bound(numel_bytes(a, *vs, got), 2.0 * b * nf * hw * hw * d)
+    return dict(kernel="attn_v", case=name, epilogue="merge" if merge
+                else "slots", shape=[b * nf, hw, hw, d], window=ws,
+                max_abs_err=err,
+                rel_err=rel, tol_rel=ATTN_V_REL_TOL,
+                ok=rel <= ATTN_V_REL_TOL and bool(
+                    torch.isfinite(got.float()).all()),
+                ms=cuda_ms(fn, iters), plain_ms=cuda_ms(plain, 1, 0),
+                library_ms=cuda_ms(library, iters), bound_ms=b_ms,
+                bound_by=b_by)
+
+
+def run_case(inp: Inputs, name, b, h, w, c, heads, n_blocks, iters=3):
+    """A run of Channel+GFFW blocks: the run kernel against its plain version
+    and against the 2 N split launches it replaces (their time is split_ms,
+    no library call computes the run)."""
+    e = int(c * 2.5)
+    x = inp(b, h, w, c)
+    blocks = [dict(
+        ln1_w=1.0 + inp(c, scale=0.2), ln1_b=inp(c, scale=0.2),
+        w_qkv=inp(c, 3 * c, scale=c ** -0.5),
+        wd_qkv=inp(3, 3, 3 * c, scale=0.3),
+        temp=1.0 + inp(heads, scale=0.3).abs(),
+        wpo=inp(c, c, scale=c ** -0.5), ln2_w=1.0 + inp(c, scale=0.2),
+        ln2_b=inp(c, scale=0.2), w1=inp(c, 2 * e, scale=c ** -0.5),
+        wd=inp(3, 3, 2 * e, scale=0.3), w2=inp(e, c, scale=e ** -0.5))
+        for _ in range(n_blocks)]
+    got = LV.fused_channel_gffw_run(x, blocks, heads)
+    torch.cuda.synchronize()
+    split = LV.channel_gffw_run_split(x, blocks, heads)
+    err_s, rel_s = rel_err(got, split)
+    del split
+    want = LV.channel_gffw_run_plain(x, blocks, heads)
+    err, rel = rel_err(got, want)
+    del want
+    tol = KERNEL_REL_TOL * n_blocks
+    # one map read, one map written, the weights; per pixel and block the
+    # three chains, the head blocks of the Gram, the norms, v @ po', the
+    # gate chains and pw2
+    px, ctok = b * h * w, c // heads
+    flops = 2.0 * n_blocks * px * (c * 3 * c + 27 * c + c * ctok + 2 * c
+                                   + c * c + c * 2 * e + 18 * e + e * c)
+    weights = [v for blk in blocks for v in blk.values()]
+    b_ms, b_by = bound(numel_bytes(x, got, *weights), flops)
+    return dict(kernel="level_run", case=name, shape=[b, h, w, c],
+                heads=heads, blocks=n_blocks, max_abs_err=err, rel_err=rel,
+                tol_rel=tol, max_abs_err_vs_split=err_s,
+                rel_err_vs_split=rel_s, tol_rel_vs_split=RUN_SPLIT_REL_TOL,
+                ok=(rel <= tol and rel_s <= RUN_SPLIT_REL_TOL
+                    and bool(torch.isfinite(got.float()).all())),
+                ms=cuda_ms(lambda: LV.fused_channel_gffw_run(x, blocks, heads),
+                           iters, 1),
+                split_ms=cuda_ms(
+                    lambda: LV.channel_gffw_run_split(x, blocks, heads),
+                    iters, 1),
+                plain_ms=cuda_ms(
+                    lambda: LV.channel_gffw_run_plain(x, blocks, heads), 1, 0),
+                library_ms=None, bound_ms=b_ms, bound_by=b_by)
+
+
 def attn_v_times(inp: Inputs, h: int, w: int) -> dict:
     """attention @ v of the alignment attention is torch.matmul, as the JAX
     package leaves it to its compiler: its time at the three levels, per
@@ -457,78 +614,124 @@ def attn_v_times(inp: Inputs, h: int, w: int) -> dict:
     return out
 
 
-def kernel_cases(seed: int, h: int, w: int) -> list[dict]:
-    """Every kernel at shapes of the serving path for padded frames of
-    (h, w); the first case of each kernel is the one its row reports."""
-    inp = Inputs(seed)
+def path_cases(inp: Inputs, b: int, h: int, w: int, tag: str = "") -> list:
+    """One case for every kernel instantiation and shape that a model call of
+    `gopro` launches on a batch of b maps of (h, w): whole padded frames
+    (b = 1) or a chunk of tiles. The same tolerances at either size."""
     h2, w2, h3, w3, h4, w4 = h // 2, w // 2, h // 4, w // 4, h // 8, w // 8
+    big = 3  # iterations at the widest maps
+
+    def ffn(name, *a, **kw):
+        return lambda: ffn_case(inp, name + tag, *a, batch=b, **kw)
+
+    def qkv(name, *a, **kw):
+        return lambda: qkv_case(inp, name + tag, *a, batch=b, **kw)
+
+    def split(name, *a, **kw):
+        return lambda: split_case(inp, name + tag, *a, batch=b, **kw)
+
+    def conv(name, *a, **kw):
+        return lambda: conv_case(inp, name + tag, *a, batch=b, **kw)
+
     cases = [
-        lambda: ffn_case(inp, "gate+pair+po(B,C,C) dec3/enc3", h3, w3, 256,
-                         640, "gate", pair=True, po=True),
-        lambda: ffn_case(inp, "gate+pair+po(B,C,C) latent", h4, w4, 512,
-                         1280, "gate", pair=True, po=True),
-        lambda: ffn_case(inp, "gate+pair, no po (FHR) latent", h4, w4, 512,
-                         1280, "gate", pair=True),
-        lambda: ffn_case(inp, "gate, no pair (refinement)", h, w, 64, 160,
-                         "gate", iters=3),
-        lambda: ffn_case(inp, "gelu+scale (refinement RA)", h, w, 64, 128,
-                         "gelu", biases=True, scale=True, iters=3),
-        lambda: ffn_case(inp, "gelu+scale+ffw2 (enc1 RA+FFW)", h, w, 64, 128,
-                         "gelu", biases=True, scale=True, ffw2=True, iters=3),
-        lambda: ffn_case(inp, "gelu+scale+ffw2 (enc2 RA+FFW)", h2, w2, 128,
-                         256, "gelu", biases=True, scale=True, ffw2=True),
+        ffn("gate+pair+po(B,C,C) dec3/enc3", h3, w3, 256, 640, "gate",
+            pair=True, po=True),
+        ffn("gate+pair+po(B,C,C) latent", h4, w4, 512, 1280, "gate",
+            pair=True, po=True),
+        ffn("gate+pair, no po (FHR) latent", h4, w4, 512, 1280, "gate",
+            pair=True),
+        ffn("gate, no pair (refinement)", h, w, 64, 160, "gate", iters=big),
+        ffn("gelu+scale (refinement RA)", h, w, 64, 128, "gelu", biases=True,
+            scale=True, iters=big),
+        ffn("gelu+scale+ffw2 (enc1 RA+FFW)", h, w, 64, 128, "gelu",
+            biases=True, scale=True, ffw2=True, iters=big),
+        ffn("gelu+scale+ffw2 (enc2 RA+FFW)", h2, w2, 128, 256, "gelu",
+            biases=True, scale=True, ffw2=True),
+        qkv("enc3/dec3", h3, w3, 256, 4),
+        qkv("latent", h4, w4, 512, 8),
+        qkv("dec1", h, w, 64, 1, iters=big),
+        split("latent FHR q,k,v", h4, w4, 512, 3),
+        conv("up4_3 512->1024", h4, w4, 512, 1024, False),
+        conv("input 3->64", h, w, 3, 64, False, iters=big),
+        conv("ending 64->3 +bias", h, w, 64, 3, True, iters=big),
+        conv("down1_2 64->32", h, w, 64, 32, False, iters=big),
+        # the remaining kernel instantiations and shapes of the path
+        ffn("gate+pair+po(B,C,C) dec2", h2, w2, 128, 320, "gate", pair=True,
+            po=True),
+        ffn("gate+pair+po(B,C,C) dec1", h, w, 64, 160, "gate", pair=True,
+            po=True, iters=big),
+        qkv("dec2", h2, w2, 128, 2),
+        conv("down2_3 128->64", h2, w2, 128, 64, False),
+        conv("down3_4 256->128", h3, w3, 256, 128, False),
+        conv("up3_2 256->512", h3, w3, 256, 512, False),
+        conv("up2_1 128->256", h2, w2, 128, 256, False),
+    ]
+    # the CHM blocks: the four kernels of the alignment and the routing, and
+    # the shapes they give the FFN (lists), the split projection (two maps)
+    # and the conv (with LayerNorm), level by level
+    for lvl, (s, c, heads, ws, ring) in CHM_LEVELS.items():
+        hl, wl, nf = h // s, w // s, ring + 1
+        it = big if s == 1 else 5
+        cases += [
+            lambda lvl=lvl, hl=hl, wl=wl, c=c, heads=heads, nf=nf: chm_case(
+                inp, lvl + tag, hl, wl, c, heads, nf, batch=b),
+            lambda lvl=lvl, hl=hl, wl=wl, c=c, ws=ws, nf=nf: sab_case(
+                inp, lvl + tag, hl // ws, wl // ws, 2 * c, nf, batch=b),
+            lambda lvl=lvl, hl=hl, wl=wl, c=c, ws=ws, nf=nf, it=it:
+                lattice_case(inp, lvl + tag, hl, wl, c, ws, nf * b, True, it),
+            lambda lvl=lvl, hl=hl, wl=wl, c=c, ws=ws, it=it: lattice_case(
+                inp, lvl + tag, hl, wl, c, ws, b, False, it),
+            ffn(f"gate + {nf} stacked + 1 maps, po(B,C,C) each (CHM {lvl})",
+                hl, wl, c, int(c * 2.5), "gate", stacked=nf, iters=it),
+            split(f"SAB q,k {lvl}", hl, wl, c, 2, it),
+            conv(f"LN + composite v {lvl} {c}->{c}", hl, wl, c, c, False, it,
+                 ln=True),
+        ]
+    return cases
+
+
+def kernel_cases(seed: int, h: int, w: int) -> list[dict]:
+    """Every kernel at the shapes the serving paths give it: whole padded
+    frames of (h, w), then a chunk of tiles (the tiled stream's model call);
+    the first case of each kernel is the one its row reports."""
+    inp = Inputs(seed)
+    h3, w3, h4, w4 = h // 4, w // 4, h // 8, w // 8
+    tb, tl = MAX_TILE_BATCH, TILE
+    cases = path_cases(inp, 1, h, w)
+    # the branch without a depthwise stage: an FFW half alone, and the FFW
+    # pass of enc3 in `gopro_enc3_ffw` (whole-frame only)
+    cases += [
         lambda: ffn_case(inp, "gelu+scale, no dw (an FFW half alone; not on "
                          "the main path)", h, w, 64, 128, "gelu", biases=True,
                          scale=True, dw=False, iters=3),
-        lambda: qkv_case(inp, "enc3/dec3", h3, w3, 256, 4),
-        lambda: qkv_case(inp, "latent", h4, w4, 512, 8),
-        lambda: qkv_case(inp, "dec1", h, w, 64, 1, iters=3),
-        lambda: split_case(inp, "latent FHR q,k,v", h4, w4, 512, 3),
-        lambda: conv_case(inp, "up4_3 512->1024", h4, w4, 512, 1024, False),
-        lambda: conv_case(inp, "input 3->64", h, w, 3, 64, False, iters=3),
-        lambda: conv_case(inp, "ending 64->3 +bias", h, w, 64, 3, True,
-                          iters=3),
-        lambda: conv_case(inp, "down1_2 64->32", h, w, 64, 32, False,
-                          iters=3),
-        # the remaining kernel instantiations and shapes of the main path
-        lambda: ffn_case(inp, "gate+pair+po(B,C,C) dec2", h2, w2, 128, 320,
-                         "gate", pair=True, po=True),
-        lambda: ffn_case(inp, "gate+pair+po(B,C,C) dec1", h, w, 64, 160,
-                         "gate", pair=True, po=True, iters=3),
-        lambda: qkv_case(inp, "dec2", h2, w2, 128, 2),
-        lambda: conv_case(inp, "down2_3 128->64", h2, w2, 128, 64, False),
-        lambda: conv_case(inp, "down3_4 256->128", h3, w3, 256, 128, False),
-        lambda: conv_case(inp, "up3_2 256->512", h3, w3, 256, 512, False),
-        lambda: conv_case(inp, "up2_1 128->256", h2, w2, 128, 256, False),
+        lambda: ffn_case(inp, "gelu+scale, no dw (FFW pass of enc3 in "
+                         "gopro_enc3_ffw)", h3, w3, 256, 512, "gelu",
+                         biases=True, scale=True, dw=False),
     ]
-    # the CHM blocks of `gopro`: the four kernels of the alignment and the
-    # routing, and the new shapes of the FFN (lists), the split projection
-    # (two maps) and the conv (with LayerNorm), level by level
-    for lvl, (s, c, heads, ws, ring) in CHM_LEVELS.items():
-        hl, wl, nf = h // s, w // s, ring + 1
-        it = 3 if s == 1 else 5
-        cases += [
-            lambda lvl=lvl, hl=hl, wl=wl, c=c, heads=heads, nf=nf: chm_case(
-                inp, lvl, hl, wl, c, heads, nf),
-            lambda lvl=lvl, hl=hl, wl=wl, c=c, ws=ws, nf=nf: sab_case(
-                inp, lvl, hl // ws, wl // ws, 2 * c, nf),
-            lambda lvl=lvl, hl=hl, wl=wl, c=c, ws=ws, nf=nf, it=it:
-                lattice_case(inp, lvl, hl, wl, c, ws, nf, True, it),
-            lambda lvl=lvl, hl=hl, wl=wl, c=c, ws=ws, it=it: lattice_case(
-                inp, lvl, hl, wl, c, ws, 1, False, it),
-            lambda lvl=lvl, hl=hl, wl=wl, c=c, nf=nf, it=it: ffn_case(
-                inp, f"gate + {nf} stacked + 1 maps, po(B,C,C) each (CHM "
-                f"{lvl})", hl, wl, c, int(c * 2.5), "gate", stacked=nf,
-                iters=it),
-            lambda lvl=lvl, hl=hl, wl=wl, c=c, it=it: split_case(
-                inp, f"SAB q,k {lvl}", hl, wl, c, 2, it),
-            lambda lvl=lvl, hl=hl, wl=wl, c=c, it=it: conv_case(
-                inp, f"LN + composite v {lvl} {c}->{c}", hl, wl, c, c, False,
-                it, ln=True),
-        ]
+    # tiled streaming, 15 tiles of 320 x 320 a model call: every kernel of
+    # the path again at that batch (grid dimensions, offsets and the partial
+    # rows grow with it; 400 window tokens at each CHM level)
+    cases += path_cases(inp, tb, tl, tl, f", {tb} tiles")
+    # under the fused plan: the runs of Channel+GFFW blocks, and attention @ v
+    # with the merge at the three CHM levels
+    for lvl, (s_, c, heads, n) in RUN_LEVELS.items():
+        cases.append(lambda lvl=lvl, s_=s_, c=c, heads=heads, n=n: run_case(
+            inp, f"{lvl} x{n}, {tb} tiles", tb, tl // s_, tl // s_, c, heads,
+            n))
+    cases.append(lambda: run_case(inp, "latent x9, whole frame", 1, h4, w4,
+                                  512, 8, 9))
+    for lvl, (s_, c, _, ws, ring) in CHM_LEVELS.items():
+        side = tl // s_ // ws
+        cases.append(lambda lvl=lvl, c=c, ws=ws, ring=ring, side=side:
+                     attn_v_case(inp, f"merge {lvl}, {tb} tiles", tb,
+                                 ring + 1, side, side, ws, c))
+    cases.append(lambda: attn_v_case(inp, f"slots dec3, {tb} tiles", tb, 4,
+                                     20, 20, 4, 256, merge=False))
     out = []
     for make in cases:
+        t0 = time.perf_counter()
         res = make()
+        res["case_seconds"] = time.perf_counter() - t0
         emit({"phase": "kernel_case", **res})
         out.append(res)
         torch.cuda.empty_cache()
@@ -566,7 +769,9 @@ def plain_versions():
              "fused_chm_stats": K.chm_stats_plain,
              "sab_attn_probs": S.sab_attn_probs_plain,
              "lattice_split": L.lattice_split_plain,
-             "lattice_merge": L.lattice_merge_plain}
+             "lattice_merge": L.lattice_merge_plain,
+             "sab_attn_v_merge": S.attn_v_merge_plain,
+             "fused_channel_gffw_run": LV.channel_gffw_run_plain}
     saved = []
     for mod in (blocks_mod, turtle_mod):
         for name, fn in plain.items():
@@ -601,13 +806,12 @@ def psnr(a: np.ndarray, b: np.ndarray) -> float:
 
 def options_of(config: str) -> dict:
     opt = load_options(OPTION_FILE, is_train=False)
-    if config == "gopro_t1_fhr":
-        opt.update(GOPRO_T1_FHR)
+    opt.update(CONFIG_OVERRIDES[config])
     return opt
 
 
 def profile_frames(engine: InferenceEngine, frames: list,
-                   untraced_ms: float, config: str) -> None:
+                   untraced_ms: float, config: str, **extra) -> None:
     """Device time by kernel name over a few steady frames, from
     torch.profiler, and the device's idle share: busy time against the ms
     per frame taken WITHOUT the tracer (tracing multiplies the host time)."""
@@ -637,7 +841,8 @@ def profile_frames(engine: InferenceEngine, frames: list,
         tag in k.lower() for tag in ("gemm", "cutlass", "nvjet", "xmma",
                                      "cublas")))
     own = sum(ms for k, ms, _ in rows if "turtle" in k)
-    emit({"phase": "profile", "config": config, "frames": len(frames),
+    emit({"phase": "profile", "config": config, **extra,
+          "frames": len(frames),
           "library_matmul_ms_per_frame": gemm,
           "own_kernels_ms_per_frame": own,
           "wall_ms_per_frame_traced": wall_ms,
@@ -667,13 +872,22 @@ def run_slice(config: str, seed: int, n_frames: int, width: int,
     # device memory is that of the stream, not of the phases before it
     torch.cuda.reset_peak_memory_stats()
     kernels_pkg.reset_launch_counts()
-    outs, times = [], []
+    # two clocks per frame: the host's around the step, and CUDA events
+    # around what the step queued (from its first kernel's start to its last
+    # one's end: the host's share before the upload and after the fetch is
+    # outside them)
+    outs, times, events = [], [], []
     for fr in frames:
         torch.cuda.synchronize()
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
         t0 = time.perf_counter()
+        ev[0].record()
         out = engine.step(fr)
+        ev[1].record()
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
+        events.append(ev[0].elapsed_time(ev[1]))
         outs.append(out)
     counts = kernels_pkg.launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -682,7 +896,7 @@ def run_slice(config: str, seed: int, n_frames: int, width: int,
         require(out.shape == (height, width, 3),
                 f"frame {i}: output shape {out.shape}")
         require(bool(np.isfinite(out).all()), f"frame {i}: non-finite output")
-    for name, per_frame in LAUNCHES_PER_FRAME[config].items():
+    for name, per_frame in LAUNCHES_PER_CALL[config].items():
         require(counts[name] == per_frame * n_frames,
                 f"{name}: {counts[name]} launches over {n_frames} frames, "
                 f"expected {per_frame} per frame")
@@ -707,7 +921,10 @@ def run_slice(config: str, seed: int, n_frames: int, width: int,
         launches=counts, launches_per_frame={
             k: v / n_frames for k, v in counts.items()},
         ms_per_frame=times, ms_per_frame_after_warmup=float(
-            np.mean(times[2:])), plain_ms_per_frame=plain_ms,
+            np.mean(times[2:])), ms_per_frame_min_max=[
+            min(times[2:]), max(times[2:])],
+        event_ms_per_frame=events, event_ms_per_frame_after_warmup=float(
+            np.mean(events[2:])), plain_ms_per_frame=plain_ms,
         psnr_vs_plain_db=psnrs, min_psnr_db=SLICE_MIN_PSNR,
         max_abs_err_vs_plain=max_err, mean_abs_change_of_input=change,
         peak_memory_gib=peak_gb)
@@ -724,24 +941,155 @@ def run_slice(config: str, seed: int, n_frames: int, width: int,
 
 
 # ---------------------------------------------------------------------------
+# tiled streaming through the command line's entry point
+# ---------------------------------------------------------------------------
 
 
-def kernel_rows(cases: list[dict], counts: dict, by_path: dict) -> list[dict]:
+def read_pngs(folder: str, n: int) -> list[np.ndarray]:
+    from PIL import Image
+
+    return [np.asarray(Image.open(os.path.join(
+        folder, f"Frame_{i + 1}_Pred.png")), np.float32) / 255.0
+        for i in range(n)]
+
+
+def run_tiled(seed: int, width: int, height: int, trace: bool) -> dict:
+    """`gopro` tiled at the deblur preset through cli.infer.main, under both
+    plans, against the plain versions on the card. The weights are a
+    state_dict file written from the seed (scales drawn), the frames a folder
+    of PNGs; main builds the model, the tiled engine and the loop itself."""
+    from PIL import Image
+
+    n = TILED_FRAMES
+    work = tempfile.mkdtemp(prefix="chip_smoke_tiled_")
+    by_plan = {}
+    try:
+        model = build_model(options_of("gopro"), device="cuda",
+                            generator=torch.Generator().manual_seed(seed))
+        randomise_scales(model, seed + 1)
+        weights = os.path.join(work, "weights.pth")
+        torch.save(model.state_dict(), weights)
+        del model
+        video = os.path.join(work, "frames", "video0")
+        os.makedirs(video)
+        for i, fr in enumerate(make_frames(seed + 2, n, height, width)):
+            Image.fromarray((fr * 255.0).round().astype(np.uint8)).save(
+                os.path.join(video, f"{i:05d}.png"))
+
+        def cli(tag: str, fuse: tuple) -> dict:
+            argv = ["-opt", OPTION_FILE, "--tile", str(TILE), "--tile_overlap",
+                    str(TILE_OVERLAP), "--model_path", weights, "--data_dir",
+                    os.path.join(work, "frames"), "--no_gt", "--max_frames",
+                    str(n), "--save_path", os.path.join(work, tag)]
+            if fuse:
+                argv += ["--fuse", *fuse]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            kernels_pkg.reset_launch_counts()
+            with contextlib.redirect_stdout(sys.stderr):  # its own report
+                res = infer_cli.main(argv)
+            torch.cuda.synchronize()
+            res["launches"] = kernels_pkg.launch_counts()
+            res["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+            res["outs"] = read_pngs(os.path.join(work, tag, "video0"), n)
+            torch.cuda.empty_cache()
+            return res
+
+        with plain_versions():
+            plain = cli("plain", ())
+        require(not any(plain["launches"].values()),
+                "the plain run must launch no kernel")
+        eng = InferenceEngine.__new__(InferenceEngine)
+        eng.tile, eng.tile_overlap = TILE, TILE_OVERLAP
+        _, _, t, his, wis = eng.tile_plan(height, width)
+        n_tiles = len(his) * len(wis)
+        calls = -(-n_tiles // MAX_TILE_BATCH)  # model calls per frame
+        for tag, fuse in (("tiled", ()), ("tiled_fused", FUSED_PLAN)):
+            res = cli(tag, fuse)
+            require(res["frames"] == n, f"{tag}: {res['frames']} frames")
+            # an output's copy to the host is queued behind the next frame's
+            # kernels (one stream), so fetch i returns when frame i + 1 is
+            # done and the last two fetches come together: the times of
+            # frames 2 .. n - 1 are the differences but the last
+            clock = res["fetch_clock"]
+            ms = [(b - a) * 1e3 for a, b in zip(clock, clock[1:])]
+            psnrs = [psnr(a, b) for a, b in zip(res["outs"], plain["outs"])]
+            for i, out in enumerate(res["outs"]):
+                require(out.shape == (height, width, 3),
+                        f"{tag} frame {i}: output shape {out.shape}")
+            want = LAUNCHES_PER_CALL["gopro_fused" if fuse else "gopro"]
+            for name, per_call in want.items():
+                require(res["launches"][name] == per_call * calls * n,
+                        f"{tag} {name}: {res['launches'][name]} launches "
+                        f"over {n} frames of {calls} model calls, expected "
+                        f"{per_call} per call")
+            out = dict(
+                phase="tiled", config="gopro", plan=list(fuse),
+                entry="turtlevsr_tpu_torch.cli.infer.main",
+                frame=[height, width, 3], tile=t, tile_overlap=TILE_OVERLAP,
+                tiles=n_tiles, max_tile_batch=MAX_TILE_BATCH,
+                model_calls_per_frame=calls, dtype="bfloat16", frames=n,
+                launches=res["launches"], launches_per_frame={
+                    k: v / n for k, v in res["launches"].items()},
+                ms_between_fetches=ms,
+                ms_per_frame_after_warmup=float(np.mean(ms[:-1])),
+                ms_per_frame_min_max=[min(ms[:-1]), max(ms[:-1])],
+                fps_end_to_end=res["frames"] / res["seconds"],
+                fps_device_loop=res["frames"] / res["device_loop_seconds"],
+                plain_fps_device_loop=plain["frames"]
+                / plain["device_loop_seconds"],
+                psnr_vs_plain_db=psnrs, min_psnr_db=SLICE_MIN_PSNR,
+                max_abs_err_vs_plain=max(float(np.abs(a - b).max()) for a, b
+                                         in zip(res["outs"], plain["outs"])),
+                peak_memory_gib=res["peak_memory_gib"])
+            emit(out)
+            require(min(psnrs) >= SLICE_MIN_PSNR,
+                    f"{tag}: kernel path and plain path disagree: PSNR "
+                    f"{psnrs}")
+            by_plan[tag] = out
+        if trace:
+            for tag, fuse in (("tiled", ()), ("tiled_fused", FUSED_PLAN)):
+                model = build_model(options_of("gopro"), device="cuda",
+                                    fuse=fuse)
+                model.load_state_dict(torch.load(weights, weights_only=True))
+                engine = InferenceEngine(
+                    model, mode="tiled", tile=TILE, tile_overlap=TILE_OVERLAP,
+                    max_tile_batch=MAX_TILE_BATCH, dtype=torch.bfloat16)
+                frames = make_frames(seed + 2, 4, height, width)
+                for fr in frames[:2]:
+                    engine.step(fr)
+                profile_frames(engine, frames[2:],
+                               by_plan[tag]["ms_per_frame_after_warmup"],
+                               "gopro", mode="tiled", plan=list(fuse))
+                del engine, model
+                torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return by_plan
+
+
+# ---------------------------------------------------------------------------
+
+
+def kernel_rows(cases: list[dict], by_path: dict) -> list[dict]:
     rows = []
     for name, (source, replaces) in KERNEL_INFO.items():
         mine = [c for c in cases if c["kernel"] == name]
         head = mine[0]
+        counters = ("attn_v_merge", "attn_v_slots") if name == "attn_v" else (
+            name,)
+        per_path = {p: sum(c[k] for k in counters) for p, c in by_path.items()}
         rows.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=counts[name],
-            launches_by_path={p: c[name] for p, c in by_path.items()},
+            launches=sum(per_path.values()), launches_by_path=per_path,
             max_abs_err=max(c["max_abs_err"] for c in mine),
             ms=head["ms"], plain_ms=head["plain_ms"],
             bound_ms=head["bound_ms"], bound_by=head["bound_by"],
             library_ms=head["library_ms"], case=head["case"],
             cases=[{k: c[k] for k in ("case", "ms", "plain_ms", "bound_ms",
                                       "bound_by", "library_ms",
-                                      "max_abs_err", "rel_err")}
+                                      "max_abs_err", "rel_err", "split_ms",
+                                      "rel_err_vs_split") if k in c}
                    for c in mine]))
     return rows
 
@@ -749,14 +1097,16 @@ def kernel_rows(cases: list[dict], counts: dict, by_path: dict) -> list[dict]:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--frames", type=int, default=6,
-                    help="frames of `gopro`; `gopro_t1_fhr` streams 4")
+                    help="frames of `gopro` and of `gopro_t1_fhr`")
     ap.add_argument("--size", default="1280x720", help="WIDTHxHEIGHT")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--phase", default="all",
-                    choices=("all", "build", "kernels", "slice"))
+                    choices=("all", "build", "kernels", "slice", "tiled"))
     ap.add_argument("--profile", action="store_true",
-                    help="after the slice, trace 3 more frames with "
-                         "torch.profiler: device time by kernel, idle share")
+                    help="after `gopro` and `gopro_t1_fhr` (whole-frame) and "
+                         "`gopro` tiled under each plan, trace a few more "
+                         "frames with torch.profiler: device time by kernel, "
+                         "idle share")
     ap.add_argument("--ptxas", action="store_true",
                     help="print nvcc's register and shared-memory report")
     args = ap.parse_args(argv)
@@ -785,32 +1135,55 @@ def main(argv=None) -> int:
               "flags": list(build.NVCC_FLAGS)})
         hp, wp = turtle_mod.padded_hw(
             model_config_from_options(options_of("gopro")), height, width)
-        cases, counts, by_path = [], {}, {}
+        cases, by_path = [], {}
         if args.phase in ("all", "kernels"):
             cases = kernel_cases(args.seed, hp, wp)
             bad = [c["case"] for c in cases if not c["ok"]]
             require(not bad, f"kernels disagree with their plain versions: "
                              f"{bad}")
         if args.phase in ("all", "slice"):
-            # the earlier path first (4 frames wrap its 3-frame ring), then
-            # this slice's main path
-            for config, n in (("gopro_t1_fhr", 4), ("gopro", args.frames)):
+            # the earlier slices' paths (the frames wrap the 3-frame rings),
+            # then the FFW pass of the kernel without a depthwise stage
+            for config, n in (("gopro_t1_fhr", args.frames),
+                              ("gopro", args.frames), ("gopro_enc3_ffw", 4)):
                 by_path[config] = run_slice(
                     config, args.seed, n, width, height,
-                    trace=args.profile and config == "gopro")["launches"]
-            counts = by_path["gopro"]
+                    trace=args.profile and config != "gopro_enc3_ffw"
+                )["launches"]
+        if args.phase in ("all", "tiled"):
+            # this slice's main path, under both plans
+            for tag, res in run_tiled(args.seed, width, height,
+                                      args.profile).items():
+                by_path[tag] = res["launches"]
         if args.phase == "all":
-            for name in KERNEL_INFO:
-                require(counts.get(name, 0) > 0,
-                        f"the main path never launched {name}")
-            for name in ("ffn", "qkv_stats", "split_proj", "conv3x3"):
-                require(by_path["gopro_t1_fhr"][name] > 0,
-                        f"the gopro_t1_fhr path never launched {name}")
+            # every path launched the kernels that lie on it (the exact
+            # counts were held above); attn_v_slots is the second epilogue of
+            # the kernel that attn_v_merge launches and has no caller of its
+            # own in the model
+            on_path = {
+                "gopro_t1_fhr": ("ffn", "qkv_stats", "split_proj", "conv3x3"),
+                "gopro": ("ffn", "qkv_stats", "split_proj", "conv3x3",
+                          "chm_stats", "sab", "lattice_merge",
+                          "lattice_split"),
+                "gopro_enc3_ffw": ("ffn_no_dw",),
+                "tiled": ("ffn", "qkv_stats", "split_proj", "conv3x3",
+                          "chm_stats", "sab", "lattice_merge",
+                          "lattice_split"),
+                "tiled_fused": ("ffn", "qkv_stats", "split_proj", "conv3x3",
+                                "chm_stats", "sab", "lattice_split",
+                                "attn_v_merge", "level_run"),
+            }
+            for path, names in on_path.items():
+                for name in names:
+                    require(by_path[path][name] > 0,
+                            f"the {path} path never launched {name}")
+            require(by_path["tiled_fused"]["lattice_merge"] == 0,
+                    "the fused plan still launched lattice_merge")
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
-    if cases and counts:  # launches are those of this run's main path
-        emit({"kernels": kernel_rows(cases, counts, by_path)})
+    if cases and len(by_path) == 5:  # launches are those of this run's paths
+        emit({"kernels": kernel_rows(cases, by_path)})
     print(smi_line, flush=True)
     emit({"ok": True,
           "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from torch_port_util import (
+    ATTN_V_KERNEL_SHAPES,
     CHM_KERNEL_SHAPES,
     CONV_KERNEL_SHAPES,
     CONV_LN_KERNEL_SHAPES,
@@ -20,20 +21,24 @@ from torch_port_util import (
     FFN_LIST_CASES,
     KERNEL_TOL,
     LATTICE_KERNEL_SHAPES,
+    LEVEL_KERNEL_SHAPES,
     QKV_KERNEL_SHAPES,
     SAB_KERNEL_SHAPES,
     SPLIT_KERNEL_SHAPES,
     Maker,
+    attn_v_kernel_case,
     chain_kernel_case,
     chm_kernel_case,
     ffn_kernel_case,
     ffn_list_case,
+    level_kernel_case,
     max_err,
     sab_compare,
     sab_kernel_case,
 )
 from turtlevsr_tpu_torch.kernels import ffn as K
 from turtlevsr_tpu_torch.kernels import lattice as L
+from turtlevsr_tpu_torch.kernels import level as LV
 from turtlevsr_tpu_torch.kernels import sab as S
 
 pytestmark = pytest.mark.cuda
@@ -222,6 +227,73 @@ def test_lattice_kernels_match_plain(dev, shape, dtype):
     assert torch.equal(back, L.lattice_merge_plain(tok, ws, hh * ws, ww * ws))
 
 
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", ATTN_V_KERNEL_SHAPES)
+def test_attn_v_kernel_matches_plain(dev, shape, dtype):
+    """Both epilogues of the attention @ values kernel: the slots layout and
+    the merged maps, values read from ring views or from their own tensors,
+    query rows and keys that do not fill the 64-row tiles."""
+    b, nf, hh, ww, ws, c, _ = shape
+    a, vs = attn_v_kernel_case(Maker(12, dtype, dev), *shape)
+    h, w = hh * ws, ww * ws
+    before = S.sab_attn_v_merge.launches, S.sab_attn_v_slots.launches
+    maps = S.sab_attn_v_merge(a, vs, ws, h, w)
+    slots = S.sab_attn_v_slots(a, vs, c)
+    torch.cuda.synchronize()
+    assert (S.sab_attn_v_merge.launches, S.sab_attn_v_slots.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert maps.shape == (b * nf, h, w, c)
+    assert slots.shape == (b * nf, ws * ws, hh * ww, c)
+    tol = 1e-5 if dtype == torch.float32 else 2.0 ** -7 * 4
+    assert max_err(maps, S.attn_v_merge_plain(a, vs, ws, h, w)) <= tol
+    assert max_err(slots, S.attn_v_slots_plain(a, vs, c)) <= tol
+    # the merge is the lattice merge of the token product, bit for bit
+    tok = slots.permute(0, 2, 1, 3).reshape(b * nf, hh * ww, -1)
+    assert torch.equal(maps, L.lattice_merge_plain(tok, ws, h, w))
+    out = torch.full_like(maps, 7.0)
+    assert S.sab_attn_v_merge(a, vs, ws, h, w, out=out) is out
+    torch.cuda.synchronize()
+    assert torch.equal(out, maps)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", LEVEL_KERNEL_SHAPES)
+def test_level_run_kernel_matches_plain_and_split(dev, shape, dtype):
+    """The run kernel against its plain version and, with a tighter limit,
+    against the split kernels it shares its device code with."""
+    if shape[3] > 128 and dtype == torch.float32:
+        pytest.skip("the float32 kernels are built for C <= 128")
+    x, blocks = level_kernel_case(Maker(13, dtype, dev), *shape)
+    heads = shape[5]
+    before = LV.fused_channel_gffw_run.launches
+    got = LV.fused_channel_gffw_run(x, blocks, heads)
+    torch.cuda.synchronize()
+    assert LV.fused_channel_gffw_run.launches == before + 1
+    assert got.shape == x.shape and bool(torch.isfinite(got.float()).all())
+    want = LV.channel_gffw_run_plain(x, blocks, heads)
+    split = LV.channel_gffw_run_split(x, blocks, heads)
+    torch.cuda.synchronize()
+    n = len(blocks)
+    assert max_err(got, want) <= KERNEL_TOL[dtype] * n
+    # same device code, same rounding points: only the softmax's exp and
+    # divide differ (the card's against the library's)
+    assert max_err(got, split) <= (1e-5 if dtype == torch.float32
+                                   else KERNEL_TOL[dtype] / 4) * n
+    again = LV.fused_channel_gffw_run(x, blocks, heads)
+    torch.cuda.synchronize()  # fixed-order sums: bitwise repeatable
+    assert torch.equal(got, again)
+
+
+def test_level_run_longer_than_one_launch(dev):
+    shape = (1, 8, 8, 16, 8, 1, LV.MAX_RUN + 2, True)
+    x, blocks = level_kernel_case(Maker(14, torch.float32, dev), *shape)
+    before = LV.fused_channel_gffw_run.launches
+    got = LV.fused_channel_gffw_run(x, blocks, 1)
+    torch.cuda.synchronize()
+    assert LV.fused_channel_gffw_run.launches == before + 2
+    assert max_err(got, LV.channel_gffw_run_plain(x, blocks, 1)) <= 1e-3
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     m = Maker(4, torch.bfloat16, dev)
     x = m(1, 8, 8, 16)
@@ -247,3 +319,15 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="shared memory"):
         S.sab_attn_probs(m(1, 20000, 16), m(1, 1, 20000, 16), torch.ones(1),
                          grid_wq=200)
+    a = m(2, 8, 8)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        S.sab_attn_v_slots(a, m(2, 8, 24), 12)
+    with pytest.raises(ValueError, match="contiguous"):
+        S.sab_attn_v_merge(a, m(2, 8, 64)[:, :, ::2], 2, 4, 8)
+    with pytest.raises(ValueError, match="do not give"):
+        S.sab_attn_v_merge(a, m(2, 8, 32), 2, 4, 6)
+    xl, blocks = level_kernel_case(m, 1, 8, 8, 16, 8, 2, 2, True)
+    with pytest.raises(ValueError, match="shape"):
+        LV.fused_channel_gffw_run(xl, [dict(blocks[0], wpo=m(16, 8))], 2)
+    with pytest.raises(ValueError, match="C / heads"):
+        LV.fused_channel_gffw_run(xl, blocks, 3)

@@ -304,7 +304,8 @@ def test_launch_counters_do_not_count_plain_runs():
     K.fused_conv3x3(t(x), t(rng.standard_normal((3, 3, 8, 4))))
     assert KP.launch_counts() == {
         "ffn": 0, "qkv_stats": 0, "split_proj": 0, "conv3x3": 0,
-        "chm_stats": 0, "sab": 0, "lattice_merge": 0, "lattice_split": 0}
+        "chm_stats": 0, "sab": 0, "lattice_merge": 0, "lattice_split": 0,
+        "attn_v_slots": 0, "attn_v_merge": 0, "level_run": 0, "ffn_no_dw": 0}
 
 
 def _no_dw(p):

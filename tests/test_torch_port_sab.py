@@ -1,7 +1,7 @@
 """Port vs JAX package: the alignment attention of the causal history model
 (CHM): the probabilities (scores, top-5, local mask, clipped softmax,
-validity), the lattice permutation, the SAB ring and the plain tensor
-functions under them. On the CPU the port's wrappers run their plain
+validity), their product with the window values (slot-tiled and merged), the
+lattice permutation, the SAB ring and the plain tensor functions under them. On the CPU the port's wrappers run their plain
 versions; the Pallas kernels run in interpret mode."""
 
 import jax.numpy as jnp
@@ -10,9 +10,11 @@ import pytest
 import torch
 
 from torch_port_util import (
+    ATTN_V_KERNEL_SHAPES,
     LATTICE_KERNEL_SHAPES,
     SAB_KERNEL_SHAPES,
     Maker,
+    attn_v_kernel_case,
     close,
     sab_kernel_case,
     t,
@@ -302,3 +304,90 @@ def test_local_window_mask(hw):
     rows = slice(2, 5)
     assert np.array_equal(
         tau.local_window_mask(h, w, 4, rows=rows).numpy(), want[rows])
+
+
+# ---------------------------------------------------------------------------
+# attention @ values: the slot-tiled product and the fused lattice merge
+# ---------------------------------------------------------------------------
+
+
+def _np(x):
+    return x.double().numpy()
+
+
+@pytest.mark.parametrize("shape", ATTN_V_KERNEL_SHAPES)
+def test_attn_v_float64_against_numpy_and_the_jax_merge(shape):
+    """The plain versions in float64 against numpy's einsum, the slots as
+    slices of it and the merge through the JAX package's _lattice_merge (its
+    plain twin _av_merge_xla casts to float32)."""
+    b, nf, hh, ww, ws, c, _ = shape
+    a, vs = attn_v_kernel_case(Maker(20, torch.float64), *shape)
+    h, w, hw = hh * ws, ww * ws, hh * ww
+    v_all = np.stack([_np(v) for v in vs], axis=1).reshape(b * nf, hw, -1)
+    tok = np.einsum("nqk,nkd->nqd", _np(a), v_all)
+    slots = S.sab_attn_v_slots(a, vs, c)
+    assert slots.shape == (b * nf, ws * ws, hw, c)
+    for s_ in range(ws * ws):
+        close(slots[:, s_], tok[..., s_ * c:(s_ + 1) * c], ATOL64)
+    maps = S.sab_attn_v_merge(a, vs, ws, h, w)
+    close(maps, JB._lattice_merge(jnp.asarray(tok), ws, h, w), ATOL64)
+    # one stacked tensor is the list of one
+    close(S.sab_attn_v_merge(a, t(v_all), ws, h, w), _np(maps), 0)
+    out = torch.zeros_like(maps)
+    assert S.sab_attn_v_merge(a, vs, ws, h, w, out=out) is out
+    close(out, _np(maps), 0)
+
+
+@pytest.mark.parametrize("c,ws", [(128, 2), (64, 2), (64, 4)],
+                         ids=["c128", "c64_pair", "c64_ws4"])
+def test_attn_v_float32_against_the_pallas_kernels_interpreted(c, ws):
+    """Rows 10 and 11 of the kernel table in interpret mode: slot widths of
+    128 (one product per slot) and 64 (the TPU's pair mode, whose even and odd
+    slots come back apart)."""
+    bn, hh, ww = 2, 2, 4
+    hw, h, w = hh * ww, hh * ws, ww * ws
+    m = Maker(21, torch.float32)
+    a, vs = attn_v_kernel_case(m, bn, 1, hh, ww, ws, c, False)
+    v = vs[0]
+    assert jsab.sab_av_slots_supported(hw, ws * ws * c, c)
+    ja, jv = jnp.asarray(a.numpy()), jnp.asarray(v.numpy())
+    want_slots = jsab.sab_attn_v_slots(ja, jv, c, interpret=True)
+    got_slots = S.sab_attn_v_slots(a, v, c)
+    if c == 64:  # (even slots, odd slots) -> slot order
+        oe, oo = (np.asarray(x) for x in want_slots)
+        want_slots = np.stack([oe, oo], axis=2).reshape(bn, -1, hw, c)
+    close(got_slots, want_slots, ATOL32 * 10)
+    want = jsab.sab_attn_v_merge(ja, jv, ws, h, w, interpret=True)
+    got = S.sab_attn_v_merge(a, v, ws, h, w)
+    assert got.shape == (bn, h, w, c) and got.dtype == torch.float32
+    close(got, want, ATOL32 * 10)
+
+
+def test_attn_v_bfloat16_rounds_once():
+    a, vs = attn_v_kernel_case(Maker(22, torch.bfloat16), 1, 2, 3, 4, 2, 8,
+                               True)
+    got = S.sab_attn_v_merge(a, vs, 2, 6, 8)
+    a64, v64 = a.double(), [v.double() for v in vs]
+    want = S.sab_attn_v_merge(a64, v64, 2, 6, 8).to(torch.bfloat16)
+    assert got.dtype == torch.bfloat16
+    # fp32 sums of exact products, rounded once: at most one ulp apart
+    assert (got.float() - want.float()).abs().max() <= 2.0 ** -7 * float(
+        want.float().abs().max())
+
+
+def test_attn_v_wrappers_check_their_shapes():
+    a = torch.rand(4, 6, 6)
+    with pytest.raises(ValueError, match="do not divide"):
+        S.sab_attn_v_merge(a, [torch.rand(1, 6, 32)] * 3, 2, 4, 6)
+    with pytest.raises(ValueError, match="each v must be"):
+        S.sab_attn_v_merge(a, [torch.rand(2, 5, 32)] * 2, 2, 4, 6)
+    with pytest.raises(ValueError, match="do not give"):
+        S.sab_attn_v_merge(a, torch.rand(4, 6, 32), 2, 6, 6)
+    with pytest.raises(ValueError, match="must divide"):
+        S.sab_attn_v_slots(a, torch.rand(4, 6, 32), 12)
+    with pytest.raises(ValueError, match="out must be"):
+        S.sab_attn_v_merge(a, torch.rand(4, 6, 32), 2, 4, 6,
+                           out=torch.zeros(4, 4, 6, 4))
+    with pytest.raises(RuntimeError, match="CUDA tensors only"):
+        S.sab_attn_v_merge(a.to("meta"), torch.rand(4, 6, 32).to("meta"), 2,
+                           4, 6)

@@ -245,3 +245,49 @@ def sab_compare(got, want):
     same = ((got != 0) == (want != 0)).all(dim=-1)
     err = ((got - want).abs().amax(dim=-1) * same).max().item()
     return 1.0 - same.float().mean().item(), err
+
+
+# ---------------------------------------------------------------------------
+# Cases of the run kernel (a run of Channel + gated-FFN blocks) and of the
+# attention @ values kernel
+# ---------------------------------------------------------------------------
+
+# (B, H, W, C, E, heads, blocks of the run, ln_bias)
+LEVEL_KERNEL_SHAPES = [(2, 11, 13, 16, 20, 2, 3, True),
+                       (1, 8, 9, 48, 24, 1, 2, False),
+                       (1, 9, 8, 128, 40, 2, 1, True),
+                       (3, 16, 16, 32, 16, 4, 4, True),
+                       (1, 10, 10, 144, 16, 3, 2, False)]
+# (B, NF, hh, ww, ws, C, v as views of one ring buffer)
+ATTN_V_KERNEL_SHAPES = [(1, 1, 3, 5, 2, 8, False), (2, 3, 5, 8, 2, 16, True),
+                        (1, 2, 2, 2, 4, 64, True), (1, 4, 9, 7, 2, 40, False),
+                        (2, 1, 10, 10, 2, 128, True)]
+
+
+def level_kernel_case(m: Maker, b, h, w, c, e, heads, n_blocks, ln_bias):
+    """(x, blocks) of fused_channel_gffw_run: one dict of bias-free kernel
+    layout weights per block of the run."""
+    blocks = [dict(
+        ln1_w=1.0 + m(c, scale=0.2), ln1_b=m(c, scale=0.2) if ln_bias else None,
+        w_qkv=m(c, 3 * c, scale=c ** -0.5), wd_qkv=m(3, 3, 3 * c, scale=0.3),
+        temp=1.0 + 0.5 * m(heads).abs(), wpo=m(c, c, scale=c ** -0.5),
+        ln2_w=1.0 + m(c, scale=0.2), ln2_b=m(c, scale=0.2) if ln_bias else None,
+        w1=m(c, 2 * e, scale=c ** -0.5), wd=m(3, 3, 2 * e, scale=0.3),
+        w2=m(e, c, scale=e ** -0.5)) for _ in range(n_blocks)]
+    return m(b, h, w, c, scale=0.5), blocks
+
+
+def attn_v_kernel_case(m: Maker, b, nf, hh, ww, ws, c, ring: bool):
+    """(a (B * NF, HW, HW) sparse rows that sum to one, the list of NF value
+    tensors (B, HW, ws * ws * C))."""
+    hw, d = hh * ww, ws * ws * c
+    a = torch.from_numpy(m.rng.rand(b * nf, hw, hw).astype(np.float32))
+    a = a * (a > 0.7)  # most entries zero, as the clipped softmax leaves them
+    a = a / a.sum(dim=-1, keepdim=True).clamp_min(1e-6)
+    a = a.to(m.device, m.dtype)
+    if ring:  # ring positions are views with the ring's batch stride
+        buf = m(b, nf, hw, d)
+        vs = [buf[:, i] for i in range(nf)]
+    else:
+        vs = [m(b, hw, d) for _ in range(nf)]
+    return a, vs

@@ -20,7 +20,7 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
 KERNEL_SOURCES = ("ffn", "qkv_stats", "split_proj", "conv3x3", "chm_stats",
-                  "sab", "lattice")
+                  "sab", "lattice", "level", "attn_v")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -52,6 +52,9 @@ _SIGNATURES = {
     "lattice": {"turtle_lattice_launch": (
         [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 6
         + [ctypes.c_void_p], ctypes.c_int)},
+    "level": {"turtle_level_launch": (_LAUNCH_ARGS, ctypes.c_int),
+              "turtle_level_smem": ([ctypes.c_int] * 3, ctypes.c_size_t)},
+    "attn_v": {"turtle_attn_v_launch": (_LAUNCH_ARGS, ctypes.c_int)},
 }
 
 
@@ -67,8 +70,12 @@ def find_nvcc() -> str:
 
 
 def _lib_path(name: str) -> str:
+    """The library's path carries a hash of the flags, of ``<name>.cu`` and
+    of every header of ``csrc/`` (a source may include any of them), so a
+    changed source or header never meets a stale library."""
     h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
-    for fn in (name + ".cu", "common.cuh"):
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for fn in (name + ".cu", *headers):
         with open(os.path.join(CSRC_DIR, fn), "rb") as f:
             h.update(f.read())
     return os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:12]}.so")

@@ -14,87 +14,17 @@
 // bound by operations (2*C*3C flop per pixel against one map read and one
 // third of a map written); the chains run as mma.sync warp tiles as in ffn.cu,
 // the tile's small Gram (64 pixels deep) as FMA.
-#include "common.cuh"
+#include "qkv_tile.cuh"
 
 namespace turtle {
 
-struct QkvArgs {
-  const void *x, *ln_w, *ln_b, *w1, *b1, *wd, *bd;
-  void* v;
-  float* part;  // (B, n_tiles, width)
-  int B, H, W, C, heads;
-};
-
+// __grid_constant__: the tile code takes the arguments by reference; without
+// it the compiler copies them to local memory first, which cost the wide
+// levels 8-22 % of their time on an H100.
 template <class T, int CR>
-__global__ void __launch_bounds__(NT) qkv_stats_kernel(QkvArgs a) {
+__global__ void __launch_bounds__(NT) qkv_stats_kernel(const __grid_constant__ QkvArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int C = a.C, CH = 3 * a.C, H = a.H, W = a.W, heads = a.heads;
-  const int ctok = C / heads;
-  const int tid = threadIdx.x;
-  const int tiles_x = (W + TS - 1) / TS;
-  const int n_tiles = gridDim.x;
-  const int b = blockIdx.y;
-  const int y0 = (blockIdx.x / tiles_x) * TS, x0 = (blockIdx.x % tiles_x) * TS;
-
-  // shared memory: xn T[NPH*(C+XPAD)] | hid f32[NPH*HS] | qs, ks f32[P*ctok]
-  T* xn = reinterpret_cast<T*>(smem);
-  float* hid = reinterpret_cast<float*>(xn + NPH * (C + XPAD));
-  float* qs = hid + NPH * HS;
-  float* ks = qs + P * ctok;
-
-  const size_t boff = (size_t)b * H * W * C;
-  const T* x = static_cast<const T*>(a.x) + boff;
-  ln_prologue<T, CR>(x, static_cast<const T*>(a.ln_w), static_cast<const T*>(a.ln_b), H, W, C,
-                     y0, x0, xn);
-
-  const T* w1 = static_cast<const T*>(a.w1);
-  const T* b1 = static_cast<const T*>(a.b1);
-  const T* wd = static_cast<const T*>(a.wd);
-  const T* bd = static_cast<const T*>(a.bd);
-  const int width = heads * ctok * ctok + 2 * C;
-  float* row = a.part + ((size_t)b * n_tiles + blockIdx.x) * width;
-
-  for (int h = 0; h < heads; ++h) {
-    for (int part = 0; part < 2; ++part) {
-      float* dst = part == 0 ? qs : ks;
-      // one chunk holds the head's ctok <= 64 channels of q (or k)
-      const int cbase = part * C + h * ctok;
-      const ChunkCols cols = {cbase, min(ctok, SEG), cbase + SEG, max(ctok - SEG, 0)};
-      pw1_chunk<T>(xn, w1, b1, H, W, C, CH, y0, x0, cols, hid);
-      __syncthreads();
-      for (int item = tid; item < HC * TS; item += NT) {
-        const int col = item % HC, px = item / HC;
-        if (col >= ctok) continue;
-        float v[TS];
-        dw_column<T>(hid, wd, bd, CH, px, col, cbase + col, v);
-#pragma unroll
-        for (int py = 0; py < TS; ++py) {
-          const bool inside = y0 + py < H && x0 + px < W;
-          dst[(py * TS + px) * ctok + col] = inside ? round_to<T>(v[py]) : 0.f;
-        }
-      }
-      __syncthreads();
-    }
-    for (int idx = tid; idx < ctok * ctok; idx += NT) {
-      const int i = idx / ctok, j = idx % ctok;
-      float s = 0.f;
-      for (int p = 0; p < P; ++p) s += qs[p * ctok + i] * ks[p * ctok + j];
-      row[h * ctok * ctok + idx] = s;
-    }
-    for (int idx = tid; idx < 2 * ctok; idx += NT) {
-      const int part = idx / ctok, i = idx % ctok;
-      const float* src = part == 0 ? qs : ks;
-      float s = 0.f;
-      for (int p = 0; p < P; ++p) s += src[p * ctok + i] * src[p * ctok + i];
-      row[heads * ctok * ctok + part * C + h * ctok + i] = s;
-    }
-    __syncthreads();
-  }
-
-  T* v = static_cast<T*>(a.v) + boff;
-  for (int cb = 0; cb < C; cb += HC)
-    linear_chunk_to_global<T>(xn, w1, b1, wd, bd, H, W, C, CH, y0, x0, 2 * C + cb,
-                              min(HC, C - cb), hid, v, C, cb);
+  qkv_tile<T, CR>(a, blockIdx.y, blockIdx.x, gridDim.x, smem);
 }
 
 // dst[b][g][i] = sum over rows r in group g of src[b][r][i], rows taken in
@@ -137,9 +67,7 @@ static int dispatch_qkv(const QkvArgs& a, size_t smem, cudaStream_t stream) {
 }  // namespace turtle
 
 extern "C" size_t turtle_qkv_stats_smem(int C, int heads, int is_bf16) {
-  using namespace turtle;
-  return (size_t)NPH * (C + XPAD) * (is_bf16 ? 2 : 4) + (size_t)NPH * HS * 4 +
-         (size_t)2 * P * (C / heads) * 4;
+  return turtle::qkv_tile_smem(C, heads, is_bf16);
 }
 
 // ptrs: x, ln_w, ln_b, w1 (C, 3C), b1, wd (3, 3, 3C), bd, v, part

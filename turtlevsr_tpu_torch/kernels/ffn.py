@@ -12,7 +12,9 @@ package's reference chains and in bf16 they differ from the kernels only by
 the order of fp32 sums.
 
 Every wrapper counts its kernel launches in ``<wrapper>.launches``
-(``turtlevsr_tpu_torch.kernels.launch_counts`` reads them all).
+(``turtlevsr_tpu_torch.kernels.launch_counts`` reads them all);
+``fused_block_ffn.launches_no_dw`` counts those of them that ran the branch
+without a depthwise stage.
 """
 
 from __future__ import annotations
@@ -381,6 +383,7 @@ def _ffn_launch(x, x2, po_w, po_b, ln_w, ln_b, w1, b1, wd, bd, w2, b2, scale,
           [b, h, w, c, ch, e, f, int(mode == "gate"), int(po_batched), n_x2,
            *x2_strides], x, "fused_block_ffn")
     fused_block_ffn.launches += 1
+    fused_block_ffn.launches_no_dw += wd is None
     return out
 
 
@@ -415,6 +418,7 @@ def fused_block_ffn(x, *, x2=None, po_w=None, po_b=None, ln_w, ln_b=None,
 
 
 fused_block_ffn.launches = 0
+fused_block_ffn.launches_no_dw = 0  # those of them without a depthwise stage
 
 
 # ---------------------------------------------------------------------------

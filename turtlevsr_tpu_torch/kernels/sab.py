@@ -1,10 +1,13 @@
-"""Attention probabilities of the StateAlignBlock (t1): scores, top-5, local
-mask, clipped softmax and frame validity.
+"""The attention of the StateAlignBlock (t1): its probabilities (scores,
+top-5, local mask, clipped softmax, frame validity) and their product with
+the window values, stored slot by slot or straight as merged maps.
 
-``sab_attn_probs`` launches the kernel of ``csrc/sab.cu`` on CUDA tensors (or
-raises); on CPU tensors, and only there, it runs the plain version beside it.
-The plain version rounds where the kernel rounds (the scores, to the map's
-type, before the selection) and computes its rows in the accumulation type.
+``sab_attn_probs`` launches the kernel of ``csrc/sab.cu``,
+``sab_attn_v_slots`` and ``sab_attn_v_merge`` that of ``csrc/attn_v.cu``, on
+CUDA tensors (or they raise); on CPU tensors, and only there, each runs the
+plain version beside it. The plain versions round where the kernels round
+(the scores before the selection, the product once, to the map's type) and
+compute in the accumulation type.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ from turtlevsr_tpu_torch.kernels.ffn import (
     _check,
     _need_cuda,
 )
+from turtlevsr_tpu_torch.kernels.lattice import lattice_merge_plain
 from turtlevsr_tpu_torch.ops.attn_utils import (
     acc_dtype,
     clipped_softmax,
@@ -130,3 +134,153 @@ def sab_attn_probs(q, k, temp, fvalid=None, *, grid_wq: int, k_top: int = 5,
 
 
 sab_attn_probs.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# attention @ values, slot-tiled or merged into maps
+# ---------------------------------------------------------------------------
+
+_MAX_V = 5  # AV_MAX_V of csrc/attn_v.cu
+
+
+def _v_list(a, v):
+    """v as the list of its NF tensors (B, HW, D): entry n = b * NF + i of a
+    goes with v[i][b]. A single tensor is the list of one."""
+    vs = list(v) if isinstance(v, (list, tuple)) else [v]
+    if a.dim() != 3 or a.shape[1] != a.shape[2]:
+        raise ValueError("a must be (BN, HW, HW) probabilities")
+    bn, hw = a.shape[0], a.shape[1]
+    if not vs or bn % len(vs):
+        raise ValueError(f"{bn} entries of a do not divide over {len(vs)} "
+                         "value tensors")
+    for vi in vs:
+        if vi.dim() != 3 or tuple(vi.shape) != (bn // len(vs), hw,
+                                                vs[0].shape[2]):
+            raise ValueError(
+                f"each v must be ({bn // len(vs)}, {hw}, D), got "
+                f"{tuple(vi.shape)}")
+    return vs
+
+
+def _attn_v_tokens(a, vs):
+    """(BN, HW, D) = a @ v in the accumulation type, rounded once."""
+    ad = acc_dtype(a.dtype)
+    bn, hw = a.shape[0], a.shape[1]
+    v_all = torch.stack([vi.to(ad) for vi in vs], dim=1).reshape(bn, hw, -1)
+    return torch.einsum("nqk,nkd->nqd", a.to(ad), v_all).to(a.dtype)
+
+
+def attn_v_slots_plain(a, v, c_slot: int):
+    """Plain version of :func:`sab_attn_v_slots`."""
+    tok = _attn_v_tokens(a, _v_list(a, v))
+    bn, hw, d = tok.shape
+    return tok.reshape(bn, hw, d // c_slot, c_slot).permute(
+        0, 2, 1, 3).contiguous()
+
+
+def attn_v_merge_plain(a, v, ws: int, h: int, w: int, out=None):
+    """Plain version of :func:`sab_attn_v_merge`."""
+    maps = lattice_merge_plain(_attn_v_tokens(a, _v_list(a, v)), ws, h, w)
+    if out is None:
+        return maps.contiguous()
+    out.copy_(maps)
+    return out
+
+
+def _attn_v_launch(what, a, vs, out, c, merge, ws, hh, ww):
+    if a.dtype not in _KERNEL_DTYPES:
+        raise ValueError(f"{what}: the kernel takes bfloat16 or float32, "
+                         f"got {a.dtype}")
+    bn, hw = a.shape[0], a.shape[1]
+    d = vs[0].shape[2]
+    if len(vs) > _MAX_V:
+        raise ValueError(f"{what} takes up to {_MAX_V} value tensors, got "
+                         f"{len(vs)}")
+    if c < 8 or c % 8 or d % c:
+        raise ValueError(f"{what}: the slot width must be a multiple of 8 "
+                         f"that divides D={d}, got {c}")
+    if bn > 65535:
+        raise ValueError(f"{what}: at most 65535 entries a launch, got {bn}")
+    es = a.element_size()
+    v_ptrs, v_bs = [], []
+    for i, vi in enumerate(vs):
+        if vi.device != a.device or vi.dtype != a.dtype:
+            raise ValueError(f"v[{i}]: expected {a.dtype} on {a.device}, got "
+                             f"{vi.dtype} on {vi.device}")
+        # a ring position is a view: rows contiguous, its own batch stride
+        if (vi.stride(2) != 1 or vi.stride(1) != d or vi.data_ptr() % 16
+                or (vi.stride(0) * es) % 16):
+            raise ValueError(f"v[{i}] must have contiguous (HW, D) entries "
+                             "at 16-byte boundaries")
+        v_ptrs.append(vi.data_ptr())
+        v_bs.append(vi.stride(0) if vi.shape[0] > 1 else hw * d)
+    if max([hw * hw] + v_bs) >= 2 ** 31:
+        raise ValueError(f"{what}: batch strides must stay below 2^31")
+    pad = _MAX_V - len(vs)
+    ptrs = [_check("a", a, a), _check("out", out, a), *v_ptrs, *[None] * pad]
+    _call(build.load("attn_v").turtle_attn_v_launch, ptrs,
+          [bn, len(vs), hw, d, c, int(merge), ws, hh, ww, hw * hw, *v_bs,
+           *[0] * pad], a, what)
+    return out
+
+
+def sab_attn_v_slots(a, v, c_slot: int):
+    """Slot-tiled attention @ values: a (BN, HW, HW) probabilities, v
+    (BN, HW, D) window values in the lattice layout, D = S * c_slot (feature
+    order (p1, p2, c)), or a list of NF tensors (B, HW, D) with BN = B * NF
+    (entry b * NF + i reads v[i][b], each where it lies). Returns
+    (BN, S, HW, c_slot) with out[:, s] = a @ v[..., s * c_slot:(s + 1) *
+    c_slot]: fp32 sums, one rounding to a's type.
+
+    Replaces ``sab_attn_v_slots`` in turtlevsr_tpu/kernels/sab.py (kernel:
+    csrc/attn_v.cu, the `slots` epilogue; bound by operations)."""
+    vs = _v_list(a, v)
+    if vs[0].shape[2] % c_slot:
+        raise ValueError(f"c_slot={c_slot} must divide D={vs[0].shape[2]}")
+    if a.device.type == "cpu":
+        return attn_v_slots_plain(a, vs, c_slot)
+    _need_cuda("sab_attn_v_slots", a)
+    bn, hw, d = a.shape[0], a.shape[1], vs[0].shape[2]
+    out = torch.empty((bn, d // c_slot, hw, c_slot), dtype=a.dtype,
+                      device=a.device)
+    _attn_v_launch("sab_attn_v_slots", a, vs, out, c_slot, False, 1, 1, hw)
+    sab_attn_v_slots.launches += 1
+    return out
+
+
+sab_attn_v_slots.launches = 0
+
+
+def sab_attn_v_merge(a, v, ws: int, h: int, w: int, out=None):
+    """Attention @ window values followed by the lattice un-split, in one
+    pass: a (BN, HW, HW), v (BN, HW, ws * ws * C) or a list as for
+    :func:`sab_attn_v_slots` -> maps (BN, h, w, C); HW = (h / ws) * (w / ws).
+    Element (q = (i, j), d = (p1, p2, c)) of a @ v lands at map position
+    (p1 * h / ws + i, p2 * w / ws + j, c). ``out``: an optional contiguous
+    (BN, h, w, C) tensor to write into.
+
+    Replaces ``sab_attn_v_merge`` in turtlevsr_tpu/kernels/sab.py (kernel:
+    csrc/attn_v.cu, the `merge` epilogue; bound by operations)."""
+    vs = _v_list(a, v)
+    bn, hw, d = a.shape[0], a.shape[1], vs[0].shape[2]
+    if ws < 1 or h % ws or w % ws or (h // ws) * (w // ws) != hw or d % (
+            ws * ws):
+        raise ValueError(f"the window {ws} and the map {h} x {w} do not give "
+                         f"{hw} tokens of width {d}")
+    c = d // (ws * ws)
+    if out is not None and (tuple(out.shape) != (bn, h, w, c)
+                            or not out.is_contiguous()):
+        raise ValueError(f"out must be a contiguous ({bn}, {h}, {w}, {c}) "
+                         "tensor")
+    if a.device.type == "cpu":
+        return attn_v_merge_plain(a, vs, ws, h, w, out)
+    _need_cuda("sab_attn_v_merge", a)
+    if out is None:
+        out = torch.empty((bn, h, w, c), dtype=a.dtype, device=a.device)
+    _attn_v_launch("sab_attn_v_merge", a, vs, out, c, True, ws, h // ws,
+                   w // ws)
+    sab_attn_v_merge.launches += 1
+    return out
+
+
+sab_attn_v_merge.launches = 0

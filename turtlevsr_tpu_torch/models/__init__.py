@@ -30,13 +30,17 @@ def require_device(device) -> torch.device:
 
 def build_model(opt: dict, device: torch.device | str = "cuda",
                 dtype: torch.dtype = torch.float32,
-                generator: torch.Generator | None = None) -> Turtle:
+                generator: torch.Generator | None = None,
+                fuse=()) -> Turtle:
     """Build the model an option dict describes, with freshly initialised
     parameters, in eval mode on ``device``. ``model.cfg`` is the frozen
     ModelConfig; ``model.init_cache(batch, h, w)`` makes the empty history;
-    ``model(x_pair, cache)`` is one frame step."""
+    ``model(x_pair, cache)`` is one frame step. ``fuse``: the fused plan, a
+    tuple out of ``("channel_runs", "attn_v_merge")``, empty by default: it
+    chooses between hand-written kernels (see ``models/blocks.py``) and
+    changes no parameter."""
     device = require_device(device)
     cfg = model_config_from_options(opt)
     if generator is None:
         generator = torch.Generator().manual_seed(0)
-    return init_params(cfg, generator, device, dtype).eval()
+    return init_params(cfg, generator, device, dtype, fuse).eval()

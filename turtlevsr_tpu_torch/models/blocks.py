@@ -29,8 +29,19 @@ with its fused path taken:
                       projections keep their biases and the block takes the
                       unfolded route, as the JAX package does.
 
-Other block types (NoAttn, Channel/FHR/CHM with FFW) are not ported yet and
-raise ``NotImplementedError`` when the block is built.
+  NoAttn              the FFN pass alone
+  Channel/FHR/CHM + FFW   the attention as above, then the pointwise FFW as
+                      one FFN pass without a depthwise stage, which takes
+                      the attention branch like the gated pass does (no
+                      shipped configuration has such a block)
+
+The fused plan (``fuse``, a tuple out of ``FUSE_PLANS``, empty by default)
+chooses between hand-written kernels, never between a kernel and its plain
+version: ``"attn_v_merge"`` lets a CHM block compute attention @ v and the
+lattice merge in one launch (``sab_attn_v_merge``) instead of one matrix
+product per ring position and a ``lattice_merge`` launch; ``"channel_runs"``
+is the levels' business (``models/turtle.py``): runs of Channel+GFFW blocks
+go to ``fused_channel_gffw_run``, which reads ``run_weights`` of each block.
 """
 
 from __future__ import annotations
@@ -55,7 +66,8 @@ from turtlevsr_tpu_torch.kernels.ffn import (
     fused_qkv_stats,
 )
 from turtlevsr_tpu_torch.kernels.lattice import lattice_merge, lattice_split
-from turtlevsr_tpu_torch.kernels.sab import sab_attn_probs
+from turtlevsr_tpu_torch.kernels.level import channel_po, safe_norms
+from turtlevsr_tpu_torch.kernels.sab import sab_attn_probs, sab_attn_v_merge
 from turtlevsr_tpu_torch.ops.attn_utils import (
     acc_dtype,
     l2_normalize,
@@ -63,7 +75,17 @@ from turtlevsr_tpu_torch.ops.attn_utils import (
 )
 from turtlevsr_tpu_torch.ops.conv import conv2d
 
-_NORM_EPS = 1e-12  # torch.nn.functional.normalize default clamp
+FUSE_PLANS = ("channel_runs", "attn_v_merge")
+
+
+def check_fuse(fuse) -> tuple:
+    """The fused plan as a tuple of known names."""
+    fuse = tuple(fuse or ())
+    unknown = [f for f in fuse if f not in FUSE_PLANS]
+    if unknown:
+        raise ValueError(f"unknown fused plan {unknown}: choose out of "
+                         f"{FUSE_PLANS}")
+    return fuse
 
 
 @dataclass(frozen=True)
@@ -248,28 +270,19 @@ def _strided_patch_proj(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
     return torch.einsum("bihjwc,hwce->bije", xw, kernel.to(x.dtype))
 
 
-def _safe_norms(ss: torch.Tensor) -> torch.Tensor:
-    """max(sqrt(ss), 1e-12): zero rows (nothing to normalise) stay finite."""
-    return torch.sqrt(ss).clamp_min(_NORM_EPS)
-
-
 class TurtleAttnBlock(nn.Module, KernelWeights):
     """TurtleAttnBlock (turtle_arch.py:669-734): x + attn(norm1 x), then
     x + ffn(norm2 x), through the fused passes listed in the module note."""
 
-    def __init__(self, spec: BlockSpec):
+    def __init__(self, spec: BlockSpec, fuse=()):
         super().__init__()
         t, f = spec.attn_type, spec.ffw_type
-        if t not in ("Channel", "ReducedAttn", "FHR", "CHM"):
-            raise NotImplementedError(
-                f"not ported yet: attention type {t!r} (the port serves "
-                "Channel, ReducedAttn, FHR and CHM blocks)")
+        if t not in ("Channel", "ReducedAttn", "FHR", "CHM", "NoAttn"):
+            raise ValueError(f"unknown attention type {t!r}")
         if f not in ("FFW", "GFFW"):
             raise ValueError(f"unknown FFW type {f!r}")
-        if t != "ReducedAttn" and f != "GFFW":
-            raise NotImplementedError(
-                f"not ported yet: {t} attention followed by {f}")
         self.spec = spec
+        self.fuse = check_fuse(fuse)
         self.norm1 = LayerNorm(spec.dim, spec.layernorm_bias)
         self.norm2 = LayerNorm(spec.dim, spec.layernorm_bias)
         if t in ("Channel", "FHR"):  # the same projection stack
@@ -277,8 +290,10 @@ class TurtleAttnBlock(nn.Module, KernelWeights):
         elif t == "CHM":
             self.attn = CausalHistoryModel(spec.dim, spec.num_heads,
                                            spec.bias, spec.window_size)
-        else:
+        elif t == "ReducedAttn":
             self.attn = ReducedAttn(spec.dim)
+        else:  # NoAttn: the reference's block keeps no attention module
+            self.attn = None
         if f == "GFFW":
             self.ffn = GatedFeedForward(spec.dim, spec.ffn_expansion_factor,
                                         spec.bias)
@@ -304,7 +319,13 @@ class TurtleAttnBlock(nn.Module, KernelWeights):
                 scale=f.gamma.reshape(c).contiguous())
             if self.norm2.body.bias is not None:
                 kw["ffw2"]["ln_b"] = self.norm2.body.bias
+            # the same FFW as a pass of its own: the chain without a
+            # depthwise stage
+            kw["ffn"] = dict(kw["ffw2"], ln_b=self.norm2.body.bias, wd=None,
+                             mode="gelu")
         a = self.attn
+        if a is None:
+            return kw
         if isinstance(a, ReducedAttn):
             kw["ra"] = dict(
                 ln_w=self.norm1.body.weight, ln_b=self.norm1.body.bias,
@@ -319,7 +340,26 @@ class TurtleAttnBlock(nn.Module, KernelWeights):
                 w1=pw_matrix(a.qkv), b1=a.qkv.bias, wd=dw_taps(a.qkv_dwconv),
                 bd=a.qkv_dwconv.bias)
             kw["wpo"] = pw_matrix(a.project_out)  # (C_in, C_out)
+            if self.in_channel_run():
+                kw["run"] = dict(
+                    ln1_w=kw["qkv"]["ln_w"], ln1_b=kw["qkv"]["ln_b"],
+                    w_qkv=kw["qkv"]["w1"], wd_qkv=kw["qkv"]["wd"],
+                    temp=a.temperature.reshape(self.spec.num_heads),
+                    wpo=kw["wpo"], ln2_w=kw["ffn"]["ln_w"],
+                    ln2_b=kw["ffn"]["ln_b"], w1=kw["ffn"]["w1"],
+                    wd=kw["ffn"]["wd"], w2=kw["ffn"]["w2"])
         return kw
+
+    def in_channel_run(self) -> bool:
+        """Whether the block may join a run of ``fused_channel_gffw_run``: a
+        cacheless Channel + GFFW block whose convs carry no bias."""
+        s = self.spec
+        return (s.attn_type == "Channel" and s.ffw_type == "GFFW"
+                and not s.bias)
+
+    def run_weights(self) -> dict:
+        """The block's weights as ``fused_channel_gffw_run`` takes them."""
+        return self.kernel_weights()["run"]
 
     def _chm_kernel_weights(self, a: CausalHistoryModel) -> dict:
         sab, ca = a.spatial_aligner, a.ChanAttn
@@ -368,19 +408,10 @@ class TurtleAttnBlock(nn.Module, KernelWeights):
         """Cacheless channel attention up to the per-batch matrix
         po' = blockdiag(attn^T) @ W_po: out @ W_po = v @ po'. Returns
         (v map, po' (B, C, C), po bias)."""
-        b, _, _, c = x.shape
         heads = self.spec.num_heads
-        ctok = c // heads
         v_map, gram, stats = fused_qkv_stats(x, heads=heads, **kw["qkv"])
-        ad = acc_dtype(x.dtype)
-        nq = _safe_norms(stats[:, 0].to(ad)).reshape(b, heads, ctok)
-        nk = _safe_norms(stats[:, 1].to(ad)).reshape(b, heads, ctok)
-        scores = gram.to(ad) / (nq[..., None] * nk[..., None, :])
-        temp = self.attn.temperature.to(ad)[None]  # (1, heads, 1, 1)
-        attn = masked_softmax(scores * temp).to(x.dtype)
-        po_w = torch.einsum("bhcd,hce->bhde", attn.to(ad),
-                            kw["wpo"].reshape(heads, ctok, c).to(ad))
-        po_w = po_w.reshape(b, c, c).to(x.dtype).contiguous()
+        po_w = channel_po(gram, stats, self.attn.temperature, kw["wpo"],
+                          heads, x.dtype)
         return v_map, po_w, self.attn.project_out.bias
 
     def _fhr(self, x: torch.Tensor, kw: dict, slot: Optional[dict]):
@@ -400,8 +431,8 @@ class TurtleAttnBlock(nn.Module, KernelWeights):
         q = q.reshape(b, l, heads, ctok).to(ad)
         k = k.reshape(b, l, heads, ctok).to(ad)
         v = v.reshape(b, l, heads, ctok)
-        nq = _safe_norms(torch.einsum("blhc,blhc->bhc", q, q))
-        nk = _safe_norms(torch.einsum("blhc,blhc->bhc", k, k))
+        nq = safe_norms(torch.einsum("blhc,blhc->bhc", q, q))
+        nk = safe_norms(torch.einsum("blhc,blhc->bhc", k, k))
         g = torch.einsum("blhc,blhd->bhcd", q, k)
         g = g / (nq[:, :, :, None] * nk[:, :, None, :])
         valid = None
@@ -482,14 +513,23 @@ class TurtleAttnBlock(nn.Module, KernelWeights):
             fvalid = torch.ones(1, dtype=torch.bool, device=x.device)
         nf = len(v_frames)
         a = sab_attn_probs(q, k_all, sab.temperature, fvalid, grid_wq=wq)
-        # attention @ v, one matrix product per ring position: the stacked
-        # copy of the ring's values with the current ones is never made
-        out_tok = torch.empty((b, nf) + tuple(v.shape[1:]), dtype=x.dtype,
-                              device=x.device)
-        for i, vi in enumerate(v_frames):
-            torch.matmul(a[:, i], vi.to(x.dtype), out=out_tok[:, i])
+        # the stacked copy of the ring's values with the current ones is
+        # never made: every position is read where the ring stores it
+        if "attn_v_merge" in self.fuse:
+            # attention @ v and the lattice merge in one launch, straight
+            # into the stacked maps that the FFN pass reads in place
+            maps = sab_attn_v_merge(
+                a.reshape(b * nf, hq * wq, hq * wq),
+                [vi.to(x.dtype) for vi in v_frames], ws, h, w)
+        else:
+            # one matrix product per ring position, then the merge
+            out_tok = torch.empty((b, nf) + tuple(v.shape[1:]),
+                                  dtype=x.dtype, device=x.device)
+            for i, vi in enumerate(v_frames):
+                torch.matmul(a[:, i], vi.to(x.dtype), out=out_tok[:, i])
+            maps = lattice_merge(out_tok.reshape(b * nf, hq * wq, -1), ws, h,
+                                 w)
         new_slot = None if slot is None else sab_slot_append(slot, k, v)
-        maps = lattice_merge(out_tok.reshape(b * nf, hq * wq, -1), ws, h, w)
         if self.spec.bias:
             # unprojected values: project each frame, then zero the invalid
             # ones (their bias would not stay zero)
@@ -534,7 +574,7 @@ class TurtleAttnBlock(nn.Module, KernelWeights):
             sq = stats[:, 0].reshape(b, heads, ctok)
             sk = stats[:, 1].reshape(b, heads, ctok)
             skh = stats[:, 2:].reshape(b, nf, heads, ctok)
-        nq, nk, nkh = _safe_norms(sq), _safe_norms(sk), _safe_norms(skh)
+        nq, nk, nkh = safe_norms(sq), safe_norms(sk), safe_norms(skh)
         # (B, heads, ctok, NF, ctok): frame-major keys of the history
         gh = gh.permute(0, 2, 3, 1, 4) / (
             nq[:, :, :, None, None] * nkh.permute(0, 2, 1, 3)[:, :, None])
@@ -569,6 +609,8 @@ class TurtleAttnBlock(nn.Module, KernelWeights):
         """(B, H, W, C) -> (same, new cache slot or None)."""
         kw = self.kernel_weights()
         t = self.spec.attn_type
+        if t == "NoAttn":
+            return fused_block_ffn(x, **kw["ffn"]), None
         if t == "ReducedAttn":
             if "ffw2" in kw:  # the whole ReducedAttn+FFW block in one pass
                 return fused_block_ffn(x, ffw2=kw["ffw2"], **kw["ra"]), None

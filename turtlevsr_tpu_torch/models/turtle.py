@@ -11,6 +11,13 @@ in which a slot is ``None`` when the level's cached block keeps no history
 level ends in a CHM block (the decoder levels of every shipped
 configuration). The t0 and sr variants are not ported yet and raise
 ``NotImplementedError`` when the model is built.
+
+``fuse`` is the fused plan (see ``models/blocks.py``), empty by default.
+With ``"channel_runs"`` a level hands every run of two or more consecutive
+cacheless Channel+GFFW blocks with bias-free convs to
+``fused_channel_gffw_run`` (one launch a run), as ``level_block_apply`` and
+``latent_block_apply`` of the JAX package do under their opt-in; the other
+blocks, and single such blocks, keep the split kernels.
 """
 
 from __future__ import annotations
@@ -24,10 +31,12 @@ from torch import nn
 from turtlevsr_tpu_torch.config.options import LevelSpec, ModelConfig
 from turtlevsr_tpu_torch.core.cache import fhr_slot_init, sab_slot_init
 from turtlevsr_tpu_torch.kernels.ffn import fused_conv3x3
+from turtlevsr_tpu_torch.kernels.level import fused_channel_gffw_run
 from turtlevsr_tpu_torch.models.blocks import (
     BlockSpec,
     KernelWeights,
     TurtleAttnBlock,
+    check_fuse,
     conv3_hwio,
 )
 from turtlevsr_tpu_torch.ops.conv import conv2d, conv_init
@@ -80,23 +89,50 @@ def _block_spec(cfg: ModelConfig, lvl: LevelSpec, attn_type: str) -> BlockSpec:
         scale_patchsize=lvl.scale_patchsize)
 
 
+def apply_cacheless(blocks, x, fuse=()):
+    """Apply consecutive cacheless blocks. Under the ``channel_runs`` plan
+    every run of two or more blocks that may join one
+    (``TurtleAttnBlock.in_channel_run``) is one launch of the run kernel."""
+    blocks = list(blocks)
+    i = 0
+    while i < len(blocks):
+        j = i
+        if "channel_runs" in fuse:
+            while j < len(blocks) and blocks[j].in_channel_run():
+                j += 1
+        if j - i >= 2:
+            x = fused_channel_gffw_run(
+                x, [b.run_weights() for b in blocks[i:j]],
+                blocks[i].spec.num_heads)
+            i = j
+        else:
+            x, _ = blocks[i](x, None)
+            i += 1
+    return x
+
+
 class LevelBlock(nn.Module):
     """LevelBlock (turtle_arch.py:736-788): blocks 0..n-2 use attn_type1
     (cacheless), the last uses attn_type2 with the level's cache slot."""
 
-    def __init__(self, cfg: ModelConfig, lvl: LevelSpec):
+    def __init__(self, cfg: ModelConfig, lvl: LevelSpec, fuse=()):
         super().__init__()
+        self.fuse = check_fuse(fuse)
         self.transformer_blocks = nn.ModuleList(
             TurtleAttnBlock(_block_spec(
                 cfg, lvl,
-                lvl.attn_type2 if i == lvl.num_blocks - 1 else lvl.attn_type1))
+                lvl.attn_type2 if i == lvl.num_blocks - 1 else lvl.attn_type1),
+                self.fuse)
             for i in range(lvl.num_blocks))
 
     def forward(self, x, slot: Optional[dict] = None):
         blocks = self.transformer_blocks
-        for blk in blocks[:-1]:
-            x, _ = blk(x, None)
-        return blocks[-1](x, slot)
+        last = blocks[-1]
+        if last.spec.attn_type not in ("FHR", "CHM"):
+            # a cacheless last block may close a run
+            return apply_cacheless(blocks, x, self.fuse), None
+        x = apply_cacheless(blocks[:-1], x, self.fuse)
+        return last(x, slot)
 
 
 class LatentCacheBlock(nn.Module):
@@ -104,20 +140,21 @@ class LatentCacheBlock(nn.Module):
     (cache slot A), middle attn_type2 (cacheless), last attn_type3 (slot B).
     Needs >= 2 blocks."""
 
-    def __init__(self, cfg: ModelConfig, lvl: LevelSpec):
+    def __init__(self, cfg: ModelConfig, lvl: LevelSpec, fuse=()):
         super().__init__()
         if lvl.num_blocks < 2:
             raise ValueError("LatentCacheBlock needs at least 2 blocks")
+        self.fuse = check_fuse(fuse)
         types = ([lvl.attn_type1] + [lvl.attn_type2] * (lvl.num_blocks - 2)
                  + [lvl.attn_type3])
         self.transformer_blocks = nn.ModuleList(
-            TurtleAttnBlock(_block_spec(cfg, lvl, t)) for t in types)
+            TurtleAttnBlock(_block_spec(cfg, lvl, t), self.fuse)
+            for t in types)
 
     def forward(self, x, slot_a: Optional[dict], slot_b: Optional[dict]):
         blocks = self.transformer_blocks
         x, new_a = blocks[0](x, slot_a)
-        for blk in blocks[1:-1]:
-            x, _ = blk(x, None)
+        x = apply_cacheless(blocks[1:-1], x, self.fuse)
         x, new_b = blocks[-1](x, slot_b)
         return x, new_a, new_b
 
@@ -167,33 +204,34 @@ def init_cache(cfg: ModelConfig, batch: int, height: int, width: int,
 class Turtle(nn.Module):
     """Turtle_t1 (turtle_t1_arch.py); child names are the reference's."""
 
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, fuse=()):
         super().__init__()
         if cfg.variant != "t1":
             raise NotImplementedError(
                 f"not ported yet: model variant {cfg.variant!r} (the port "
                 "serves Turtle_t1_arch)")
         self.cfg = cfg
+        self.fuse = fuse = check_fuse(fuse)
         inp_ch = cfg.inp_channels * (2 if cfg.use_both_input else 1)
         d1, d2, d3, d4 = cfg.level_dims
         self.input_projection = Conv3x3(inp_ch, d1, bias=cfg.bias)
-        self.encoder_level1 = LevelBlock(cfg, cfg.enc1)
+        self.encoder_level1 = LevelBlock(cfg, cfg.enc1, fuse)
         self.down1_2 = Downsample(d1)
-        self.encoder_level2 = LevelBlock(cfg, cfg.enc2)
+        self.encoder_level2 = LevelBlock(cfg, cfg.enc2, fuse)
         self.down2_3 = Downsample(d2)
-        self.encoder_level3 = LevelBlock(cfg, cfg.enc3)
+        self.encoder_level3 = LevelBlock(cfg, cfg.enc3, fuse)
         self.down3_4 = Downsample(d3)
-        self.latent = LatentCacheBlock(cfg, cfg.latent)
+        self.latent = LatentCacheBlock(cfg, cfg.latent, fuse)
         self.up4_3 = Upsample(d4)
         self.reduce_chan_level3 = nn.Conv2d(d4, d3, 1, bias=cfg.bias)
-        self.decoder_level3 = LevelBlock(cfg, cfg.dec3)
+        self.decoder_level3 = LevelBlock(cfg, cfg.dec3, fuse)
         self.up3_2 = Upsample(d3)
         self.reduce_chan_level2 = nn.Conv2d(d3, d2, 1, bias=cfg.bias)
-        self.decoder_level2 = LevelBlock(cfg, cfg.dec2)
+        self.decoder_level2 = LevelBlock(cfg, cfg.dec2, fuse)
         self.up2_1 = Upsample(d2)
         self.reduce_chan_level1 = nn.Conv2d(d2, d1, 1, bias=cfg.bias)
-        self.decoder_level1 = LevelBlock(cfg, cfg.dec1)
-        self.refinement = LevelBlock(cfg, cfg.refinement)
+        self.decoder_level1 = LevelBlock(cfg, cfg.dec1, fuse)
+        self.refinement = LevelBlock(cfg, cfg.refinement, fuse)
         self.ending = Conv3x3(d1, cfg.out_channels, bias=True)
 
     def init_cache(self, batch: int, height: int, width: int,
@@ -252,13 +290,13 @@ class Turtle(nn.Module):
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device: torch.device | str = "cuda",
-                dtype: torch.dtype = torch.float32) -> Turtle:
+                dtype: torch.dtype = torch.float32, fuse=()) -> Turtle:
     """A Turtle with freshly drawn parameters: every conv as
     ``torch.nn.Conv2d.reset_parameters`` draws it (U(+-1/sqrt(fan_in)) for
     weight and bias) from the given CPU generator, LN weights one and biases
     zero, gamma/beta zero, temperature one: the statistics of the JAX
     package's ``init_params``."""
-    model = Turtle(cfg)
+    model = Turtle(cfg, fuse)
     for m in model.modules():
         if isinstance(m, nn.Conv2d):
             conv_init(m, generator)
