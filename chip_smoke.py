@@ -4,35 +4,45 @@
     python3 chip_smoke.py [--frames 6] [--size 1280x720] [--phase all]
                           [--profile] [--ptxas]
 
-(--profile traces a few more frames of `gopro` and `gopro_t1_fhr` whole-frame
-and of `gopro` tiled under both plans, with torch.profiler.)
+(--profile traces a few more frames of each whole-frame stream but
+`gopro_enc3_ffw` and of each tiled stream under each plan, with
+torch.profiler.)
 
 Phases, one JSON object per line on standard output:
 
   device   the card's name and power limit as nvidia-smi gives them
-  build    nvcc builds the nine sources of turtlevsr_tpu_torch/kernels/csrc
+  build    nvcc builds the ten sources of turtlevsr_tpu_torch/kernels/csrc
   kernels  each kernel's wrapper against its plain PyTorch version on the
            card at the shapes the 720p serving paths give it (bf16), whole
            padded frames and chunks of 15 tiles alike: errors beside the
            stated tolerance, the kernel's time, the plain
            version's, a PyTorch library call's where one computes the same
-           function, and the least time the card could take (bound)
-  slice    two configurations at full width and depth, seeded random
+           function, and the least time the card could take (bound); the
+           two-stage kernel also against the split launches it replaces, the
+           sparse softmax also against the probabilities kernel
+  slice    five configurations at full width and depth, seeded random
            weights, frames streamed through InferenceEngine.step: `gopro`
            (options/Turtle_Deblur_Gopro.yml unchanged: CHM blocks end the
            decoder levels) and `gopro_t1_fhr` (the same file with those
            blocks set to Channel) and `gopro_enc3_ffw` (the same file with
            encoder level 3's FFN set to the pointwise FFW: the FFN kernel's
-           branch without a depthwise stage). For each: shape, finiteness,
-           the exact kernel launches per frame, agreement with the same
-           frames run through the plain versions on the card, ms per frame,
-           peak memory
-  tiled    `gopro` through `turtlevsr_tpu_torch.cli.infer.main` on a folder
-           of frames written from the seed, at the reference's deblur preset
-           (tile 320, overlap 192: 45 tiles of a 1280x720 frame in three
-           chunks of 15), once with the fused plan empty and once with
-           ("channel_runs", "attn_v_merge"); each against the same frames
-           through the plain versions on the card
+           branch without a depthwise stage), `derain`
+           (options/Turtle_Derain.yml unchanged: the t0 family) and `sr`
+           (options/Turtle_SR_MVSR.yml unchanged: high-resolution frames in
+           and out), then `gopro` under the fused plan ("two_stage",). For
+           each: shape, finiteness, the exact kernel launches
+           per frame, agreement with the same frames run through the plain
+           versions on the card, ms per frame, peak memory
+  tiled    `gopro`, `derain` and `sr` through
+           `turtlevsr_tpu_torch.cli.infer.main --task deblur|derain|sr` on a
+           folder of frames written from the seed, at the task's preset
+           (deblur: tile 320, overlap 192, 45 tiles of a 1280x720 frame in
+           three chunks of 15; derain: 320 / 128, 24 tiles in chunks of 15 +
+           9; sr: 256 / 64 on the high-resolution frame, 28 tiles of 64 x 64
+           at the model's input in chunks of 15 + 13), under the empty fused
+           plan and ("two_stage",), `gopro` under ("channel_runs",
+           "attn_v_merge") too; each against the same frames through the
+           plain versions on the card
 
 then, when the kernels, the slice and the tiled phase ran, the line
 {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
@@ -64,6 +74,7 @@ from turtlevsr_tpu_torch.eval.engine import InferenceEngine
 from turtlevsr_tpu_torch import kernels as kernels_pkg
 from turtlevsr_tpu_torch.cli import infer as infer_cli
 from turtlevsr_tpu_torch.kernels import build
+from turtlevsr_tpu_torch.kernels import chain2 as C2
 from turtlevsr_tpu_torch.kernels import ffn as K
 from turtlevsr_tpu_torch.kernels import lattice as L
 from turtlevsr_tpu_torch.kernels import level as LV
@@ -71,6 +82,7 @@ from turtlevsr_tpu_torch.kernels import sab as S
 from turtlevsr_tpu_torch.models import blocks as blocks_mod
 from turtlevsr_tpu_torch.models import build_model
 from turtlevsr_tpu_torch.models import turtle as turtle_mod
+from turtlevsr_tpu_torch.ops.attn_utils import local_window_mask
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OPTION_FILE = os.path.join(ROOT, "options", "Turtle_Deblur_Gopro.yml")
@@ -83,17 +95,33 @@ GOPRO_T1_FHR = {"decoder1_attn_type2": "Channel",
 # gopro_enc3_ffw: the same with encoder level 3's FFN set to the pointwise
 # FFW, whose pass is the FFN kernel without a depthwise stage
 GOPRO_ENC3_FFW = {"encoder3_ffw_type": "FFW"}
-CONFIG_OVERRIDES = {"gopro": {}, "gopro_t1_fhr": GOPRO_T1_FHR,
-                    "gopro_enc3_ffw": GOPRO_ENC3_FFW}
+# derain: the shipped deraining model (Turtle_arch, the t0 family; the
+# desnowing file differs from it only in its datasets), sr: the shipped x4
+# video super-resolution model (Turtlesuper_t1_arch), both unchanged
+CONFIGS = {
+    "gopro": (OPTION_FILE, {}),
+    "gopro_t1_fhr": (OPTION_FILE, GOPRO_T1_FHR),
+    "gopro_enc3_ffw": (OPTION_FILE, GOPRO_ENC3_FFW),
+    "derain": (os.path.join(ROOT, "options", "Turtle_Derain.yml"), {}),
+    "sr": (os.path.join(ROOT, "options", "Turtle_SR_MVSR.yml"), {}),
+}
+# the command line's task of each configuration streamed tiled
+TASKS = {"gopro": "deblur", "derain": "derain", "sr": "sr"}
 # exact launches per model call: a CHM block launches each of its kernels
-# once (q, k split projection, composite v conv, lattice split,
-# probabilities, lattice merge, statistics, FFN); a Channel block the
+# once (t1: q, k split projection, composite v conv, lattice split,
+# probabilities, lattice merge, statistics, FFN; t0: composite v conv,
+# lattice split, lattice merge, statistics, FFN); a Channel block the
 # statistics and the FFN. Under the fused plan the 33 Channel blocks of the
 # four runs (enc3 10, latent 9, dec3 9, dec2 5) are 4 run launches, and
-# attention @ v with the merge is one launch per CHM block.
-_NONE = {"attn_v_slots": 0, "attn_v_merge": 0, "level_run": 0, "ffn_no_dw": 0}
+# attention @ v with the merge is one launch per CHM block. Under the
+# two_stage plan enc1's pair, enc2's three pairs and the refinement's two
+# blocks are 6 two-stage launches where the split route makes 12 FFN ones.
+_NONE = {"attn_v_slots": 0, "attn_v_merge": 0, "level_run": 0, "ffn_no_dw": 0,
+         "two_stage": 0, "sab_sparse_softmax": 0}
 _GOPRO = {"ffn": 51, "qkv_stats": 34, "split_proj": 5, "conv3x3": 11,
           "chm_stats": 3, "sab": 3, "lattice_merge": 3, "lattice_split": 3}
+_DERAIN = {**_GOPRO, "split_proj": 2, "sab": 0}
+_TWO_STAGE = {"ffn": 39, "two_stage": 6}
 LAUNCHES_PER_CALL = {
     "gopro": {**_GOPRO, **_NONE},
     "gopro_t1_fhr": {"ffn": 51, "qkv_stats": 37, "split_proj": 2,
@@ -102,12 +130,23 @@ LAUNCHES_PER_CALL = {
     "gopro_enc3_ffw": {**_GOPRO, **_NONE, "ffn_no_dw": 10},
     "gopro_fused": {**_GOPRO, **_NONE, "ffn": 18, "qkv_stats": 1,
                     "lattice_merge": 0, "attn_v_merge": 3, "level_run": 4},
+    "gopro_two_stage": {**_GOPRO, **_NONE, **_TWO_STAGE},
+    "derain": {**_DERAIN, **_NONE},
+    "derain_two_stage": {**_DERAIN, **_NONE, **_TWO_STAGE},
+    "sr": {**_GOPRO, **_NONE},
+    "sr_two_stage": {**_GOPRO, **_NONE, **_TWO_STAGE},
 }
-# tiled streaming at the reference's deblur preset (tile 320, overlap 192)
-TILE = infer_cli.TASK_PRESETS["deblur"]["tile"]
-TILE_OVERLAP = infer_cli.TASK_PRESETS["deblur"]["tile_overlap"]
-MAX_TILE_BATCH, TILED_FRAMES = 15, 6  # the engine's default chunk
+FRAMES_PER_RUN = 6  # whole-frame and tiled streams: the 3-frame rings wrap
+MAX_TILE_BATCH = 15  # the engine's default chunk
 FUSED_PLAN = ("channel_runs", "attn_v_merge")
+TWO_STAGE = ("two_stage",)
+# the tiled streams: configuration -> the plans each runs under; the tile
+# and overlap are the task's preset (deblur 320 / 192: 45 tiles of a 720p
+# frame; derain 320 / 128: 24 tiles; sr 256 / 64 at the high resolution: 28
+# tiles, 64 x 64 at the model's input)
+TILED_PLANS = {"gopro": ((), FUSED_PLAN, TWO_STAGE), "derain": ((), TWO_STAGE),
+               "sr": ((), TWO_STAGE)}
+TILE = infer_cli.TASK_PRESETS["deblur"]["tile"]  # the kernel cases' tiles
 # the runs of Channel+GFFW blocks of `gopro`: (scale, C, heads, blocks)
 RUN_LEVELS = {"enc3": (4, 256, 4, 10), "latent": (8, 512, 8, 9),
               "dec3": (4, 256, 4, 9), "dec2": (2, 128, 2, 5)}
@@ -151,6 +190,12 @@ ATTN_V_REL_TOL = 2.0 ** -7
 # and rounding points it shares, only the exp and the divide of the small
 # softmax differ: one limit whatever the length of the run
 RUN_SPLIT_REL_TOL = 2.0 ** -7
+# two chained stages against their plain version: KERNEL_REL_TOL a stage
+TWO_STAGE_REL_TOL = 2 * KERNEL_REL_TOL
+# the sparse softmax on given scores: both versions keep the same entries;
+# the values differ by the fp32 sum order and expf, one bf16 rounding of
+# values <= 1
+SPARSE_TOL = 2.0 ** -7
 
 KERNEL_INFO = {
     "ffn": ("turtlevsr_tpu_torch/kernels/csrc/ffn.cu",
@@ -179,6 +224,10 @@ KERNEL_INFO = {
                "turtlevsr_tpu/kernels/sab.py:223"),
     "level_run": ("turtlevsr_tpu_torch/kernels/csrc/level.cu",
                   "turtlevsr_tpu/kernels/level.py:315"),
+    "two_stage": ("turtlevsr_tpu_torch/kernels/csrc/chain2.cu",
+                  "turtlevsr_tpu/kernels/chain2.py:308"),
+    "sab_sparse_softmax": ("turtlevsr_tpu_torch/kernels/csrc/sab.cu",
+                           "turtlevsr_tpu/kernels/sab.py:328"),
 }
 
 
@@ -598,6 +647,107 @@ def run_case(inp: Inputs, name, b, h, w, c, heads, n_blocks, iters=3):
                 library_ms=None, bound_ms=b_ms, bound_by=b_by)
 
 
+def two_stage_case(inp: Inputs, name, kind, b, h, w, c, e1, e2, iters=3):
+    """Row 13 at the shape a conv-only level gives it: a pair of
+    ReducedAttn+FFW blocks (kind "pair") or a ReducedAttn+GFFW block
+    ("ra_gffw"), against its plain version and against the split route it
+    replaces (two FFN launches; their time is split_ms, no library call
+    computes the chain)."""
+    x = inp(b, h, w, c)
+
+    def stage(e, mode):
+        ch = 2 * e if mode == "gate" else e
+        st = dict(ln_w=1.0 + inp(c, scale=0.2), ln_b=inp(c, scale=0.2),
+                  w1=inp(c, ch, scale=c ** -0.5), wd=inp(3, 3, ch, scale=0.3),
+                  w2=inp(e, c, scale=e ** -0.5), mode=mode)
+        if mode == "gelu":  # the ReducedAttn: biases, and beta as its scale
+            st.update(b1=inp(ch, scale=0.2), bd=inp(ch, scale=0.2),
+                      b2=inp(c, scale=0.2), scale=inp(c, scale=0.5))
+        return st
+
+    def ffw():
+        f = 2 * c
+        return dict(ln_w=1.0 + inp(c, scale=0.2), ln_b=inp(c, scale=0.2),
+                    w1=inp(c, f, scale=c ** -0.5), b1=inp(f, scale=0.2),
+                    w2=inp(f, c, scale=f ** -0.5), b2=inp(c, scale=0.2),
+                    scale=inp(c, scale=0.5))
+
+    st1 = stage(e1, "gelu")
+    if kind == "pair":
+        st2, ffw1, ffw2 = stage(e2, "gelu"), ffw(), ffw()
+    else:
+        st2, ffw1, ffw2 = stage(e2, "gate"), None, None
+    kw = dict(ffw1=ffw1, ffw2=ffw2)
+    got = C2.fused_two_stage(x, st1, st2, **kw)
+    torch.cuda.synchronize()
+    want = C2.two_stage_plain(x, st1, st2, **kw)
+    err, rel = rel_err(got, want)
+    del want
+
+    def split():
+        y = K.fused_block_ffn(x, ffw2=ffw1, **st1)
+        return K.fused_block_ffn(y, ffw2=ffw2, **st2)
+
+    split_out = split()
+    bit_equal = bool(torch.equal(got, split_out))
+    err_s, rel_s = rel_err(got, split_out)
+    del split_out
+    px = b * h * w
+    flops = 0.0
+    weights = []
+    for st, f in ((st1, ffw1), (st2, ffw2)):
+        ch = st["w1"].shape[1]
+        flops += 2.0 * px * (c * ch + 9 * ch + st["w2"].shape[0] * c
+                             + (4 * c * c if f else 0))
+        weights += [v for v in st.values() if torch.is_tensor(v)]
+        weights += [v for v in (f or {}).values() if torch.is_tensor(v)]
+    b_ms, b_by = bound(numel_bytes(x, got, *weights), flops)
+    return dict(kernel="two_stage", case=name, shape=[b, h, w, c],
+                hidden=[e1, e2], max_abs_err=err, rel_err=rel,
+                tol_rel=TWO_STAGE_REL_TOL, bit_equal_to_split=bit_equal,
+                max_abs_err_vs_split=err_s, rel_err_vs_split=rel_s,
+                ok=rel <= TWO_STAGE_REL_TOL and rel_s <= TWO_STAGE_REL_TOL
+                and bool(torch.isfinite(got.float()).all()),
+                ms=cuda_ms(lambda: C2.fused_two_stage(x, st1, st2, **kw),
+                           iters),
+                split_ms=cuda_ms(split, iters),
+                plain_ms=cuda_ms(lambda: C2.two_stage_plain(x, st1, st2, **kw),
+                                 1, 0),
+                library_ms=None, bound_ms=b_ms, bound_by=b_by)
+
+
+def sparse_case(inp: Inputs, name, b, nf, hq, wq, d, iters=3):
+    """Row 12 on the scores of an alignment attention (B * NF entries of
+    HW x HW on an (hq, wq) window grid) and the grid's local mask, against
+    its plain version and against row 7 on the same q, k: exact inputs make
+    every score exact whatever the order of its sum, and the scores are
+    rounded to bf16 as row 7 rounds them, so the two agree bit for bit."""
+    hw = hq * wq
+    q, k, temp = sab_inputs(inp, nf, hw, d, exact=True, batch=b)
+    scores = (torch.einsum("bqd,bnkd->bnqk", q.float(), k.float())
+              * temp).bfloat16().reshape(b * nf, hw, hw).contiguous()
+    mask = local_window_mask(hq, wq, 4, torch.bfloat16, "cuda")
+    got = S.sab_sparse_softmax(scores, mask)
+    torch.cuda.synchronize()
+    row7 = S.sab_attn_probs(q, k, temp, None, grid_wq=wq)
+    equal_row7 = bool(torch.equal(got, row7.reshape(got.shape)))
+    del row7
+    want = S.sparse_softmax_plain(scores, mask)
+    same_support = bool(torch.equal(got != 0, want != 0))
+    err = (got.float() - want.float()).abs().max().item()
+    del want
+    b_ms, b_by = bound(numel_bytes(scores, mask, got), 0.0)
+    return dict(kernel="sab_sparse_softmax", case=name, shape=[b * nf, hw, hw],
+                grid=[hq, wq], max_abs_err=err, rel_err=err, tol=SPARSE_TOL,
+                same_support_as_plain=same_support,
+                bit_equal_to_row_7=equal_row7,
+                ok=same_support and err <= SPARSE_TOL and equal_row7,
+                ms=cuda_ms(lambda: S.sab_sparse_softmax(scores, mask), iters),
+                plain_ms=cuda_ms(lambda: S.sparse_softmax_plain(scores, mask),
+                                 1, 0),
+                library_ms=None, bound_ms=b_ms, bound_by=b_by)
+
+
 def attn_v_times(inp: Inputs, h: int, w: int) -> dict:
     """attention @ v of the alignment attention is torch.matmul, as the JAX
     package leaves it to its compiler: its time at the three levels, per
@@ -727,6 +877,33 @@ def kernel_cases(seed: int, h: int, w: int) -> list[dict]:
                                  ring + 1, side, side, ws, c))
     cases.append(lambda: attn_v_case(inp, f"slots dec3, {tb} tiles", tb, 4,
                                      20, 20, 4, 256, merge=False))
+    # under the two_stage plan: the conv-only levels (enc1 and enc2 pairs of
+    # ReducedAttn+FFW blocks, the refinement's ReducedAttn+GFFW blocks),
+    # whole padded frames and 15 tiles
+    h2, w2, tl2 = h // 2, w // 2, tl // 2
+    cases += [
+        lambda: two_stage_case(inp, "enc1 pair", "pair", 1, h, w, 64, 128,
+                               128),
+        lambda: two_stage_case(inp, "enc2 pair", "pair", 1, h2, w2, 128, 256,
+                               256),
+        lambda: two_stage_case(inp, "refinement RA+GFFW", "ra_gffw", 1, h, w,
+                               64, 128, 160),
+        lambda: two_stage_case(inp, f"enc1 pair, {tb} tiles", "pair", tb, tl,
+                               tl, 64, 128, 128),
+        lambda: two_stage_case(inp, f"enc2 pair, {tb} tiles", "pair", tb,
+                               tl2, tl2, 128, 256, 256),
+        lambda: two_stage_case(inp, f"refinement RA+GFFW, {tb} tiles",
+                               "ra_gffw", tb, tl, tl, 64, 128, 160),
+    ]
+    # the sparse softmax on given scores: the window-token grids of the three
+    # CHM levels (46 x 80 tokens at every level of a padded 720p frame), and
+    # dec3 at 15 tiles (20 x 20 tokens, 4 frames each)
+    for lvl, (s_, c, _, ws, ring) in CHM_LEVELS.items():
+        hq, wq = h // s_ // ws, w // s_ // ws
+        cases.append(lambda lvl=lvl, c=c, hq=hq, wq=wq, nf=ring + 1:
+                     sparse_case(inp, f"{lvl} scores", 1, nf, hq, wq, 2 * c))
+    cases.append(lambda: sparse_case(inp, f"dec3 scores, {tb} tiles", tb, 4,
+                                     tl // 4 // 4, tl // 4 // 4, 512))
     out = []
     for make in cases:
         t0 = time.perf_counter()
@@ -771,7 +948,8 @@ def plain_versions():
              "lattice_split": L.lattice_split_plain,
              "lattice_merge": L.lattice_merge_plain,
              "sab_attn_v_merge": S.attn_v_merge_plain,
-             "fused_channel_gffw_run": LV.channel_gffw_run_plain}
+             "fused_channel_gffw_run": LV.channel_gffw_run_plain,
+             "fused_two_stage": C2.two_stage_plain}
     saved = []
     for mod in (blocks_mod, turtle_mod):
         for name, fn in plain.items():
@@ -805,8 +983,9 @@ def psnr(a: np.ndarray, b: np.ndarray) -> float:
 
 
 def options_of(config: str) -> dict:
-    opt = load_options(OPTION_FILE, is_train=False)
-    opt.update(CONFIG_OVERRIDES[config])
+    path, overrides = CONFIGS[config]
+    opt = load_options(path, is_train=False)
+    opt.update(overrides)
     return opt
 
 
@@ -856,12 +1035,13 @@ def profile_frames(engine: InferenceEngine, frames: list,
 
 
 def run_slice(config: str, seed: int, n_frames: int, width: int,
-              height: int, trace: bool = False) -> dict:
+              height: int, trace: bool = False, fuse: tuple = ()) -> dict:
     opt = options_of(config)
-    model = build_model(opt, device="cuda",
+    model = build_model(opt, device="cuda", fuse=fuse,
                         generator=torch.Generator().manual_seed(seed))
     randomise_scales(model, seed + 1)
     cfg = model.cfg
+    scale = cfg.sr_scale if cfg.variant == "sr" else 1  # HR frames in and out
     engine = InferenceEngine(model, mode="whole", dtype=torch.bfloat16)
     frames = make_frames(seed + 2, n_frames, height, width)
     ring = max(lvl.num_frames_tocache for lvl in (cfg.latent, cfg.dec3,
@@ -896,7 +1076,8 @@ def run_slice(config: str, seed: int, n_frames: int, width: int,
         require(out.shape == (height, width, 3),
                 f"frame {i}: output shape {out.shape}")
         require(bool(np.isfinite(out).all()), f"frame {i}: non-finite output")
-    for name, per_frame in LAUNCHES_PER_CALL[config].items():
+    tag = config + ("_two_stage" if fuse else "")
+    for name, per_frame in LAUNCHES_PER_CALL[tag].items():
         require(counts[name] == per_frame * n_frames,
                 f"{name}: {counts[name]} launches over {n_frames} frames, "
                 f"expected {per_frame} per frame")
@@ -914,8 +1095,11 @@ def run_slice(config: str, seed: int, n_frames: int, width: int,
     max_err = max(float(np.abs(a - b).max()) for a, b in zip(outs, plain_outs))
     change = [float(np.abs(o - f).mean()) for o, f in zip(outs, frames)]
     res = dict(
-        phase="slice", config=config, frame=[height, width, 3],
-        padded=list(turtle_mod.padded_hw(cfg, height, width)), dtype="bfloat16",
+        phase="slice", config=config, plan=list(fuse), variant=cfg.variant,
+        option_file=os.path.relpath(CONFIGS[config][0], ROOT),
+        frame=[height, width, 3],
+        padded=list(turtle_mod.padded_hw(cfg, height // scale, width // scale)),
+        dtype="bfloat16",
         frames=n_frames, ring_frames=ring, params=sum(
             p.numel() for p in model.parameters()),
         launches=counts, launches_per_frame={
@@ -931,7 +1115,7 @@ def run_slice(config: str, seed: int, n_frames: int, width: int,
     emit(res)
     if trace:
         profile_frames(engine, frames[:3], res["ms_per_frame_after_warmup"],
-                       config)
+                       config, plan=list(fuse))
     require(min(psnrs) >= SLICE_MIN_PSNR,
             f"kernel path and plain path disagree: PSNR {psnrs}")
     require(min(change) > 0, "the model returned its input unchanged")
@@ -953,22 +1137,33 @@ def read_pngs(folder: str, n: int) -> list[np.ndarray]:
         for i in range(n)]
 
 
-def run_tiled(seed: int, width: int, height: int, trace: bool) -> dict:
-    """`gopro` tiled at the deblur preset through cli.infer.main, under both
-    plans, against the plain versions on the card. The weights are a
-    state_dict file written from the seed (scales drawn), the frames a folder
-    of PNGs; main builds the model, the tiled engine and the loop itself."""
+def tiled_tag(config: str, plan: tuple) -> str:
+    name = {(): "tiled", FUSED_PLAN: "tiled_fused",
+            TWO_STAGE: "tiled_two_stage"}[tuple(plan)]
+    return name if config == "gopro" else f"{config}_{name}"
+
+
+def run_tiled(config: str, seed: int, width: int, height: int,
+              trace: bool) -> dict:
+    """One configuration tiled at its task's preset through cli.infer.main,
+    under each of its plans, against the plain versions on the card. The
+    weights are a state_dict file written from the seed (scales drawn), the
+    frames a folder of PNGs (the high-resolution ones for SR); main builds
+    the model, the tiled engine and the loop itself."""
     from PIL import Image
 
-    n = TILED_FRAMES
-    work = tempfile.mkdtemp(prefix="chip_smoke_tiled_")
+    n = FRAMES_PER_RUN
+    task = TASKS[config]
+    preset = infer_cli.TASK_PRESETS[task]
+    work = tempfile.mkdtemp(prefix=f"chip_smoke_{config}_")
     by_plan = {}
     try:
-        model = build_model(options_of("gopro"), device="cuda",
+        model = build_model(options_of(config), device="cuda",
                             generator=torch.Generator().manual_seed(seed))
         randomise_scales(model, seed + 1)
         weights = os.path.join(work, "weights.pth")
         torch.save(model.state_dict(), weights)
+        cfg = model.cfg
         del model
         video = os.path.join(work, "frames", "video0")
         os.makedirs(video)
@@ -977,8 +1172,9 @@ def run_tiled(seed: int, width: int, height: int, trace: bool) -> dict:
                 os.path.join(video, f"{i:05d}.png"))
 
         def cli(tag: str, fuse: tuple) -> dict:
-            argv = ["-opt", OPTION_FILE, "--tile", str(TILE), "--tile_overlap",
-                    str(TILE_OVERLAP), "--model_path", weights, "--data_dir",
+            # the task's preset (tile, overlap); the option file by its path
+            argv = ["--task", task, "-opt", CONFIGS[config][0],
+                    "--model_path", weights, "--data_dir",
                     os.path.join(work, "frames"), "--no_gt", "--max_frames",
                     str(n), "--save_path", os.path.join(work, tag)]
             if fuse:
@@ -1000,11 +1196,13 @@ def run_tiled(seed: int, width: int, height: int, trace: bool) -> dict:
         require(not any(plain["launches"].values()),
                 "the plain run must launch no kernel")
         eng = InferenceEngine.__new__(InferenceEngine)
-        eng.tile, eng.tile_overlap = TILE, TILE_OVERLAP
+        eng.tile, eng.tile_overlap = preset["tile"], preset["tile_overlap"]
         _, _, t, his, wis = eng.tile_plan(height, width)
         n_tiles = len(his) * len(wis)
         calls = -(-n_tiles // MAX_TILE_BATCH)  # model calls per frame
-        for tag, fuse in (("tiled", ()), ("tiled_fused", FUSED_PLAN)):
+        scale = cfg.sr_scale if cfg.variant == "sr" else 1
+        for fuse in TILED_PLANS[config]:
+            tag = tiled_tag(config, fuse)
             res = cli(tag, fuse)
             require(res["frames"] == n, f"{tag}: {res['frames']} frames")
             # an output's copy to the host is queued behind the next frame's
@@ -1017,17 +1215,20 @@ def run_tiled(seed: int, width: int, height: int, trace: bool) -> dict:
             for i, out in enumerate(res["outs"]):
                 require(out.shape == (height, width, 3),
                         f"{tag} frame {i}: output shape {out.shape}")
-            want = LAUNCHES_PER_CALL["gopro_fused" if fuse else "gopro"]
-            for name, per_call in want.items():
+            key = config + {(): "", FUSED_PLAN: "_fused",
+                            TWO_STAGE: "_two_stage"}[tuple(fuse)]
+            for name, per_call in LAUNCHES_PER_CALL[key].items():
                 require(res["launches"][name] == per_call * calls * n,
                         f"{tag} {name}: {res['launches'][name]} launches "
                         f"over {n} frames of {calls} model calls, expected "
                         f"{per_call} per call")
             out = dict(
-                phase="tiled", config="gopro", plan=list(fuse),
+                phase="tiled", config=config, variant=cfg.variant,
+                task=task, plan=list(fuse),
                 entry="turtlevsr_tpu_torch.cli.infer.main",
-                frame=[height, width, 3], tile=t, tile_overlap=TILE_OVERLAP,
-                tiles=n_tiles, max_tile_batch=MAX_TILE_BATCH,
+                frame=[height, width, 3], tile=t,
+                tile_overlap=preset["tile_overlap"], tiles=n_tiles,
+                model_tile=t // scale, max_tile_batch=MAX_TILE_BATCH,
                 model_calls_per_frame=calls, dtype="bfloat16", frames=n,
                 launches=res["launches"], launches_per_frame={
                     k: v / n for k, v in res["launches"].items()},
@@ -1048,19 +1249,21 @@ def run_tiled(seed: int, width: int, height: int, trace: bool) -> dict:
                     f"{psnrs}")
             by_plan[tag] = out
         if trace:
-            for tag, fuse in (("tiled", ()), ("tiled_fused", FUSED_PLAN)):
-                model = build_model(options_of("gopro"), device="cuda",
+            for fuse in TILED_PLANS[config]:
+                tag = tiled_tag(config, fuse)
+                model = build_model(options_of(config), device="cuda",
                                     fuse=fuse)
                 model.load_state_dict(torch.load(weights, weights_only=True))
                 engine = InferenceEngine(
-                    model, mode="tiled", tile=TILE, tile_overlap=TILE_OVERLAP,
+                    model, mode="tiled", tile=preset["tile"],
+                    tile_overlap=preset["tile_overlap"],
                     max_tile_batch=MAX_TILE_BATCH, dtype=torch.bfloat16)
                 frames = make_frames(seed + 2, 4, height, width)
                 for fr in frames[:2]:
                     engine.step(fr)
                 profile_frames(engine, frames[2:],
                                by_plan[tag]["ms_per_frame_after_warmup"],
-                               "gopro", mode="tiled", plan=list(fuse))
+                               config, mode="tiled", plan=list(fuse))
                 del engine, model
                 torch.cuda.empty_cache()
     finally:
@@ -1089,24 +1292,26 @@ def kernel_rows(cases: list[dict], by_path: dict) -> list[dict]:
             cases=[{k: c[k] for k in ("case", "ms", "plain_ms", "bound_ms",
                                       "bound_by", "library_ms",
                                       "max_abs_err", "rel_err", "split_ms",
-                                      "rel_err_vs_split") if k in c}
+                                      "rel_err_vs_split", "bit_equal_to_split",
+                                      "bit_equal_to_row_7") if k in c}
                    for c in mine]))
     return rows
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--frames", type=int, default=6,
-                    help="frames of `gopro` and of `gopro_t1_fhr`")
+    ap.add_argument("--frames", type=int, default=FRAMES_PER_RUN,
+                    help="frames of the whole-frame streams but "
+                         "`gopro_enc3_ffw`")
     ap.add_argument("--size", default="1280x720", help="WIDTHxHEIGHT")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--phase", default="all",
                     choices=("all", "build", "kernels", "slice", "tiled"))
     ap.add_argument("--profile", action="store_true",
-                    help="after `gopro` and `gopro_t1_fhr` (whole-frame) and "
-                         "`gopro` tiled under each plan, trace a few more "
-                         "frames with torch.profiler: device time by kernel, "
-                         "idle share")
+                    help="after each whole-frame stream (but "
+                         "`gopro_enc3_ffw`) and each tiled stream under each "
+                         "plan, trace a few more frames with torch.profiler: "
+                         "device time by kernel, idle share")
     ap.add_argument("--ptxas", action="store_true",
                     help="print nvcc's register and shared-memory report")
     args = ap.parse_args(argv)
@@ -1143,36 +1348,48 @@ def main(argv=None) -> int:
                              f"{bad}")
         if args.phase in ("all", "slice"):
             # the earlier slices' paths (the frames wrap the 3-frame rings),
-            # then the FFW pass of the kernel without a depthwise stage
-            for config, n in (("gopro_t1_fhr", args.frames),
-                              ("gopro", args.frames), ("gopro_enc3_ffw", 4)):
-                by_path[config] = run_slice(
-                    config, args.seed, n, width, height,
+            # the FFW pass of the kernel without a depthwise stage, the t0 and
+            # SR families whole-frame, and `gopro` under the two_stage plan
+            for config, n, fuse in (
+                    ("gopro_t1_fhr", args.frames, ()),
+                    ("gopro", args.frames, ()), ("gopro_enc3_ffw", 4, ()),
+                    ("derain", args.frames, ()), ("sr", args.frames, ()),
+                    ("gopro", args.frames, TWO_STAGE)):
+                tag = config + ("_two_stage" if fuse else "")
+                by_path[tag] = run_slice(
+                    config, args.seed, n, width, height, fuse=fuse,
                     trace=args.profile and config != "gopro_enc3_ffw"
                 )["launches"]
         if args.phase in ("all", "tiled"):
-            # this slice's main path, under both plans
-            for tag, res in run_tiled(args.seed, width, height,
-                                      args.profile).items():
-                by_path[tag] = res["launches"]
+            # the command line's tiled streams, each under its plans
+            for config in TILED_PLANS:
+                for tag, res in run_tiled(config, args.seed, width, height,
+                                          args.profile).items():
+                    by_path[tag] = res["launches"]
         if args.phase == "all":
             # every path launched the kernels that lie on it (the exact
             # counts were held above); attn_v_slots is the second epilogue of
             # the kernel that attn_v_merge launches and has no caller of its
-            # own in the model
+            # own in the model, nor has sab_sparse_softmax (row 12)
+            t0_chm = ("ffn", "qkv_stats", "split_proj", "conv3x3",
+                      "chm_stats", "lattice_merge", "lattice_split")
+            t1_chm = t0_chm + ("sab",)
             on_path = {
                 "gopro_t1_fhr": ("ffn", "qkv_stats", "split_proj", "conv3x3"),
-                "gopro": ("ffn", "qkv_stats", "split_proj", "conv3x3",
-                          "chm_stats", "sab", "lattice_merge",
-                          "lattice_split"),
-                "gopro_enc3_ffw": ("ffn_no_dw",),
-                "tiled": ("ffn", "qkv_stats", "split_proj", "conv3x3",
-                          "chm_stats", "sab", "lattice_merge",
-                          "lattice_split"),
+                "gopro": t1_chm, "gopro_enc3_ffw": ("ffn_no_dw",),
+                "derain": t0_chm, "sr": t1_chm,
+                "gopro_two_stage": t1_chm + ("two_stage",), "tiled": t1_chm,
                 "tiled_fused": ("ffn", "qkv_stats", "split_proj", "conv3x3",
                                 "chm_stats", "sab", "lattice_split",
                                 "attn_v_merge", "level_run"),
+                "tiled_two_stage": t1_chm + ("two_stage",),
+                "derain_tiled": t0_chm,
+                "derain_tiled_two_stage": t0_chm + ("two_stage",),
+                "sr_tiled": t1_chm, "sr_tiled_two_stage": t1_chm + (
+                    "two_stage",),
             }
+            require(set(by_path) == set(on_path),
+                    f"paths run: {sorted(by_path)}")
             for path, names in on_path.items():
                 for name in names:
                     require(by_path[path][name] > 0,
@@ -1182,7 +1399,7 @@ def main(argv=None) -> int:
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
-    if cases and len(by_path) == 5:  # launches are those of this run's paths
+    if cases and len(by_path) == 13:  # launches are those of this run's paths
         emit({"kernels": kernel_rows(cases, by_path)})
     print(smi_line, flush=True)
     emit({"ok": True,

@@ -24,7 +24,9 @@ from torch_port_util import (
     LEVEL_KERNEL_SHAPES,
     QKV_KERNEL_SHAPES,
     SAB_KERNEL_SHAPES,
+    SPARSE_KERNEL_SHAPES,
     SPLIT_KERNEL_SHAPES,
+    TWO_STAGE_KERNEL_CASES,
     Maker,
     attn_v_kernel_case,
     chain_kernel_case,
@@ -35,7 +37,10 @@ from torch_port_util import (
     max_err,
     sab_compare,
     sab_kernel_case,
+    sparse_kernel_case,
+    two_stage_kernel_case,
 )
+from turtlevsr_tpu_torch.kernels import chain2 as C2
 from turtlevsr_tpu_torch.kernels import ffn as K
 from turtlevsr_tpu_torch.kernels import lattice as L
 from turtlevsr_tpu_torch.kernels import level as LV
@@ -292,6 +297,65 @@ def test_level_run_longer_than_one_launch(dev):
     torch.cuda.synchronize()
     assert LV.fused_channel_gffw_run.launches == before + 2
     assert max_err(got, LV.channel_gffw_run_plain(x, blocks, 1)) <= 1e-3
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", list(TWO_STAGE_KERNEL_CASES))
+def test_two_stage_kernel_matches_plain_and_split(dev, case, dtype):
+    """Row 13 against its plain version, and against the split route it
+    replaces (two launches of the FFN kernel), whose arithmetic it repeats
+    pixel by pixel: equal up to a last-place difference now and then (the
+    two builds do not round every step alike: up to 8.6e-7 in float32)."""
+    x, st1, st2, ffw1, ffw2 = two_stage_kernel_case(case, Maker(9, dtype, dev))
+    before = C2.fused_two_stage.launches
+    got = C2.fused_two_stage(x, st1, st2, ffw1=ffw1, ffw2=ffw2)
+    torch.cuda.synchronize()
+    assert C2.fused_two_stage.launches == before + 1
+    want = C2.two_stage_plain(x, st1, st2, ffw1=ffw1, ffw2=ffw2)
+    err = max_err(got, want)
+    assert err <= 2 * KERNEL_TOL[dtype], err
+    y = K.fused_block_ffn(x, ffw2=ffw1, **st1)
+    split = K.fused_block_ffn(y, ffw2=ffw2, **st2)
+    assert max_err(got, split) <= KERNEL_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", SPARSE_KERNEL_SHAPES)
+def test_sparse_softmax_kernel_matches_plain(dev, shape, dtype):
+    """Row 12: the scores are given, so the kernel and the plain version keep
+    the same entries; the values differ by the order of the fp32 sum and the
+    exponential (one bf16 rounding of values <= 1)."""
+    s, mask = sparse_kernel_case(Maker(10, dtype, dev), *shape)
+    before = S.sab_sparse_softmax.launches
+    got = S.sab_sparse_softmax(s, mask)
+    torch.cuda.synchronize()
+    assert S.sab_sparse_softmax.launches == before + 1
+    want = S.sparse_softmax_plain(s, mask)
+    assert torch.equal(got != 0, want != 0)
+    tol = 1e-6 if dtype == torch.float32 else 2.0 ** -7
+    assert max_err(got, want) <= tol
+    assert ((got.float().sum(-1) - 1.0).abs() <= 0.02).all()
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", SAB_KERNEL_SHAPES)
+def test_sparse_softmax_kernel_is_row_7_after_its_scores(dev, shape, dtype):
+    """On scores that are exact in fp32 whatever the order of the sum, row 12
+    on row 7's rounded scores and the token grid's mask gives row 7's
+    probabilities bit for bit: the two kernels share their row body."""
+    from turtlevsr_tpu_torch.ops.attn_utils import local_window_mask
+
+    b, nf, hq, wq, d = shape
+    q, k, temp, _ = sab_kernel_case(Maker(11, dtype, dev), b, nf, hq, wq, d,
+                                    exact=True)
+    row7 = S.sab_attn_probs(q, k, temp, None, grid_wq=wq)
+    s = (torch.einsum("bqd,bnkd->bnqk", q.float(), k.float())
+         * temp.float()).to(dtype).contiguous()
+    hw = hq * wq
+    row12 = S.sab_sparse_softmax(s.reshape(b * nf, hw, hw),
+                                 local_window_mask(hq, wq, 4, dtype, dev))
+    torch.cuda.synchronize()
+    assert torch.equal(row12.reshape(row7.shape), row7)
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):

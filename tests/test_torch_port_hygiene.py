@@ -33,6 +33,8 @@ def test_port_has_the_expected_modules():
                  "turtlevsr_tpu_torch/kernels/sab.py",
                  "turtlevsr_tpu_torch/kernels/lattice.py",
                  "turtlevsr_tpu_torch/kernels/level.py",
+                 "turtlevsr_tpu_torch/kernels/chain2.py",
+                 "turtlevsr_tpu_torch/ops/resize.py",
                  "turtlevsr_tpu_torch/cli/infer.py",
                  "turtlevsr_tpu_torch/metrics/psnr_ssim.py",
                  "turtlevsr_tpu_torch/utils/img.py",
@@ -46,7 +48,7 @@ def test_port_has_the_expected_modules():
         assert want in rel, want
     from turtlevsr_tpu_torch.kernels import build
 
-    assert len(build.KERNEL_SOURCES) == 9
+    assert len(build.KERNEL_SOURCES) == 10
     headers = ("common.cuh", "ffn_tile.cuh", "qkv_tile.cuh")
     for cu in (*headers, *(n + ".cu" for n in build.KERNEL_SOURCES)):
         assert os.path.isfile(os.path.join(PORT, "kernels", "csrc", cu)), cu
@@ -111,37 +113,41 @@ def test_importing_the_port_loads_no_jax():
 
 
 @pytest.mark.parametrize("yml", ["Turtle_Deblur_Gopro.yml",
-                                 "Turtle_Desnow.yml", "Turtle_Derain.yml"])
+                                 "Turtle_Desnow.yml", "Turtle_Derain.yml",
+                                 "Turtle_SR_MVSR.yml"])
 def test_shipped_t1_configs_build_unchanged(yml):
-    """The shipped option files of the t1 variant build as they are: CHM
-    blocks end their decoder levels."""
-    from turtlevsr_tpu_torch.config.options import load_options
-    from turtlevsr_tpu_torch.models import build_model
+    """The shipped option files build as they are, the t1 ones (GoPro), the
+    t0 ones (desnow, derain: Turtle_arch) and the SR one: CHM blocks end
+    their decoder levels; a t0 SAB slot keeps a vestigial zero K field."""
+    from turtlevsr_tpu_torch.config.options import (
+        load_options,
+        model_config_from_options,
+    )
     from turtlevsr_tpu_torch.models.blocks import CausalHistoryModel
+    from turtlevsr_tpu_torch.models.turtle import Turtle
 
     opt = load_options(os.path.join(ROOT, "options", yml), is_train=False)
-    if opt["model"] != "Turtle_t1_arch":
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            build_model(opt, device="meta")
-        return
+    cfg = model_config_from_options(opt)
+    assert cfg.variant == {"Turtle_t1_arch": "t1", "Turtle_arch": "t0",
+                           "Turtlesuper_t1_arch": "sr"}[opt["model"]]
     with torch.device("meta"):  # shapes only: 59 M parameters stay unmade
-        from turtlevsr_tpu_torch.config.options import (
-            model_config_from_options,
-        )
-        from turtlevsr_tpu_torch.models.turtle import Turtle
-
-        model = Turtle(model_config_from_options(opt))
+        model = Turtle(cfg)
+    assert sum(p.numel() for p in model.parameters()) == 59079548
     for level in (model.decoder_level1, model.decoder_level2,
                   model.decoder_level3):
         assert isinstance(level.transformer_blocks[-1].attn,
                           CausalHistoryModel)
+        assert level.transformer_blocks[-1].spec.variant == (
+            "t0" if cfg.variant == "t0" else "t1")
     ws = model.decoder_level1.transformer_blocks[-1].spec.window_size
     assert ws == 16
-    cache = model.init_cache(1, 64, 64, torch.bfloat16)
+    side = 16 if cfg.variant == "sr" else 64  # SR: the low-resolution size
+    cache = model.init_cache(1, side, side, torch.bfloat16)
     assert cache[7]["v"].shape == (1, 2, 16, 16 * 16 * opt["dim"])
     # dec3: a 16 x 16 map of 4 dim channels under a window of 4
-    assert cache[5]["k"].shape == (1, opt["num_frames_tocache"], 16,
-                                   8 * opt["dim"])
+    assert cache[5]["k"].shape == (
+        (1, opt["num_frames_tocache"], 8, 8) if cfg.variant == "t0" else
+        (1, opt["num_frames_tocache"], 16, 8 * opt["dim"]))
 
 
 def test_tiny_chm_config_builds():
@@ -154,34 +160,36 @@ def test_tiny_chm_config_builds():
 
 @pytest.mark.parametrize("model", ["Turtle_arch", "TurtleSuper_t1_arch"])
 def test_other_variants_raise_not_implemented(model):
+    """Every variant of the reference is ported: t0 and SR build (the test
+    keeps the name it had while they raised); a model name the reference
+    does not have raises."""
+    from turtlevsr_tpu_torch.config.options import OptionsError
     from turtlevsr_tpu_torch.models import build_model
 
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        build_model(tiny_fhr_opt(model=model), device="cpu")
+    built = build_model(tiny_fhr_opt(model=model), device="cpu")
+    assert built.cfg.variant == {"turtle_arch": "t0",
+                                 "turtlesuper_t1_arch": "sr"}[model.lower()]
+    with pytest.raises(OptionsError, match="unknown model"):
+        build_model(tiny_fhr_opt(model=model + "_v2"), device="cpu")
 
 
 def test_tiled_mode_raises_not_implemented():
-    """Tiled mode is ported: it runs for the t1 variant. What still raises
-    "not ported yet" are the t0 and SR variants, when their model is built
-    (the SR task's tiled preset included). The test keeps the name it had
-    while tiled mode raised, so that its record stays one line."""
-    from turtlevsr_tpu_torch.cli import infer
+    """Tiled mode runs for every variant: the SR engine plans the grid on
+    the high-resolution frame and gives a frame of that size. The test keeps
+    the name it had while tiled mode raised, so that its record stays one
+    line."""
     from turtlevsr_tpu_torch.eval.engine import InferenceEngine
     from turtlevsr_tpu_torch.models import build_model
 
-    model = build_model(tiny_fhr_opt(), device="cpu")
-    eng = InferenceEngine(model, mode="tiled", tile=32, tile_overlap=8,
-                          dtype=torch.float32, device="cpu")
-    out = eng.step(np.random.RandomState(0).rand(40, 48, 3).astype(np.float32))
-    assert out.shape == (40, 48, 3) and np.isfinite(out).all()
-    assert eng._cache[3]["k"].shape[0] == 4  # 2 x 2 tiles, a cache each
-    for model_name in ("Turtle_arch", "TurtleSuper_t1_arch"):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            build_model(tiny_fhr_opt(model=model_name), device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        infer.main(["--task", "sr", "--data_dir", ROOT, "--device", "cpu",
-                    "-opt", os.path.join(ROOT, "options",
-                                         "Turtle_SR_MVSR.yml")])
+    for model_name, n_tiles in (("Turtle_t1_arch", 4), ("Turtle_arch", 4),
+                                ("TurtleSuper_t1_arch", 4)):
+        model = build_model(tiny_fhr_opt(model=model_name), device="cpu")
+        eng = InferenceEngine(model, mode="tiled", tile=32, tile_overlap=8,
+                              dtype=torch.float32, device="cpu")
+        out = eng.step(np.random.RandomState(0).rand(40, 48, 3).astype(
+            np.float32))
+        assert out.shape == (40, 48, 3) and np.isfinite(out).all()
+        assert eng._cache[3]["k"].shape[0] == n_tiles  # 2 x 2 tiles
 
 
 def test_entry_points_default_to_cuda_and_raise_without_a_card():
@@ -201,10 +209,12 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card():
 @pytest.mark.parametrize("fn", ["ffn", "qkv_stats", "split_proj", "conv3x3",
                                 "chm_stats", "sab", "lattice_split",
                                 "lattice_merge", "attn_v_slots",
-                                "attn_v_merge", "level_run"])
+                                "attn_v_merge", "level_run", "two_stage",
+                                "sab_sparse_softmax"])
 def test_kernel_call_without_a_card_raises(fn):
     """A tensor that is neither on the CPU nor on a CUDA device gets no
     plain version: the wrapper raises."""
+    from turtlevsr_tpu_torch.kernels import chain2 as C2
     from turtlevsr_tpu_torch.kernels import ffn as K
     from turtlevsr_tpu_torch.kernels import lattice as L
     from turtlevsr_tpu_torch.kernels import level as LV
@@ -237,8 +247,14 @@ def test_kernel_call_without_a_card_raises(fn):
             S.sab_attn_v_slots(x[0], x[0], 8)
         elif fn == "attn_v_merge":
             S.sab_attn_v_merge(x[0], x[0, :, :, :4].repeat(1, 1, 2), 1, 2, 4)
-        else:
+        elif fn == "level_run":
             LV.fused_channel_gffw_run(x, [{}], 1)
+        elif fn == "two_stage":
+            st = dict(ln_w=w, w1=x[0, 0], wd=x[0, :3, :3], w2=x[0, 0],
+                      mode="gelu")
+            C2.fused_two_stage(x, st, st)
+        else:
+            S.sab_sparse_softmax(x[0], x[0, 0])
 
 
 def test_building_kernels_without_nvcc_raises():
@@ -268,7 +284,8 @@ def test_launch_counters_cover_every_wrapper():
     assert set(counts) == {"ffn", "qkv_stats", "split_proj", "conv3x3",
                            "chm_stats", "sab", "lattice_merge",
                            "lattice_split", "attn_v_slots", "attn_v_merge",
-                           "level_run", "ffn_no_dw"}
+                           "level_run", "ffn_no_dw", "two_stage",
+                           "sab_sparse_softmax"}
     kernels.reset_launch_counts()
     assert set(kernels.launch_counts().values()) == {0}
 

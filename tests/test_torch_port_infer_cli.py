@@ -160,7 +160,12 @@ def test_cli_presets_and_arguments():
     from turtlevsr_tpu_torch.models.blocks import FUSE_PLANS
 
     assert TI.TASK_PRESETS == JI.TASK_PRESETS
-    assert TI.FUSE_CHOICES == FUSE_PLANS
+    # --fuse takes its choices from the one list of the fused plans
+    a = TI.parse_args(["--task", "sr", "--data_dir", "x", "--fuse",
+                       *FUSE_PLANS])
+    assert a.fuse == list(FUSE_PLANS) and "two_stage" in FUSE_PLANS
+    assert (a.opt, a.tile, a.tile_overlap) == (
+        "options/Turtle_SR_MVSR.yml", 256, 64)
     a = TI.parse_args(["--task", "deblur", "--data_dir", "x"])
     assert (a.opt, a.tile, a.tile_overlap, a.device, a.fuse) == (
         "options/Turtle_Deblur_Gopro.yml", 320, 192, "cuda", [])

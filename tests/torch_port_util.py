@@ -291,3 +291,72 @@ def attn_v_kernel_case(m: Maker, b, nf, hh, ww, ws, c, ring: bool):
     else:
         vs = [m(b, hw, d) for _ in range(nf)]
     return a, vs
+
+
+# ---------------------------------------------------------------------------
+# Cases of the two-stage kernel (row 13) and of the sparse softmax (row 12)
+# ---------------------------------------------------------------------------
+
+# name: (B, H, W, C, E1, E2, kind, biases of the second stage, ln_bias). A
+# pair: two gelu stages with scale and an FFW (F = 2C) after each; ra_gffw: a
+# gelu stage, then the gate. Ragged tiles, maps smaller than a tile, hidden
+# widths that are no multiple of the chunk.
+TWO_STAGE_KERNEL_CASES = {
+    "pair_c16": (2, 11, 13, 16, 32, 32, "pair", True, True),
+    "pair_c64": (1, 9, 17, 64, 128, 128, "pair", True, False),
+    "pair_c128": (1, 10, 8, 128, 256, 256, "pair", True, True),
+    "pair_c48_ragged_hidden": (1, 8, 9, 48, 70, 40, "pair", True, True),
+    "ra_gffw_c64": (1, 12, 16, 64, 128, 160, "ra_gffw", False, True),
+    "ra_gffw_c16_bias": (2, 7, 9, 16, 32, 20, "ra_gffw", True, False),
+    "ra_gffw_tiny_map": (1, 3, 5, 32, 64, 24, "ra_gffw", True, True),
+}
+# (BN, Q, K, hq, wq of the mask's token grid, exact scores). K < 5 follows
+# the unfused chain; K = 20000 needs fewer rows a block
+SPARSE_KERNEL_SHAPES = [(2, 16, 128, 8, 16, False), (3, 10, 130, 10, 13, True),
+                        (1, 6, 3, 2, 3, False), (2, 24, 400, 20, 20, False),
+                        (1, 5, 20000, 100, 200, True)]
+
+
+def two_stage_kernel_case(name, m: Maker):
+    """(x, st1, st2, ffw1, ffw2) of fused_two_stage."""
+    b, h, w, c, e1, e2, kind, biases, lnb = TWO_STAGE_KERNEL_CASES[name]
+
+    def stage(e, mode, with_b, scale):
+        ch = 2 * e if mode == "gate" else e
+        st = dict(ln_w=1.0 + m(c, scale=0.2),
+                  ln_b=m(c, scale=0.2) if lnb else None,
+                  w1=m(c, ch, scale=c ** -0.5), wd=m(3, 3, ch, scale=0.3),
+                  w2=m(e, c, scale=e ** -0.5), mode=mode)
+        if with_b:
+            st.update(b1=m(ch, scale=0.2), bd=m(ch, scale=0.2),
+                      b2=m(c, scale=0.2))
+        if scale:
+            st["scale"] = m(c, scale=0.5)
+        return st
+
+    def ffw():
+        f = 2 * c
+        return dict(ln_w=1.0 + m(c, scale=0.2),
+                    ln_b=m(c, scale=0.2) if lnb else None,
+                    w1=m(c, f, scale=c ** -0.5), b1=m(f, scale=0.2),
+                    w2=m(f, c, scale=f ** -0.5), b2=m(c, scale=0.2),
+                    scale=m(c, scale=0.5))
+
+    x = m(b, h, w, c, scale=0.5)
+    st1 = stage(e1, "gelu", True, True)
+    if kind == "pair":
+        return x, st1, stage(e2, "gelu", True, True), ffw(), ffw()
+    return x, st1, stage(e2, "gate", biases, False), None, None
+
+
+def sparse_kernel_case(m: Maker, bn, q, k, hq, wq, exact):
+    """(scores (BN, Q, K), local mask (Q, K)) of sab_sparse_softmax: the
+    mask is that of the first Q query tokens on an (hq, wq) grid."""
+    from turtlevsr_tpu_torch.ops.attn_utils import local_window_mask
+
+    if exact:
+        s = torch.from_numpy(m.rng.randint(-8, 9, (bn, q, k)) / 8.0)
+    else:
+        s = torch.from_numpy(m.rng.standard_normal((bn, q, k)))
+    mask = local_window_mask(hq, wq, 4, rows=slice(0, q))[:, :k]
+    return (s.to(m.device, m.dtype), mask.to(m.device, m.dtype))

@@ -19,6 +19,10 @@ Protocol (inference.py:260-370 of the reference):
   * denoising: gaussian noise of sigma = --noise_sigma / 255 is put on the
     ground-truth frames, sampled once per video from a fixed seed into .npy
     files that later runs reuse (inference.py:115-124),
+  * super-resolution (--task sr): the frames of --data_dir are the
+    high-resolution ones; the engine resizes each frame (or each tile of the
+    grid planned on it) bicubic /4 on the device before the model, and the
+    x4 output is compared with the high-resolution ground truth,
   * metrics are the eval scripts' (255-range PSNR, scipy-gaussian SSIM,
     optionally on the Y channel), not the validation loop's,
   * the device runs one frame ahead of the fetch of the previous output;
@@ -28,15 +32,14 @@ Protocol (inference.py:260-370 of the reference):
 What differs from the JAX package's CLI:
   * --device cuda|cpu (default cuda; without a card it raises, it never
     carries on on the CPU by itself);
-  * --fuse takes names out of {channel_runs, attn_v_merge}: the fused plan
-    of ``build_model`` (which hand-written kernels serve runs of channel
-    blocks and attention @ v); there is no --kernels, the port has one
-    route;
+  * --fuse takes names out of ``models.blocks.FUSE_PLANS`` (channel_runs,
+    attn_v_merge, two_stage): the fused plan of ``build_model`` (which
+    hand-written kernels serve runs of channel blocks, attention @ v and the
+    conv-only levels); there is no --kernels, the port has one route;
   * --model_path is a PyTorch ``state_dict`` file (``torch.load`` with
     ``weights_only=True``, then ``load_state_dict(strict=True)``): the
     parameter names and shapes are the reference's, so its ``.pth`` files
     load; orbax checkpoint folders are not read;
-  * the SR task's option file builds no model yet ("not ported yet");
   * no persistent compile cache: nothing is compiled per shape.
 """
 
@@ -68,7 +71,6 @@ TASK_PRESETS = {
                    tile_overlap=128),
     "sr": dict(opt="options/Turtle_SR_MVSR.yml", tile=256, tile_overlap=64),
 }
-FUSE_CHOICES = ("channel_runs", "attn_v_merge")
 
 
 def stable_video_seed(seed: int, video_name: str) -> int:
@@ -139,6 +141,8 @@ def save_eval_artifacts(save_path: str, model_name: str, video_name: str,
 
 
 def parse_args(argv=None):
+    from turtlevsr_tpu_torch.models.blocks import FUSE_PLANS
+
     p = argparse.ArgumentParser(
         prog="python -m turtlevsr_tpu_torch.cli.infer",
         description="Stream video folders through a Turtle model.")
@@ -173,9 +177,9 @@ def parse_args(argv=None):
     p.add_argument("--seed", type=int, default=0,
                    help="base seed of the per-video noise")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
-    p.add_argument("--fuse", nargs="*", default=[], choices=FUSE_CHOICES,
-                   help="the fused plan: which runs of blocks go to the "
-                        "fused kernels (default: none)")
+    p.add_argument("--fuse", nargs="*", default=[], choices=FUSE_PLANS,
+                   help="the fused plan: which blocks go to the fused "
+                        "kernels (default: none)")
     p.add_argument("--dtype", choices=["bfloat16", "float32"],
                    default="bfloat16")
     p.add_argument("--max_frames", type=int, default=0)

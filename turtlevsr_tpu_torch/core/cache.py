@@ -14,7 +14,9 @@ Slot layout (the same as the JAX package's ``core/cache.py``):
   SAB slot (the CHM blocks): k of shape (B, N, HW, 2 * dim), the
             l2-normalised window keys of each cached frame, and v of shape
             (B, N, HW, ws * ws * dim), its projected window values; HW =
-            (H / ws) * (W / ws) window tokens, ws = the level's window size
+            (H / ws) * (W / ws) window tokens, ws = the level's window size;
+            in the t0 variant k is a vestigial (B, N, 8, 8) zero buffer,
+            never read (see sab_slot_append_v)
   n: int64 scalar tensor on the slot's device (write pointer = n % N;
      min(n, N) positions are valid)
 """
@@ -75,6 +77,18 @@ def sab_slot_append(slot: dict, k_new: torch.Tensor,
     n_frames = slot["v"].shape[1]
     idx = (slot["n"] % n_frames).reshape(1)
     slot["k"].index_copy_(1, idx, k_new[:, None].to(slot["k"].dtype))
+    slot["v"].index_copy_(1, idx, v_new[:, None].to(slot["v"].dtype))
+    return {"k": slot["k"], "v": slot["v"], "n": slot["n"] + 1}
+
+
+def sab_slot_append_v(slot: dict, v_new: torch.Tensor) -> dict:
+    """Write one frame's V only, leaving the K field as it is: the t0 SAB
+    discards its attention scores (``out = v``, turtle_arch.py:523, quirk Q1
+    of SURVEY.md), so its K ring would only feed the next frame's equally
+    dead attention; the t0 slot keeps a vestigial (B, NF, 8, 8) zero K
+    field. IN PLACE like :func:`sab_slot_append`."""
+    n_frames = slot["v"].shape[1]
+    idx = (slot["n"] % n_frames).reshape(1)
     slot["v"].index_copy_(1, idx, v_new[:, None].to(slot["v"].dtype))
     return {"k": slot["k"], "v": slot["v"], "n": slot["n"] + 1}
 

@@ -15,9 +15,14 @@ batch axis of the model: one batched call per chunk of at most
 ``max_tile_batch`` tiles, all caches resident on the device. A chunk works
 on views ``[a:b]`` of the per-tile caches, which the model writes in place;
 the ring count of a slot is one scalar for all tiles and advances once per
-frame. The last chunk may be short (no padded tiles are computed). Not
-ported: data parallelism over a mesh, and the SR variant's resize (the model
-itself raises "not ported yet" for that variant).
+frame. The last chunk may be short (no padded tiles are computed).
+
+The SR variant takes high-resolution frames, as the reference's evaluation
+does (inference.py:214-220): each frame (whole mode) or each tile of the grid
+planned on the high-resolution frame (tiled mode) is resized bicubic /4 on
+the device, the model's caches are at that low resolution, and the x4 output
+is overlap-added at the input's resolution. Not ported: data parallelism
+over a mesh.
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ import torch.nn.functional as F
 
 from turtlevsr_tpu_torch.models import require_device
 from turtlevsr_tpu_torch.models.turtle import Turtle
+from turtlevsr_tpu_torch.ops.resize import resize_bicubic
 
 
 def _pad8(h: int, w: int) -> Tuple[int, int]:
@@ -139,14 +145,26 @@ class InferenceEngine:
         prev = cur if self._prev is None else self._prev
         with torch.inference_mode():
             if self.mode == "whole":
+                x = self._model_input(torch.stack([prev, cur], dim=1))
                 if self._cache is None:
-                    self._cache = self.model.init_cache(1, h, w, self.dtype)
-                out, self._cache = self.model(torch.stack([prev, cur], dim=1),
-                                              self._cache)
+                    self._cache = self.model.init_cache(1, *x.shape[2:4],
+                                                        self.dtype)
+                out, self._cache = self.model(x, self._cache)
+                out = out[:, :h, :w]
             else:
                 out = self._step_tiled(prev, cur)
         self._prev = cur
         return out[0]
+
+    def _model_input(self, x: torch.Tensor) -> torch.Tensor:
+        """(N, 2, H, W, C) [previous, current] frames or tiles as the model
+        takes them: for the SR variant resized bicubic to (H / 4, W / 4)."""
+        if self.cfg.variant != "sr":
+            return x
+        n, two, h, w, c = x.shape
+        s = self.cfg.sr_scale
+        x = resize_bicubic(x.reshape(n * two, h, w, c), h // s, w // s)
+        return x.reshape(n, two, h // s, w // s, c)
 
     # -- tiled mode --------------------------------------------------------
     def tile_plan(self, h: int, w: int):
@@ -173,10 +191,12 @@ class InferenceEngine:
             return torch.stack([fr[hi:hi + t, wi:wi + t]
                                 for hi in his for wi in wis])
 
-        x = torch.stack([tiles_of(prev), tiles_of(cur)], dim=1)
+        x = self._model_input(
+            torch.stack([tiles_of(prev), tiles_of(cur)], dim=1))
         n_tiles = x.shape[0]
         if self._cache is None:
-            self._cache = self.model.init_cache(n_tiles, t, t, self.dtype)
+            self._cache = self.model.init_cache(n_tiles, *x.shape[2:4],
+                                                self.dtype)
         cache = self._cache
         outs, counts = [], None
         for a in range(0, n_tiles, self.max_tile_batch):

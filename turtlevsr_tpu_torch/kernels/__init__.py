@@ -2,13 +2,14 @@
 versions: ``ffn`` (the conv-FFN chains and the attention statistics),
 ``sab`` (the alignment attention's probabilities and their product with the
 values), ``lattice`` (the window permutation), ``level`` (a run of channel
-blocks in one launch). Nothing is built when the package is imported."""
+blocks in one launch), ``chain2`` (two chained depthwise stages in one
+launch). Nothing is built when the package is imported."""
 
 from __future__ import annotations
 
 
 def _counted() -> dict:
-    from turtlevsr_tpu_torch.kernels import ffn, lattice, level, sab
+    from turtlevsr_tpu_torch.kernels import chain2, ffn, lattice, level, sab
 
     return {"ffn": ffn.fused_block_ffn, "qkv_stats": ffn.fused_qkv_stats,
             "split_proj": ffn.fused_ln_split_proj,
@@ -17,7 +18,9 @@ def _counted() -> dict:
             "lattice_split": lattice.lattice_split,
             "attn_v_slots": sab.sab_attn_v_slots,
             "attn_v_merge": sab.sab_attn_v_merge,
-            "level_run": level.fused_channel_gffw_run}
+            "level_run": level.fused_channel_gffw_run,
+            "two_stage": chain2.fused_two_stage,
+            "sab_sparse_softmax": sab.sab_sparse_softmax}
 
 
 def launch_counts() -> dict:

@@ -20,7 +20,7 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
 KERNEL_SOURCES = ("ffn", "qkv_stats", "split_proj", "conv3x3", "chm_stats",
-                  "sab", "lattice", "level", "attn_v")
+                  "sab", "lattice", "level", "attn_v", "chain2")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -48,13 +48,19 @@ _SIGNATURES = {
                   "turtle_chm_stats_smem": ([ctypes.c_int] * 3,
                                             ctypes.c_size_t)},
     "sab": {"turtle_sab_launch": (_LAUNCH_ARGS, ctypes.c_int),
-            "turtle_sab_smem": ([ctypes.c_int] * 4, ctypes.c_size_t)},
+            "turtle_sab_smem": ([ctypes.c_int] * 4, ctypes.c_size_t),
+            "turtle_sparse_softmax_launch": (_LAUNCH_ARGS, ctypes.c_int),
+            "turtle_sparse_softmax_smem": ([ctypes.c_int] * 3,
+                                           ctypes.c_size_t)},
     "lattice": {"turtle_lattice_launch": (
         [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 6
         + [ctypes.c_void_p], ctypes.c_int)},
     "level": {"turtle_level_launch": (_LAUNCH_ARGS, ctypes.c_int),
               "turtle_level_smem": ([ctypes.c_int] * 3, ctypes.c_size_t)},
     "attn_v": {"turtle_attn_v_launch": (_LAUNCH_ARGS, ctypes.c_int)},
+    "chain2": {"turtle_two_stage_launch": (_LAUNCH_ARGS, ctypes.c_int),
+               "turtle_two_stage_smem": ([ctypes.c_int] * 2,
+                                         ctypes.c_size_t)},
 }
 
 

@@ -1,4 +1,5 @@
-// Attention probabilities of the StateAlignBlock (t1), one kernel:
+// Attention probabilities of the StateAlignBlock (t1), two kernels that share
+// one row body (sparse_softmax_row):
 //
 //   s    = round_to_T((q . k^T) * temperature)        per cached frame
 //   keep = the k_top largest entries of each row (ties: first occurrence)
@@ -7,20 +8,23 @@
 //   out  = softmax over the nonzero entries of comb, zero elsewhere,
 //          times the frame's validity
 //
-// q (B, HW, D), k (B, NF, HW, D) as the ring stores it, out (B, NF, HW, HW).
+// sab_probs_kernel (row 7): q (B, HW, D), k (B, NF, HW, D) as the ring
+// stores it, out (B, NF, HW, HW). Replaces sab_fused_attn_probs in
+// turtlevsr_tpu/kernels/sab.py (_scores_kernel). On an H100 the work is
+// bound by operations at D = 512 and 256 (2*HW*HW*D flop per frame against
+// HW*HW written) and by bytes at D = 128. One block owns R = 16 (or 8) query
+// rows and all HW keys of one (batch, frame): the scores run as mma.sync
+// warp tiles (A = the q rows in shared memory, B = key rows read from device
+// memory, 16 bytes a lane: the k axis is walked in a permuted order that
+// both operands share), are rounded to T and kept as a row buffer in shared
+// memory, so the score tensor never exists in device memory. The local mask
+// comes from the indices.
 //
-// Replaces sab_fused_attn_probs in turtlevsr_tpu/kernels/sab.py
-// (_scores_kernel). On an H100 the work is bound by operations at D = 512
-// and 256 (2*HW*HW*D flop per frame against HW*HW written) and by bytes at
-// D = 128. One block owns R = 16 (or 8) query rows and all HW keys of one
-// (batch, frame): the scores run as mma.sync warp tiles (A = the q rows in
-// shared memory, B = key rows read from device memory, 16 bytes a lane: the
-// k axis is walked in a permuted order that both operands share), are
-// rounded to T and kept as a row buffer in shared memory, so the score
-// tensor never exists in device memory. Then each warp takes rows: one scan
-// keeps a sorted top-k list per lane, k_top rounds of a warp reduction on
-// (value, lowest index) merge them, and three more scans give the maximum,
-// the sum and the output row. The local mask comes from the indices.
+// sparse_softmax_kernel (row 12): the same rows on given scores (BN, Q, K)
+// and a given (Q, K) mask, no temperature, no validity. Replaces
+// sab_sparse_softmax in turtlevsr_tpu/kernels/sab.py (_kernel). Bound by
+// bytes (scores and mask read once, the probabilities written once): the
+// rows are staged through shared memory and read from there four times.
 #include <cfloat>
 #include <climits>
 
@@ -85,6 +89,103 @@ __device__ __forceinline__ void sab_dot(float (&d)[4], const float* alo, const f
   }
 }
 
+// The sparse softmax of one row of nk scores s (shared memory) by one warp:
+// keep = the k_top largest (ties: first occurrence; fewer keys: all of them),
+// comb = s * keep + s * local, out = softmax over the nonzero entries of comb,
+// zero elsewhere (a row with nothing left gives zeros), times fv. local: the
+// given mask row (GIVEN_MASK, global memory) or L1 distance <= n_local of key
+// j from the query (qy, qx) on the grid of width wq. One scan keeps a sorted
+// top-k list per lane, k_top rounds of a warp reduction on (value, lowest
+// index) merge them, three more scans give the maximum, the sum and the row.
+template <class T, bool GIVEN_MASK>
+__device__ __forceinline__ void sparse_softmax_row(const T* s, int nk, int k_top_req, int qy,
+                                                   int qx, int wq, int n_local,
+                                                   const T* __restrict__ mrow, float fv,
+                                                   T* __restrict__ out) {
+  const int lane = threadIdx.x & 31;
+  const int k_top = min(min(k_top_req, KTOP_MAX), nk);
+  const float NEG = -INFINITY;
+  float tv[KTOP_MAX];
+  int ti[KTOP_MAX];
+#pragma unroll
+  for (int m = 0; m < KTOP_MAX; ++m) { tv[m] = NEG; ti[m] = INT_MAX; }
+  for (int j = lane; j < nk; j += 32) {
+    const float v = to_f(s[j]);
+    if (v > tv[KTOP_MAX - 1]) {  // a later equal value never displaces an earlier one
+      tv[KTOP_MAX - 1] = v; ti[KTOP_MAX - 1] = j;
+#pragma unroll
+      for (int m = KTOP_MAX - 1; m > 0; --m)
+        if (tv[m] > tv[m - 1]) {
+          const float fv_ = tv[m]; tv[m] = tv[m - 1]; tv[m - 1] = fv_;
+          const int iv_ = ti[m]; ti[m] = ti[m - 1]; ti[m - 1] = iv_;
+        }
+    }
+  }
+  // k_top rounds: the best head over the warp, first occurrence on ties
+  int chosen[KTOP_MAX];
+#pragma unroll
+  for (int r = 0; r < KTOP_MAX; ++r) {
+    chosen[r] = -1;
+    if (r < k_top) {
+      float bv = tv[0];
+      int bi = ti[0];
+#pragma unroll
+      for (int m = 16; m > 0; m >>= 1) {
+        const float ov = __shfl_xor_sync(0xffffffffu, bv, m);
+        const int oi = __shfl_xor_sync(0xffffffffu, bi, m);
+        if (ov > bv || (ov == bv && oi < bi)) { bv = ov; bi = oi; }
+      }
+      chosen[r] = bi;
+      if (ti[0] == bi) {  // the winner's lane drops its head
+#pragma unroll
+        for (int m = 0; m < KTOP_MAX - 1; ++m) { tv[m] = tv[m + 1]; ti[m] = ti[m + 1]; }
+        tv[KTOP_MAX - 1] = NEG; ti[KTOP_MAX - 1] = INT_MAX;
+      }
+    }
+  }
+  // comb of column j at grid position (jy, jx)
+  auto comb_at = [&](int j, int jy, int jx) -> float {
+    const float v = to_f(s[j]);
+    float keep = 0.f;
+#pragma unroll
+    for (int r = 0; r < KTOP_MAX; ++r) keep += (j == chosen[r]) ? 1.f : 0.f;
+    float local;
+    if constexpr (GIVEN_MASK) local = to_f(mrow[j]);
+    else local = (abs(jy - qy) + abs(jx - qx) <= n_local) ? 1.f : 0.f;
+    return v * keep + v * local;
+  };
+  // lane's first key on the grid, and the step of 32 keys along it
+  int jy0 = 0, jx0 = 0;
+  if constexpr (!GIVEN_MASK) { jy0 = lane / wq; jx0 = lane - jy0 * wq; }
+  auto advance = [&](int& jy, int& jx) {
+    if constexpr (!GIVEN_MASK) {
+      jx += 32;
+      while (jx >= wq) { jx -= wq; ++jy; }
+    }
+  };
+  float mx = NEG;
+  for (int j = lane, jy = jy0, jx = jx0; j < nk; j += 32) {
+    const float c = comb_at(j, jy, jx);
+    if (c != 0.f) mx = fmaxf(mx, c);
+    advance(jy, jx);
+  }
+#pragma unroll
+  for (int m = 16; m > 0; m >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, m));
+  if (!(mx > NEG)) mx = 0.f;  // a row with nothing left: zeros, not NaN
+  float sum = 0.f;
+  for (int j = lane, jy = jy0, jx = jx0; j < nk; j += 32) {
+    const float c = comb_at(j, jy, jx);
+    if (c != 0.f) sum += expf(c - mx);
+    advance(jy, jx);
+  }
+  sum = fmaxf(warp_sum(sum), FLT_MIN);
+  for (int j = lane, jy = jy0, jx = jx0; j < nk; j += 32) {
+    const float c = comb_at(j, jy, jx);
+    out[j] = from_f<T>(c != 0.f ? expf(c - mx) / sum * fv : 0.f);
+    advance(jy, jx);
+  }
+}
+
 template <class T>
 __global__ void __launch_bounds__(NT) sab_probs_kernel(SabArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -123,87 +224,12 @@ __global__ void __launch_bounds__(NT) sab_probs_kernel(SabArgs a) {
   __syncthreads();
 
   const float fv = a.fvalid ? a.fvalid[n] : 1.f;
-  const int k_top = min(min(a.k_top, KTOP_MAX), HW);
-  const float NEG = -INFINITY;
   for (int row = warp; row < R; row += NW) {
     const int qi = r0 + row;
     if (qi >= HW) break;  // warp-uniform
-    const T* s = sb + row * SS;
-    // one scan: this lane's k_top best, sorted by (value down, index up)
-    float tv[KTOP_MAX];
-    int ti[KTOP_MAX];
-#pragma unroll
-    for (int m = 0; m < KTOP_MAX; ++m) { tv[m] = NEG; ti[m] = INT_MAX; }
-    for (int j = lane; j < HW; j += 32) {
-      const float v = to_f(s[j]);
-      if (v > tv[KTOP_MAX - 1]) {  // a later equal value never displaces an earlier one
-        tv[KTOP_MAX - 1] = v; ti[KTOP_MAX - 1] = j;
-#pragma unroll
-        for (int m = KTOP_MAX - 1; m > 0; --m)
-          if (tv[m] > tv[m - 1]) {
-            const float fv_ = tv[m]; tv[m] = tv[m - 1]; tv[m - 1] = fv_;
-            const int iv_ = ti[m]; ti[m] = ti[m - 1]; ti[m - 1] = iv_;
-          }
-      }
-    }
-    // k_top rounds: the best head over the warp, first occurrence on ties
-    int chosen[KTOP_MAX];
-#pragma unroll
-    for (int r = 0; r < KTOP_MAX; ++r) {
-      chosen[r] = -1;
-      if (r < k_top) {
-        float bv = tv[0];
-        int bi = ti[0];
-#pragma unroll
-        for (int m = 16; m > 0; m >>= 1) {
-          const float ov = __shfl_xor_sync(0xffffffffu, bv, m);
-          const int oi = __shfl_xor_sync(0xffffffffu, bi, m);
-          if (ov > bv || (ov == bv && oi < bi)) { bv = ov; bi = oi; }
-        }
-        chosen[r] = bi;
-        if (ti[0] == bi) {  // the winner's lane drops its head
-#pragma unroll
-          for (int m = 0; m < KTOP_MAX - 1; ++m) { tv[m] = tv[m + 1]; ti[m] = ti[m + 1]; }
-          tv[KTOP_MAX - 1] = NEG; ti[KTOP_MAX - 1] = INT_MAX;
-        }
-      }
-    }
-    const int qy = qi / wq, qx = qi - qy * wq;
-    // comb of column j at grid position (jy, jx)
-    auto comb_at = [&](int j, int jy, int jx) -> float {
-      const float v = to_f(s[j]);
-      float keep = 0.f;
-#pragma unroll
-      for (int r = 0; r < KTOP_MAX; ++r) keep += (j == chosen[r]) ? 1.f : 0.f;
-      const float local = (abs(jy - qy) + abs(jx - qx) <= a.n_local) ? 1.f : 0.f;
-      return v * keep + v * local;
-    };
-    const int jy0 = lane / wq, jx0 = lane - jy0 * wq;
-    float mx = NEG;
-    for (int j = lane, jy = jy0, jx = jx0; j < HW; j += 32) {
-      const float c = comb_at(j, jy, jx);
-      if (c != 0.f) mx = fmaxf(mx, c);
-      jx += 32;
-      while (jx >= wq) { jx -= wq; ++jy; }
-    }
-#pragma unroll
-    for (int m = 16; m > 0; m >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, m));
-    if (!(mx > NEG)) mx = 0.f;  // a row with nothing left: zeros, not NaN
-    float sum = 0.f;
-    for (int j = lane, jy = jy0, jx = jx0; j < HW; j += 32) {
-      const float c = comb_at(j, jy, jx);
-      if (c != 0.f) sum += expf(c - mx);
-      jx += 32;
-      while (jx >= wq) { jx -= wq; ++jy; }
-    }
-    sum = fmaxf(warp_sum(sum), FLT_MIN);
     T* out = static_cast<T*>(a.out) + (((size_t)b * a.NF + n) * HW + qi) * HW;
-    for (int j = lane, jy = jy0, jx = jx0; j < HW; j += 32) {
-      const float c = comb_at(j, jy, jx);
-      out[j] = from_f<T>(c != 0.f ? expf(c - mx) / sum * fv : 0.f);
-      jx += 32;
-      while (jx >= wq) { jx -= wq; ++jy; }
-    }
+    sparse_softmax_row<T, false>(sb + row * SS, HW, a.k_top, qi / wq, qi % wq, wq, a.n_local,
+                                 nullptr, fv, out);
   }
 }
 
@@ -214,6 +240,50 @@ static int launch_sab(const SabArgs& a, size_t smem, cudaStream_t stream) {
                                          (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((a.HW + a.R - 1) / a.R, a.NF, a.B);
+  kern<<<grid, dim3(NT), smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// Row 12: the same rows on given scores (BN, Q, K) and a given local mask
+// (Q, K) of the scores' type. A block owns R rows of one entry: they are
+// staged into shared memory in one coalesced pass, then each warp takes
+// rows as sab_probs_kernel does.
+struct SparseArgs {
+  const void *scores, *mask;
+  void* out;
+  int BN, Q, K, k_top, R, SS;
+};
+
+template <class T>
+__global__ void __launch_bounds__(NT) sparse_softmax_kernel(SparseArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* sb = reinterpret_cast<T*>(smem);  // T[R][SS]
+  const int Q = a.Q, K = a.K, R = a.R, SS = a.SS;
+  const int warp = threadIdx.x >> 5;
+  const int r0 = blockIdx.x * R, bn = blockIdx.y;
+  const int rows = min(R, Q - r0);
+  const T* src = static_cast<const T*>(a.scores) + ((size_t)bn * Q + r0) * K;
+  for (int idx = threadIdx.x; idx < rows * K; idx += NT) {
+    const int row = idx / K;
+    sb[row * SS + idx - row * K] = src[idx];
+  }
+  __syncthreads();
+  const T* mask = static_cast<const T*>(a.mask);
+  for (int row = warp; row < rows; row += NW) {
+    const int qi = r0 + row;
+    T* out = static_cast<T*>(a.out) + ((size_t)bn * Q + qi) * K;
+    sparse_softmax_row<T, true>(sb + row * SS, K, a.k_top, 0, 0, 1, 0, mask + (size_t)qi * K,
+                                1.f, out);
+  }
+}
+
+template <class T>
+static int launch_sparse(const SparseArgs& a, size_t smem, cudaStream_t stream) {
+  auto kern = sparse_softmax_kernel<T>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((a.Q + a.R - 1) / a.R, a.BN);
   kern<<<grid, dim3(NT), smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
@@ -248,4 +318,28 @@ extern "C" int turtle_sab_launch(void* const* ptrs, const int* ints, int is_bf16
   const size_t smem = turtle_sab_smem(a.HW, a.D, a.R, is_bf16);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return is_bf16 ? launch_sab<__nv_bfloat16>(a, smem, s) : launch_sab<float>(a, smem, s);
+}
+
+// shared memory of a row-12 block that owns R rows of K scores
+extern "C" size_t turtle_sparse_softmax_smem(int K, int R, int is_bf16) {
+  using namespace turtle;
+  return (size_t)R * sab_row_stride(K) * (is_bf16 ? 2 : 4);
+}
+
+// ptrs: scores (BN, Q, K), mask (Q, K), out (BN, Q, K); ints: BN, Q, K,
+// k_top, R. Returns the CUDA error code (0 = launched), -1 for a shape not
+// taken.
+extern "C" int turtle_sparse_softmax_launch(void* const* ptrs, const int* ints, int is_bf16,
+                                            void* stream) {
+  using namespace turtle;
+  SparseArgs a;
+  a.scores = ptrs[0]; a.mask = ptrs[1]; a.out = ptrs[2];
+  a.BN = ints[0]; a.Q = ints[1]; a.K = ints[2]; a.k_top = ints[3]; a.R = ints[4];
+  a.SS = sab_row_stride(a.K);
+  if (a.BN < 1 || a.BN > 65535 || a.Q < 1 || a.K < 1 || a.R < 1 || a.R > 64 || a.k_top < 1 ||
+      a.k_top > KTOP_MAX)
+    return -1;
+  const size_t smem = turtle_sparse_softmax_smem(a.K, a.R, is_bf16);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return is_bf16 ? launch_sparse<__nv_bfloat16>(a, smem, s) : launch_sparse<float>(a, smem, s);
 }

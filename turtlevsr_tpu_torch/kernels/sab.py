@@ -1,8 +1,10 @@
 """The attention of the StateAlignBlock (t1): its probabilities (scores,
-top-5, local mask, clipped softmax, frame validity) and their product with
-the window values, stored slot by slot or straight as merged maps.
+top-5, local mask, clipped softmax, frame validity), the same probabilities
+on given scores and a given mask, and their product with the window values,
+stored slot by slot or straight as merged maps.
 
-``sab_attn_probs`` launches the kernel of ``csrc/sab.cu``,
+``sab_attn_probs`` and ``sab_sparse_softmax`` launch the kernels of
+``csrc/sab.cu``,
 ``sab_attn_v_slots`` and ``sab_attn_v_merge`` that of ``csrc/attn_v.cu``, on
 CUDA tensors (or they raise); on CPU tensors, and only there, each runs the
 plain version beside it. The plain versions round where the kernels round
@@ -134,6 +136,90 @@ def sab_attn_probs(q, k, temp, fvalid=None, *, grid_wq: int, k_top: int = 5,
 
 
 sab_attn_probs.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# row 12: the same probabilities on given scores and a given local mask
+# ---------------------------------------------------------------------------
+
+
+def sparse_softmax_plain(scores, local_mask, k_top: int = 5):
+    """Plain version of :func:`sab_sparse_softmax`: the chain of
+    :func:`sab_attn_probs_plain` after its scores, a block of rows at a
+    time."""
+    dt = scores.dtype
+    ad = acc_dtype(dt)
+    q = scores.shape[1]
+    out = torch.empty_like(scores)
+    for r0 in range(0, q, _PLAIN_ROWS):
+        rows = slice(r0, min(r0 + _PLAIN_ROWS, q))
+        s = scores[:, rows].to(ad)
+        local = local_mask[rows].to(dt).to(ad)
+        out[:, rows] = clipped_softmax(topk_keep(s, k_top) + s * local).to(dt)
+    return out
+
+
+def _sparse_rows(k: int, is_bf16: bool, lib) -> int:
+    """Rows per block: 8, or fewer where 8 rows of k scores do not fit the
+    block's shared memory."""
+    need = 0
+    for r in (8, 4, 2, 1):
+        need = lib.turtle_sparse_softmax_smem(k, r, int(is_bf16))
+        if need <= _SMEM_LIMIT:
+            return r
+    raise ValueError(f"sab_sparse_softmax: a row of {k} scores needs {need} "
+                     f"bytes of shared memory, the card gives a block "
+                     f"{_SMEM_LIMIT}")
+
+
+def _sparse_launch(scores, local_mask, k_top):
+    if scores.dtype not in _KERNEL_DTYPES:
+        raise ValueError("sab_sparse_softmax: the kernel takes bfloat16 or "
+                         f"float32, got {scores.dtype}")
+    bn, q, k = scores.shape
+    if bn > 65535:
+        raise ValueError(f"sab_sparse_softmax: at most 65535 entries a "
+                         f"launch, got {bn}")
+    mask = local_mask.to(scores.dtype).contiguous()
+    lib = build.load("sab")
+    rows = _sparse_rows(k, scores.dtype == torch.bfloat16, lib)
+    out = torch.empty_like(scores)
+    _call(lib.turtle_sparse_softmax_launch,
+          [_check("scores", scores, scores), _check("local_mask", mask, scores),
+           out.data_ptr()], [bn, q, k, k_top, rows], scores,
+          "sab_sparse_softmax")
+    sab_sparse_softmax.launches += 1
+    return out
+
+
+def sab_sparse_softmax(scores, local_mask, k_top: int = 5):
+    """scores (BN, Q, K), local_mask (Q, K) taken in the scores' type.
+    Returns (BN, Q, K) probabilities in the scores' type:
+
+      keep = the k_top largest entries of a row, first occurrence on ties
+             (with fewer than k_top keys, all of them: min(k_top, K), as the
+             unfused chain's topk_keep; the Pallas kernel would mark key 0
+             twice there, a shape its gate keeps away)
+      comb = s * keep + s * local_mask
+      out  = softmax over the nonzero entries of comb (zeros elsewhere, a
+             row with nothing left gives zeros), float32 inside
+
+    Row 7 (:func:`sab_attn_probs`) is this after its QK^T product, with the
+    local mask taken from the token grid and the frame validity applied.
+    Replaces ``sab_sparse_softmax`` in turtlevsr_tpu/kernels/sab.py
+    (kernel: csrc/sab.cu, ``sparse_softmax_kernel``; bound by bytes)."""
+    if scores.dim() != 3 or local_mask.shape != scores.shape[1:]:
+        raise ValueError("sab_sparse_softmax takes scores (BN, Q, K) and a "
+                         "local_mask (Q, K)")
+    if not 1 <= k_top <= K_TOP_MAX:
+        raise ValueError(f"sab_sparse_softmax: k_top must be 1..{K_TOP_MAX}")
+    if scores.device.type == "cpu":
+        return sparse_softmax_plain(scores, local_mask, k_top)
+    _need_cuda("sab_sparse_softmax", scores)
+    return _sparse_launch(scores, local_mask, k_top)
+
+
+sab_sparse_softmax.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -32,11 +32,13 @@ def build_model(opt: dict, device: torch.device | str = "cuda",
                 dtype: torch.dtype = torch.float32,
                 generator: torch.Generator | None = None,
                 fuse=()) -> Turtle:
-    """Build the model an option dict describes, with freshly initialised
-    parameters, in eval mode on ``device``. ``model.cfg`` is the frozen
+    """Build the model an option dict describes (Turtle_arch, Turtle_t1_arch
+    or Turtlesuper_t1_arch, whose model takes low-resolution frames and
+    returns them x4), with freshly initialised parameters, in eval mode on
+    ``device``. ``model.cfg`` is the frozen
     ModelConfig; ``model.init_cache(batch, h, w)`` makes the empty history;
     ``model(x_pair, cache)`` is one frame step. ``fuse``: the fused plan, a
-    tuple out of ``("channel_runs", "attn_v_merge")``, empty by default: it
+    tuple out of ``models.blocks.FUSE_PLANS``, empty by default: it
     chooses between hand-written kernels (see ``models/blocks.py``) and
     changes no parameter."""
     device = require_device(device)

@@ -17,14 +17,16 @@ with its fused path taken:
   FHR + GFFW          split projection pass, history attention as plain
                       tensor products, project_out, then one FFN pass
   CHM + GFFW          the causal history model: the StateAlignBlock aligns
-                      the cached frames to the current one (q, k split
+                      the cached frames to the current one (t1: q, k split
                       projection pass, the v chain as one composite 3x3 conv
                       with LayerNorm, the lattice split, the probabilities
                       kernel, attention @ v as plain matrix products, the
-                      lattice merge), one statistics pass over the current
-                      map and the aligned frames, a small softmax, and one
-                      FFN pass that takes the NF + 1 value maps with the
-                      attention folded into per-map matrices. With
+                      lattice merge; t0, whose scores are dead code: the
+                      composite v conv, the lattice split and the merge of
+                      [history | current]), one statistics pass over the
+                      current map and the aligned frames, a small softmax,
+                      and one FFN pass that takes the NF + 1 value maps with
+                      the attention folded into per-map matrices. With
                       ``bias: true`` (no shipped configuration) the
                       projections keep their biases and the block takes the
                       unfolded route, as the JAX package does.
@@ -40,8 +42,11 @@ chooses between hand-written kernels, never between a kernel and its plain
 version: ``"attn_v_merge"`` lets a CHM block compute attention @ v and the
 lattice merge in one launch (``sab_attn_v_merge``) instead of one matrix
 product per ring position and a ``lattice_merge`` launch; ``"channel_runs"``
-is the levels' business (``models/turtle.py``): runs of Channel+GFFW blocks
-go to ``fused_channel_gffw_run``, which reads ``run_weights`` of each block.
+and ``"two_stage"`` are the levels' business (``models/turtle.py``): runs of
+Channel+GFFW blocks go to ``fused_channel_gffw_run``, which reads
+``run_weights`` of each block; pairs of ReducedAttn+FFW blocks and each
+ReducedAttn+GFFW block go to ``fused_two_stage``, which reads the blocks'
+``ra``, ``ffw2`` and ``ffn`` weights.
 """
 
 from __future__ import annotations
@@ -56,6 +61,7 @@ from turtlevsr_tpu_torch.core.cache import (
     fhr_slot_append,
     frame_valid_mask,
     sab_slot_append,
+    sab_slot_append_v,
     token_valid_mask,
 )
 from turtlevsr_tpu_torch.kernels.ffn import (
@@ -75,7 +81,7 @@ from turtlevsr_tpu_torch.ops.attn_utils import (
 )
 from turtlevsr_tpu_torch.ops.conv import conv2d
 
-FUSE_PLANS = ("channel_runs", "attn_v_merge")
+FUSE_PLANS = ("channel_runs", "attn_v_merge", "two_stage")
 
 
 def check_fuse(fuse) -> tuple:
@@ -101,6 +107,7 @@ class BlockSpec:
     layernorm_bias: bool
     num_frames_tocache: int
     scale_patchsize: int = 1
+    variant: str = "t1"  # t0 | t1 (SR shares t1's blocks)
 
     @property
     def window_size(self) -> int:
@@ -374,21 +381,24 @@ class TurtleAttnBlock(nn.Module, KernelWeights):
             def cat(*ts):
                 return None if ts[0] is None else torch.cat(ts).contiguous()
 
-            kw["sab_qkv"] = dict(
-                w1=torch.cat([pw_matrix(sab.qk), pw_matrix(sab.v)],
-                             dim=1).contiguous(),
-                b1=cat(sab.qk.bias, sab.v.bias),
-                wd=torch.cat([dw_taps(sab.qk_dwconv), dw_taps(sab.v_dwconv)],
-                             dim=2).contiguous(),
-                bd=cat(sab.qk_dwconv.bias, sab.v_dwconv.bias), **ln)
+            if self.spec.variant == "t0":  # the v chain alone
+                kw["sab_v"] = dict(w1=pw_matrix(sab.v), b1=sab.v.bias,
+                                   wd=dw_taps(sab.v_dwconv),
+                                   bd=sab.v_dwconv.bias, **ln)
+            else:
+                kw["sab_qkv"] = dict(
+                    w1=torch.cat([pw_matrix(sab.qk), pw_matrix(sab.v)],
+                                 dim=1).contiguous(),
+                    b1=cat(sab.qk.bias, sab.v.bias),
+                    wd=torch.cat([dw_taps(sab.qk_dwconv),
+                                  dw_taps(sab.v_dwconv)], dim=2).contiguous(),
+                    bd=cat(sab.qk_dwconv.bias, sab.v_dwconv.bias), **ln)
             kw["kv"] = dict(w1=pw_matrix(a.kv), b1=a.kv.bias,
                             wd=dw_taps(a.kv_dwconv), bd=a.kv_dwconv.bias)
             kw["qkv"] = dict(w1=pw_matrix(ca.qkv), b1=ca.qkv.bias,
                              wd=dw_taps(ca.qkv_dwconv),
                              bd=ca.qkv_dwconv.bias, **ln)
             return kw
-        kw["sab_qk"] = dict(w1=pw_matrix(sab.qk), wd=dw_taps(sab.qk_dwconv),
-                            **ln)
         # the bias-free chain project_out o v_dwconv o v as one dense 3x3
         # kernel K[t] = W_v diag(wd_v[t]) W_po, built in the accumulation
         # type and rounded to the map's type
@@ -396,8 +406,11 @@ class TurtleAttnBlock(nn.Module, KernelWeights):
             "im,tsm,mo->tsio", pw_matrix(sab.v).to(ad),
             dw_taps(sab.v_dwconv).to(ad),
             pw_matrix(sab.project_out).to(ad)).to(dt).contiguous()
-        kw["sab_q2"] = _patch_kernel(sab.q2, sab.q2_dwconv)
-        kw["sab_k2"] = _patch_kernel(sab.k2, sab.k2_dwconv)
+        if self.spec.variant != "t0":  # the t0 scores are never computed
+            kw["sab_qk"] = dict(w1=pw_matrix(sab.qk),
+                                wd=dw_taps(sab.qk_dwconv), **ln)
+            kw["sab_q2"] = _patch_kernel(sab.q2, sab.q2_dwconv)
+            kw["sab_k2"] = _patch_kernel(sab.k2, sab.k2_dwconv)
         kw["chm"] = dict(w_qkv=pw_matrix(ca.qkv), wd_qkv=dw_taps(ca.qkv_dwconv),
                          w_kv=pw_matrix(a.kv), wd_kv=dw_taps(a.kv_dwconv),
                          **ln)
@@ -541,6 +554,41 @@ class TurtleAttnBlock(nn.Module, KernelWeights):
         # the probabilities carry the frame validity
         return maps.reshape(b, nf, h, w, c), fvalid, new_slot
 
+    def _sab_t0(self, x: torch.Tensor, kw: dict, slot: Optional[dict]):
+        """StateAlignBlock, t0 semantics (turtle_arch.py:459-533): the
+        attention scores are computed and then discarded by ``out = v``
+        (quirk Q1 of SURVEY.md), so the aligned frames are the windowed
+        projected values of [history | current] merged back into maps. The
+        whole qk chain and the K ring writes are skipped, as the JAX package
+        skips them; their parameters stay, so reference ``.pth`` files load
+        strictly. Returns what :meth:`_sab` returns."""
+        b, h, w, c = x.shape
+        sab = self.attn.spatial_aligner
+        ws = self.spec.window_size
+        if h % ws or w % ws:
+            raise ValueError(f"the SAB window {ws} must divide the map "
+                             f"{h} x {w}")
+        if self.spec.bias:
+            (v_map,) = fused_ln_split_proj(x, n_out=1, **kw["sab_v"])
+            v_map = conv2d(v_map, sab.project_out.weight,
+                           sab.project_out.bias)
+        else:
+            v_map = fused_conv3x3(x, kw["sab_v3"], **kw["sab_ln"])
+        v = lattice_split(v_map.contiguous(), ws)  # (B, HW, ws * ws * C)
+        ones = torch.ones(1, dtype=torch.bool, device=x.device)
+        if slot is not None:
+            n_ring = slot["v"].shape[1]
+            v_all = torch.cat([slot["v"].to(v.dtype), v[:, None]], dim=1)
+            fvalid = torch.cat([frame_valid_mask(slot["n"], n_ring), ones])
+            new_slot = sab_slot_append_v(slot, v)
+        else:
+            v_all, fvalid, new_slot = v[:, None], ones, None
+        nf = v_all.shape[1]
+        maps = lattice_merge(v_all.reshape(b * nf, *v.shape[1:]), ws, h, w)
+        maps = maps.reshape(b, nf, h, w, c)
+        return (maps * fvalid.to(maps.dtype)[None, :, None, None, None],
+                fvalid, new_slot)
+
     def _chm(self, x: torch.Tensor, kw: dict, slot: Optional[dict]):
         """CausalHistoryModel + the block's FFN half (turtle_arch.py:535-585):
         channel-token attention of the current frame over the K, V
@@ -553,7 +601,8 @@ class TurtleAttnBlock(nn.Module, KernelWeights):
         dt = x.dtype
         ad = acc_dtype(dt)
         ca = self.attn.ChanAttn
-        x_sp, fvalid, new_slot = self._sab(x, kw, slot)
+        sab = self._sab_t0 if self.spec.variant == "t0" else self._sab
+        x_sp, fvalid, new_slot = sab(x, kw, slot)
         nf = x_sp.shape[1]
         if self.spec.bias:
             q, k, v = fused_ln_split_proj(x, n_out=3, **kw["qkv"])

@@ -1,23 +1,31 @@
-"""The Turtle U-Net assembly (t1 variant) as an ``nn.Module``, NHWC.
+"""The Turtle U-Net assembly (t0, t1 and SR variants) as an ``nn.Module``,
+NHWC.
 
 3-level encoder + latent + 3-level decoder with skip concatenation, channel
-reduction, refinement and a global residual head (turtle_arch.py:855-1063),
-mirroring ``turtlevsr_tpu/models/turtle.py``. The 8 cache slots are a tuple
+reduction, refinement and a global residual head (turtle_arch.py:855-1063,
+turtlesuper_t1_arch.py:932-1150), mirroring ``turtlevsr_tpu/models/turtle.py``.
+The 8 cache slots are a tuple
 
   (enc1, enc2, enc3, latent_first, latent_last, dec3, dec2, dec1)
 
 in which a slot is ``None`` when the level's cached block keeps no history
 (Channel, ReducedAttn), an FHR slot in the latent and a SAB slot where the
 level ends in a CHM block (the decoder levels of every shipped
-configuration). The t0 and sr variants are not ported yet and raise
-``NotImplementedError`` when the model is built.
+configuration; in the t0 variant its K field is a vestigial zero buffer).
+The SR variant upsamples its input x4 (bilinear) before the model's pad, adds
+the upsampled current frame as its global residual and returns (4H, 4W).
 
 ``fuse`` is the fused plan (see ``models/blocks.py``), empty by default.
 With ``"channel_runs"`` a level hands every run of two or more consecutive
 cacheless Channel+GFFW blocks with bias-free convs to
 ``fused_channel_gffw_run`` (one launch a run), as ``level_block_apply`` and
 ``latent_block_apply`` of the JAX package do under their opt-in; the other
-blocks, and single such blocks, keep the split kernels.
+blocks, and single such blocks, keep the split kernels. With
+``"two_stage"`` a conv-only level (attn_type1 and attn_type2 ReducedAttn,
+C a multiple of 16 up to 128) hands each pair of ReducedAttn+FFW blocks and
+each ReducedAttn+GFFW block to ``fused_two_stage`` (one launch each; an odd
+last FFW block takes the single pass), as the JAX package's
+``TURTLE_CHAIN2`` opt-in does.
 """
 
 from __future__ import annotations
@@ -30,6 +38,10 @@ from torch import nn
 
 from turtlevsr_tpu_torch.config.options import LevelSpec, ModelConfig
 from turtlevsr_tpu_torch.core.cache import fhr_slot_init, sab_slot_init
+from turtlevsr_tpu_torch.kernels.chain2 import (
+    fused_two_stage,
+    two_stage_supported,
+)
 from turtlevsr_tpu_torch.kernels.ffn import fused_conv3x3
 from turtlevsr_tpu_torch.kernels.level import fused_channel_gffw_run
 from turtlevsr_tpu_torch.models.blocks import (
@@ -40,7 +52,11 @@ from turtlevsr_tpu_torch.models.blocks import (
     conv3_hwio,
 )
 from turtlevsr_tpu_torch.ops.conv import conv2d, conv_init
-from turtlevsr_tpu_torch.ops.resize import pixel_shuffle, pixel_unshuffle
+from turtlevsr_tpu_torch.ops.resize import (
+    pixel_shuffle,
+    pixel_unshuffle,
+    upsample_bilinear,
+)
 
 
 class Conv3x3(nn.Conv2d, KernelWeights):
@@ -86,7 +102,8 @@ def _block_spec(cfg: ModelConfig, lvl: LevelSpec, attn_type: str) -> BlockSpec:
         ffn_expansion_factor=cfg.ffn_expansion_factor, bias=cfg.bias,
         layernorm_bias=cfg.layernorm_bias,
         num_frames_tocache=lvl.num_frames_tocache,
-        scale_patchsize=lvl.scale_patchsize)
+        scale_patchsize=lvl.scale_patchsize,
+        variant="t0" if cfg.variant == "t0" else "t1")
 
 
 def apply_cacheless(blocks, x, fuse=()):
@@ -111,6 +128,29 @@ def apply_cacheless(blocks, x, fuse=()):
     return x
 
 
+def apply_conv_level(blocks, x):
+    """The blocks of a conv-only level under the ``two_stage`` plan: each
+    pair of ReducedAttn+FFW blocks and each ReducedAttn+GFFW block is one
+    launch of the two-stage kernel; an odd last FFW block takes the single
+    pass."""
+    blocks = list(blocks)
+    i = 0
+    while i < len(blocks):
+        kw = blocks[i].kernel_weights()
+        if blocks[i].spec.ffw_type == "GFFW":
+            x = fused_two_stage(x, kw["ra"], kw["ffn"])
+            i += 1
+        elif i + 1 < len(blocks):
+            kw2 = blocks[i + 1].kernel_weights()
+            x = fused_two_stage(x, kw["ra"], kw2["ra"], ffw1=kw["ffw2"],
+                                ffw2=kw2["ffw2"])
+            i += 2
+        else:
+            x, _ = blocks[i](x, None)
+            i += 1
+    return x
+
+
 class LevelBlock(nn.Module):
     """LevelBlock (turtle_arch.py:736-788): blocks 0..n-2 use attn_type1
     (cacheless), the last uses attn_type2 with the level's cache slot."""
@@ -124,10 +164,16 @@ class LevelBlock(nn.Module):
                 lvl.attn_type2 if i == lvl.num_blocks - 1 else lvl.attn_type1),
                 self.fuse)
             for i in range(lvl.num_blocks))
+        # a level of ReducedAttn blocks only, at a width the two-stage
+        # kernel takes
+        self.conv_only = (lvl.attn_type1 == lvl.attn_type2 == "ReducedAttn"
+                          and two_stage_supported(lvl.dim))
 
     def forward(self, x, slot: Optional[dict] = None):
         blocks = self.transformer_blocks
         last = blocks[-1]
+        if "two_stage" in self.fuse and self.conv_only:
+            return apply_conv_level(blocks, x), None
         if last.spec.attn_type not in ("FHR", "CHM"):
             # a cacheless last block may close a run
             return apply_cacheless(blocks, x, self.fuse), None
@@ -161,14 +207,19 @@ class LatentCacheBlock(nn.Module):
 
 def padded_hw(cfg: ModelConfig, height: int, width: int) -> Tuple[int, int]:
     """Input H, W after the model's internal pad to a multiple of 32
-    (turtle_arch.py:1058-1063)."""
+    (turtle_arch.py:1058-1063); for the SR variant after the x4 upsample
+    that comes first (turtlesuper_t1_arch.py:1063-1070)."""
+    if cfg.variant == "sr":
+        height, width = height * cfg.sr_scale, width * cfg.sr_scale
     p = cfg.padder_size
     return (height + (p - height % p) % p, width + (p - width % p) % p)
 
 
-def _slot_for_level(lvl: LevelSpec, attn_type: str, batch: int, h: int,
-                    w: int, dtype, device):
-    """Cache-slot zeros for one cached block, or None for cacheless types."""
+def _slot_for_level(cfg: ModelConfig, lvl: LevelSpec, attn_type: str,
+                    batch: int, h: int, w: int, dtype, device):
+    """Cache-slot zeros for one cached block, or None for cacheless types.
+    A t0 SAB slot's K field is a vestigial (B, NF, 8, 8) zero buffer: the
+    attention it would feed is dead code (quirk Q1 of SURVEY.md)."""
     if attn_type == "FHR":
         ctok = lvl.dim // lvl.num_heads
         return fhr_slot_init(batch, lvl.num_heads, lvl.num_frames_tocache,
@@ -176,8 +227,9 @@ def _slot_for_level(lvl: LevelSpec, attn_type: str, batch: int, h: int,
     if attn_type == "CHM":
         ws = 2 * lvl.scale_patchsize
         hw = (h // ws) * (w // ws)
-        return sab_slot_init(batch, lvl.num_frames_tocache, hw, 2 * lvl.dim,
-                             hw, ws * ws * lvl.dim, dtype, device)
+        hw_q, dk = (8, 8) if cfg.variant == "t0" else (hw, 2 * lvl.dim)
+        return sab_slot_init(batch, lvl.num_frames_tocache, hw_q, dk, hw,
+                             ws * ws * lvl.dim, dtype, device)
     return None
 
 
@@ -185,8 +237,9 @@ def init_cache(cfg: ModelConfig, batch: int, height: int, width: int,
                dtype: torch.dtype = torch.float32,
                device: torch.device | str = "cuda") -> tuple:
     """Empty (zero, count-0) cache tuple for input frames of (height, width),
-    the RAW frame size fed to the model. Slot order matches the reference's
-    k_cached[0..7] (turtle_arch.py:989-1048)."""
+    the RAW frame size fed to the model (the low-resolution size for the SR
+    variant). Slot order matches the reference's k_cached[0..7]
+    (turtle_arch.py:989-1048)."""
     hp, wp = padded_hw(cfg, height, width)
     sizes = [(hp // s, wp // s) for s in (1, 2, 4, 8)]
     plan = [
@@ -197,19 +250,18 @@ def init_cache(cfg: ModelConfig, batch: int, height: int, width: int,
         (cfg.dec3, cfg.dec3.attn_type2, 2), (cfg.dec2, cfg.dec2.attn_type2, 1),
         (cfg.dec1, cfg.dec1.attn_type2, 0),
     ]
-    return tuple(_slot_for_level(lvl, t, batch, *sizes[s], dtype, device)
-                 for lvl, t, s in plan)
+    return tuple(_slot_for_level(cfg, lvl, t, batch, *sizes[s], dtype,
+                                 device) for lvl, t, s in plan)
 
 
 class Turtle(nn.Module):
-    """Turtle_t1 (turtle_t1_arch.py); child names are the reference's."""
+    """Turtle_arch (t0), Turtle_t1_arch (t1) and Turtlesuper_t1_arch (SR);
+    child names are the reference's."""
 
     def __init__(self, cfg: ModelConfig, fuse=()):
         super().__init__()
-        if cfg.variant != "t1":
-            raise NotImplementedError(
-                f"not ported yet: model variant {cfg.variant!r} (the port "
-                "serves Turtle_t1_arch)")
+        if cfg.variant not in ("t0", "t1", "sr"):
+            raise ValueError(f"unknown model variant {cfg.variant!r}")
         self.cfg = cfg
         self.fuse = fuse = check_fuse(fuse)
         inp_ch = cfg.inp_channels * (2 if cfg.use_both_input else 1)
@@ -248,20 +300,27 @@ class Turtle(nn.Module):
     def forward(self, x_pair: torch.Tensor, cache: tuple):
         """One frame step. x_pair: (B, 2, H, W, C) = [previous, current]
         frames, NHWC, [0, 1]; cache: 8 slots from init_cache or a previous
-        step (its FHR and SAB slots are written in place). Returns (out (B, H, W, C),
-        new cache). Mirrors Turtle.forward (turtle_arch.py:968-1056)."""
+        step (its FHR and SAB slots are written in place). Returns (out (B,
+        H, W, C), new cache); (B, 4H, 4W, C) for the SR variant, whose frames
+        are upsampled x4 (bilinear) before the pad. Mirrors Turtle.forward
+        (turtle_arch.py:968-1056, turtlesuper_t1_arch.py:1063-1150)."""
         cfg = self.cfg
         if x_pair.dim() != 5 or x_pair.shape[1] != 2:
             raise ValueError(
                 "x_pair must stack [previous, current] on axis 1")
-        h0, w0 = x_pair.shape[2:4]
-        prev, cur = x_pair[:, 0], x_pair[:, 1]
-        hp, wp = padded_hw(cfg, h0, w0)
+        hp, wp = padded_hw(cfg, *x_pair.shape[2:4])
+        # the previous frame only where the model reads it
+        frames = x_pair[:, :2] if cfg.use_both_input else x_pair[:, 1:]
+        if cfg.variant == "sr":
+            b, n = frames.shape[:2]
+            frames = upsample_bilinear(frames.flatten(0, 1), cfg.sr_scale)
+            frames = frames.unflatten(0, (b, n))
+        h0, w0 = frames.shape[2:4]
         if hp != h0 or wp != w0:
-            pad = (0, 0, 0, wp - w0, 0, hp - h0)
-            prev, cur = F.pad(prev, pad), F.pad(cur, pad)
-        inp = torch.cat([prev, cur], dim=-1) if cfg.use_both_input else cur
-        inp, cur = inp.contiguous(), cur.contiguous()
+            frames = F.pad(frames, (0, 0, 0, wp - w0, 0, hp - h0))
+        cur = frames[:, -1].contiguous()
+        inp = (torch.cat([frames[:, 0], cur], dim=-1).contiguous()
+               if cfg.use_both_input else cur)
 
         x = self.input_projection(inp)
         out_enc1, s0 = self.encoder_level1(x, cache[0])
