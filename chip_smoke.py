@@ -19,7 +19,9 @@ Phases, one JSON object per line on standard output:
            version's, a PyTorch library call's where one computes the same
            function, and the least time the card could take (bound); the
            two-stage kernel also against the split launches it replaces, the
-           sparse softmax also against the probabilities kernel
+           sparse softmax also against the probabilities kernel; attention @ v
+           also at the whole frame's dec3 shape, the 3x3 conv also on maps
+           and Cout that its tiles do not divide
   slice    five configurations at full width and depth, seeded random
            weights, frames streamed through InferenceEngine.step: `gopro`
            (options/Turtle_Deblur_Gopro.yml unchanged: CHM blocks end the
@@ -877,6 +879,29 @@ def kernel_cases(seed: int, h: int, w: int) -> list[dict]:
                                  ring + 1, side, side, ws, c))
     cases.append(lambda: attn_v_case(inp, f"slots dec3, {tb} tiles", tb, 4,
                                      20, 20, 4, 256, merge=False))
+    # the dec3 shape of `gopro` whole-frame: 4 entries of 3680 window tokens
+    # (both query tiles are timed: 80 rows fill 400 and 3680 alike)
+    cases.append(lambda: attn_v_case(inp, "merge dec3, whole frame", 1, 4,
+                                     h3 // 4, w3 // 4, 4, 256, iters=3))
+    # the conv's tiles cut by the map's edges and Cout: maps whose sides the
+    # pixel tiles (8 x 16, 16 x 16, 16 x 32) do not divide, Cout that the N
+    # tiles (128, 64, 32, 16) do not divide
+    hr, wr = h // 8 - 1, w // 8 - 3
+    cases += [
+        lambda: conv_case(inp, "ragged 512->1000", hr, wr, 512, 1000, True),
+        lambda: conv_case(inp, "ragged 256->200", 2 * hr + 1, 2 * wr + 1,
+                          256, 200, False),
+        lambda: conv_case(inp, "ragged 128->40, 2 maps", 4 * hr + 3,
+                          4 * wr + 5, 128, 40, True, batch=2),
+        lambda: conv_case(inp, "ragged 64->24", h - 5, w - 7, 64, 24, False,
+                          iters=3),
+        lambda: conv_case(inp, "ragged 64->5 +bias", h - 5, w - 7, 64, 5, True,
+                          iters=3),
+        lambda: conv_case(inp, "ragged 3->72", h - 5, w - 7, 3, 72, True,
+                          iters=3),
+        lambda: conv_case(inp, "ragged LN + v 256->256", 2 * hr + 1,
+                          2 * wr + 1, 256, 256, False, ln=True),
+    ]
     # under the two_stage plan: the conv-only levels (enc1 and enc2 pairs of
     # ReducedAttn+FFW blocks, the refinement's ReducedAttn+GFFW blocks),
     # whole padded frames and 15 tiles

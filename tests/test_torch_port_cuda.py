@@ -50,6 +50,26 @@ pytestmark = pytest.mark.cuda
 DTYPES = [torch.float32, torch.bfloat16]
 
 
+# every tile of csrc/conv3x3.cu (the 3-channel gather, the narrow, middle
+# and wide N tiles, the fallback tile of a large Cin) on maps that do not
+# fill the tiles and N tiles that Cout does not fill, a batch of two
+CONV_RAGGED_SHAPES = [(2, 37, 53, cin, cout, bias) for cin in (3, 16, 64, 512)
+                      for cout in (3, 8, 32, 72, 1024) for bias in (False, True)]
+# (B, H, W, C, Cout, bias, ln_bias): the LayerNorm halo at the widths of the
+# CHM blocks, Cout = C (the composite v chain) and a narrow Cout
+CONV_LN_RAGGED_SHAPES = [(2, 37, 53, c, cout, bias, ln_bias)
+                         for c in (64, 128, 256) for cout in (c, 32)
+                         for bias, ln_bias in ((False, True), (True, False))]
+# (B, NF, hh, ww, ws, C, ring): HW = hh * ww of 400 (a 320 tile at dec3),
+# 47 (a prime: every query tile and key chunk ragged, rows of a off the
+# 16-byte grid) and multiples of 80 (the tall query tile full); D = ws^2 C
+# from 8 to 16384; one to five value tensors
+ATTN_V_RAGGED_SHAPES = [(1, 1, 47, 1, 1, 8, False), (2, 5, 20, 20, 4, 256, True),
+                        (2, 3, 10, 16, 2, 16, False), (1, 2, 20, 20, 16, 64, True),
+                        (1, 4, 16, 15, 2, 40, True), (3, 1, 40, 4, 8, 16, False),
+                        (1, 3, 1, 47, 2, 8, True)]
+
+
 @pytest.fixture
 def dev():
     if not torch.cuda.is_available():
@@ -100,15 +120,18 @@ def test_split_proj_kernel_matches_plain(dev, shape, dtype):
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
-@pytest.mark.parametrize("shape", CONV_KERNEL_SHAPES)
+@pytest.mark.parametrize("shape", CONV_KERNEL_SHAPES + CONV_RAGGED_SHAPES)
 def test_conv3x3_kernel_matches_plain(dev, shape, dtype):
     b, h, w, cin, cout, bias = shape
     m = Maker(3, dtype, dev)
     x = m(b, h, w, cin)
     wt = m(3, 3, cin, cout, scale=(9 * cin) ** -0.5)
     bb = m(cout) if bias else None
+    before = K.fused_conv3x3.launches
     got = K.fused_conv3x3(x, wt, bb)
     torch.cuda.synchronize()
+    assert K.fused_conv3x3.launches == before + 1
+    assert got.shape == (b, h, w, cout)
     assert max_err(got, K.conv3x3_plain(x, wt, bb)) <= KERNEL_TOL[dtype]
 
 
@@ -138,7 +161,7 @@ def test_split_proj_kernel_without_layernorm_matches_plain(dev, shape, dtype):
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
-@pytest.mark.parametrize("shape", CONV_LN_KERNEL_SHAPES)
+@pytest.mark.parametrize("shape", CONV_LN_KERNEL_SHAPES + CONV_LN_RAGGED_SHAPES)
 def test_conv3x3_kernel_with_layernorm_matches_plain(dev, shape, dtype):
     b, h, w, cin, cout, bias, ln_bias = shape
     if cin > 128 and dtype == torch.float32:
@@ -233,11 +256,11 @@ def test_lattice_kernels_match_plain(dev, shape, dtype):
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
-@pytest.mark.parametrize("shape", ATTN_V_KERNEL_SHAPES)
+@pytest.mark.parametrize("shape", ATTN_V_KERNEL_SHAPES + ATTN_V_RAGGED_SHAPES)
 def test_attn_v_kernel_matches_plain(dev, shape, dtype):
     """Both epilogues of the attention @ values kernel: the slots layout and
     the merged maps, values read from ring views or from their own tensors,
-    query rows and keys that do not fill the 64-row tiles."""
+    query rows and keys that do not fill the query tiles."""
     b, nf, hh, ww, ws, c, _ = shape
     a, vs = attn_v_kernel_case(Maker(12, dtype, dev), *shape)
     h, w = hh * ws, ww * ws

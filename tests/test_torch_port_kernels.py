@@ -428,7 +428,16 @@ def test_split_proj_plain_matches_twin_at_the_card_cases(shape):
         close(g, w_, ATOL64)
 
 
-@pytest.mark.parametrize("shape", CONV_KERNEL_SHAPES, ids=str)
+# the card tests' ragged conv cases whose plain product stays small on the
+# CPU: the 3-channel gather, the narrow and middle N tiles, Cout that no N
+# tile divides (tests/test_torch_port_cuda.py runs all of them on the card)
+CONV_RAGGED_CPU_SHAPES = [(2, 37, 53, cin, cout, bias)
+                          for cin in (3, 16, 64) for cout in (3, 8, 32, 72)
+                          for bias in (False, True)]
+
+
+@pytest.mark.parametrize("shape", CONV_KERNEL_SHAPES + CONV_RAGGED_CPU_SHAPES,
+                         ids=str)
 def test_conv3x3_plain_matches_twin_at_the_card_cases(shape):
     b, h, w, cin, cout, bias = shape
     m = Maker(3, torch.float64)

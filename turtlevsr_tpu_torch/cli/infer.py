@@ -36,10 +36,12 @@ What differs from the JAX package's CLI:
     attn_v_merge, two_stage): the fused plan of ``build_model`` (which
     hand-written kernels serve runs of channel blocks, attention @ v and the
     conv-only levels); there is no --kernels, the port has one route;
-  * --model_path is a PyTorch ``state_dict`` file (``torch.load`` with
-    ``weights_only=True``, then ``load_state_dict(strict=True)``): the
-    parameter names and shapes are the reference's, so its ``.pth`` files
-    load; orbax checkpoint folders are not read;
+  * --model_path is a PyTorch ``.pth`` file: the reference's published
+    ``{'params': state_dict}`` files, copies saved from a DDP-wrapped model
+    (keys prefixed ``module.``) and a bare ``state_dict`` all load
+    (``io.load_state_dict_file``, then ``load_state_dict(strict=True)``:
+    the parameter names and shapes are the reference's); orbax checkpoint
+    folders are not read;
   * no persistent compile cache: nothing is compiled per shape.
 """
 
@@ -151,8 +153,10 @@ def parse_args(argv=None):
                         "for a task")
     p.add_argument("-opt", "--opt", default=None)
     p.add_argument("--model_path", default=None,
-                   help="a PyTorch state_dict file (the reference's .pth); "
-                        "random weights if omitted (smoke testing)")
+                   help="a .pth file: {'params': state_dict} as the "
+                        "reference publishes it (keys may carry DDP's "
+                        "'module.') or a bare state_dict; random weights if "
+                        "omitted (smoke testing)")
     p.add_argument("--data_dir", required=True,
                    help="folder of video folders (the degraded side)")
     p.add_argument("--gt_dir", default=None,
@@ -212,6 +216,7 @@ def main(argv=None) -> dict:
     from turtlevsr_tpu_torch.config.options import load_options
     from turtlevsr_tpu_torch.data.loader import prefetch_iter
     from turtlevsr_tpu_torch.eval.engine import InferenceEngine, VideoFrames
+    from turtlevsr_tpu_torch.io import load_state_dict_file
     from turtlevsr_tpu_torch.metrics import bgr2ycbcr, psnr_255, ssim_gaussian
     from turtlevsr_tpu_torch.models import build_model
     from turtlevsr_tpu_torch.utils.img import img_from_float, imwrite
@@ -219,9 +224,8 @@ def main(argv=None) -> dict:
     opt = load_options(args.opt, is_train=False)
     model = build_model(opt, device=args.device, fuse=tuple(args.fuse))
     if args.model_path:
-        state = torch.load(args.model_path, map_location="cpu",
-                           weights_only=True)
-        model.load_state_dict(state, strict=True)
+        model.load_state_dict(load_state_dict_file(args.model_path),
+                              strict=True)
         print(f"> Loaded Model. ({args.model_path})")
     else:
         print("> WARNING: random init (no --model_path)")

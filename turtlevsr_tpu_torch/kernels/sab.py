@@ -319,7 +319,8 @@ def sab_attn_v_slots(a, v, c_slot: int):
     c_slot]: fp32 sums, one rounding to a's type.
 
     Replaces ``sab_attn_v_slots`` in turtlevsr_tpu/kernels/sab.py (kernel:
-    csrc/attn_v.cu, the `slots` epilogue; bound by operations)."""
+    csrc/attn_v.cu, the `slots` epilogue; bound by bytes at a chunk of
+    tiles, by operations at the whole frame)."""
     vs = _v_list(a, v)
     if vs[0].shape[2] % c_slot:
         raise ValueError(f"c_slot={c_slot} must divide D={vs[0].shape[2]}")
@@ -346,7 +347,8 @@ def sab_attn_v_merge(a, v, ws: int, h: int, w: int, out=None):
     (BN, h, w, C) tensor to write into.
 
     Replaces ``sab_attn_v_merge`` in turtlevsr_tpu/kernels/sab.py (kernel:
-    csrc/attn_v.cu, the `merge` epilogue; bound by operations)."""
+    csrc/attn_v.cu, the `merge` epilogue; bound by bytes at a chunk of
+    tiles, by operations at the whole frame)."""
     vs = _v_list(a, v)
     bn, hw, d = a.shape[0], a.shape[1], vs[0].shape[2]
     if ws < 1 or h % ws or w % ws or (h // ws) * (w // ws) != hw or d % (
