@@ -2,7 +2,11 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (built for an H100).
 
     python3 chip_smoke.py [--frames 6] [--size 1280x720] [--phase all]
-                          [--profile] [--ptxas]
+                          [--profile] [--ptxas] [--cases TEXT]
+
+(--cases TEXT, with --phase kernels: only the kernel cases whose
+"<kernel>: <case>" holds TEXT, e.g. "ffn: gate+pair+po(B,C,C) latent"; such
+a run prints no result line and no ok line.)
 
 (--profile traces a few more frames of each whole-frame stream but
 `gopro_enc3_ffw` and of each tiled stream under each plan, with
@@ -11,7 +15,7 @@ torch.profiler.)
 Phases, one JSON object per line on standard output:
 
   device   the card's name and power limit as nvidia-smi gives them
-  build    nvcc builds the ten sources of turtlevsr_tpu_torch/kernels/csrc
+  build    nvcc builds the eleven sources of turtlevsr_tpu_torch/kernels/csrc
   kernels  each kernel's wrapper against its plain PyTorch version on the
            card at the shapes the 720p serving paths give it (bf16), whole
            padded frames and chunks of 15 tiles alike: errors beside the
@@ -19,7 +23,9 @@ Phases, one JSON object per line on standard output:
            version's, a PyTorch library call's where one computes the same
            function, and the least time the card could take (bound); the
            two-stage kernel also against the split launches it replaces, the
-           sparse softmax also against the probabilities kernel; attention @ v
+           sparse softmax also against the probabilities kernel; row 1 on the
+           body its plan gives each call (the wgmma body of ffn_wg.cu also
+           timed on ffn.cu's body, tile_ms, and on ragged maps); attention @ v
            also at the whole frame's dec3 shape, the 3x3 conv also on maps
            and Cout that its tiles do not divide
   slice    five configurations at full width and depth, seeded random
@@ -120,17 +126,19 @@ TASKS = {"gopro": "deblur", "derain": "derain", "sr": "sr"}
 # blocks are 6 two-stage launches where the split route makes 12 FFN ones.
 _NONE = {"attn_v_slots": 0, "attn_v_merge": 0, "level_run": 0, "ffn_no_dw": 0,
          "two_stage": 0, "sab_sparse_softmax": 0}
-_GOPRO = {"ffn": 51, "qkv_stats": 34, "split_proj": 5, "conv3x3": 11,
-          "chm_stats": 3, "sab": 3, "lattice_merge": 3, "lattice_split": 3}
+_GOPRO = {"ffn": 51, "ffn_wg": 35, "qkv_stats": 34, "split_proj": 5,
+          "conv3x3": 11, "chm_stats": 3, "sab": 3, "lattice_merge": 3,
+          "lattice_split": 3}
 _DERAIN = {**_GOPRO, "split_proj": 2, "sab": 0}
 _TWO_STAGE = {"ffn": 39, "two_stage": 6}
 LAUNCHES_PER_CALL = {
     "gopro": {**_GOPRO, **_NONE},
-    "gopro_t1_fhr": {"ffn": 51, "qkv_stats": 37, "split_proj": 2,
+    "gopro_t1_fhr": {"ffn": 51, "ffn_wg": 37, "qkv_stats": 37,
+                     "split_proj": 2,
                      "conv3x3": 8, "chm_stats": 0, "sab": 0,
                      "lattice_merge": 0, "lattice_split": 0, **_NONE},
-    "gopro_enc3_ffw": {**_GOPRO, **_NONE, "ffn_no_dw": 10},
-    "gopro_fused": {**_GOPRO, **_NONE, "ffn": 18, "qkv_stats": 1,
+    "gopro_enc3_ffw": {**_GOPRO, **_NONE, "ffn_no_dw": 10, "ffn_wg": 25},
+    "gopro_fused": {**_GOPRO, **_NONE, "ffn": 18, "ffn_wg": 2, "qkv_stats": 1,
                     "lattice_merge": 0, "attn_v_merge": 3, "level_run": 4},
     "gopro_two_stage": {**_GOPRO, **_NONE, **_TWO_STAGE},
     "derain": {**_DERAIN, **_NONE},
@@ -200,8 +208,13 @@ TWO_STAGE_REL_TOL = 2 * KERNEL_REL_TOL
 SPARSE_TOL = 2.0 ** -7
 
 KERNEL_INFO = {
+    # row 1 has two bodies chosen by shape (kernels/ffn.py _ffn_plan): the
+    # wgmma body takes the single-map depthwise calls at C >= 128, ffn.cu
+    # the rest; "ffn" launches are those of ffn.cu's dw branch
     "ffn": ("turtlevsr_tpu_torch/kernels/csrc/ffn.cu",
             "turtlevsr_tpu/kernels/ffn.py:2024"),
+    "ffn_wg": ("turtlevsr_tpu_torch/kernels/csrc/ffn_wg.cu",
+               "turtlevsr_tpu/kernels/ffn.py:2024"),
     "qkv_stats": ("turtlevsr_tpu_torch/kernels/csrc/qkv_stats.cu",
                   "turtlevsr_tpu/kernels/ffn.py:985"),
     "split_proj": ("turtlevsr_tpu_torch/kernels/csrc/split_proj.cu",
@@ -235,6 +248,14 @@ KERNEL_INFO = {
 
 class SmokeFailure(Exception):
     pass
+
+
+# --cases: only the kernel cases whose "<kernel>: <case>" holds this text
+CASE_FILTER = ""
+
+
+def skipped(kernel: str, name: str) -> bool:
+    return CASE_FILTER not in f"{kernel}: {name}"
 
 
 def emit(obj: dict) -> None:
@@ -294,9 +315,26 @@ def numel_bytes(*tensors) -> int:
 # ---------------------------------------------------------------------------
 
 
+@contextlib.contextmanager
+def tile_body():
+    """fused_block_ffn on the mma.sync body (csrc/ffn.cu) whatever its plan
+    says: the yardstick of the wgmma body on the same inputs, here only."""
+    plan = K._ffn_plan
+    K._ffn_plan = lambda *a, **kw: ("tile", None)
+    try:
+        yield
+    finally:
+        K._ffn_plan = plan
+
+
 def ffn_case(inp: Inputs, name, h, w, c, e, mode, *, pair=False, po=False,
              biases=False, scale=False, ffw2=False, dw=True, iters=5,
-             stacked=0, batch=1):
+             stacked=0, batch=1, shared_po=False):
+    """Row 1 (or 2, without dw) on the body its plan gives the call: kernel
+    "ffn_wg" for the wgmma body (timed also on the mma.sync body, tile_ms),
+    else "ffn" / "ffn_no_dw"."""
+    if skipped("ffn", name):
+        return None
     ch = 2 * e if mode == "gate" else e
     x = inp(batch, h, w, c)
     kw = dict(ln_w=1.0 + inp(c, scale=0.2), ln_b=inp(c, scale=0.2),
@@ -313,7 +351,10 @@ def ffn_case(inp: Inputs, name, h, w, c, e, mode, *, pair=False, po=False,
     if pair:
         kw["x2"] = inp(batch, h, w, c)
     if po:
-        kw["po_w"] = inp(batch, c, c, scale=c ** -0.5)
+        kw["po_w"] = inp(*(() if shared_po else (batch,)), c, c,
+                         scale=c ** -0.5)
+        if biases:
+            kw["po_b"] = inp(c, scale=0.2)
     n_maps = int(pair)
     if stacked:  # the CHM block's call: `stacked` history maps and one more
         n_maps = stacked + 1
@@ -326,11 +367,17 @@ def ffn_case(inp: Inputs, name, h, w, c, e, mode, *, pair=False, po=False,
                           w1=inp(c, f, scale=c ** -0.5), b1=inp(f, scale=0.2),
                           w2=inp(f, c, scale=f ** -0.5), b2=inp(c, scale=0.2),
                           scale=inp(c, scale=0.5))
+    wg_before = K.fused_block_ffn.launches_wg
     got = K.fused_block_ffn(x, **kw)
     torch.cuda.synchronize()
+    on_wg = K.fused_block_ffn.launches_wg > wg_before
     want = K.ffn_plain(x, **kw)
     err, rel = rel_err(got, want)
     del want
+    tile_ms = None
+    if on_wg:
+        with tile_body():
+            tile_ms = cuda_ms(lambda: K.fused_block_ffn(x, **kw), iters)
     px = batch * h * w
     flops = 2.0 * px * (c * ch + (9 * ch if dw else 0) + e * c
                         + (n_maps * c * c if po or stacked else 0)
@@ -341,8 +388,9 @@ def ffn_case(inp: Inputs, name, h, w, c, e, mode, *, pair=False, po=False,
         weights += kw["x2"] + kw["po_w"]
     n_bytes = numel_bytes(x, None if stacked else kw.get("x2"), got, *weights)
     b_ms, b_by = bound(n_bytes, flops)
-    return dict(kernel="ffn" if dw else "ffn_no_dw", case=name,
-                shape=[batch, h, w, c], hidden=ch,
+    return dict(kernel="ffn_wg" if on_wg else "ffn" if dw else "ffn_no_dw",
+                case=name, shape=[batch, h, w, c], hidden=ch,
+                body="wg" if on_wg else "tile", tile_ms=tile_ms,
                 max_abs_err=err, rel_err=rel, tol_rel=KERNEL_REL_TOL,
                 ok=rel <= KERNEL_REL_TOL and bool(torch.isfinite(got.float()).all()),
                 ms=cuda_ms(lambda: K.fused_block_ffn(x, **kw), iters),
@@ -356,6 +404,8 @@ def chain_weights(inp: Inputs, c, ch):
 
 
 def qkv_case(inp: Inputs, name, h, w, c, heads, iters=5, batch=1):
+    if skipped("qkv_stats", name):
+        return None
     x = inp(batch, h, w, c)
     kw = chain_weights(inp, c, 3 * c)
     v, g, s = K.fused_qkv_stats(x, heads=heads, **kw)
@@ -383,6 +433,8 @@ def qkv_case(inp: Inputs, name, h, w, c, heads, iters=5, batch=1):
 
 
 def split_case(inp: Inputs, name, h, w, c, n_out, iters=5, batch=1):
+    if skipped("split_proj", name):
+        return None
     x = inp(batch, h, w, c)
     kw = chain_weights(inp, c, n_out * c)
     got = K.fused_ln_split_proj(x, n_out=n_out, **kw)
@@ -404,6 +456,8 @@ def split_case(inp: Inputs, name, h, w, c, n_out, iters=5, batch=1):
 
 def conv_case(inp: Inputs, name, h, w, cin, cout, bias, iters=5, ln=False,
               batch=1):
+    if skipped("conv3x3", name):
+        return None
     x = inp(batch, h, w, cin)
     wt = inp(3, 3, cin, cout, scale=(9 * cin) ** -0.5)
     bb = inp(cout, scale=0.2) if bias else None
@@ -436,6 +490,8 @@ def conv_case(inp: Inputs, name, h, w, cin, cout, bias, iters=5, ln=False,
 
 
 def chm_case(inp: Inputs, name, h, w, c, heads, nf, iters=3, batch=1):
+    if skipped("chm_stats", name):
+        return None
     x, x_sp = inp(batch, h, w, c), inp(batch, nf, h, w, c)
     kw = dict(ln_w=1.0 + inp(c, scale=0.2), ln_b=inp(c, scale=0.2),
               w_qkv=inp(c, 3 * c, scale=c ** -0.5),
@@ -493,6 +549,8 @@ def sab_compare(got, want):
 
 
 def sab_case(inp: Inputs, name, hq, wq, d, nf, iters=3, batch=1):
+    if skipped("sab", name):
+        return None
     hw = hq * wq
     fv = torch.ones(nf, device="cuda")
     # (a) exact scores: the same support, bit for bit
@@ -531,6 +589,8 @@ def sab_case(inp: Inputs, name, hq, wq, d, nf, iters=3, batch=1):
 
 
 def lattice_case(inp: Inputs, name, h, w, c, ws, n, merge: bool, iters=5):
+    if skipped("lattice_merge" if merge else "lattice_split", name):
+        return None
     hh, ww = h // ws, w // ws
     if merge:
         src = inp(n, hh * ww, ws * ws * c)
@@ -559,6 +619,8 @@ def attn_v_case(inp: Inputs, name, b, nf, hq, wq, ws, c, merge=True, iters=5):
     (views of one buffer, as the cache stores them) and the current frame's
     values. library: torch.matmul per position and, for the merge, the
     library's permuted copy."""
+    if skipped("attn_v", name):
+        return None
     hw, d, h, w = hq * wq, ws * ws * c, hq * ws, wq * ws
     a = torch.rand(b * nf, hw, hw, device="cuda",
                    generator=torch.Generator("cuda").manual_seed(hw + d))
@@ -605,6 +667,8 @@ def run_case(inp: Inputs, name, b, h, w, c, heads, n_blocks, iters=3):
     """A run of Channel+GFFW blocks: the run kernel against its plain version
     and against the 2 N split launches it replaces (their time is split_ms,
     no library call computes the run)."""
+    if skipped("level_run", name):
+        return None
     e = int(c * 2.5)
     x = inp(b, h, w, c)
     blocks = [dict(
@@ -655,6 +719,8 @@ def two_stage_case(inp: Inputs, name, kind, b, h, w, c, e1, e2, iters=3):
     ("ra_gffw"), against its plain version and against the split route it
     replaces (two FFN launches; their time is split_ms, no library call
     computes the chain)."""
+    if skipped("two_stage", name):
+        return None
     x = inp(b, h, w, c)
 
     def stage(e, mode):
@@ -724,6 +790,8 @@ def sparse_case(inp: Inputs, name, b, nf, hq, wq, d, iters=3):
     its plain version and against row 7 on the same q, k: exact inputs make
     every score exact whatever the order of its sum, and the scores are
     rounded to bf16 as row 7 rounds them, so the two agree bit for bit."""
+    if skipped("sab_sparse_softmax", name):
+        return None
     hw = hq * wq
     q, k, temp = sab_inputs(inp, nf, hw, d, exact=True, batch=b)
     scores = (torch.einsum("bqd,bnkd->bnqk", q.float(), k.float())
@@ -902,6 +970,21 @@ def kernel_cases(seed: int, h: int, w: int) -> list[dict]:
         lambda: conv_case(inp, "ragged LN + v 256->256", 2 * hr + 1,
                           2 * wr + 1, 256, 256, False, ln=True),
     ]
+    # the wgmma body of row 1 on maps its 8 x 8 tiles do not divide, at each
+    # width it takes (a shared po, a batch of two, the gelu form)
+    cases += [
+        lambda: ffn_case(inp, "ragged gate+pair+po(B,C,C)+po_b C=512", hr, wr,
+                         512, 1280, "gate", pair=True, po=True, biases=True),
+        lambda: ffn_case(inp, "ragged gate+pair+po(C,C) C=256", 2 * hr + 1,
+                         2 * wr + 1, 256, 640, "gate", pair=True, po=True,
+                         shared_po=True),
+        lambda: ffn_case(inp, "ragged gate+pair+po(B,C,C), 2 maps C=128",
+                         4 * hr + 3, 4 * wr + 5, 128, 320, "gate", pair=True,
+                         po=True, batch=2),
+        lambda: ffn_case(inp, "ragged gelu+scale C=128", 4 * hr + 3,
+                         4 * wr + 5, 128, 256, "gelu", biases=True,
+                         scale=True),
+    ]
     # under the two_stage plan: the conv-only levels (enc1 and enc2 pairs of
     # ReducedAttn+FFW blocks, the refinement's ReducedAttn+GFFW blocks),
     # whole padded frames and 15 tiles
@@ -933,6 +1016,8 @@ def kernel_cases(seed: int, h: int, w: int) -> list[dict]:
     for make in cases:
         t0 = time.perf_counter()
         res = make()
+        if res is None:  # left out by --cases
+            continue
         res["case_seconds"] = time.perf_counter() - t0
         emit({"phase": "kernel_case", **res})
         out.append(res)
@@ -1307,6 +1392,9 @@ def kernel_rows(cases: list[dict], by_path: dict) -> list[dict]:
         counters = ("attn_v_merge", "attn_v_slots") if name == "attn_v" else (
             name,)
         per_path = {p: sum(c[k] for k in counters) for p, c in by_path.items()}
+        if name == "ffn":  # ffn.cu's dw branch: neither the wgmma body nor no-dw
+            per_path = {p: c["ffn"] - c["ffn_wg"] - c["ffn_no_dw"]
+                        for p, c in by_path.items()}
         rows.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=sum(per_path.values()), launches_by_path=per_path,
@@ -1317,6 +1405,7 @@ def kernel_rows(cases: list[dict], by_path: dict) -> list[dict]:
             cases=[{k: c[k] for k in ("case", "ms", "plain_ms", "bound_ms",
                                       "bound_by", "library_ms",
                                       "max_abs_err", "rel_err", "split_ms",
+                                      "body", "tile_ms",
                                       "rel_err_vs_split", "bit_equal_to_split",
                                       "bit_equal_to_row_7") if k in c}
                    for c in mine]))
@@ -1337,9 +1426,17 @@ def main(argv=None) -> int:
                          "`gopro_enc3_ffw`) and each tiled stream under each "
                          "plan, trace a few more frames with torch.profiler: "
                          "device time by kernel, idle share")
+    ap.add_argument("--cases", default="",
+                    help="--phase kernels: only the cases whose "
+                         "'<kernel>: <case>' holds this text (no result "
+                         "lines, no ok line)")
     ap.add_argument("--ptxas", action="store_true",
                     help="print nvcc's register and shared-memory report")
     args = ap.parse_args(argv)
+    global CASE_FILTER
+    CASE_FILTER = args.cases
+    if args.cases and args.phase != "kernels":
+        ap.error("--cases takes --phase kernels")
     width, height = (int(v) for v in args.size.lower().split("x"))
 
     if not torch.cuda.is_available():
@@ -1396,15 +1493,17 @@ def main(argv=None) -> int:
             # counts were held above); attn_v_slots is the second epilogue of
             # the kernel that attn_v_merge launches and has no caller of its
             # own in the model, nor has sab_sparse_softmax (row 12)
-            t0_chm = ("ffn", "qkv_stats", "split_proj", "conv3x3",
+            t0_chm = ("ffn", "ffn_wg", "qkv_stats", "split_proj", "conv3x3",
                       "chm_stats", "lattice_merge", "lattice_split")
             t1_chm = t0_chm + ("sab",)
             on_path = {
-                "gopro_t1_fhr": ("ffn", "qkv_stats", "split_proj", "conv3x3"),
-                "gopro": t1_chm, "gopro_enc3_ffw": ("ffn_no_dw",),
+                "gopro_t1_fhr": ("ffn", "ffn_wg", "qkv_stats", "split_proj",
+                                 "conv3x3"),
+                "gopro": t1_chm, "gopro_enc3_ffw": ("ffn_no_dw", "ffn_wg"),
                 "derain": t0_chm, "sr": t1_chm,
                 "gopro_two_stage": t1_chm + ("two_stage",), "tiled": t1_chm,
-                "tiled_fused": ("ffn", "qkv_stats", "split_proj", "conv3x3",
+                "tiled_fused": ("ffn", "ffn_wg", "qkv_stats", "split_proj",
+                                "conv3x3",
                                 "chm_stats", "sab", "lattice_split",
                                 "attn_v_merge", "level_run"),
                 "tiled_two_stage": t1_chm + ("two_stage",),
@@ -1424,6 +1523,8 @@ def main(argv=None) -> int:
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
+    if args.cases:  # a filtered run proves nothing about the whole
+        return 0
     if cases and len(by_path) == 13:  # launches are those of this run's paths
         emit({"kernels": kernel_rows(cases, by_path)})
     print(smi_line, flush=True)

@@ -19,6 +19,7 @@ from torch_port_util import (
     CONV_LN_KERNEL_SHAPES,
     FFN_KERNEL_CASES,
     FFN_LIST_CASES,
+    FFN_WG_CASES,
     KERNEL_TOL,
     LATTICE_KERNEL_SHAPES,
     LEVEL_KERNEL_SHAPES,
@@ -89,6 +90,34 @@ def test_ffn_kernel_matches_plain(dev, case, dtype):
     torch.cuda.synchronize()
     assert K.fused_block_ffn.launches == before + 1
     assert max_err(got, K.ffn_plain(x, **kw)) <= KERNEL_TOL[dtype]
+
+
+@pytest.mark.parametrize("case", list(FFN_WG_CASES))
+def test_ffn_wg_body_matches_plain(dev, case):
+    """The wgmma body (csrc/ffn_wg.cu) on the calls its plan gives it, and
+    the mma.sync body just outside them: one launch either way, within the
+    tolerance of the plain version, bitwise repeatable."""
+    x, kw = ffn_kernel_case(case, Maker(15, torch.bfloat16, dev),
+                            FFN_WG_CASES)
+    on_wg = not case.startswith("tile_")
+    before, wg_before = K.fused_block_ffn.launches, K.fused_block_ffn.launches_wg
+    got = K.fused_block_ffn(x, **kw)
+    torch.cuda.synchronize()
+    assert K.fused_block_ffn.launches == before + 1
+    assert K.fused_block_ffn.launches_wg == wg_before + on_wg
+    assert max_err(got, K.ffn_plain(x, **kw)) <= KERNEL_TOL[torch.bfloat16]
+    again = K.fused_block_ffn(x, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+
+
+def test_ffn_wg_smem_mirror_matches_the_source(dev):
+    from turtlevsr_tpu_torch.kernels import build
+
+    lib = build.load("ffn_wg")
+    for c in (128, 256, 512):
+        for gate in (0, 1):
+            assert lib.turtle_ffn_wg_smem(c, gate) == K._wg_smem(c, gate)[0]
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])

@@ -93,6 +93,33 @@ FFN_KERNEL_CASES = {
     "gate_no_dw": (1, 8, 8, 16, 24, "gate", True, None, False, False, False,
                    True),
 }
+# The calls the wgmma body takes (kernels/csrc/ffn_wg.cu: bf16, a depthwise
+# stage, at most one x2 map, no chained FFW, C in 128 / 256 / 512, E a
+# multiple of 32) at the model's widths, on a ragged map of two entries.
+# Cases named tile_* stay on the mma.sync body (csrc/ffn.cu): the model's
+# forms at C = 64, which the plan keeps there, and calls just outside the
+# new body's conditions (C, then E). Same fields as FFN_KERNEL_CASES.
+FFN_WG_CASES = {
+    **{f"gate_pair_po_batched_c{c}": (2, 37, 53, c, c * 5 // 2, "gate", True,
+                                      "batched", True, False, False, True)
+       for c in (128, 256, 512)},
+    "gate_pair_no_po_c512": (2, 37, 53, 512, 1280, "gate", True, None, False,
+                             False, False, True),
+    "gate_pair_po_shared_c256": (2, 37, 53, 256, 640, "gate", True, "shared",
+                                 False, False, False, True),
+    "gelu_scale_c128": (2, 37, 53, 128, 256, "gelu", False, None, True, True,
+                        False, True),
+    "tile_gate_pair_po_batched_c64": (2, 37, 53, 64, 160, "gate", True,
+                                      "batched", True, False, False, True),
+    "tile_gate_no_pair_biasfree_ln_c64": (2, 37, 53, 64, 160, "gate", False,
+                                          None, False, False, False, False),
+    "tile_gelu_scale_c64": (2, 37, 53, 64, 128, "gelu", False, None, True,
+                            True, False, True),
+    "tile_outside_c96": (2, 37, 53, 96, 240, "gate", True, "batched", True,
+                         False, False, True),
+    "tile_outside_e48_c128": (2, 37, 53, 128, 48, "gate", True, "batched",
+                              True, False, False, True),
+}
 # (B, H, W, C, heads, biases)
 QKV_KERNEL_SHAPES = [(2, 11, 13, 16, 2, True), (1, 8, 9, 128, 2, False),
                      (1, 9, 8, 48, 1, False)]
@@ -120,10 +147,11 @@ def max_err(got, want) -> float:
     return (got.float() - want.float()).abs().max().item()
 
 
-def ffn_kernel_case(name, m: Maker):
-    """(x, keyword arguments of fused_block_ffn) of one FFN case."""
+def ffn_kernel_case(name, m: Maker, cases=None):
+    """(x, keyword arguments of fused_block_ffn) of one FFN case of
+    ``cases`` (FFN_KERNEL_CASES by default)."""
     b, h, w, c, e, mode, pair, po, biases, scale, ffw2, lnb = (
-        FFN_KERNEL_CASES[name])
+        FFN_KERNEL_CASES if cases is None else cases)[name]
     ch = 2 * e if mode == "gate" else e
     x = m(b, h, w, c)
     kw = dict(ln_w=m(c), ln_b=m(c) if lnb else None,

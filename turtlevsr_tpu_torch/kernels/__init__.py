@@ -25,9 +25,11 @@ def _counted() -> dict:
 
 def launch_counts() -> dict:
     """Launches of each kernel since the last :func:`reset_launch_counts`;
-    ``ffn_no_dw`` are those of ``ffn`` without a depthwise stage."""
+    ``ffn_no_dw`` are those of ``ffn`` without a depthwise stage,
+    ``ffn_wg`` those of ``ffn`` on its wgmma body."""
     counts = {name: fn.launches for name, fn in _counted().items()}
     counts["ffn_no_dw"] = _counted()["ffn"].launches_no_dw
+    counts["ffn_wg"] = _counted()["ffn"].launches_wg
     return counts
 
 
@@ -35,3 +37,4 @@ def reset_launch_counts() -> None:
     for fn in _counted().values():
         fn.launches = 0
     _counted()["ffn"].launches_no_dw = 0
+    _counted()["ffn"].launches_wg = 0

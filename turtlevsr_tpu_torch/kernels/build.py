@@ -19,7 +19,7 @@ import threading
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
-KERNEL_SOURCES = ("ffn", "qkv_stats", "split_proj", "conv3x3", "chm_stats",
+KERNEL_SOURCES = ("ffn", "ffn_wg", "qkv_stats", "split_proj", "conv3x3", "chm_stats",
                   "sab", "lattice", "level", "attn_v", "chain2")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
@@ -32,6 +32,8 @@ _LAUNCH_ARGS = [_VP, _IP, ctypes.c_int, ctypes.c_void_p]
 _SIGNATURES = {
     "ffn": {"turtle_ffn_launch": (_LAUNCH_ARGS, ctypes.c_int),
             "turtle_ffn_smem": ([ctypes.c_int] * 5, ctypes.c_size_t)},
+    "ffn_wg": {"turtle_ffn_wg_launch": (_LAUNCH_ARGS, ctypes.c_int),
+               "turtle_ffn_wg_smem": ([ctypes.c_int] * 2, ctypes.c_size_t)},
     "qkv_stats": {"turtle_qkv_stats_launch": (_LAUNCH_ARGS, ctypes.c_int),
                   "turtle_qkv_stats_smem": ([ctypes.c_int] * 3,
                                             ctypes.c_size_t),

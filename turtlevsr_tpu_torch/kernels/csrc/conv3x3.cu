@@ -343,71 +343,6 @@ static ConvPlan plan_of(int Cin) {
   return {launch_conv<T, G, CR, STAGES, GATHER>, conv_smem<T, G, CR, STAGES, GATHER>(Cin)};
 }
 
-// ---------------------------------------------------------------------------
-// wgmma (bf16): m64nBNk16 with A from registers (a warp's 16 pixels, one image
-// row, by ldmatrix from a halo tile) and B from a weight ring through a
-// matrix descriptor. The ring holds 16 or 32 rows of K a stage as 64-column
-// panels, rows of 128 bytes, 16-byte pieces swizzled as piece ^ (row & 7)
-// (the 128-byte swizzle of a 1024-byte aligned block; TMA writes it so), the
-// MN-major layout wgmma reads with B transposed: the 8-row groups of K lie
-// 1024 bytes apart (stride offset), the panels one panel apart (leading
-// offset).
-// ---------------------------------------------------------------------------
-
-template <int BN> __device__ __forceinline__ void wgmma_rs(float (&d)[BN / 2],
-                                                           const AFrag<__nv_bfloat16>& a,
-                                                           uint64_t desc);
-template <>
-__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64], const AFrag<__nv_bfloat16>& a,
-                                              uint64_t desc) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,"
-      " %12,%13,%14,%15,%16,%17,%18,%19,%20,%21,%22,%23,"
-      " %24,%25,%26,%27,%28,%29,%30,%31,%32,%33,%34,%35,"
-      " %36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,"
-      " %48,%49,%50,%51,%52,%53,%54,%55,%56,%57,%58,%59,"
-      " %60,%61,%62,%63}, {%64,%65,%66,%67}, %68, p, 1, 1, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a.r[0]), "r"(a.r[1]), "r"(a.r[2]), "r"(a.r[3]), "l"(desc), "r"(1));
-}
-template <>
-__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32], const AFrag<__nv_bfloat16>& a,
-                                             uint64_t desc) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,"
-      " %12,%13,%14,%15,%16,%17,%18,%19,%20,%21,%22,%23,"
-      " %24,%25,%26,%27,%28,%29,%30,%31}, {%32,%33,%34,%35}, %36, p, 1, 1, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a.r[0]), "r"(a.r[1]), "r"(a.r[2]), "r"(a.r[3]), "l"(desc), "r"(1));
-}
-constexpr uint32_t WG_SBO = 1024;
-constexpr int WG_ALIGN = 1024;  // the swizzle's block: rings start at such a boundary
-
 // the tensor maps of a launch: x as (B, H, W, Cin), boxes of 16 channels by
 // 18 x 10 pixels; the weight as its (9 Cin, Cout) matrix, boxes of rows by
 // 64 columns, swizzled
@@ -439,13 +374,6 @@ __host__ __device__ constexpr size_t conv_ln_smem(int Cin) {
   return WG_ALIGN + (size_t)ln_stages<CR>() * LN_KC * BN * 2 +
          (size_t)halo_pixels<GeoWide, true>() * (Cin + XPAD) * 2 +
          2 * ln_stages<CR>() * sizeof(uint64_t);
-}
-
-// the B operand of 16 rows of K from p, panels panel_bytes apart
-__device__ __forceinline__ uint64_t panel_desc(const void* p, int panel_bytes) {
-  const uint64_t addr = smem_u32(p);
-  return ((addr & 0x3FFFF) >> 4) | ((uint64_t)(panel_bytes >> 4) << 16) |
-         ((uint64_t)(WG_SBO >> 4) << 32) | (1ull << 62);
 }
 
 template <int BN, int CR>
@@ -624,11 +552,6 @@ __host__ __device__ constexpr size_t conv_chunked_smem() {
   const size_t ring = (size_t)CK_STAGES * ck_stage_bytes<BN>();
   const size_t out = (size_t)CK_SUB * 128 * (BN + XPAD) * 2;
   return WG_ALIGN + (ring > out ? ring : out) + 2 * CK_STAGES * sizeof(uint64_t);
-}
-
-// the consumer warpgroups' own barrier (the copy warp does not take part)
-__device__ __forceinline__ void consumers_sync() {
-  asm volatile("bar.sync 1, %0;\n" ::"n"(NT) : "memory");
 }
 
 template <int BN>

@@ -1,0 +1,641 @@
+// The Hopper body of the fused conv-FFN half (row 1) for its single-map
+// depthwise form: bf16, a depthwise stage, at most one x2 map (with or
+// without po, shared (C, C) or per batch (B, C, C), with or without po_b),
+// no chained FFW, mode gate or gelu, C in {128, 256, 512} and E a multiple
+// of 32. ffn.py's _ffn_plan sends every such call here and every other one
+// (C = 64, the lists, the chained FFW, no dw, float32, other widths) to
+// ffn.cu's mma.sync body. What it computes, and where it rounds, is in the
+// note of ffn.cu: x2 @ po rounded to bf16, + po_b rounded again, x' = x +
+// that summed in fp32 and rounded, LN(x') with fp32 statistics rounded,
+// pw1 + b1, the nine taps in row-major order and + bd in fp32 (the hidden
+// map zero outside the image after pw1 and its bias), gelu(a) * b rounded to
+// bf16, pw2 + b2, * scale, + x' in fp32 and one rounding at the end.
+//
+// The chain is bound by operations at C >= 128 (about 17 C^2 flop a pixel
+// against 6 C bytes). What held ffn.cu's body back was the weights: every
+// 64-pixel block read all of w1, w2 and po from device memory per warp, a
+// few k-steps ahead, with nothing in flight across its block barriers. Here
+// a block still owns one 8 x 8 tile of outputs and LN(x') of its 10 x 10
+// halo (the 100 halo rows run as two m64 tiles of wgmma, one per consumer
+// warpgroup), but:
+//
+//   * po, w1 and w2 stream through a ring of 16 KB stages in shared memory,
+//     in the 128-byte swizzled layout wgmma reads, filled by TMA from a copy
+//     warpgroup on full / empty mbarriers: the loads run ahead of the
+//     products, across the block barriers of the chunk loop, and no
+//     consumer thread spends an instruction on them;
+//   * the three products run as wgmma, A from registers by ldmatrix, B from
+//     the ring. po: x2's halo tile, all of K in registers, 128 columns a
+//     pass. pw1: a chunk of 64 activation columns (gate: the panels e0.. and
+//     E + e0.. of w1; gelu: 128 columns) with N = 128 on the halo tile; the
+//     dw taps from an fp32 chunk in shared memory. pw2: K = the chunk, into
+//     register accumulators of the 64 pixels, warpgroup w owning columns
+//     [w C / 2, (w + 1) C / 2). One wgmma group a ring stage, one group left
+//     in flight, so the tensor cores run from pw2 into the next pw1;
+//   * two block barriers per chunk of 64 activation columns (ffn.cu: per
+//     32), none between the copies and the products; the copy warpgroup
+//     gives its registers to the consumers (setmaxnreg).
+//
+// x' of the 64 interior pixels goes to the output map in the prologue and
+// comes back from there (L2) in the epilogue, which overwrites it: shared
+// memory holds the ring, the halo, the fp32 hidden chunk and the activation
+// chunk only. C = 64 stays on ffn.cu: there the chain is bound by the dw
+// taps, the hidden map's stores and the prologue, not by the products, and
+// this body was not faster on an H100 (PERF.md, row 1).
+#include "ffn_tile.cuh"
+#include "pipe.cuh"
+
+namespace turtle {
+
+constexpr int WG_STAGE = 16384;       // bytes of a ring stage
+constexpr int WG_MAX_STAGES = 8;
+constexpr int WG_HS = 128;            // row stride of the fp32 hidden chunk (swizzled)
+constexpr int WG_KB = 64;             // rows of K of a pw1 stage (two 64-column panels)
+constexpr int WG_PW1_PANEL = WG_KB * 128;  // bytes of a pw1 panel
+constexpr size_t WG_SMEM_MAX = 232448;
+
+struct WgMaps {
+  CUtensorMap w1, w2, po;  // po: unset without po
+};
+
+// activation columns a chunk, rows of w2 a stage
+__host__ __device__ constexpr int wg_aw(int gate) { return gate ? 64 : 128; }
+__host__ __device__ constexpr int wg_r2(int C, int gate) {
+  return (8192 / C) < wg_aw(gate) ? (8192 / C) : wg_aw(gate);
+}
+
+// bytes of the parts after the ring; the ring takes as many stages as fit
+__host__ __device__ inline size_t wg_rest(int C, int gate) {
+  return (size_t)NPH * (C + XPAD) * 2 + (size_t)NPH * WG_HS * 4 +
+         (size_t)P * (wg_aw(gate) + XPAD) * 2;
+}
+__host__ __device__ inline int wg_stages(int C, int gate) {
+  const size_t room = WG_SMEM_MAX - WG_ALIGN - wg_rest(C, gate);
+  const int s = (int)(room / (WG_STAGE + 2 * sizeof(uint64_t)));
+  return s < WG_MAX_STAGES ? s : WG_MAX_STAGES;
+}
+__host__ __device__ inline size_t wg_smem(int C, int gate) {
+  const int s = wg_stages(C, gate);
+  return WG_ALIGN + (size_t)s * WG_STAGE + wg_rest(C, gate) + 2 * s * sizeof(uint64_t);
+}
+
+// the fp32 hidden chunk: row r (a halo pixel), column c (0 .. 127); the
+// columns are swizzled by the row so that a warp's accumulator stores spread
+// over the banks
+__device__ __forceinline__ int hid_at(int r, int c) { return r * WG_HS + (c ^ ((r & 3) << 3)); }
+
+// LN pass of the prologue (the 256 consumer threads): x' = xn as the po
+// product left it (has_po), or x (+ x2) rounded; LN(x') rounded into xn (row
+// stride C + XPAD, zero rows outside the image) for the 100 halo pixels, and
+// x' of the interior pixels into out. The LN pass of ln_prologue (common.cuh)
+// with the copy warpgroup left out of its barriers, x' kept in the output map
+// instead of shared memory and four pixels a lane loaded together.
+template <int CR>
+__device__ void wg_ln_pass(const __nv_bfloat16* __restrict__ x,
+                           const __nv_bfloat16* __restrict__ x2, bool has_po,
+                           const __nv_bfloat16* __restrict__ ln_w,
+                           const __nv_bfloat16* __restrict__ ln_b, int H, int W, int C, int y0,
+                           int x0, __nv_bfloat16* xn, __nv_bfloat16* out) {
+  using T = __nv_bfloat16;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int XS = C + XPAD;
+  // a pixel's C channels over a group of GL lanes in vectors of 8
+  constexpr int VJ = CR > 8 ? 2 : 1;
+  int GL = 32;
+  while (GL > 1 && (GL / 2) * 8 * VJ >= C) GL /= 2;
+  const int PP = 32 / GL, sub = lane / GL, l = lane % GL;
+  float gw[VJ][8], bt[VJ][8];
+#pragma unroll
+  for (int j = 0; j < VJ; ++j) {
+    const int c8 = (l + GL * j) * 8;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) { gw[j][i] = 0.f; bt[j][i] = 0.f; }
+    if (c8 < C) {
+      load8(ln_w + c8, gw[j]);
+      if (ln_b != nullptr) load8(ln_b + c8, bt[j]);
+    }
+  }
+  // U pixels a lane at a time: their loads are in flight together
+  constexpr int U = 4;
+  for (int p0 = warp * PP; p0 < NPH; p0 += NW * PP * U) {
+    float v[U][VJ][8];
+    bool inside[U];
+    size_t goff[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int p = p0 + u * NW * PP + sub;
+      inside[u] = halo_inside(p, H, W, y0, x0);
+      goff[u] = inside[u] ? halo_offset(p, W, C, y0, x0) : 0;
+#pragma unroll
+      for (int j = 0; j < VJ; ++j) {
+        const int c8 = (l + GL * j) * 8;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) v[u][j][i] = 0.f;
+        if (!inside[u] || c8 >= C) continue;
+        if (has_po) {
+          load8(xn + p * XS + c8, v[u][j]);
+        } else {
+          load8(x + goff[u] + c8, v[u][j]);
+          if (x2 != nullptr) {
+            float v2[8];
+            load8(x2 + goff[u] + c8, v2);
+#pragma unroll
+            for (int i = 0; i < 8; ++i) v[u][j][i] = round_to<T>(v[u][j][i] + v2[i]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int p = p0 + u * NW * PP + sub;
+      const int py = p / PH - 1, px = p % PH - 1;
+      const bool interior = inside[u] && py >= 0 && py < TS && px >= 0 && px < TS;
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < VJ; ++j) {
+        if (!inside[u] || (l + GL * j) * 8 >= C) continue;
+        if (interior) store8(out + goff[u] + (l + GL * j) * 8, v[u][j]);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) sum += v[u][j][i];
+      }
+#pragma unroll
+      for (int m = 16; m > 0; m >>= 1)
+        if (m < GL) sum += __shfl_xor_sync(0xffffffffu, sum, m);
+      const float mu = sum / (float)C;
+      float q = 0.f;
+#pragma unroll
+      for (int j = 0; j < VJ; ++j)
+        if (inside[u] && (l + GL * j) * 8 < C) {
+#pragma unroll
+          for (int i = 0; i < 8; ++i) q += (v[u][j][i] - mu) * (v[u][j][i] - mu);
+        }
+#pragma unroll
+      for (int m = 16; m > 0; m >>= 1)
+        if (m < GL) q += __shfl_xor_sync(0xffffffffu, q, m);
+      const float inv = 1.0f / sqrtf(q / (float)C + LN_EPS);
+#pragma unroll
+      for (int j = 0; j < VJ; ++j) {
+        const int c8 = (l + GL * j) * 8;
+        if (p >= NPH || c8 >= C) continue;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          if (!inside[u]) v[u][j][i] = 0.f;
+          else if (ln_b != nullptr) v[u][j][i] = (v[u][j][i] - mu) * inv * gw[j][i] + bt[j][i];
+          else v[u][j][i] = v[u][j][i] * inv * gw[j][i];
+        }
+        store8(xn + p * XS + c8, v[u][j]);
+      }
+    }
+  }
+  consumers_sync();
+}
+
+// Depthwise 3x3 of hidden chunk column col (channel ch) down the tile column
+// px, from the fp32 chunk: dw_column of common.cuh on this chunk's layout
+__device__ __forceinline__ void wg_dw_column(const float* hid, const __nv_bfloat16* __restrict__ wd,
+                                             const __nv_bfloat16* __restrict__ bd, int CH,
+                                             int px, int col, int ch, float (&out)[TS]) {
+  float w[9];
+#pragma unroll
+  for (int i = 0; i < 9; ++i) w[i] = to_f(wd[i * CH + ch]);
+  const float bias = bd != nullptr ? to_f(bd[ch]) : 0.f;
+  float r[3][3];
+#pragma unroll
+  for (int tx = 0; tx < 3; ++tx) {
+    r[0][tx] = hid[hid_at(px + tx, col)];
+    r[1][tx] = hid[hid_at(PH + px + tx, col)];
+  }
+#pragma unroll
+  for (int py = 0; py < TS; ++py) {
+#pragma unroll
+    for (int tx = 0; tx < 3; ++tx) r[2][tx] = hid[hid_at((py + 2) * PH + px + tx, col)];
+    float a = 0.f;
+#pragma unroll
+    for (int ty = 0; ty < 3; ++ty)
+#pragma unroll
+      for (int tx = 0; tx < 3; ++tx) a += r[ty][tx] * w[ty * 3 + tx];
+    out[py] = a + bias;
+#pragma unroll
+    for (int tx = 0; tx < 3; ++tx) { r[0][tx] = r[1][tx]; r[1][tx] = r[2][tx]; }
+  }
+}
+
+// the block's threads: two consumer warpgroups and a copy warpgroup, which
+// hands most of its registers to the consumers
+constexpr int WG_NT = NT + 128;
+constexpr int WG_REGS_CONSUMER = 232, WG_REGS_COPY = 40;
+
+// the B operand of 16 rows of K at row k of a stage of 64-column panels of
+// `rows` rows each, starting at panel p
+__device__ __forceinline__ uint64_t stage_desc(const unsigned char* stage, int rows, int p,
+                                               int k) {
+  return panel_desc(stage + p * rows * 128 + k * 16 * 128, rows * 128);
+}
+
+// C: the map's width (128, 256, 512); GATE: the mode. NJ2 products of
+// m64nBN2k16 a k-step make a warpgroup's pw2 columns.
+//
+// The ring's loads, in the order the copy thread starts them and the
+// consumers take them: with po, C / 128 passes of 128 columns of po, C / 64
+// stages of 64 rows each; then chunk by chunk NS1 stages of 64 rows of w1
+// (the chunk's two 64-column panels) and NS2 of R2 rows of w2. The
+// consumers commit one wgmma group a stage and keep one group in flight: a
+// stage goes back to the copy thread once the group after it has been
+// started and the wait for all but that one returned.
+template <int C, bool GATE>
+__global__ void __launch_bounds__(WG_NT, 1)
+    ffn_wg_kernel(const __grid_constant__ FfnArgs a, const __grid_constant__ WgMaps maps) {
+  using T = __nv_bfloat16;
+  constexpr int CR = C / 32 > 2 ? C / 32 : 2;
+  constexpr int NW2 = C / 2;                        // pw2 columns of a warpgroup
+  constexpr int BN2 = NW2 >= 128 ? 128 : 64;        // N of one pw2 product
+  constexpr int NJ2 = NW2 / BN2;
+  constexpr int AW = wg_aw(GATE), R2 = wg_r2(C, GATE), AS = AW + XPAD, XS = C + XPAD;
+  constexpr int NS1 = C / WG_KB, NS2 = AW / R2;    // ring stages of pw1, pw2 a chunk
+  constexpr int KS2 = R2 / 16;                     // k-steps of a pw2 stage
+  constexpr int NPW = 128;                         // po columns a pass
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* smem = align_smem<WG_ALIGN>(smem_raw);
+  const int S = wg_stages(C, GATE);
+  unsigned char* ring = smem;
+  T* xn = reinterpret_cast<T*>(ring + (size_t)S * WG_STAGE);
+  float* hid = reinterpret_cast<float*>(xn + NPH * XS);
+  T* act = reinterpret_cast<T*>(hid + NPH * WG_HS);
+  uint64_t* full = reinterpret_cast<uint64_t*>(act + P * AS);
+  uint64_t* empty = full + S;
+
+  const int H = a.H, W = a.W, E = a.E, CH = a.CH;
+  const int b = blockIdx.y, tiles_x = (W + TS - 1) / TS;
+  const int y0 = (blockIdx.x / tiles_x) * TS, x0 = (blockIdx.x % tiles_x) * TS;
+  const int n_chunks = (E + AW - 1) / AW;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const bool has_po = a.po_w != nullptr;
+
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2);  // one arrival a consumer warpgroup
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= NW) {  // the copy warpgroup: thread NT starts every load
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(WG_REGS_COPY));
+    if (tid == NT) {
+      int li = 0;
+      auto next = [&](int bytes) {
+        const int s = li % S;
+        if (li >= S) mbar_wait(&empty[s], (li / S - 1) & 1);
+        mbar_expect_tx(&full[s], bytes);
+        ++li;
+        return s;
+      };
+      if (has_po) {
+        const int row0 = a.po_batched ? b * C : 0;
+        for (int np = 0; np < C / NPW; ++np)
+          for (int kb = 0; kb < C / WG_KB; ++kb) {
+            const int s = next(NPW * WG_KB * 2);
+            for (int p = 0; p < NPW / 64; ++p)
+              tma_load_2d(ring + (size_t)s * WG_STAGE + p * WG_PW1_PANEL, &maps.po,
+                          np * NPW + 64 * p, row0 + kb * WG_KB, &full[s]);
+          }
+      }
+      for (int ck = 0; ck < n_chunks; ++ck) {
+        const int e0 = ck * AW;
+        for (int i = 0; i < NS1; ++i) {
+          const int s = next(2 * WG_PW1_PANEL);
+          unsigned char* dst = ring + (size_t)s * WG_STAGE;
+          tma_load_2d(dst, &maps.w1, e0, i * WG_KB, &full[s]);
+          tma_load_2d(dst + WG_PW1_PANEL, &maps.w1, GATE ? E + e0 : e0 + 64, i * WG_KB,
+                      &full[s]);
+        }
+        for (int i = 0; i < NS2; ++i) {
+          const int s = next(R2 * C * 2);
+          for (int p = 0; p < C / 64; ++p)
+            tma_load_2d(ring + (size_t)s * WG_STAGE + p * R2 * 128, &maps.w2, 64 * p,
+                        e0 + i * R2, &full[s]);
+        }
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(WG_REGS_CONSUMER));
+
+  const int g = lane >> 2, t = lane & 3, wg = warp >> 2, q = warp & 3;
+  // the ring as the consumers see it: li the next load, rel the next to hand
+  // back (one arrival a warpgroup)
+  int li = 0, rel = 0;
+  auto take = [&]() {
+    const int s = li % S;
+    mbar_wait(&full[s], (li / S) & 1);
+    ++li;
+    return ring + (size_t)s * WG_STAGE;
+  };
+  auto release_upto = [&](int n) {
+    for (; rel < n; ++rel)
+      if (lane == 0 && q == 0) mbar_arrive(&empty[rel % S]);
+  };
+
+  const size_t boff = (size_t)b * H * W * C;
+  const T* x = static_cast<const T*>(a.x) + boff;
+  const T* x2 = a.n_x2 > 0 ? static_cast<const T*>(a.x2[0]) + (size_t)b * a.x2_bs[0] : nullptr;
+  T* out = static_cast<T*>(a.out) + boff;
+  // warpgroup wg multiplies halo rows 64 wg .. 64 wg + 63 (rows past the
+  // 100th read row 0 and are dropped); ldmatrix row lane & 15 of warp q
+  const int hrow = 64 * wg + 16 * q + (lane & 15);
+  const T* arow1 = xn + (hrow < NPH ? hrow : 0) * XS + (lane >> 4) * 8;
+
+  if (has_po) {
+    // x' = x + x2 @ po on the halo tile: the x2 tile in xn, every warp's
+    // fragments of it (all of K) in registers, then xn overwritten pass by
+    // pass (a warp writes only the rows it read)
+    const T* po_b = static_cast<const T*>(a.po_b);
+    const int c8n = C / 8;
+    for (int idx = tid; idx < NPH * c8n; idx += NT) {
+      const int p = idx / c8n, c8 = (idx - p * c8n) * 8;
+      if (halo_inside(p, H, W, y0, x0))
+        cp_async16(xn + p * XS + c8, x2 + halo_offset(p, W, C, y0, x0) + c8);
+      else
+        zero16(xn + p * XS + c8);
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+    consumers_sync();
+    // this thread's two accumulator rows: halo pixel, inside, x there
+    int prow[2];
+    bool prow_in[2];
+    const T* prow_x[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      prow[h] = 64 * wg + 16 * q + g + 8 * h;
+      prow_in[h] = prow[h] < NPH && halo_inside(prow[h], H, W, y0, x0);
+      prow_x[h] = x + (prow_in[h] ? halo_offset(prow[h], W, C, y0, x0) : 0);
+    }
+    AFrag<T> xf[C / 16];
+#pragma unroll
+    for (int k = 0; k < C / 16; ++k) ldsm_a(xf[k], arow1 + 16 * k);
+#pragma unroll 1
+    for (int np = 0; np < C / NPW; ++np) {
+      float pa[NPW / 2];
+#pragma unroll
+      for (int i = 0; i < NPW / 2; ++i) pa[i] = 0.f;
+#pragma unroll
+      for (int kb = 0; kb < C / WG_KB; ++kb) {
+        const unsigned char* bs = take();
+        wgmma_fence();
+#pragma unroll
+        for (int k = 0; k < WG_KB / 16; ++k)
+          wgmma_rs<NPW>(pa, xf[kb * 4 + k], stage_desc(bs, WG_KB, 0, k));
+        wgmma_commit();
+        if (kb > 0) {
+          wgmma_wait<1>();
+          release_upto(li - 1);
+        }
+      }
+      wgmma_wait<0>();
+      pin(pa);
+      release_upto(li);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (!prow_in[h]) continue;
+        uint32_t xv[NPW / 8];  // x at this thread's column pairs, loaded together
+#pragma unroll
+        for (int j = 0; j < NPW / 8; ++j)
+          xv[j] = __ldg(
+              reinterpret_cast<const unsigned int*>(prow_x[h] + np * NPW + 8 * j + 2 * t));
+#pragma unroll
+        for (int j = 0; j < NPW / 8; ++j) {
+          const int c = np * NPW + 8 * j + 2 * t;
+          float a0 = round_to<T>(pa[4 * j + 2 * h]), a1 = round_to<T>(pa[4 * j + 2 * h + 1]);
+          if (po_b != nullptr) {
+            const float2 pb =
+                __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(po_b + c));
+            a0 = round_to<T>(a0 + pb.x);
+            a1 = round_to<T>(a1 + pb.y);
+          }
+          const float2 xx = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&xv[j]));
+          *reinterpret_cast<__nv_bfloat162*>(xn + prow[h] * XS + c) =
+              __floats2bfloat162_rn(xx.x + a0, xx.y + a1);
+        }
+      }
+    }
+    consumers_sync();
+  }
+  wg_ln_pass<CR>(x, x2, has_po, static_cast<const T*>(a.ln_w), static_cast<const T*>(a.ln_b),
+                 H, W, C, y0, x0, xn, out);
+
+  const T* b1 = static_cast<const T*>(a.b1);
+  const T* wd = static_cast<const T*>(a.wd);
+  const T* bd = static_cast<const T*>(a.bd);
+  // pw2: the 64 pixels, rows of the activation chunk
+  const T* arow2 = act + (16 * q + (lane & 15)) * AS + (lane >> 4) * 8;
+
+  float acc[NJ2][BN2 / 2];
+#pragma unroll
+  for (int j = 0; j < NJ2; ++j)
+#pragma unroll
+    for (int i = 0; i < BN2 / 2; ++i) acc[j][i] = 0.f;
+
+  // this thread's two rows of the pw1 accumulators in the halo tile
+  bool hrow_ok[2], hrow_in[2];
+  int hrow_at[2], hrow_swz[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = 64 * wg + 16 * q + g + 8 * h;
+    hrow_ok[h] = row < NPH;
+    hrow_in[h] = hrow_ok[h] && halo_inside(row, H, W, y0, x0);
+    hrow_at[h] = row * WG_HS;
+    hrow_swz[h] = (row & 3) << 3;
+  }
+
+#pragma unroll 1
+  for (int ck = 0; ck < n_chunks; ++ck) {
+    const int e0 = ck * AW, ne = min(AW, E - e0);
+    // pw1 on the halo tile: 128 hidden columns, K = C in stages of 64 rows
+    float h1[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) h1[i] = 0.f;
+    AFrag<T> af[2][WG_KB / 16];
+#pragma unroll
+    for (int kb = 0; kb < NS1; ++kb) {
+      const unsigned char* bs = take();
+#pragma unroll
+      for (int k = 0; k < WG_KB / 16; ++k) ldsm_a(af[kb & 1][k], arow1 + kb * WG_KB + k * 16);
+      wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < WG_KB / 16; ++k)
+        wgmma_rs<128>(h1, af[kb & 1][k], stage_desc(bs, WG_KB, 0, k));
+      wgmma_commit();
+      wgmma_wait<1>();  // the group before (the last pw2 stage, or pw1's) is done
+      release_upto(li - 1);
+    }
+    wgmma_wait<0>();
+    pin(h1);
+    release_upto(li);
+    // + b1, zero outside the image and for columns without a channel;
+    // column pairs as float2
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int col = 8 * j + 2 * t;
+      const bool on = (GATE ? (col & 63) : col) < ne;  // ne is a multiple of 32
+      const int ch = GATE ? (col < 64 ? e0 + col : E + e0 + col - 64) : e0 + col;
+      const float2 bias =
+          (b1 != nullptr && on)
+              ? __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(b1 + ch))
+              : make_float2(0.f, 0.f);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (!hrow_ok[h]) continue;
+        const bool keep = on && hrow_in[h];
+        *reinterpret_cast<float2*>(hid + hrow_at[h] + (col ^ hrow_swz[h])) =
+            make_float2(keep ? h1[4 * j + 2 * h] + bias.x : 0.f,
+                        keep ? h1[4 * j + 2 * h + 1] + bias.y : 0.f);
+      }
+    }
+    consumers_sync();
+    // dw 3x3 + activation, rounded to bf16 as the pw2 operand
+    for (int item = tid; item < AW * TS; item += NT) {
+      const int col = item % AW, px = item / AW;
+      float va[TS], vb[TS];
+      if (col < ne) {
+        wg_dw_column(hid, wd, bd, CH, px, col, e0 + col, va);
+        if (GATE) wg_dw_column(hid, wd, bd, CH, px, col + 64, E + e0 + col, vb);
+      }
+#pragma unroll
+      for (int py = 0; py < TS; ++py) {
+        float v = 0.f;
+        if (col < ne) {
+          v = gelu_exact(va[py]);
+          if (GATE) v *= vb[py];
+        }
+        act[(py * TS + px) * AS + col] = from_f<T>(v);
+      }
+    }
+    consumers_sync();
+    // pw2: rows e0 .. e0 + AW of w2 in NS2 stages of R2 rows; the last
+    // group stays in flight into the next chunk's pw1
+    AFrag<T> a2f[NS2 > 1 ? 2 : 1][KS2];
+#pragma unroll
+    for (int j2 = 0; j2 < NS2; ++j2) {
+      const unsigned char* bs = take();
+      constexpr int NB = NS2 > 1 ? 2 : 1;
+#pragma unroll
+      for (int k = 0; k < KS2; ++k)
+        ldsm_a(a2f[j2 % NB][k], arow2 + j2 * R2 + k * 16);
+      wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < KS2; ++k) {
+#pragma unroll
+        for (int n = 0; n < NJ2; ++n)
+          wgmma_rs<BN2>(acc[n], a2f[j2 % NB][k],
+                        stage_desc(bs, R2, wg * (NW2 / 64) + n * (BN2 / 64), k));
+      }
+      wgmma_commit();
+      wgmma_wait<1>();
+      release_upto(li - 1);
+    }
+  }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int n = 0; n < NJ2; ++n) pin(acc[n]);
+  release_upto(li);
+
+  // epilogue: y = (acc + b2) * scale + x', x' read back from the output map
+  // (this block wrote it there in the prologue), one rounding
+  const T* b2 = static_cast<const T*>(a.b2);
+  const T* sc = static_cast<const T*>(a.scale);
+  __nv_bfloat162* orow[2];
+  bool oin[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int pix = 16 * q + g + 8 * h;
+    const int gy = y0 + pix / TS, gx = x0 + pix % TS;
+    oin[h] = gy < H && gx < W;
+    orow[h] = reinterpret_cast<__nv_bfloat162*>(out + (oin[h] ? ((size_t)gy * W + gx) * C : 0));
+  }
+#pragma unroll
+  for (int n = 0; n < NJ2; ++n) {
+    const int cb = wg * NW2 + n * BN2 + 2 * t;  // + 8 j
+    __nv_bfloat162 xr[2][BN2 / 8];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int j = 0; j < BN2 / 8; ++j)
+        if (oin[h]) xr[h][j] = orow[h][(cb + 8 * j) / 2];
+#pragma unroll
+    for (int j = 0; j < BN2 / 8; ++j) {
+      const int c = cb + 8 * j;
+      const float bb0 = b2 ? to_f(b2[c]) : 0.f, bb1 = b2 ? to_f(b2[c + 1]) : 0.f;
+      const float s0 = sc ? to_f(sc[c]) : 1.f, s1 = sc ? to_f(sc[c + 1]) : 1.f;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (!oin[h]) continue;
+        const float2 xx = __bfloat1622float2(xr[h][j]);
+        orow[h][c / 2] = __floats2bfloat162_rn((acc[n][4 * j + 2 * h] + bb0) * s0 + xx.x,
+                                               (acc[n][4 * j + 2 * h + 1] + bb1) * s1 + xx.y);
+      }
+    }
+  }
+}
+
+template <int C, bool GATE>
+static int launch_ffn_wg(const FfnArgs& a, cudaStream_t stream) {
+  WgMaps maps;
+  const uint64_t c = a.C, ch = a.CH, e = a.E;
+  const uint64_t po_rows = a.po_batched ? (uint64_t)a.B * c : c;
+  constexpr int R2 = wg_r2(C, GATE);
+  if (!encode_bf16<2>(&maps.w1, a.w1, {ch, c}, {ch * 2}, {64, WG_KB},
+                      CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !encode_bf16<2>(&maps.w2, a.w2, {c, e}, {c * 2}, {64, R2}, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      (a.po_w != nullptr && !encode_bf16<2>(&maps.po, a.po_w, {c, po_rows}, {c * 2},
+                                             {64, WG_KB}, CU_TENSOR_MAP_SWIZZLE_128B)))
+    return -2;
+  auto kern = ffn_wg_kernel<C, GATE>;
+  const size_t smem = wg_smem(C, GATE);
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const long long tiles = (long long)((a.H + TS - 1) / TS) * ((a.W + TS - 1) / TS);
+  if (tiles > 0x7fffffffLL || a.B > 65535) return -1;
+  kern<<<dim3((unsigned)tiles, a.B), dim3(WG_NT), smem, stream>>>(a, maps);
+  return (int)cudaGetLastError();
+}
+
+template <bool GATE>
+static int dispatch_ffn_wg(const FfnArgs& a, cudaStream_t stream) {
+  switch (a.C) {
+    case 128: return launch_ffn_wg<128, GATE>(a, stream);
+    case 256: return launch_ffn_wg<256, GATE>(a, stream);
+    case 512: return launch_ffn_wg<512, GATE>(a, stream);
+  }
+  return -1;
+}
+
+}  // namespace turtle
+
+extern "C" size_t turtle_ffn_wg_smem(int C, int gate) { return turtle::wg_smem(C, gate); }
+
+// ptrs and ints: those of turtle_ffn_launch (ffn.cu); the chained FFW's
+// pointers are null and F = 0. Returns the CUDA error code (0 = launched),
+// -1 for a call this body does not take, -2 when a tensor map is refused.
+extern "C" int turtle_ffn_wg_launch(void* const* ptrs, const int* ints, int is_bf16,
+                                    void* stream) {
+  using namespace turtle;
+  FfnArgs a = {};
+  a.x = ptrs[0]; a.po_w = ptrs[1]; a.po_b = ptrs[2];
+  a.ln_w = ptrs[3]; a.ln_b = ptrs[4]; a.w1 = ptrs[5]; a.b1 = ptrs[6];
+  a.wd = ptrs[7]; a.bd = ptrs[8]; a.w2 = ptrs[9]; a.b2 = ptrs[10]; a.scale = ptrs[11];
+  a.out = ptrs[19];
+  a.B = ints[0]; a.H = ints[1]; a.W = ints[2]; a.C = ints[3]; a.CH = ints[4];
+  a.E = ints[5]; a.F = ints[6]; a.gate = ints[7]; a.po_batched = ints[8];
+  a.n_x2 = ints[9];
+  a.x2[0] = a.n_x2 > 0 ? ptrs[20] : nullptr;
+  a.x2_bs[0] = ints[10];
+  if (!is_bf16 || a.wd == nullptr || a.ln_w == nullptr || ptrs[14] != nullptr || a.F != 0 ||
+      a.n_x2 > 1 || (a.po_w != nullptr && a.n_x2 != 1) || a.E % 32 != 0 ||
+      a.CH != (a.gate ? 2 * a.E : a.E))
+    return -1;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return a.gate ? dispatch_ffn_wg<true>(a, s) : dispatch_ffn_wg<false>(a, s);
+}

@@ -14,7 +14,8 @@ the order of fp32 sums.
 Every wrapper counts its kernel launches in ``<wrapper>.launches``
 (``turtlevsr_tpu_torch.kernels.launch_counts`` reads them all);
 ``fused_block_ffn.launches_no_dw`` counts those of them that ran the branch
-without a depthwise stage.
+without a depthwise stage, ``fused_block_ffn.launches_wg`` those on the
+wgmma body of csrc/ffn_wg.cu.
 """
 
 from __future__ import annotations
@@ -339,6 +340,47 @@ def _x2_operands(x, x2, po_w):
     return (ptrs + [None] * pad, strides + [0] * pad, len(ptrs), po, batched)
 
 
+# the wgmma body (csrc/ffn_wg.cu): its widths, its ring stages (WG_STAGE
+# bytes each, up to WG_MAX_STAGES) and the parts of its shared memory beside
+# them, mirrored from the source (a card test holds the two equal)
+_WG_WIDTHS = (128, 256, 512)
+_WG_STAGE, _WG_MAX_STAGES, _WG_ALIGN = 16384, 8, 1024
+_WG_HALO, _WG_HS, _WG_PIXELS, _WG_XPAD = 100, 128, 64, 8
+
+
+def _wg_smem(c: int, gate: bool) -> tuple[int, int]:
+    """(bytes of shared memory, ring stages) of the wgmma body at width c:
+    the LN(x') halo (100 rows of c + 8 bf16), the fp32 hidden chunk (100 x
+    128), the activation chunk (64 pixels x 64 (gate) or 128 columns + 8,
+    bf16), then as many ring stages, with their two mbarriers, as fit."""
+    aw = 64 if gate else 128
+    rest = (_WG_HALO * (c + _WG_XPAD) * 2 + _WG_HALO * _WG_HS * 4
+            + _WG_PIXELS * (aw + _WG_XPAD) * 2)
+    stages = min(_WG_MAX_STAGES,
+                 (_SMEM_LIMIT - _WG_ALIGN - rest) // (_WG_STAGE + 16))
+    return _WG_ALIGN + stages * _WG_STAGE + rest + 16 * stages, stages
+
+
+def _ffn_plan(b, h, w, c, ch, e, mode, n_x2, has_po, po_batched, has_ffw2,
+              has_dw, dtype):
+    """The body of one fused_block_ffn call, chosen by its shape: ("wg",
+    geometry) for the wgmma body of csrc/ffn_wg.cu (bf16, a depthwise stage,
+    at most one x2 map, no chained FFW, C in 128 / 256 / 512, E a
+    multiple of 32), else ("tile", None) for the mma.sync body of
+    csrc/ffn.cu. The geometry: 8 x 8 output tiles, their count, the
+    activation columns of a chunk, the ring stages and the shared memory."""
+    del po_batched  # both bodies take a shared or a per-batch matrix
+    if (dtype != torch.bfloat16 or not has_dw or has_ffw2 or n_x2 > 1
+            or (has_po and n_x2 != 1) or mode not in ("gate", "gelu")
+            or c not in _WG_WIDTHS or e % 32
+            or ch != (2 * e if mode == "gate" else e)):
+        return "tile", None
+    smem, stages = _wg_smem(c, mode == "gate")
+    return "wg", dict(tile=_TILE, blocks=b * _tiles(h, w),
+                      chunk=64 if mode == "gate" else 128, stages=stages,
+                      smem=smem)
+
+
 def _ffn_launch(x, x2, po_w, po_b, ln_w, ln_b, w1, b1, wd, bd, w2, b2, scale,
                 mode, ffw2):
     _check_map("x", x)
@@ -376,12 +418,19 @@ def _ffn_launch(x, x2, po_w, po_b, ln_w, ln_b, w1, b1, wd, bd, w2, b2, scale,
         _check("bd", bd, x, (ch,)), _check("w2", w2, x, (e, c)),
         _check("b2", b2, x, (c,)), _check("scale", scale, x, (c,)),
         *fp, out.data_ptr(), *x2_ptrs]
-    lib = build.load("ffn")
-    _check_smem("fused_block_ffn", lib.turtle_ffn_smem(
-        c, f, int(ffw2 is not None), int(x.dtype == torch.bfloat16), n_x2))
-    _call(lib.turtle_ffn_launch, ptrs,
-          [b, h, w, c, ch, e, f, int(mode == "gate"), int(po_batched), n_x2,
-           *x2_strides], x, "fused_block_ffn")
+    body, _ = _ffn_plan(b, h, w, c, ch, e, mode, n_x2, po is not None,
+                        po_batched, ffw2 is not None, wd is not None, x.dtype)
+    ints = [b, h, w, c, ch, e, f, int(mode == "gate"), int(po_batched), n_x2,
+            *x2_strides]
+    if body == "wg":  # its shared memory fits by construction (_wg_smem)
+        _call(build.load("ffn_wg").turtle_ffn_wg_launch, ptrs, ints, x,
+              "fused_block_ffn")
+        fused_block_ffn.launches_wg += 1
+    else:
+        lib = build.load("ffn")
+        _check_smem("fused_block_ffn", lib.turtle_ffn_smem(
+            c, f, int(ffw2 is not None), int(x.dtype == torch.bfloat16), n_x2))
+        _call(lib.turtle_ffn_launch, ptrs, ints, x, "fused_block_ffn")
     fused_block_ffn.launches += 1
     fused_block_ffn.launches_no_dw += wd is None
     return out
@@ -394,9 +443,14 @@ def fused_block_ffn(x, *, x2=None, po_w=None, po_b=None, ln_w, ln_b=None,
     x' = x + sum_j x2_j @ po_w_j (+ po_b once), in one pass over the map.
 
     Replaces ``fused_block_ffn`` of turtlevsr_tpu/kernels/ffn.py, both its
-    dw branch and (``wd=None``: no depthwise stage) its no-dw branch (kernel:
-    csrc/ffn.cu; on an H100 bound by operations at C >= 128 and by bytes at
-    C = 64, see the note there).
+    dw branch and (``wd=None``: no depthwise stage) its no-dw branch; on an
+    H100 bound by operations at C >= 128 and by bytes at C = 64. Two
+    kernels, chosen by shape before the launch (:func:`_ffn_plan`): the
+    wgmma body of csrc/ffn_wg.cu for bf16 calls with a depthwise stage, at
+    most one x2 map, no ``ffw2``, C = 128, 256 or 512 and a hidden width E
+    that is a multiple of 32 (``fused_block_ffn.launches_wg`` counts them);
+    the mma.sync body of csrc/ffn.cu for every other call. A call is one
+    launch either way.
     x2: optional second addend map (the attention branch); po_w (C, C) or
     per batch (B, C, C) and po_b: optional projection applied to x2 in the
     kernel. x2 may also be a list of up to 5 maps, an entry being a map or
@@ -419,6 +473,7 @@ def fused_block_ffn(x, *, x2=None, po_w=None, po_b=None, ln_w, ln_b=None,
 
 fused_block_ffn.launches = 0
 fused_block_ffn.launches_no_dw = 0  # those of them without a depthwise stage
+fused_block_ffn.launches_wg = 0  # those of them on the wgmma body (ffn_wg.cu)
 
 
 # ---------------------------------------------------------------------------
