@@ -15,7 +15,7 @@ torch.profiler.)
 Phases, one JSON object per line on standard output:
 
   device   the card's name and power limit as nvidia-smi gives them
-  build    nvcc builds the eleven sources of turtlevsr_tpu_torch/kernels/csrc
+  build    nvcc builds the thirteen sources of turtlevsr_tpu_torch/kernels/csrc
   kernels  each kernel's wrapper against its plain PyTorch version on the
            card at the shapes the 720p serving paths give it (bf16), whole
            padded frames and chunks of 15 tiles alike: errors beside the
@@ -23,9 +23,11 @@ Phases, one JSON object per line on standard output:
            version's, a PyTorch library call's where one computes the same
            function, and the least time the card could take (bound); the
            two-stage kernel also against the split launches it replaces, the
-           sparse softmax also against the probabilities kernel; row 1 on the
-           body its plan gives each call (the wgmma body of ffn_wg.cu also
-           timed on ffn.cu's body, tile_ms, and on ragged maps); attention @ v
+           sparse softmax also against the probabilities kernel; rows 1, 3
+           and 6 on the body their plans give each call (the wgmma bodies of
+           ffn_wg.cu, qkv_wg.cu and chm_wg.cu also timed on the mma.sync
+           bodies, tile_ms, and on ragged maps; qkv_stats.cu and chm_stats.cu,
+           off the path now, at dec3's shape); attention @ v
            also at the whole frame's dec3 shape, the 3x3 conv also on maps
            and Cout that its tiles do not divide
   slice    five configurations at full width and depth, seeded random
@@ -126,19 +128,20 @@ TASKS = {"gopro": "deblur", "derain": "derain", "sr": "sr"}
 # blocks are 6 two-stage launches where the split route makes 12 FFN ones.
 _NONE = {"attn_v_slots": 0, "attn_v_merge": 0, "level_run": 0, "ffn_no_dw": 0,
          "two_stage": 0, "sab_sparse_softmax": 0}
-_GOPRO = {"ffn": 51, "ffn_wg": 35, "qkv_stats": 34, "split_proj": 5,
-          "conv3x3": 11, "chm_stats": 3, "sab": 3, "lattice_merge": 3,
-          "lattice_split": 3}
+_GOPRO = {"ffn": 51, "ffn_wg": 35, "qkv_stats": 34, "qkv_wg": 34,
+          "split_proj": 5, "conv3x3": 11, "chm_stats": 3, "chm_wg": 3,
+          "sab": 3, "lattice_merge": 3, "lattice_split": 3}
 _DERAIN = {**_GOPRO, "split_proj": 2, "sab": 0}
 _TWO_STAGE = {"ffn": 39, "two_stage": 6}
 LAUNCHES_PER_CALL = {
     "gopro": {**_GOPRO, **_NONE},
-    "gopro_t1_fhr": {"ffn": 51, "ffn_wg": 37, "qkv_stats": 37,
+    "gopro_t1_fhr": {"ffn": 51, "ffn_wg": 37, "qkv_stats": 37, "qkv_wg": 37,
                      "split_proj": 2,
-                     "conv3x3": 8, "chm_stats": 0, "sab": 0,
+                     "conv3x3": 8, "chm_stats": 0, "chm_wg": 0, "sab": 0,
                      "lattice_merge": 0, "lattice_split": 0, **_NONE},
     "gopro_enc3_ffw": {**_GOPRO, **_NONE, "ffn_no_dw": 10, "ffn_wg": 25},
     "gopro_fused": {**_GOPRO, **_NONE, "ffn": 18, "ffn_wg": 2, "qkv_stats": 1,
+                    "qkv_wg": 1,
                     "lattice_merge": 0, "attn_v_merge": 3, "level_run": 4},
     "gopro_two_stage": {**_GOPRO, **_NONE, **_TWO_STAGE},
     "derain": {**_DERAIN, **_NONE},
@@ -196,9 +199,12 @@ SLICE_MIN_PSNR = 40.0
 # attention @ v: fp32 sums of exact products in another order, one rounding
 ATTN_V_REL_TOL = 2.0 ** -7
 # a run of N blocks against its plain version: a flip of one block feeds the
-# next (KERNEL_REL_TOL a block); against the split kernels, whose device code
-# and rounding points it shares, only the exp and the divide of the small
-# softmax differ: one limit whatever the length of the run
+# next (KERNEL_REL_TOL a block); against the split kernels whose device code
+# and rounding points it shares (row 3 on qkv_stats.cu, whose tile code
+# level.cu runs), only the exp and the divide of the small softmax differ:
+# one limit whatever the length of the run. Against the split route the
+# model takes (row 3 on the wgmma body, whose Grams sum in another order) a
+# run is held to its plain version's limit.
 RUN_SPLIT_REL_TOL = 2.0 ** -7
 # two chained stages against their plain version: KERNEL_REL_TOL a stage
 TWO_STAGE_REL_TOL = 2 * KERNEL_REL_TOL
@@ -215,14 +221,24 @@ KERNEL_INFO = {
             "turtlevsr_tpu/kernels/ffn.py:2024"),
     "ffn_wg": ("turtlevsr_tpu_torch/kernels/csrc/ffn_wg.cu",
                "turtlevsr_tpu/kernels/ffn.py:2024"),
+    # rows 3 and 6 have two bodies each, chosen by shape (kernels/ffn.py
+    # _qkv_plan, _chm_plan): the wgmma bodies of qkv_wg.cu and chm_wg.cu
+    # (stats_wg.cuh) take the bf16 calls with 64 channels a head, every call
+    # of the paths; qkv_stats.cu and chm_stats.cu the rest (float32, biases,
+    # other head widths); "qkv_stats" and "chm_stats" launches are those of
+    # the mma.sync bodies
     "qkv_stats": ("turtlevsr_tpu_torch/kernels/csrc/qkv_stats.cu",
                   "turtlevsr_tpu/kernels/ffn.py:985"),
+    "qkv_wg": ("turtlevsr_tpu_torch/kernels/csrc/qkv_wg.cu",
+               "turtlevsr_tpu/kernels/ffn.py:985"),
     "split_proj": ("turtlevsr_tpu_torch/kernels/csrc/split_proj.cu",
                    "turtlevsr_tpu/kernels/ffn.py:1732"),
     "conv3x3": ("turtlevsr_tpu_torch/kernels/csrc/conv3x3.cu",
                 "turtlevsr_tpu/kernels/ffn.py:1622"),
     "chm_stats": ("turtlevsr_tpu_torch/kernels/csrc/chm_stats.cu",
                   "turtlevsr_tpu/kernels/ffn.py:1267"),
+    "chm_wg": ("turtlevsr_tpu_torch/kernels/csrc/chm_wg.cu",
+               "turtlevsr_tpu/kernels/ffn.py:1267"),
     "sab": ("turtlevsr_tpu_torch/kernels/csrc/sab.cu",
             "turtlevsr_tpu/kernels/sab.py:138"),
     "lattice_merge": ("turtlevsr_tpu_torch/kernels/csrc/lattice.cu",
@@ -403,13 +419,52 @@ def chain_weights(inp: Inputs, c, ch):
                 w1=inp(c, ch, scale=c ** -0.5), wd=inp(3, 3, ch, scale=0.3))
 
 
-def qkv_case(inp: Inputs, name, h, w, c, heads, iters=5, batch=1):
-    if skipped("qkv_stats", name):
+@contextlib.contextmanager
+def stats_widths(qkv: tuple, chm: tuple):
+    """The widths the statistics' plans send to the wgmma body, here only:
+    () to time the mma.sync bodies on the same inputs."""
+    saved = K._QKV_WG_WIDTHS, K._CHM_WG_WIDTHS
+    K._QKV_WG_WIDTHS, K._CHM_WG_WIDTHS = qkv, chm
+    try:
+        yield
+    finally:
+        K._QKV_WG_WIDTHS, K._CHM_WG_WIDTHS = saved
+
+
+def partial_row_bytes(batch, h, w, c, heads, nf, body):
+    """Bytes of the fp32 partial rows a call writes: one a tile (mma.sync
+    bodies), or the persistent grid's rows (wgmma bodies)."""
+    ctok = c // heads
+    width = (nf + 1) * heads * ctok * ctok + (nf + 2) * c
+    rows = K._tiles(h, w) if body == "tile" else K._sw_rows(
+        batch, K._tiles(h, w), min(batch * K._tiles(h, w),
+                                   K._sm_count(torch.empty(0, device="cuda"))))
+    return batch * rows * width * 4
+
+
+def qkv_case(inp: Inputs, name, h, w, c, heads, iters=5, batch=1,
+             tile=False):
+    """Row 3 on the body its plan gives the call (tile: on the mma.sync
+    body): kernel "qkv_wg" for the wgmma body (timed also on the mma.sync
+    body, tile_ms), else "qkv_stats"."""
+    kernel = "qkv_stats" if tile or c not in K._QKV_WG_WIDTHS else "qkv_wg"
+    if skipped(kernel, name):
         return None
     x = inp(batch, h, w, c)
     kw = chain_weights(inp, c, 3 * c)
-    v, g, s = K.fused_qkv_stats(x, heads=heads, **kw)
-    torch.cuda.synchronize()
+    widths = () if tile else K._QKV_WG_WIDTHS
+    wg_before = K.fused_qkv_stats.launches_wg
+    with stats_widths(widths, K._CHM_WG_WIDTHS):
+        v, g, s = K.fused_qkv_stats(x, heads=heads, **kw)
+        torch.cuda.synchronize()
+        on_wg = K.fused_qkv_stats.launches_wg > wg_before
+        ms = cuda_ms(lambda: K.fused_qkv_stats(x, heads=heads, **kw), iters)
+    require(on_wg == (kernel == "qkv_wg"), f"qkv_stats {name}: body")
+    tile_ms = None
+    if on_wg:
+        with stats_widths((), ()):
+            tile_ms = cuda_ms(lambda: K.fused_qkv_stats(x, heads=heads, **kw),
+                              iters)
     wv, wg, ws = K.qkv_stats_plain(x, heads=heads, **kw)
     err_v, rel_v = rel_err(v, wv)
     err_g, rel_g = rel_err(g, wg)
@@ -419,14 +474,19 @@ def qkv_case(inp: Inputs, name, h, w, c, heads, iters=5, batch=1):
     px, ctok = h * w, c // heads
     flops = 2.0 * batch * px * (c * 3 * c + 9 * 3 * c + c * ctok + 2 * c)
     b_ms, b_by = bound(numel_bytes(x, v, g, s, *kw.values()), flops)
-    return dict(kernel="qkv_stats", case=name, shape=[batch, h, w, c],
+    body = "wg" if on_wg else "tile"
+    return dict(kernel=kernel, case=name, shape=[batch, h, w, c],
                 heads=heads, max_abs_err=max(err_v, err_g / px, err_s / px),
                 rel_err=rel_v, rel_err_gram=rel_g, rel_err_norms=rel_s,
                 tol_rel=KERNEL_REL_TOL, tol_rel_stats=STATS_REL_TOL,
                 ok=(rel_v <= KERNEL_REL_TOL and rel_g <= STATS_REL_TOL
                     and rel_s <= STATS_REL_TOL),
-                ms=cuda_ms(lambda: K.fused_qkv_stats(x, heads=heads, **kw),
-                           iters),
+                body=body, tile_ms=tile_ms,
+                partial_row_bytes=partial_row_bytes(batch, h, w, c, heads, 0,
+                                                    body),
+                tile_partial_row_bytes=partial_row_bytes(batch, h, w, c,
+                                                         heads, 0, "tile"),
+                ms=ms,
                 plain_ms=cuda_ms(
                     lambda: K.qkv_stats_plain(x, heads=heads, **kw), 2, 1),
                 library_ms=None, bound_ms=b_ms, bound_by=b_by)
@@ -489,8 +549,13 @@ def conv_case(inp: Inputs, name, h, w, cin, cout, bias, iters=5, ln=False,
                 library_ms=lib, bound_ms=b_ms, bound_by=b_by)
 
 
-def chm_case(inp: Inputs, name, h, w, c, heads, nf, iters=3, batch=1):
-    if skipped("chm_stats", name):
+def chm_case(inp: Inputs, name, h, w, c, heads, nf, iters=3, batch=1,
+             tile=False):
+    """Row 6 on the body its plan gives the call (tile: on the mma.sync
+    body): kernel "chm_wg" for the wgmma body (timed also on the mma.sync
+    body, tile_ms), else "chm_stats"."""
+    kernel = "chm_stats" if tile or c not in K._CHM_WG_WIDTHS else "chm_wg"
+    if skipped(kernel, name):
         return None
     x, x_sp = inp(batch, h, w, c), inp(batch, nf, h, w, c)
     kw = dict(ln_w=1.0 + inp(c, scale=0.2), ln_b=inp(c, scale=0.2),
@@ -498,8 +563,17 @@ def chm_case(inp: Inputs, name, h, w, c, heads, nf, iters=3, batch=1):
               wd_qkv=inp(3, 3, 3 * c, scale=0.3),
               w_kv=inp(c, 2 * c, scale=c ** -0.5),
               wd_kv=inp(3, 3, 2 * c, scale=0.3), heads=heads)
-    got = K.fused_chm_stats(x, x_sp, **kw)
-    torch.cuda.synchronize()
+    wg_before = K.fused_chm_stats.launches_wg
+    with stats_widths(K._QKV_WG_WIDTHS, () if tile else K._CHM_WG_WIDTHS):
+        got = K.fused_chm_stats(x, x_sp, **kw)
+        torch.cuda.synchronize()
+        on_wg = K.fused_chm_stats.launches_wg > wg_before
+        ms = cuda_ms(lambda: K.fused_chm_stats(x, x_sp, **kw), iters)
+    require(on_wg == (kernel == "chm_wg"), f"chm_stats {name}: body")
+    tile_ms = None
+    if on_wg:
+        with stats_widths(K._QKV_WG_WIDTHS, ()):
+            tile_ms = cuda_ms(lambda: K.fused_chm_stats(x, x_sp, **kw), iters)
     want = K.chm_stats_plain(x, x_sp, **kw)
     (err_v, rel_v), (err_vh, rel_vh) = (rel_err(got[i], want[i])
                                         for i in (0, 1))
@@ -513,13 +587,19 @@ def chm_case(inp: Inputs, name, h, w, c, heads, nf, iters=3, batch=1):
                                 + (nf + 1) * c * ctok + (nf + 2) * c)
     tensors = [v for v in kw.values() if torch.is_tensor(v)]
     b_ms, b_by = bound(numel_bytes(x, x_sp, *got, *tensors), flops)
-    return dict(kernel="chm_stats", case=name, shape=[batch, nf, h, w, c],
+    body = "wg" if on_wg else "tile"
+    return dict(kernel=kernel, case=name, shape=[batch, nf, h, w, c],
+                body=body, tile_ms=tile_ms,
+                partial_row_bytes=partial_row_bytes(batch, h, w, c, heads, nf,
+                                                    body),
+                tile_partial_row_bytes=partial_row_bytes(batch, h, w, c,
+                                                         heads, nf, "tile"),
                 heads=heads, max_abs_err=max(err_v, err_vh, err_stats / px),
                 rel_err=max(rel_v, rel_vh), rel_err_stats=rel_stats,
                 tol_rel=KERNEL_REL_TOL, tol_rel_stats=STATS_REL_TOL,
                 ok=(max(rel_v, rel_vh) <= KERNEL_REL_TOL
                     and rel_stats <= STATS_REL_TOL),
-                ms=cuda_ms(lambda: K.fused_chm_stats(x, x_sp, **kw), iters),
+                ms=ms,
                 plain_ms=cuda_ms(lambda: K.chm_stats_plain(x, x_sp, **kw),
                                  1, 0),
                 library_ms=None, bound_ms=b_ms, bound_by=b_by)
@@ -664,9 +744,10 @@ def attn_v_case(inp: Inputs, name, b, nf, hq, wq, ws, c, merge=True, iters=5):
 
 
 def run_case(inp: Inputs, name, b, h, w, c, heads, n_blocks, iters=3):
-    """A run of Channel+GFFW blocks: the run kernel against its plain version
-    and against the 2 N split launches it replaces (their time is split_ms,
-    no library call computes the run)."""
+    """A run of Channel+GFFW blocks: the run kernel against its plain version,
+    against the 2 N split launches it replaces (their time is split_ms, no
+    library call computes the run) and against the same launches with row 3
+    on qkv_stats.cu, the tile code the run kernel shares."""
     if skipped("level_run", name):
         return None
     e = int(c * 2.5)
@@ -682,8 +763,11 @@ def run_case(inp: Inputs, name, b, h, w, c, heads, n_blocks, iters=3):
         for _ in range(n_blocks)]
     got = LV.fused_channel_gffw_run(x, blocks, heads)
     torch.cuda.synchronize()
-    split = LV.channel_gffw_run_split(x, blocks, heads)
+    with stats_widths((), K._CHM_WG_WIDTHS):
+        split = LV.channel_gffw_run_split(x, blocks, heads)
     err_s, rel_s = rel_err(got, split)
+    split = LV.channel_gffw_run_split(x, blocks, heads)
+    err_m, rel_m = rel_err(got, split)
     del split
     want = LV.channel_gffw_run_plain(x, blocks, heads)
     err, rel = rel_err(got, want)
@@ -701,7 +785,9 @@ def run_case(inp: Inputs, name, b, h, w, c, heads, n_blocks, iters=3):
                 heads=heads, blocks=n_blocks, max_abs_err=err, rel_err=rel,
                 tol_rel=tol, max_abs_err_vs_split=err_s,
                 rel_err_vs_split=rel_s, tol_rel_vs_split=RUN_SPLIT_REL_TOL,
-                ok=(rel <= tol and rel_s <= RUN_SPLIT_REL_TOL
+                max_abs_err_vs_model_split=err_m,
+                rel_err_vs_model_split=rel_m,
+                ok=(rel <= tol and rel_s <= RUN_SPLIT_REL_TOL and rel_m <= tol
                     and bool(torch.isfinite(got.float()).all())),
                 ms=cuda_ms(lambda: LV.fused_channel_gffw_run(x, blocks, heads),
                            iters, 1),
@@ -984,6 +1070,22 @@ def kernel_cases(seed: int, h: int, w: int) -> list[dict]:
         lambda: ffn_case(inp, "ragged gelu+scale C=128", 4 * hr + 3,
                          4 * wr + 5, 128, 256, "gelu", biases=True,
                          scale=True),
+    ]
+    # the wgmma bodies of rows 3 and 6 on maps their 8 x 8 tiles do not
+    # divide, batches of two whose entries the persistent grid splits
+    # between blocks; the mma.sync bodies, off the paths now (float32,
+    # biases, other head widths), at dec3's shape
+    cases += [
+        lambda: qkv_case(inp, "enc3/dec3 on the mma.sync body (off the "
+                         "paths)", h3, w3, 256, 4, tile=True),
+        lambda: chm_case(inp, "dec3 on the mma.sync body (off the paths)", h3,
+                         w3, 256, 4, 4, tile=True),
+        lambda: qkv_case(inp, "ragged C=512", hr, wr, 512, 8),
+        lambda: qkv_case(inp, "ragged C=256, 2 maps", 2 * hr + 1, 2 * wr + 1,
+                         256, 4, batch=2),
+        lambda: qkv_case(inp, "ragged C=128", 4 * hr + 3, 4 * wr + 5, 128, 2),
+        lambda: chm_case(inp, "ragged C=128, 2 maps", 4 * hr + 3, 4 * wr + 5,
+                         128, 2, 4, batch=2),
     ]
     # under the two_stage plan: the conv-only levels (enc1 and enc2 pairs of
     # ReducedAttn+FFW blocks, the refinement's ReducedAttn+GFFW blocks),
@@ -1395,6 +1497,9 @@ def kernel_rows(cases: list[dict], by_path: dict) -> list[dict]:
         if name == "ffn":  # ffn.cu's dw branch: neither the wgmma body nor no-dw
             per_path = {p: c["ffn"] - c["ffn_wg"] - c["ffn_no_dw"]
                         for p, c in by_path.items()}
+        if name in ("qkv_stats", "chm_stats"):  # the mma.sync bodies
+            wg = name.split("_")[0] + "_wg"
+            per_path = {p: c[name] - c[wg] for p, c in by_path.items()}
         rows.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=sum(per_path.values()), launches_by_path=per_path,
@@ -1405,8 +1510,10 @@ def kernel_rows(cases: list[dict], by_path: dict) -> list[dict]:
             cases=[{k: c[k] for k in ("case", "ms", "plain_ms", "bound_ms",
                                       "bound_by", "library_ms",
                                       "max_abs_err", "rel_err", "split_ms",
-                                      "body", "tile_ms",
+                                      "body", "tile_ms", "partial_row_bytes",
+                                      "tile_partial_row_bytes",
                                       "rel_err_vs_split", "bit_equal_to_split",
+                                      "rel_err_vs_model_split",
                                       "bit_equal_to_row_7") if k in c}
                    for c in mine]))
     return rows
@@ -1493,18 +1600,17 @@ def main(argv=None) -> int:
             # counts were held above); attn_v_slots is the second epilogue of
             # the kernel that attn_v_merge launches and has no caller of its
             # own in the model, nor has sab_sparse_softmax (row 12)
-            t0_chm = ("ffn", "ffn_wg", "qkv_stats", "split_proj", "conv3x3",
-                      "chm_stats", "lattice_merge", "lattice_split")
+            t0_chm = ("ffn", "ffn_wg", "qkv_wg", "split_proj", "conv3x3",
+                      "chm_wg", "lattice_merge", "lattice_split")
             t1_chm = t0_chm + ("sab",)
             on_path = {
-                "gopro_t1_fhr": ("ffn", "ffn_wg", "qkv_stats", "split_proj",
+                "gopro_t1_fhr": ("ffn", "ffn_wg", "qkv_wg", "split_proj",
                                  "conv3x3"),
                 "gopro": t1_chm, "gopro_enc3_ffw": ("ffn_no_dw", "ffn_wg"),
                 "derain": t0_chm, "sr": t1_chm,
                 "gopro_two_stage": t1_chm + ("two_stage",), "tiled": t1_chm,
-                "tiled_fused": ("ffn", "ffn_wg", "qkv_stats", "split_proj",
-                                "conv3x3",
-                                "chm_stats", "sab", "lattice_split",
+                "tiled_fused": ("ffn", "ffn_wg", "qkv_wg", "split_proj",
+                                "conv3x3", "chm_wg", "sab", "lattice_split",
                                 "attn_v_merge", "level_run"),
                 "tiled_two_stage": t1_chm + ("two_stage",),
                 "derain_tiled": t0_chm,

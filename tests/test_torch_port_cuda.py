@@ -136,6 +136,73 @@ def test_qkv_stats_kernel_matches_plain(dev, shape, dtype):
     assert torch.equal(got[1], again[1]) and torch.equal(got[2], again[2])
 
 
+# the statistics' wgmma body (csrc/stats_wg.cuh) at every width its plans
+# take: ragged 2 x 37 x 53 maps, and 3 x 99 x 101 maps whose 507 tiles the
+# persistent grid cuts so that batch entries split across block ranges
+STATS_REL_TOL = 2.0 ** -9
+SW_MAPS = [(2, 37, 53), (3, 99, 101)]
+
+
+def _rel(got, want):
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max().clamp_min(1e-30)).item()
+
+
+@pytest.mark.parametrize("hw", SW_MAPS, ids=["ragged", "split"])
+@pytest.mark.parametrize("c", K._QKV_WG_WIDTHS)
+def test_qkv_wg_body_matches_plain(dev, c, hw):
+    b, h, w = hw
+    heads = c // 64
+    x, kw = chain_kernel_case(Maker(16, torch.bfloat16, dev), b, h, w, c,
+                              3 * c, False)
+    before, wg_before = K.fused_qkv_stats.launches, K.fused_qkv_stats.launches_wg
+    got = K.fused_qkv_stats(x, heads=heads, **kw)
+    torch.cuda.synchronize()
+    assert K.fused_qkv_stats.launches == before + 1
+    assert K.fused_qkv_stats.launches_wg == wg_before + 1
+    want = K.qkv_stats_plain(x, heads=heads, **kw)
+    assert max_err(got[0], want[0]) <= KERNEL_TOL[torch.bfloat16]
+    assert _rel(got[1], want[1]) <= STATS_REL_TOL
+    assert _rel(got[2], want[2]) <= STATS_REL_TOL
+    again = K.fused_qkv_stats(x, heads=heads, **kw)
+    torch.cuda.synchronize()  # fixed-order sums: bitwise repeatable
+    assert torch.equal(got[1], again[1]) and torch.equal(got[2], again[2])
+    assert torch.equal(got[0], again[0])
+
+
+@pytest.mark.parametrize("hw", SW_MAPS, ids=["ragged", "split"])
+@pytest.mark.parametrize("c", K._CHM_WG_WIDTHS)
+def test_chm_wg_body_matches_plain(dev, c, hw):
+    b, h, w = hw
+    heads, nf = c // 64, 3 if c == 64 else 4
+    x, x_sp, kw = chm_kernel_case(Maker(17, torch.bfloat16, dev), b, h, w, c,
+                                  heads, nf, True)
+    before, wg_before = K.fused_chm_stats.launches, K.fused_chm_stats.launches_wg
+    got = K.fused_chm_stats(x, x_sp, **kw)
+    torch.cuda.synchronize()
+    assert K.fused_chm_stats.launches == before + 1
+    assert K.fused_chm_stats.launches_wg == wg_before + 1
+    want = K.chm_stats_plain(x, x_sp, **kw)
+    assert max_err(got[0], want[0]) <= KERNEL_TOL[torch.bfloat16]
+    assert max_err(got[1], want[1]) <= KERNEL_TOL[torch.bfloat16]
+    for g, w_ in zip(got[2:], want[2:]):
+        assert _rel(g, w_) <= STATS_REL_TOL
+    again = K.fused_chm_stats(x, x_sp, **kw)
+    torch.cuda.synchronize()  # fixed-order sums: bitwise repeatable
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+
+
+def test_stats_wg_smem_mirror_matches_the_source(dev):
+    from turtlevsr_tpu_torch.kernels import build
+
+    for c in K._QKV_WG_WIDTHS:
+        assert build.load("qkv_wg").turtle_qkv_wg_smem(c) == K._sw_smem(
+            c, False)[0]
+    for c in K._CHM_WG_WIDTHS:
+        assert build.load("chm_wg").turtle_chm_wg_smem(c) == K._sw_smem(
+            c, True)[0]
+
+
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
 @pytest.mark.parametrize("shape", SPLIT_KERNEL_SHAPES)
 def test_split_proj_kernel_matches_plain(dev, shape, dtype):

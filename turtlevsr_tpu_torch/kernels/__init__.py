@@ -26,15 +26,20 @@ def _counted() -> dict:
 def launch_counts() -> dict:
     """Launches of each kernel since the last :func:`reset_launch_counts`;
     ``ffn_no_dw`` are those of ``ffn`` without a depthwise stage,
-    ``ffn_wg`` those of ``ffn`` on its wgmma body."""
-    counts = {name: fn.launches for name, fn in _counted().items()}
-    counts["ffn_no_dw"] = _counted()["ffn"].launches_no_dw
-    counts["ffn_wg"] = _counted()["ffn"].launches_wg
+    ``ffn_wg``, ``qkv_wg`` and ``chm_wg`` those of ``ffn``, ``qkv_stats``
+    and ``chm_stats`` on their wgmma bodies."""
+    fns = _counted()
+    counts = {name: fn.launches for name, fn in fns.items()}
+    counts["ffn_no_dw"] = fns["ffn"].launches_no_dw
+    for name in ("ffn", "qkv_stats", "chm_stats"):
+        counts[name.split("_")[0] + "_wg"] = fns[name].launches_wg
     return counts
 
 
 def reset_launch_counts() -> None:
-    for fn in _counted().values():
+    fns = _counted()
+    for fn in fns.values():
         fn.launches = 0
-    _counted()["ffn"].launches_no_dw = 0
-    _counted()["ffn"].launches_wg = 0
+    fns["ffn"].launches_no_dw = 0
+    for name in ("ffn", "qkv_stats", "chm_stats"):
+        fns[name].launches_wg = 0

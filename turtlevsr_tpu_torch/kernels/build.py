@@ -19,8 +19,8 @@ import threading
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
-KERNEL_SOURCES = ("ffn", "ffn_wg", "qkv_stats", "split_proj", "conv3x3", "chm_stats",
-                  "sab", "lattice", "level", "attn_v", "chain2")
+KERNEL_SOURCES = ("ffn", "ffn_wg", "qkv_stats", "qkv_wg", "split_proj", "conv3x3",
+                  "chm_stats", "chm_wg", "sab", "lattice", "level", "attn_v", "chain2")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -40,6 +40,10 @@ _SIGNATURES = {
                   "turtle_reduce_rows": ([ctypes.c_void_p, ctypes.c_void_p]
                                          + [ctypes.c_int] * 4
                                          + [ctypes.c_void_p], ctypes.c_int)},
+    "qkv_wg": {"turtle_qkv_wg_launch": (_LAUNCH_ARGS, ctypes.c_int),
+               "turtle_qkv_wg_smem": ([ctypes.c_int], ctypes.c_size_t)},
+    "chm_wg": {"turtle_chm_wg_launch": (_LAUNCH_ARGS, ctypes.c_int),
+               "turtle_chm_wg_smem": ([ctypes.c_int], ctypes.c_size_t)},
     "split_proj": {"turtle_split_proj_launch": (_LAUNCH_ARGS, ctypes.c_int),
                    "turtle_split_proj_smem": ([ctypes.c_int] * 2,
                                               ctypes.c_size_t)},

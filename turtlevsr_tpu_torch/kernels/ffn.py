@@ -15,7 +15,9 @@ Every wrapper counts its kernel launches in ``<wrapper>.launches``
 (``turtlevsr_tpu_torch.kernels.launch_counts`` reads them all);
 ``fused_block_ffn.launches_no_dw`` counts those of them that ran the branch
 without a depthwise stage, ``fused_block_ffn.launches_wg`` those on the
-wgmma body of csrc/ffn_wg.cu.
+wgmma body of csrc/ffn_wg.cu; ``fused_qkv_stats.launches_wg`` and
+``fused_chm_stats.launches_wg`` those of the statistics on the wgmma body of
+csrc/stats_wg.cuh (qkv_wg.cu, chm_wg.cu).
 """
 
 from __future__ import annotations
@@ -502,6 +504,83 @@ def _reduce_rows(part: torch.Tensor, what: str) -> torch.Tensor:
     return part[:, 0]
 
 
+# the wgmma body of the statistics (csrc/stats_wg.cuh): the widths the plans
+# send to it, its ring stages (_SW_STAGE bytes each, up to _SW_MAX_STAGES) and
+# the parts of its shared memory beside them, mirrored from the source (a
+# card test holds the two equal)
+_QKV_WG_WIDTHS = (64, 128, 256, 512)
+_CHM_WG_WIDTHS = (64, 128, 256)
+_SW_STAGE, _SW_MAX_STAGES, _SW_TILE = 16384, 8, 8192
+_SMS = {}
+
+
+def _sw_smem(c: int, chm: bool) -> tuple[int, int]:
+    """(bytes of shared memory, ring stages) of the statistics' wgmma body
+    at width c: the q tiles (one, or one a head for row 6) and k tiles (one,
+    two for row 6) of 64 pixels x 64 bf16, the fp32 hidden chunk (100 x 128),
+    the LN halo (100 rows of c + 8 bf16), then as many ring stages, with
+    their two mbarriers, as fit."""
+    tiles = (c // 64 + 2) if chm else 2
+    rest = (tiles * _SW_TILE + _WG_HALO * _WG_HS * 4
+            + _WG_HALO * (c + _WG_XPAD) * 2)
+    stages = min(_SW_MAX_STAGES,
+                 (_SMEM_LIMIT - _WG_ALIGN - rest) // (_SW_STAGE + 16))
+    return _WG_ALIGN + stages * _SW_STAGE + rest + 16 * stages, stages
+
+
+def _sw_rows(b: int, n_tiles: int, blocks: int) -> int:
+    """Partial rows a batch entry gets from the persistent grid: block g
+    walks items [g T / G, (g + 1) T / G) of the T = b * n_tiles (entry,
+    tile) items and owns one row of each entry its range meets (the
+    kernel's sw_first_block); the most any entry gets (the others' last
+    rows stay zero)."""
+    total = b * n_tiles
+
+    def block_of(i):
+        return ((i + 1) * blocks - 1) // total
+
+    return max(block_of((e + 1) * n_tiles - 1) - block_of(e * n_tiles) + 1
+               for e in range(b))
+
+
+def _sw_geometry(b, h, w, c, chm, n_sm):
+    smem, stages = _sw_smem(c, chm)
+    n_tiles = _tiles(h, w)
+    blocks = min(b * n_tiles, n_sm)
+    return dict(tile=_TILE, blocks=blocks,
+                rows=_sw_rows(b, n_tiles, blocks), stages=stages, smem=smem)
+
+
+def _qkv_plan(b, h, w, c, heads, has_bias, dtype, n_sm: int = 132):
+    """The body of one fused_qkv_stats call, chosen by its shape: ("wg",
+    geometry) for the wgmma body of csrc/qkv_wg.cu (bf16, C in 64 / 128 /
+    256 / 512, 64 channels a head, no b1 or bd: the shipped form),
+    else ("tile", None) for the mma.sync body of csrc/qkv_stats.cu. The
+    geometry: 8 x 8 tiles, the persistent grid (one block an SM, n_sm of
+    them at most), the partial rows of a batch entry, the ring stages and
+    the shared memory."""
+    if (dtype != torch.bfloat16 or has_bias or c not in _QKV_WG_WIDTHS
+            or c != 64 * heads):
+        return "tile", None
+    return "wg", _sw_geometry(b, h, w, c, False, n_sm)
+
+
+def _chm_plan(b, h, w, c, heads, dtype, n_sm: int = 132):
+    """The body of one fused_chm_stats call: ("wg", geometry) for the wgmma
+    body of csrc/chm_wg.cu (bf16, C in 64 / 128 / 256, 64 channels a head),
+    else ("tile", None) for csrc/chm_stats.cu; as :func:`_qkv_plan`."""
+    if dtype != torch.bfloat16 or c not in _CHM_WG_WIDTHS or c != 64 * heads:
+        return "tile", None
+    return "wg", _sw_geometry(b, h, w, c, True, n_sm)
+
+
+def _sm_count(x: torch.Tensor) -> int:
+    if x.device not in _SMS:
+        _SMS[x.device] = torch.cuda.get_device_properties(
+            x.device).multi_processor_count
+    return _SMS[x.device]
+
+
 def _qkv_stats_launch(x, ln_w, ln_b, w1, b1, wd, bd, heads):
     _check_map("x", x)
     b, h, w, c = x.shape
@@ -511,19 +590,29 @@ def _qkv_stats_launch(x, ln_w, ln_b, w1, b1, wd, bd, heads):
                          f"C={c}, heads={heads}")
     ctok = c // heads
     width = heads * ctok * ctok + 2 * c
-    n_tiles = _tiles(h, w)
     v = torch.empty_like(x)
-    part = torch.empty((b, n_tiles, width), dtype=torch.float32,
-                       device=x.device)
     ptrs = [_check("x", x, x), _check("ln_w", ln_w, x, (c,)),
             _check("ln_b", ln_b, x, (c,)), _check("w1", w1, x, (c, 3 * c)),
             _check("b1", b1, x, (3 * c,)), _check("wd", wd, x, (3, 3, 3 * c)),
-            _check("bd", bd, x, (3 * c,)), v.data_ptr(), part.data_ptr()]
-    lib = build.load("qkv_stats")
-    _check_smem("fused_qkv_stats", lib.turtle_qkv_stats_smem(
-        c, heads, int(x.dtype == torch.bfloat16)))
-    _call(lib.turtle_qkv_stats_launch, ptrs, [b, h, w, c, heads], x,
-          "fused_qkv_stats")
+            _check("bd", bd, x, (3 * c,)), v.data_ptr()]
+    body, geo = _qkv_plan(b, h, w, c, heads, b1 is not None or bd is not None,
+                          x.dtype, _sm_count(x))
+    if body == "wg":  # its shared memory fits by construction (_sw_smem)
+        part = torch.zeros((b, geo["rows"], width), dtype=torch.float32,
+                           device=x.device)
+        _call(build.load("qkv_wg").turtle_qkv_wg_launch,
+              ptrs[:4] + ptrs[5:6] + [v.data_ptr(), part.data_ptr()],
+              [b, h, w, c, heads, geo["rows"], geo["blocks"]], x,
+              "fused_qkv_stats")
+        fused_qkv_stats.launches_wg += 1
+    else:
+        part = torch.empty((b, _tiles(h, w), width), dtype=torch.float32,
+                           device=x.device)
+        lib = build.load("qkv_stats")
+        _check_smem("fused_qkv_stats", lib.turtle_qkv_stats_smem(
+            c, heads, int(x.dtype == torch.bfloat16)))
+        _call(lib.turtle_qkv_stats_launch, ptrs + [part.data_ptr()],
+              [b, h, w, c, heads], x, "fused_qkv_stats")
     tot = _reduce_rows(part, "fused_qkv_stats")
     fused_qkv_stats.launches += 1
     gram = tot[:, :heads * ctok * ctok].reshape(b, heads, ctok, ctok)
@@ -539,10 +628,14 @@ def fused_qkv_stats(x, *, ln_w, ln_b=None, w1, b1=None, wd, bd=None,
     [sum q^2, sum k^2] per channel). w1 (C, 3C), wd (3, 3, 3C) hold q, k, v
     side by side.
 
-    Replaces ``fused_qkv_stats`` in turtlevsr_tpu/kernels/ffn.py (kernel:
-    csrc/qkv_stats.cu; bound by operations on an H100). Only the per-head
-    diagonal blocks of that kernel's (C, C) Gram are computed: the attention
-    reads nothing else."""
+    Replaces ``fused_qkv_stats`` in turtlevsr_tpu/kernels/ffn.py; bound by
+    operations on an H100. Two kernels, chosen by shape before the launch
+    (:func:`_qkv_plan`): the wgmma body of csrc/qkv_wg.cu for bf16 calls with
+    64 channels a head, C = 64, 128, 256 or 512 and no b1 or bd
+    (``fused_qkv_stats.launches_wg`` counts them), csrc/qkv_stats.cu for
+    every other call; either way one launch and a fixed-order sum of partial
+    rows, bitwise repeatable. Only the per-head diagonal blocks of that
+    kernel's (C, C) Gram are computed: the attention reads nothing else."""
     if x.device.type == "cpu":
         return qkv_stats_plain(x, ln_w=ln_w, ln_b=ln_b, w1=w1, b1=b1, wd=wd,
                                bd=bd, heads=heads)
@@ -551,6 +644,7 @@ def fused_qkv_stats(x, *, ln_w, ln_b=None, w1, b1=None, wd, bd=None,
 
 
 fused_qkv_stats.launches = 0
+fused_qkv_stats.launches_wg = 0  # those of them on the wgmma body (qkv_wg.cu)
 
 
 # ---------------------------------------------------------------------------
@@ -667,23 +761,32 @@ def _chm_stats_launch(x, x_sp, ln_w, ln_b, w_qkv, wd_qkv, w_kv, wd_kv, heads):
     ctok = c // heads
     n_g = heads * ctok * ctok
     width = (nf + 1) * n_g + (nf + 2) * c
-    n_tiles = _tiles(h, w)
     v = torch.empty_like(x)
     vh = torch.empty_like(x_sp)
-    part = torch.empty((b, n_tiles, width), dtype=torch.float32,
-                       device=x.device)
     ptrs = [_check("x", x, x), _check("x_sp", x_sp, x, (b, nf, h, w, c)),
             _check("ln_w", ln_w, x, (c,)), _check("ln_b", ln_b, x, (c,)),
             _check("w_qkv", w_qkv, x, (c, 3 * c)),
             _check("wd_qkv", wd_qkv, x, (3, 3, 3 * c)),
             _check("w_kv", w_kv, x, (c, 2 * c)),
             _check("wd_kv", wd_kv, x, (3, 3, 2 * c)),
-            v.data_ptr(), vh.data_ptr(), part.data_ptr()]
-    lib = build.load("chm_stats")
-    _check_smem("fused_chm_stats", lib.turtle_chm_stats_smem(
-        c, heads, int(x.dtype == torch.bfloat16)))
-    _call(lib.turtle_chm_stats_launch, ptrs, [b, h, w, c, heads, nf], x,
-          "fused_chm_stats")
+            v.data_ptr(), vh.data_ptr()]
+    body, geo = _chm_plan(b, h, w, c, heads, x.dtype, _sm_count(x))
+    if body == "wg":  # its shared memory fits by construction (_sw_smem)
+        part = torch.zeros((b, geo["rows"], width), dtype=torch.float32,
+                           device=x.device)
+        _call(build.load("chm_wg").turtle_chm_wg_launch,
+              ptrs + [part.data_ptr()],
+              [b, h, w, c, heads, nf, geo["rows"], geo["blocks"]], x,
+              "fused_chm_stats")
+        fused_chm_stats.launches_wg += 1
+    else:
+        part = torch.empty((b, _tiles(h, w), width), dtype=torch.float32,
+                           device=x.device)
+        lib = build.load("chm_stats")
+        _check_smem("fused_chm_stats", lib.turtle_chm_stats_smem(
+            c, heads, int(x.dtype == torch.bfloat16)))
+        _call(lib.turtle_chm_stats_launch, ptrs + [part.data_ptr()],
+              [b, h, w, c, heads, nf], x, "fused_chm_stats")
     tot = _reduce_rows(part, "fused_chm_stats")
     fused_chm_stats.launches += 1
     g = tot[:, :n_g].reshape(b, heads, ctok, ctok)
@@ -702,9 +805,12 @@ def fused_chm_stats(x, x_sp, *, ln_w, ln_b=None, w_qkv, wd_qkv, w_kv, wd_kv,
     gh (B, NF, heads, ctok, ctok) fp32 = q_h^T kh_n,h, stats (B, NF + 2, C)
     fp32 = the per-channel sums of q^2, k^2 and each kh_n^2). No biases.
 
-    Replaces ``fused_chm_stats`` in turtlevsr_tpu/kernels/ffn.py (kernel:
-    csrc/chm_stats.cu; bound by operations on an H100). Only the per-head
-    diagonal blocks of that kernel's (C, C) Grams are computed."""
+    Replaces ``fused_chm_stats`` in turtlevsr_tpu/kernels/ffn.py; bound by
+    operations on an H100. Two kernels, chosen by shape (:func:`_chm_plan`):
+    the wgmma body of csrc/chm_wg.cu for bf16 calls with 64 channels a head
+    and C = 64, 128 or 256 (``fused_chm_stats.launches_wg`` counts them),
+    csrc/chm_stats.cu for every other call. Only the per-head diagonal blocks
+    of that kernel's (C, C) Grams are computed."""
     if x.device.type == "cpu":
         return chm_stats_plain(x, x_sp, ln_w=ln_w, ln_b=ln_b, w_qkv=w_qkv,
                                wd_qkv=wd_qkv, w_kv=w_kv, wd_kv=wd_kv,
@@ -715,3 +821,4 @@ def fused_chm_stats(x, x_sp, *, ln_w, ln_b=None, w_qkv, wd_qkv, w_kv, wd_kv,
 
 
 fused_chm_stats.launches = 0
+fused_chm_stats.launches_wg = 0  # those of them on the wgmma body (chm_wg.cu)
