@@ -153,8 +153,9 @@ __device__ void sw_ln_pass(const __nv_bfloat16* __restrict__ x,
       if (ln_b != nullptr) load8(ln_b + c8, bt[j]);
     }
   }
-  // U pixels a lane at a time: their loads are in flight together
-  constexpr int U = 4;
+  // U pixels a lane at a time: their loads are in flight together (one or
+  // two rounds for the 100 halo pixels at C <= 256)
+  constexpr int U = C >= 512 ? 4 : 8;
   for (int p0 = warp * PP; p0 < NPH; p0 += NW * PP * U) {
     float v[U][VJ][8];
     bool inside[U];
@@ -216,13 +217,10 @@ __device__ void sw_ln_pass(const __nv_bfloat16* __restrict__ x,
   consumers_sync();
 }
 
-// Depthwise 3x3 of hidden chunk column col (channel ch) down the tile column
-// px, from the fp32 chunk; no bias
-__device__ __forceinline__ void sw_dw_column(const float* hid, const __nv_bfloat16* __restrict__ wd,
-                                             int CH, int px, int col, int ch, float (&out)[TS]) {
-  float w[9];
-#pragma unroll
-  for (int i = 0; i < 9; ++i) w[i] = to_f(wd[i * CH + ch]);
+// Depthwise 3x3 of hidden chunk column col down the tile column px, from
+// the fp32 chunk, with the column's nine taps w; no bias
+__device__ __forceinline__ void sw_dw_column(const float* hid, const float (&w)[9], int px,
+                                             int col, float (&out)[TS]) {
   float r[3][3];
 #pragma unroll
   for (int tx = 0; tx < 3; ++tx) {
@@ -247,8 +245,9 @@ __device__ __forceinline__ void sw_dw_column(const float* hid, const __nv_bfloat
 // The passes of a tile, in the order the copy thread loads their weights and
 // the consumers take them. Pass kinds: QK (head h: the panels of q_h and
 // k_h), V (v, 128 channels), KH (aligned frame n, heads 2m and 2m + 1: the
-// panels of kh), VH (vh of frame n, 128 channels). At C = 64 a V, KH or VH
-// pass reads its one panel twice and keeps the first half.
+// panels of kh), VH (vh of frame n, 128 channels). At C = 64 a V pass reads
+// v's one panel twice and keeps the first half, and a frame takes one KH
+// pass whose panels are kh and vh.
 enum SwKind { SW_QK, SW_V, SW_KH, SW_VH };
 struct SwPass {
   int kind, idx, frame, c0, c1;  // c0, c1: the panels' first columns in their weight
@@ -263,17 +262,16 @@ __device__ __forceinline__ SwPass sw_pass(int p) {
     return {SW_V, p, -1, c0, C >= 128 ? c0 + 64 : c0};
   }
   p -= NV;
-  constexpr int NKH = HEADS >= 2 ? HEADS / 2 : 1;
-  constexpr int PF = NKH + NV;  // passes of an aligned frame
+  constexpr int PF = C >= 128 ? HEADS / 2 + NV : 1;  // passes of an aligned frame
   const int n = p / PF, s = p % PF;
-  if (s < NKH) return {SW_KH, s, n, 128 * s, C >= 128 ? 128 * s + 64 : 128 * s};
-  const int c0 = C + 128 * (s - NKH);
-  return {SW_VH, s - NKH, n, c0, C >= 128 ? c0 + 64 : c0};
+  if (s < PF - NV || C < 128) return {SW_KH, s, n, 128 * s, 128 * s + 64};
+  const int c0 = C + 128 * (s - HEADS / 2);
+  return {SW_VH, s - HEADS / 2, n, c0, c0 + 64};
 }
 template <int C, bool CHM>
 __device__ __forceinline__ int sw_passes(int NF) {
   constexpr int HEADS = C / 64, NV = C >= 128 ? C / 128 : 1;
-  return HEADS + NV + (CHM ? NF * ((HEADS >= 2 ? HEADS / 2 : 1) + NV) : 0);
+  return HEADS + NV + (CHM ? NF * (C >= 128 ? HEADS / 2 + NV : 1) : 0);
 }
 
 // the block's range of the flattened (batch entry, tile) sequence, and the
@@ -439,6 +437,17 @@ __global__ void __launch_bounds__(SW_NT, 1)
       wgmma_wait<0>();
       pin(h1);
       release_upto(li);
+      // this thread's column of the taps (the same for its four tile
+      // columns): its weights' loads run behind the stores and the barrier
+      const int col = tid & 127;
+      const T* wd = ps.kind <= SW_V ? wd_qkv : wd_kv;
+      const int wch = ps.kind <= SW_V ? CH : 2 * C;
+      float wt[9];
+      {
+        const int ch = (col < 64 ? ps.c0 : ps.c1) + (col & 63);
+#pragma unroll
+        for (int i = 0; i < 9; ++i) wt[i] = to_f(wd[i * wch + ch]);
+      }
       add_gram();
       // zero outside the image: the hidden map is zero-padded after pw1
 #pragma unroll
@@ -453,24 +462,23 @@ __global__ void __launch_bounds__(SW_NT, 1)
         }
       }
       consumers_sync();
-      // the taps: bf16 tiles (QK, KH) or the v / vh map
+      // the taps: bf16 tiles (QK, KH) or the v / vh map (V, VH; C = 64: the
+      // second half of KH)
       const bool to_map = ps.kind == SW_V || ps.kind == SW_VH;
-      const T* wd = ps.kind <= SW_V ? wd_qkv : wd_kv;
-      const int wch = ps.kind <= SW_V ? CH : 2 * C;
+      const bool kv = C < 128 && ps.kind == SW_KH;
       T* mp = nullptr;
       if (ps.kind == SW_V) mp = static_cast<T*>(a.v) + (size_t)b * map;
-      if (ps.kind == SW_VH) mp = static_cast<T*>(a.vh) + ((size_t)b * NF + ps.frame) * map;
+      if (ps.kind == SW_VH || kv) mp = static_cast<T*>(a.vh) + ((size_t)b * NF + ps.frame) * map;
       T* t0 = ps.kind == SW_QK ? qt + (CHM ? ps.idx : 0) * P * 64 : kt;  // columns 0 .. 63
       T* t1 = ps.kind == SW_QK ? kt : kt + P * 64;                        // columns 64 .. 127
-      for (int item = tid; item < 128 * TS; item += NT) {
-        const int col = item % 128, px = item / 128;
-        if (C < 128 && ps.kind != SW_QK && col >= 64) continue;  // the panel read twice
-        const int ch = (col < 64 ? ps.c0 : ps.c1) + (col & 63);
+      const bool skip = C < 128 && ps.kind == SW_V && col >= 64;  // the panel read twice
+      for (int px = tid >> 7; px < TS && !skip; px += NT / 128) {
         float v[TS];
-        sw_dw_column(hid, wd, wch, px, col, ch, v);
-        if (to_map) {
+        sw_dw_column(hid, wt, px, col, v);
+        if (to_map || (kv && col >= 64)) {
           if (x0 + px >= W) continue;
-          const int oc = (ps.kind == SW_V ? ps.c0 - 2 * C : ps.c0 - C) + col;
+          const int oc = ps.kind == SW_V ? ps.c0 - 2 * C + col
+                         : ps.kind == SW_VH ? ps.c0 - C + col : col - 64;
 #pragma unroll
           for (int py = 0; py < TS; ++py)
             if (y0 + py < H) mp[((size_t)(y0 + py) * W + x0 + px) * C + oc] = from_f<T>(v[py]);
