@@ -438,7 +438,7 @@ def partial_row_bytes(batch, h, w, c, heads, nf, body):
     width = (nf + 1) * heads * ctok * ctok + (nf + 2) * c
     rows = K._tiles(h, w) if body == "tile" else K._sw_rows(
         batch, K._tiles(h, w), min(batch * K._tiles(h, w),
-                                   K._sm_count(torch.empty(0, device="cuda"))))
+                                   K._sm_count(torch.device("cuda", 0))))
     return batch * rows * width * 4
 
 

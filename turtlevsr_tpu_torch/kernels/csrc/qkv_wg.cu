@@ -9,21 +9,6 @@
 // (_qkv_stats_kernel). Row 14 (level.cu) keeps qkv_tile.cuh's tile code.
 #include "stats_wg.cuh"
 
-namespace turtle {
-
-static int dispatch_qkv_wg(const StatsWgArgs& a, int C, const void* w1, int grid,
-                           cudaStream_t s) {
-  switch (C) {
-    case 64: return launch_stats_wg<64, false>(a, w1, nullptr, grid, s);
-    case 128: return launch_stats_wg<128, false>(a, w1, nullptr, grid, s);
-    case 256: return launch_stats_wg<256, false>(a, w1, nullptr, grid, s);
-    case 512: return launch_stats_wg<512, false>(a, w1, nullptr, grid, s);
-  }
-  return -1;
-}
-
-}  // namespace turtle
-
 extern "C" size_t turtle_qkv_wg_smem(int C) { return turtle::sw_smem(C, false); }
 
 // ptrs: x, ln_w, ln_b, w1 (C, 3C), wd (3, 3, 3C), v, part
@@ -40,5 +25,12 @@ extern "C" int turtle_qkv_wg_launch(void* const* ptrs, const int* ints, int is_b
   a.B = ints[0]; a.H = ints[1]; a.W = ints[2]; a.R = ints[5];
   const int C = ints[3], heads = ints[4], grid = ints[6];
   if (!is_bf16 || a.ln_w == nullptr || heads * 64 != C || grid < 1) return -1;
-  return dispatch_qkv_wg(a, C, ptrs[3], grid, static_cast<cudaStream_t>(stream));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (C) {
+    case 64: return launch_stats_wg<64, false>(a, ptrs[3], nullptr, grid, s);
+    case 128: return launch_stats_wg<128, false>(a, ptrs[3], nullptr, grid, s);
+    case 256: return launch_stats_wg<256, false>(a, ptrs[3], nullptr, grid, s);
+    case 512: return launch_stats_wg<512, false>(a, ptrs[3], nullptr, grid, s);
+  }
+  return -1;
 }

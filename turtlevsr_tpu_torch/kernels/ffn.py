@@ -23,6 +23,7 @@ csrc/stats_wg.cuh (qkv_wg.cu, chm_wg.cu).
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -486,8 +487,9 @@ _REDUCE_GROUPS = 64
 
 
 def _reduce_rows(part: torch.Tensor, what: str) -> torch.Tensor:
-    """(B, n_tiles, width) partial rows -> (B, width): the fixed-order sum
-    of the tiles' rows, in two passes."""
+    """(B, rows, width) partial rows -> (B, width): the fixed-order sum of
+    the rows (one a tile, or one a block of the persistent grid), in two
+    passes."""
     b, rows, width = part.shape
     lib = build.load("qkv_stats")
     while rows > 1:
@@ -511,7 +513,6 @@ def _reduce_rows(part: torch.Tensor, what: str) -> torch.Tensor:
 _QKV_WG_WIDTHS = (64, 128, 256, 512)
 _CHM_WG_WIDTHS = (64, 128, 256)
 _SW_STAGE, _SW_MAX_STAGES, _SW_TILE = 16384, 8, 8192
-_SMS = {}
 
 
 def _sw_smem(c: int, chm: bool) -> tuple[int, int]:
@@ -574,11 +575,9 @@ def _chm_plan(b, h, w, c, heads, dtype, n_sm: int = 132):
     return "wg", _sw_geometry(b, h, w, c, True, n_sm)
 
 
-def _sm_count(x: torch.Tensor) -> int:
-    if x.device not in _SMS:
-        _SMS[x.device] = torch.cuda.get_device_properties(
-            x.device).multi_processor_count
-    return _SMS[x.device]
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _qkv_stats_launch(x, ln_w, ln_b, w1, b1, wd, bd, heads):
@@ -596,12 +595,12 @@ def _qkv_stats_launch(x, ln_w, ln_b, w1, b1, wd, bd, heads):
             _check("b1", b1, x, (3 * c,)), _check("wd", wd, x, (3, 3, 3 * c)),
             _check("bd", bd, x, (3 * c,)), v.data_ptr()]
     body, geo = _qkv_plan(b, h, w, c, heads, b1 is not None or bd is not None,
-                          x.dtype, _sm_count(x))
+                          x.dtype, _sm_count(x.device))
     if body == "wg":  # its shared memory fits by construction (_sw_smem)
         part = torch.zeros((b, geo["rows"], width), dtype=torch.float32,
                            device=x.device)
         _call(build.load("qkv_wg").turtle_qkv_wg_launch,
-              ptrs[:4] + ptrs[5:6] + [v.data_ptr(), part.data_ptr()],
+              ptrs[:4] + [ptrs[5], v.data_ptr(), part.data_ptr()],
               [b, h, w, c, heads, geo["rows"], geo["blocks"]], x,
               "fused_qkv_stats")
         fused_qkv_stats.launches_wg += 1
@@ -770,7 +769,7 @@ def _chm_stats_launch(x, x_sp, ln_w, ln_b, w_qkv, wd_qkv, w_kv, wd_kv, heads):
             _check("w_kv", w_kv, x, (c, 2 * c)),
             _check("wd_kv", wd_kv, x, (3, 3, 2 * c)),
             v.data_ptr(), vh.data_ptr()]
-    body, geo = _chm_plan(b, h, w, c, heads, x.dtype, _sm_count(x))
+    body, geo = _chm_plan(b, h, w, c, heads, x.dtype, _sm_count(x.device))
     if body == "wg":  # its shared memory fits by construction (_sw_smem)
         part = torch.zeros((b, geo["rows"], width), dtype=torch.float32,
                            device=x.device)
