@@ -28,8 +28,8 @@
 //     10 x 10 halo (two m64 wgmma tiles, one a consumer warpgroup, A from
 //     registers by ldmatrix) and the taps on the CUDA cores: [q_h | k_h] a
 //     head, then v 128 columns a pass; for row 6 then, per aligned frame,
-//     [kh_2m | kh_2m+1] and vh (C = 64: one head, and a pass that has one
-//     panel to read reads it twice and keeps the first half);
+//     [kh_2m | kh_2m+1] and vh (C = 64: one head; v's one panel is read
+//     twice and half kept, and a frame's kh and vh share one pass);
 //   * q_h and k_h go to bf16 tiles of 64 pixels x 64 channels in shared
 //     memory in the swizzled layout, and the Gram q_h^T k_h runs as one
 //     m64n64 wgmma over K = the 64 pixels (4 k-steps, A = the q tile read
@@ -283,9 +283,9 @@ __device__ __forceinline__ int sw_first_block(int b, int nt, long long total) {
   return (int)((((long long)b * nt + 1) * gridDim.x - 1) / total);
 }
 
-// C: the map's width (64 only for row 3), CHM: row 6. grid: one block an SM
-// (at most the number of tiles); part row (b, g - first block of b) is this
-// block's.
+// C: the map's width (64 to 512; row 6: 64 to 256), CHM: row 6. grid: one
+// block an SM (at most the number of tiles); part row (b, g - first block of
+// b) is this block's.
 template <int C, bool CHM>
 __global__ void __launch_bounds__(SW_NT, 1)
     stats_wg_kernel(const __grid_constant__ StatsWgArgs a, const __grid_constant__ StatsWgMaps maps) {
