@@ -15,7 +15,7 @@ torch.profiler.)
 Phases, one JSON object per line on standard output:
 
   device   the card's name and power limit as nvidia-smi gives them
-  build    nvcc builds the thirteen sources of turtlevsr_tpu_torch/kernels/csrc
+  build    nvcc builds the fifteen sources of turtlevsr_tpu_torch/kernels/csrc
   kernels  each kernel's wrapper against its plain PyTorch version on the
            card at the shapes the 720p serving paths give it (bf16), whole
            padded frames and chunks of 15 tiles alike: errors beside the
@@ -23,11 +23,12 @@ Phases, one JSON object per line on standard output:
            version's, a PyTorch library call's where one computes the same
            function, and the least time the card could take (bound); the
            two-stage kernel also against the split launches it replaces, the
-           sparse softmax also against the probabilities kernel; rows 1, 3
-           and 6 on the body their plans give each call (the wgmma bodies of
-           ffn_wg.cu, qkv_wg.cu and chm_wg.cu also timed on the mma.sync
-           bodies, tile_ms, and on ragged maps; qkv_stats.cu and chm_stats.cu,
-           off the path now, at dec3's shape); attention @ v
+           sparse softmax also against the probabilities kernel; rows 1, 3,
+           4, 6 and 7 on the body their plans give each call (the wgmma
+           bodies of ffn_wg.cu, qkv_wg.cu, split_wg.cu, chm_wg.cu and
+           sab_wg.cu also timed on the mma.sync bodies, tile_ms, and on
+           ragged maps; the mma.sync bodies of rows 3, 4, 6 and 7, off the
+           path now, at the latent's or dec3's shape); attention @ v
            also at the whole frame's dec3 shape, the 3x3 conv also on maps
            and Cout that its tiles do not divide
   slice    five configurations at full width and depth, seeded random
@@ -129,15 +130,17 @@ TASKS = {"gopro": "deblur", "derain": "derain", "sr": "sr"}
 _NONE = {"attn_v_slots": 0, "attn_v_merge": 0, "level_run": 0, "ffn_no_dw": 0,
          "two_stage": 0, "sab_sparse_softmax": 0}
 _GOPRO = {"ffn": 51, "ffn_wg": 35, "qkv_stats": 34, "qkv_wg": 34,
-          "split_proj": 5, "conv3x3": 11, "chm_stats": 3, "chm_wg": 3,
-          "sab": 3, "lattice_merge": 3, "lattice_split": 3}
-_DERAIN = {**_GOPRO, "split_proj": 2, "sab": 0}
+          "split_proj": 5, "split_wg": 4, "conv3x3": 11, "chm_stats": 3,
+          "chm_wg": 3, "sab": 3, "sab_wg": 3, "lattice_merge": 3,
+          "lattice_split": 3}
+_DERAIN = {**_GOPRO, "split_proj": 2, "split_wg": 2, "sab": 0, "sab_wg": 0}
 _TWO_STAGE = {"ffn": 39, "two_stage": 6}
 LAUNCHES_PER_CALL = {
     "gopro": {**_GOPRO, **_NONE},
     "gopro_t1_fhr": {"ffn": 51, "ffn_wg": 37, "qkv_stats": 37, "qkv_wg": 37,
-                     "split_proj": 2,
+                     "split_proj": 2, "split_wg": 2,
                      "conv3x3": 8, "chm_stats": 0, "chm_wg": 0, "sab": 0,
+                     "sab_wg": 0,
                      "lattice_merge": 0, "lattice_split": 0, **_NONE},
     "gopro_enc3_ffw": {**_GOPRO, **_NONE, "ffn_no_dw": 10, "ffn_wg": 25},
     "gopro_fused": {**_GOPRO, **_NONE, "ffn": 18, "ffn_wg": 2, "qkv_stats": 1,
@@ -149,6 +152,9 @@ LAUNCHES_PER_CALL = {
     "sr": {**_GOPRO, **_NONE},
     "sr_two_stage": {**_GOPRO, **_NONE, **_TWO_STAGE},
 }
+# tiled `gopro`: dec1's probabilities at 15 tiles of 20 x 20 tokens stay on
+# sab.cu (kernels/sab.py _sab_plan), whole frames take the wgmma body
+TILED_LAUNCHES = {"gopro": {"sab_wg": 2}}
 FRAMES_PER_RUN = 6  # whole-frame and tiled streams: the 3-frame rings wrap
 MAX_TILE_BATCH = 15  # the engine's default chunk
 FUSED_PLAN = ("channel_runs", "attn_v_merge")
@@ -231,8 +237,14 @@ KERNEL_INFO = {
                   "turtlevsr_tpu/kernels/ffn.py:985"),
     "qkv_wg": ("turtlevsr_tpu_torch/kernels/csrc/qkv_wg.cu",
                "turtlevsr_tpu/kernels/ffn.py:985"),
+    # rows 4 and 7 likewise (kernels/ffn.py _split_plan, kernels/sab.py
+    # _sab_plan): the wgmma bodies of split_wg.cu and sab_wg.cu take the
+    # bf16 calls of the paths, split_proj.cu and sab.cu the rest; "split_proj"
+    # and "sab" launches are those of the mma.sync bodies
     "split_proj": ("turtlevsr_tpu_torch/kernels/csrc/split_proj.cu",
                    "turtlevsr_tpu/kernels/ffn.py:1732"),
+    "split_wg": ("turtlevsr_tpu_torch/kernels/csrc/split_wg.cu",
+                 "turtlevsr_tpu/kernels/ffn.py:1732"),
     "conv3x3": ("turtlevsr_tpu_torch/kernels/csrc/conv3x3.cu",
                 "turtlevsr_tpu/kernels/ffn.py:1622"),
     "chm_stats": ("turtlevsr_tpu_torch/kernels/csrc/chm_stats.cu",
@@ -241,6 +253,8 @@ KERNEL_INFO = {
                "turtlevsr_tpu/kernels/ffn.py:1267"),
     "sab": ("turtlevsr_tpu_torch/kernels/csrc/sab.cu",
             "turtlevsr_tpu/kernels/sab.py:138"),
+    "sab_wg": ("turtlevsr_tpu_torch/kernels/csrc/sab_wg.cu",
+               "turtlevsr_tpu/kernels/sab.py:138"),
     "lattice_merge": ("turtlevsr_tpu_torch/kernels/csrc/lattice.cu",
                       "turtlevsr_tpu/kernels/lattice.py:59"),
     "lattice_split": ("turtlevsr_tpu_torch/kernels/csrc/lattice.cu",
@@ -283,12 +297,23 @@ def require(cond: bool, what: str) -> None:
         raise SmokeFailure(what)
 
 
+# cycles of the sleep kernel that holds the device while the host queues one
+# timed call (about a millisecond at the H100's clocks)
+HOLD_CYCLES_PER_CALL = 2_000_000
+
+
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
+    """Device ms a call: CUDA events around iters calls, queued behind a
+    sleep kernel that holds the device until the host has queued them, so
+    the events time the calls back to back and not the host's pace of
+    launching them (a wrapper can take longer on the host than a small
+    kernel on the card)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(HOLD_CYCLES_PER_CALL * iters)
     start.record()
     for _ in range(iters):
         fn()
@@ -332,15 +357,16 @@ def numel_bytes(*tensors) -> int:
 
 
 @contextlib.contextmanager
-def tile_body():
-    """fused_block_ffn on the mma.sync body (csrc/ffn.cu) whatever its plan
-    says: the yardstick of the wgmma body on the same inputs, here only."""
-    plan = K._ffn_plan
-    K._ffn_plan = lambda *a, **kw: ("tile", None)
+def old_body(mod, plan: str):
+    """mod.<plan> answers ("tile", None) whatever the shape: the mma.sync
+    body of rows 1, 4 and 7, the yardstick of their wgmma bodies on the same
+    inputs, here only."""
+    saved = getattr(mod, plan)
+    setattr(mod, plan, lambda *a, **kw: ("tile", None))
     try:
         yield
     finally:
-        K._ffn_plan = plan
+        setattr(mod, plan, saved)
 
 
 def ffn_case(inp: Inputs, name, h, w, c, e, mode, *, pair=False, po=False,
@@ -392,7 +418,7 @@ def ffn_case(inp: Inputs, name, h, w, c, e, mode, *, pair=False, po=False,
     del want
     tile_ms = None
     if on_wg:
-        with tile_body():
+        with old_body(K, "_ffn_plan"):
             tile_ms = cuda_ms(lambda: K.fused_block_ffn(x, **kw), iters)
     px = batch * h * w
     flops = 2.0 * px * (c * ch + (9 * ch if dw else 0) + e * c
@@ -492,23 +518,40 @@ def qkv_case(inp: Inputs, name, h, w, c, heads, iters=5, batch=1,
                 library_ms=None, bound_ms=b_ms, bound_by=b_by)
 
 
-def split_case(inp: Inputs, name, h, w, c, n_out, iters=5, batch=1):
-    if skipped("split_proj", name):
+def split_case(inp: Inputs, name, h, w, c, n_out, iters=5, batch=1,
+               tile=False):
+    """Row 4 on the body its plan gives the call (tile: on the mma.sync
+    body): kernel "split_wg" for the wgmma body (timed also on the mma.sync
+    body, tile_ms), else "split_proj"."""
+    on_wg = not tile and K._split_plan(batch, h, w, c, c, n_out, True, False,
+                                       torch.bfloat16)[0] == "wg"
+    kernel = "split_wg" if on_wg else "split_proj"
+    if skipped(kernel, name):
         return None
     x = inp(batch, h, w, c)
     kw = chain_weights(inp, c, n_out * c)
-    got = K.fused_ln_split_proj(x, n_out=n_out, **kw)
-    torch.cuda.synchronize()
+    wg_before = K.fused_ln_split_proj.launches_wg
+    with old_body(K, "_split_plan") if tile else contextlib.nullcontext():
+        got = K.fused_ln_split_proj(x, n_out=n_out, **kw)
+        torch.cuda.synchronize()
+        ms = cuda_ms(lambda: K.fused_ln_split_proj(x, n_out=n_out, **kw),
+                     iters)
+    require(on_wg == (K.fused_ln_split_proj.launches_wg > wg_before),
+            f"split_proj {name}: body")
+    tile_ms = None
+    if on_wg:
+        with old_body(K, "_split_plan"):
+            tile_ms = cuda_ms(
+                lambda: K.fused_ln_split_proj(x, n_out=n_out, **kw), iters)
     want = K.split_proj_plain(x, n_out=n_out, **kw)
     errs = [rel_err(a, b) for a, b in zip(got, want)]
     err, rel = max(e[0] for e in errs), max(e[1] for e in errs)
     flops = 2.0 * batch * h * w * (c * n_out * c + 9 * n_out * c)
     b_ms, b_by = bound(numel_bytes(x, *got, *kw.values()), flops)
-    return dict(kernel="split_proj", case=name, shape=[batch, h, w, c],
+    return dict(kernel=kernel, case=name, shape=[batch, h, w, c],
                 n_out=n_out, max_abs_err=err, rel_err=rel,
-                tol_rel=KERNEL_REL_TOL, ok=rel <= KERNEL_REL_TOL,
-                ms=cuda_ms(lambda: K.fused_ln_split_proj(x, n_out=n_out, **kw),
-                           iters),
+                body="wg" if on_wg else "tile", tile_ms=tile_ms,
+                tol_rel=KERNEL_REL_TOL, ok=rel <= KERNEL_REL_TOL, ms=ms,
                 plain_ms=cuda_ms(
                     lambda: K.split_proj_plain(x, n_out=n_out, **kw), 2, 1),
                 library_ms=None, bound_ms=b_ms, bound_by=b_by)
@@ -628,15 +671,32 @@ def sab_compare(got, want):
     return 1.0 - same.float().mean().item(), err
 
 
-def sab_case(inp: Inputs, name, hq, wq, d, nf, iters=3, batch=1):
-    if skipped("sab", name):
+def sab_case(inp: Inputs, name, hq, wq, d, nf, iters=3, batch=1,
+             tile=False):
+    """Row 7 on the body its plan gives the call (tile: on the mma.sync
+    body): kernel "sab_wg" for the wgmma body (timed also on the mma.sync
+    body, tile_ms), else "sab"."""
+    hw = hq * wq
+    on_wg = not tile and S._sab_plan(batch, nf, hw, d, torch.bfloat16, 4,
+                                     wq)[0] == "wg"
+    kernel = "sab_wg" if on_wg else "sab"
+    if skipped(kernel, name):
         return None
+    with old_body(S, "_sab_plan") if tile else contextlib.nullcontext():
+        return _sab_case(inp, name, hq, wq, d, nf, iters, batch, on_wg,
+                         kernel)
+
+
+def _sab_case(inp, name, hq, wq, d, nf, iters, batch, on_wg, kernel):
     hw = hq * wq
     fv = torch.ones(nf, device="cuda")
     # (a) exact scores: the same support, bit for bit
     q, k, temp = sab_inputs(inp, nf, hw, d, exact=True, batch=batch)
+    wg_before = S.sab_attn_probs.launches_wg
     got = S.sab_attn_probs(q, k, temp, fv, grid_wq=wq)
     torch.cuda.synchronize()
+    require(on_wg == (S.sab_attn_probs.launches_wg > wg_before),
+            f"sab {name}: body")
     want = S.sab_attn_probs_plain(q, k, temp, fv, grid_wq=wq)
     exact_same = bool(torch.equal(got != 0, want != 0))
     exact_err = (got.float() - want.float()).abs().max().item()
@@ -652,8 +712,14 @@ def sab_case(inp: Inputs, name, hq, wq, d, nf, iters=3, batch=1):
     del want
     b_ms, b_by = bound(numel_bytes(q, k, got),
                        2.0 * batch * nf * hw * hw * d)
-    return dict(kernel="sab", case=name, shape=[batch, nf, hw, d],
-                grid=[hq, wq],
+    tile_ms = None
+    if on_wg:
+        with old_body(S, "_sab_plan"):
+            tile_ms = cuda_ms(lambda: S.sab_attn_probs(q, k, temp, fv,
+                                                       grid_wq=wq), iters)
+    return dict(kernel=kernel, case=name, shape=[batch, nf, hw, d],
+                grid=[hq, wq], body="wg" if on_wg else "tile",
+                tile_ms=tile_ms,
                 max_abs_err=max(err, exact_err), rel_err=err,
                 exact_inputs_same_support=exact_same,
                 exact_inputs_max_abs_err=exact_err, tol_exact=SAB_EXACT_TOL,
@@ -1087,6 +1153,26 @@ def kernel_cases(seed: int, h: int, w: int) -> list[dict]:
         lambda: chm_case(inp, "ragged C=128, 2 maps", 4 * hr + 3, 4 * wr + 5,
                          128, 2, 4, batch=2),
     ]
+    # the wgmma bodies of rows 4 and 7 on maps and token grids their tiles do
+    # not divide (a ragged 13 x 17 grid: rows off the 16-byte grid); the
+    # mma.sync bodies, off the paths now (float32, biases, no LayerNorm,
+    # other widths), at the latent's and dec3's shapes
+    cases += [
+        lambda: split_case(inp, "latent FHR q,k,v on the mma.sync body (off "
+                           "the paths)", h4, w4, 512, 3, tile=True),
+        lambda: sab_case(inp, "dec3 on the mma.sync body (off the paths)",
+                         h3 // 4, w3 // 4, 512, 4, tile=True),
+        lambda: split_case(inp, "ragged q,k,v C=512", hr, wr, 512, 3),
+        lambda: split_case(inp, "ragged q,k C=128, 2 maps", 4 * hr + 3,
+                           4 * wr + 5, 128, 2, batch=2),
+        lambda: sab_case(inp, "ragged 13x17 grid D=512, 3 maps", 13, 17, 512,
+                         4, batch=3),
+    ]
+    # row 7 at the shapes of the SR tiles (the model's maps 256 x 256: 16 x
+    # 16 window tokens at every CHM level), 15 tiles a call
+    for lvl, (_, c, _, _, ring) in CHM_LEVELS.items():
+        cases.append(lambda lvl=lvl, c=c, nf=ring + 1: sab_case(
+            inp, f"{lvl}, {tb} SR tiles", 16, 16, 2 * c, nf, batch=tb))
     # under the two_stage plan: the conv-only levels (enc1 and enc2 pairs of
     # ReducedAttn+FFW blocks, the refinement's ReducedAttn+GFFW blocks),
     # whole padded frames and 15 tiles
@@ -1430,6 +1516,7 @@ def run_tiled(config: str, seed: int, width: int, height: int,
             key = config + {(): "", FUSED_PLAN: "_fused",
                             TWO_STAGE: "_two_stage"}[tuple(fuse)]
             for name, per_call in LAUNCHES_PER_CALL[key].items():
+                per_call = TILED_LAUNCHES.get(config, {}).get(name, per_call)
                 require(res["launches"][name] == per_call * calls * n,
                         f"{tag} {name}: {res['launches'][name]} launches "
                         f"over {n} frames of {calls} model calls, expected "
@@ -1497,8 +1584,8 @@ def kernel_rows(cases: list[dict], by_path: dict) -> list[dict]:
         if name == "ffn":  # ffn.cu's dw branch: neither the wgmma body nor no-dw
             per_path = {p: c["ffn"] - c["ffn_wg"] - c["ffn_no_dw"]
                         for p, c in by_path.items()}
-        if name in ("qkv_stats", "chm_stats"):  # the mma.sync bodies
-            wg = name.split("_")[0] + "_wg"
+        if name in ("qkv_stats", "chm_stats", "split_proj", "sab"):
+            wg = name.split("_")[0] + "_wg"  # the mma.sync bodies
             per_path = {p: c[name] - c[wg] for p, c in by_path.items()}
         rows.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
@@ -1600,17 +1687,17 @@ def main(argv=None) -> int:
             # counts were held above); attn_v_slots is the second epilogue of
             # the kernel that attn_v_merge launches and has no caller of its
             # own in the model, nor has sab_sparse_softmax (row 12)
-            t0_chm = ("ffn", "ffn_wg", "qkv_wg", "split_proj", "conv3x3",
+            t0_chm = ("ffn", "ffn_wg", "qkv_wg", "split_wg", "conv3x3",
                       "chm_wg", "lattice_merge", "lattice_split")
-            t1_chm = t0_chm + ("sab",)
+            t1_chm = t0_chm + ("sab_wg",)
             on_path = {
-                "gopro_t1_fhr": ("ffn", "ffn_wg", "qkv_wg", "split_proj",
+                "gopro_t1_fhr": ("ffn", "ffn_wg", "qkv_wg", "split_wg",
                                  "conv3x3"),
                 "gopro": t1_chm, "gopro_enc3_ffw": ("ffn_no_dw", "ffn_wg"),
                 "derain": t0_chm, "sr": t1_chm,
                 "gopro_two_stage": t1_chm + ("two_stage",), "tiled": t1_chm,
-                "tiled_fused": ("ffn", "ffn_wg", "qkv_wg", "split_proj",
-                                "conv3x3", "chm_wg", "sab", "lattice_split",
+                "tiled_fused": ("ffn", "ffn_wg", "qkv_wg", "split_wg",
+                                "conv3x3", "chm_wg", "sab_wg", "lattice_split",
                                 "attn_v_merge", "level_run"),
                 "tiled_two_stage": t1_chm + ("two_stage",),
                 "derain_tiled": t0_chm,

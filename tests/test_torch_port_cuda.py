@@ -203,6 +203,105 @@ def test_stats_wg_smem_mirror_matches_the_source(dev):
             c, True)[0]
 
 
+# the split projection's wgmma body: every width its plan gives it, two and
+# three chains, on a ragged map of two entries that the persistent grid
+# splits and on a chunk of 15 latent tiles
+SPLIT_WG_MAPS = [(2, 37, 53), (15, 40, 40)]
+
+
+@pytest.mark.parametrize("hw", SPLIT_WG_MAPS, ids=["ragged", "tiles"])
+@pytest.mark.parametrize("n_out", [2, 3])
+@pytest.mark.parametrize("c", K._SPLIT_WG_WIDTHS)
+def test_split_wg_body_matches_plain(dev, c, n_out, hw):
+    b, h, w = hw
+    x, kw = chain_kernel_case(Maker(18, torch.bfloat16, dev), b, h, w, c,
+                              n_out * c, False)
+    before = K.fused_ln_split_proj.launches
+    wg_before = K.fused_ln_split_proj.launches_wg
+    got = K.fused_ln_split_proj(x, n_out=n_out, **kw)
+    torch.cuda.synchronize()
+    assert K.fused_ln_split_proj.launches == before + 1
+    assert K.fused_ln_split_proj.launches_wg == wg_before + 1
+    want = K.split_proj_plain(x, n_out=n_out, **kw)
+    assert max(max_err(g, w_) for g, w_ in zip(got, want)) <= KERNEL_TOL[
+        torch.bfloat16]
+    again = K.fused_ln_split_proj(x, n_out=n_out, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+
+
+def test_split_wg_smem_mirror_matches_the_source(dev):
+    from turtlevsr_tpu_torch.kernels import build
+
+    for c in K._SPLIT_WG_WIDTHS:
+        assert build.load("split_wg").turtle_split_wg_smem(c) == K._spw_smem(
+            c)[0]
+
+
+# the probabilities' wgmma body: (B, NF, hq, wq, D, k_top): chunks of 20 x
+# 20 token grids, the whole frame's 46 x 80, a ragged grid (HW = 221, rows
+# off the 16-byte grid), fewer keys than k_top, and every k_top; the calls
+# whose plan gives sab.cu (too few blocks, dec1 at 15 tiles) are sent to the
+# wgmma body here
+SAB_WG_CASES = [(2, 4, 20, 20, 512, 5), (15, 3, 20, 20, 128, 5),
+                (1, 4, 46, 80, 256, 4), (1, 3, 46, 80, 128, 3),
+                (3, 3, 13, 17, 128, 2), (1, 4, 2, 2, 64, 5),
+                (2, 3, 9, 7, 256, 1)]
+SAB_MAX_FLIP_SHARE = 0.25
+SAB_TOL = 2.0 ** -6
+
+
+@pytest.mark.parametrize("case", SAB_WG_CASES, ids=lambda c: "x".join(
+    map(str, c)))
+def test_sab_wg_body_matches_plain(dev, case, monkeypatch):
+    """Exact scores: the same support bit for bit, values within 2^-9, and
+    row 12 on the body's rounded scores bit for bit the body; unit vectors:
+    the share of rows whose support flips and the error on the others
+    within the limits of chip_smoke.py; two launches equal."""
+    from turtlevsr_tpu_torch.ops.attn_utils import local_window_mask
+
+    b, nf, hq, wq, d, k_top = case
+    hw = hq * wq
+    monkeypatch.setattr(S, "_sab_plan", lambda *a, **kw: ("wg", None))
+    for exact in (True, False):
+        q, k, temp, fv = sab_kernel_case(Maker(19, torch.bfloat16, dev), b,
+                                         nf, hq, wq, d, exact=exact)
+        before, wg_before = S.sab_attn_probs.launches, S.sab_attn_probs.launches_wg
+        got = S.sab_attn_probs(q, k, temp, fv, grid_wq=wq, k_top=k_top)
+        torch.cuda.synchronize()
+        assert S.sab_attn_probs.launches == before + 1
+        assert S.sab_attn_probs.launches_wg == wg_before + 1
+        want = S.sab_attn_probs_plain(q, k, temp, fv, grid_wq=wq,
+                                      k_top=k_top)
+        if exact:
+            assert torch.equal(got != 0, want != 0)
+            assert max_err(got, want) <= 2.0 ** -9
+            assert got[:, 1].abs().max() == 0  # the invalid frame
+            s = (torch.einsum("bqd,bnkd->bnqk", q.float(), k.float())
+                 * temp.float()).bfloat16().reshape(b * nf, hw, hw)
+            row12 = S.sab_sparse_softmax(
+                s.contiguous(), local_window_mask(hq, wq, 4, torch.bfloat16,
+                                                  dev), k_top)
+            row7 = S.sab_attn_probs(q, k, temp, None, grid_wq=wq, k_top=k_top)
+            torch.cuda.synchronize()
+            assert torch.equal(row12.reshape(row7.shape), row7)
+        else:
+            share, err = sab_compare(got, want)
+            assert share <= SAB_MAX_FLIP_SHARE and err <= SAB_TOL
+            sums = got.float().sum(dim=-1)
+            assert torch.all((sums - fv[None, :, None]).abs() <= 0.02)
+        again = S.sab_attn_probs(q, k, temp, fv, grid_wq=wq, k_top=k_top)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again)
+
+
+def test_sab_wg_smem_mirror_matches_the_source(dev):
+    from turtlevsr_tpu_torch.kernels import build
+
+    for d in (64, 128, 192, 256, 384, 512):
+        assert build.load("sab_wg").turtle_sab_wg_smem(d) == S._sb_smem(d)[0]
+
+
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
 @pytest.mark.parametrize("shape", SPLIT_KERNEL_SHAPES)
 def test_split_proj_kernel_matches_plain(dev, shape, dtype):

@@ -26,14 +26,19 @@ def _counted() -> dict:
 def launch_counts() -> dict:
     """Launches of each kernel since the last :func:`reset_launch_counts`;
     ``ffn_no_dw`` are those of ``ffn`` without a depthwise stage,
-    ``ffn_wg``, ``qkv_wg`` and ``chm_wg`` those of ``ffn``, ``qkv_stats``
-    and ``chm_stats`` on their wgmma bodies."""
+    ``ffn_wg``, ``qkv_wg``, ``split_wg``, ``chm_wg`` and ``sab_wg`` those
+    of ``ffn``, ``qkv_stats``, ``split_proj``, ``chm_stats`` and ``sab`` on
+    their wgmma bodies."""
     fns = _counted()
     counts = {name: fn.launches for name, fn in fns.items()}
     counts["ffn_no_dw"] = fns["ffn"].launches_no_dw
-    for name in ("ffn", "qkv_stats", "chm_stats"):
+    for name in _WG_BODIES:
         counts[name.split("_")[0] + "_wg"] = fns[name].launches_wg
     return counts
+
+
+# the wrappers with a second, wgmma body
+_WG_BODIES = ("ffn", "qkv_stats", "split_proj", "chm_stats", "sab")
 
 
 def reset_launch_counts() -> None:
@@ -41,5 +46,5 @@ def reset_launch_counts() -> None:
     for fn in fns.values():
         fn.launches = 0
     fns["ffn"].launches_no_dw = 0
-    for name in ("ffn", "qkv_stats", "chm_stats"):
+    for name in _WG_BODIES:
         fns[name].launches_wg = 0

@@ -19,8 +19,9 @@ import threading
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
-KERNEL_SOURCES = ("ffn", "ffn_wg", "qkv_stats", "qkv_wg", "split_proj", "conv3x3",
-                  "chm_stats", "chm_wg", "sab", "lattice", "level", "attn_v", "chain2")
+KERNEL_SOURCES = ("ffn", "ffn_wg", "qkv_stats", "qkv_wg", "split_proj", "split_wg",
+                  "conv3x3", "chm_stats", "chm_wg", "sab", "sab_wg", "lattice", "level",
+                  "attn_v", "chain2")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -47,6 +48,8 @@ _SIGNATURES = {
     "split_proj": {"turtle_split_proj_launch": (_LAUNCH_ARGS, ctypes.c_int),
                    "turtle_split_proj_smem": ([ctypes.c_int] * 2,
                                               ctypes.c_size_t)},
+    "split_wg": {"turtle_split_wg_launch": (_LAUNCH_ARGS, ctypes.c_int),
+                 "turtle_split_wg_smem": ([ctypes.c_int], ctypes.c_size_t)},
     "conv3x3": {"turtle_conv3x3_launch": (_LAUNCH_ARGS, ctypes.c_int),
                 "turtle_conv3x3_smem": ([ctypes.c_int] * 2,
                                         ctypes.c_size_t)},
@@ -58,6 +61,8 @@ _SIGNATURES = {
             "turtle_sparse_softmax_launch": (_LAUNCH_ARGS, ctypes.c_int),
             "turtle_sparse_softmax_smem": ([ctypes.c_int] * 3,
                                            ctypes.c_size_t)},
+    "sab_wg": {"turtle_sab_wg_launch": (_LAUNCH_ARGS, ctypes.c_int),
+               "turtle_sab_wg_smem": ([ctypes.c_int], ctypes.c_size_t)},
     "lattice": {"turtle_lattice_launch": (
         [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 6
         + [ctypes.c_void_p], ctypes.c_int)},

@@ -128,8 +128,9 @@ __device__ __forceinline__ void wgmma_ss64_tt(float (&d)[32], uint64_t da, uint6
 // LN pass of a tile (the 256 consumer threads): LN(x) rounded into xn (row
 // stride C + XPAD, zero rows outside the image) for the 100 halo pixels;
 // ln_w null: xn = x (the aligned frames). wg_ln_pass of ffn_wg.cu without
-// its second map and without the copy of x to the output.
-template <int C>
+// its second map and without the copy of x to the output. STAGED: x is the
+// tile's halo already in shared memory, row p at x + p C (split_wg.cu).
+template <int C, bool STAGED = false>
 __device__ void sw_ln_pass(const __nv_bfloat16* __restrict__ x,
                            const __nv_bfloat16* __restrict__ ln_w,
                            const __nv_bfloat16* __restrict__ ln_b, int H, int W, int y0, int x0,
@@ -163,7 +164,8 @@ __device__ void sw_ln_pass(const __nv_bfloat16* __restrict__ x,
     for (int u = 0; u < U; ++u) {
       const int p = p0 + u * NW * PP + sub;
       inside[u] = halo_inside(p, H, W, y0, x0);
-      const size_t goff = inside[u] ? halo_offset(p, W, C, y0, x0) : 0;
+      const size_t goff =
+          inside[u] ? (STAGED ? (size_t)p * C : halo_offset(p, W, C, y0, x0)) : 0;
 #pragma unroll
       for (int j = 0; j < VJ; ++j) {
         const int c8 = (l + GL * j) * 8;

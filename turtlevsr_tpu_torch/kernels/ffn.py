@@ -17,7 +17,8 @@ Every wrapper counts its kernel launches in ``<wrapper>.launches``
 without a depthwise stage, ``fused_block_ffn.launches_wg`` those on the
 wgmma body of csrc/ffn_wg.cu; ``fused_qkv_stats.launches_wg`` and
 ``fused_chm_stats.launches_wg`` those of the statistics on the wgmma body of
-csrc/stats_wg.cuh (qkv_wg.cu, chm_wg.cu).
+csrc/stats_wg.cuh (qkv_wg.cu, chm_wg.cu); ``fused_ln_split_proj.launches_wg``
+those of the split projection on the wgmma body of csrc/split_wg.cu.
 """
 
 from __future__ import annotations
@@ -651,6 +652,45 @@ fused_qkv_stats.launches_wg = 0  # those of them on the wgmma body (qkv_wg.cu)
 # ---------------------------------------------------------------------------
 
 
+# the wgmma body of the split projection (csrc/split_wg.cu): the widths the
+# plan sends to it (C = 64 stays on split_proj.cu, 5-8 % faster there on an
+# H100: PERF.md, row 4); its ring stages and the parts of its shared memory
+# beside them, mirrored from the source (a card test holds the two equal)
+_SPLIT_WG_WIDTHS = (128, 256, 512)
+
+
+def _spw_smem(c: int) -> tuple[int, int]:
+    """(bytes of shared memory, ring stages) of the split projection's wgmma
+    body at width c: the fp32 hidden chunk (100 x 128), the LN halo (100
+    rows of c + 8 bf16), at c <= 256 the next tile's staged halo of x (100
+    rows of c bf16), then as many ring stages, with their two mbarriers, as
+    fit."""
+    rest = (_WG_HALO * _WG_HS * 4 + _WG_HALO * (c + _WG_XPAD) * 2
+            + (_WG_HALO * c * 2 if c <= 256 else 0))
+    stages = min(_SW_MAX_STAGES,
+                 (_SMEM_LIMIT - _WG_ALIGN - rest) // (_SW_STAGE + 16))
+    return _WG_ALIGN + stages * _SW_STAGE + rest + 16 * stages, stages
+
+
+def _split_plan(b, h, w, c, e, n_out, has_ln, has_bias, dtype,
+                n_sm: int = 132):
+    """The body of one fused_ln_split_proj call, chosen by its shape: ("wg",
+    geometry) for the wgmma body of csrc/split_wg.cu (bf16, LayerNorm, no b1
+    or bd, E = C in _SPLIT_WG_WIDTHS, n_out * E a multiple of 128: the
+    latent FHR q, k, v and the SAB q, k at dec3 and dec2), else ("tile",
+    None) for the
+    mma.sync body of csrc/split_proj.cu. The geometry: 8 x 8 tiles, the
+    persistent grid (one block an SM, n_sm of them at most), the 128-column
+    passes of a tile, the ring stages and the shared memory."""
+    if (dtype != torch.bfloat16 or not has_ln or has_bias or e != c
+            or c not in _SPLIT_WG_WIDTHS or (n_out * e) % 128
+            or not 1 <= n_out <= 4):
+        return "tile", None
+    smem, stages = _spw_smem(c)
+    return "wg", dict(tile=_TILE, blocks=min(b * _tiles(h, w), n_sm),
+                      passes=n_out * e // 128, stages=stages, smem=smem)
+
+
 def _split_proj_launch(x, ln_w, ln_b, w1, b1, wd, bd, n_out):
     _check_map("x", x)
     b, h, w, c = x.shape
@@ -669,11 +709,20 @@ def _split_proj_launch(x, ln_w, ln_b, w1, b1, wd, bd, n_out):
             _check("b1", b1, x, (ch,)), _check("wd", wd, x, (3, 3, ch)),
             _check("bd", bd, x, (ch,)),
             *[o.data_ptr() for o in outs], *[None] * (4 - n_out)]
-    lib = build.load("split_proj")
-    _check_smem("fused_ln_split_proj", lib.turtle_split_proj_smem(
-        c, int(x.dtype == torch.bfloat16)))
-    _call(lib.turtle_split_proj_launch, ptrs, [b, h, w, c, e, n_out], x,
-          "fused_ln_split_proj")
+    body, geo = _split_plan(b, h, w, c, e, n_out, ln_w is not None,
+                            b1 is not None or bd is not None, x.dtype,
+                            _sm_count(x.device))
+    if body == "wg":  # its shared memory fits by construction (_spw_smem)
+        _call(build.load("split_wg").turtle_split_wg_launch,
+              ptrs[:4] + ptrs[5:6] + ptrs[7:],
+              [b, h, w, c, e, n_out, geo["blocks"]], x, "fused_ln_split_proj")
+        fused_ln_split_proj.launches_wg += 1
+    else:
+        lib = build.load("split_proj")
+        _check_smem("fused_ln_split_proj", lib.turtle_split_proj_smem(
+            c, int(x.dtype == torch.bfloat16)))
+        _call(lib.turtle_split_proj_launch, ptrs, [b, h, w, c, e, n_out], x,
+              "fused_ln_split_proj")
     fused_ln_split_proj.launches += 1
     return tuple(outs)
 
@@ -684,8 +733,12 @@ def fused_ln_split_proj(x, *, ln_w=None, ln_b=None, w1, b1=None, wd, bd=None,
     (B, H, W, E) map; w1 (C, n_out * E), wd (3, 3, n_out * E) hold the chains
     side by side. Without ``ln_w`` the chains run on x itself.
 
-    Replaces ``fused_ln_split_proj`` in turtlevsr_tpu/kernels/ffn.py (kernel:
-    csrc/split_proj.cu; bound by operations on an H100)."""
+    Replaces ``fused_ln_split_proj`` in turtlevsr_tpu/kernels/ffn.py; bound
+    by operations on an H100 at C >= 256, by bytes at C = 64. Two kernels,
+    chosen by shape before the launch (:func:`_split_plan`): the wgmma body
+    of csrc/split_wg.cu for bf16 calls with LayerNorm, no b1 or bd and
+    E = C = 128, 256 or 512 (``fused_ln_split_proj.launches_wg`` counts
+    them), csrc/split_proj.cu for every other call; one launch either way."""
     if x.device.type == "cpu":
         return split_proj_plain(x, ln_w=ln_w, ln_b=ln_b, w1=w1, b1=b1, wd=wd,
                                 bd=bd, n_out=n_out)
@@ -694,6 +747,7 @@ def fused_ln_split_proj(x, *, ln_w=None, ln_b=None, w1, b1=None, wd, bd=None,
 
 
 fused_ln_split_proj.launches = 0
+fused_ln_split_proj.launches_wg = 0  # those of them on the wgmma body (split_wg.cu)
 
 
 # ---------------------------------------------------------------------------
