@@ -523,8 +523,9 @@ def split_case(inp: Inputs, name, h, w, c, n_out, iters=5, batch=1,
     """Row 4 on the body its plan gives the call (tile: on the mma.sync
     body): kernel "split_wg" for the wgmma body (timed also on the mma.sync
     body, tile_ms), else "split_proj"."""
-    on_wg = not tile and K._split_plan(batch, h, w, c, c, n_out, True, False,
-                                       torch.bfloat16)[0] == "wg"
+    on_wg = not tile and K._split_plan(
+        batch, h, w, c, c, n_out, True, False, torch.bfloat16,
+        K._sm_count(torch.device("cuda", 0)))[0] == "wg"
     kernel = "split_wg" if on_wg else "split_proj"
     if skipped(kernel, name):
         return None
@@ -677,8 +678,9 @@ def sab_case(inp: Inputs, name, hq, wq, d, nf, iters=3, batch=1,
     body): kernel "sab_wg" for the wgmma body (timed also on the mma.sync
     body, tile_ms), else "sab"."""
     hw = hq * wq
-    on_wg = not tile and S._sab_plan(batch, nf, hw, d, torch.bfloat16, 4,
-                                     wq)[0] == "wg"
+    on_wg = not tile and S._sab_plan(
+        batch, nf, hw, d, torch.bfloat16, 4, wq,
+        K._sm_count(torch.device("cuda", 0)))[0] == "wg"
     kernel = "sab_wg" if on_wg else "sab"
     if skipped(kernel, name):
         return None
@@ -1165,8 +1167,8 @@ def kernel_cases(seed: int, h: int, w: int) -> list[dict]:
         lambda: split_case(inp, "ragged q,k,v C=512", hr, wr, 512, 3),
         lambda: split_case(inp, "ragged q,k C=128, 2 maps", 4 * hr + 3,
                            4 * wr + 5, 128, 2, batch=2),
-        lambda: sab_case(inp, "ragged 13x17 grid D=512, 3 maps", 13, 17, 512,
-                         4, batch=3),
+        lambda: sab_case(inp, "ragged 13x17 grid D=256, 15 maps", 13, 17, 256,
+                         4, batch=15),
     ]
     # row 7 at the shapes of the SR tiles (the model's maps 256 x 256: 16 x
     # 16 window tokens at every CHM level), 15 tiles a call

@@ -653,9 +653,9 @@ fused_qkv_stats.launches_wg = 0  # those of them on the wgmma body (qkv_wg.cu)
 
 
 # the wgmma body of the split projection (csrc/split_wg.cu): the widths the
-# plan sends to it (C = 64 stays on split_proj.cu, 5-8 % faster there on an
-# H100: PERF.md, row 4); its ring stages and the parts of its shared memory
-# beside them, mirrored from the source (a card test holds the two equal)
+# plan sends to it (C = 64 stays on split_proj.cu, faster there on an H100:
+# PERF.md, row 4); its ring stages and the parts of its shared memory beside
+# them, mirrored from the source (a card test holds the two equal)
 _SPLIT_WG_WIDTHS = (128, 256, 512)
 
 
@@ -678,10 +678,9 @@ def _split_plan(b, h, w, c, e, n_out, has_ln, has_bias, dtype,
     geometry) for the wgmma body of csrc/split_wg.cu (bf16, LayerNorm, no b1
     or bd, E = C in _SPLIT_WG_WIDTHS, n_out * E a multiple of 128: the
     latent FHR q, k, v and the SAB q, k at dec3 and dec2), else ("tile",
-    None) for the
-    mma.sync body of csrc/split_proj.cu. The geometry: 8 x 8 tiles, the
-    persistent grid (one block an SM, n_sm of them at most), the 128-column
-    passes of a tile, the ring stages and the shared memory."""
+    None) for the mma.sync body of csrc/split_proj.cu. The geometry: 8 x 8
+    tiles, the persistent grid (one block an SM, n_sm of them at most), the
+    128-column passes of a tile, the ring stages and the shared memory."""
     if (dtype != torch.bfloat16 or not has_ln or has_bias or e != c
             or c not in _SPLIT_WG_WIDTHS or (n_out * e) % 128
             or not 1 <= n_out <= 4):
@@ -734,7 +733,7 @@ def fused_ln_split_proj(x, *, ln_w=None, ln_b=None, w1, b1=None, wd, bd=None,
     side by side. Without ``ln_w`` the chains run on x itself.
 
     Replaces ``fused_ln_split_proj`` in turtlevsr_tpu/kernels/ffn.py; bound
-    by operations on an H100 at C >= 256, by bytes at C = 64. Two kernels,
+    by operations on an H100 at C >= 256, by bytes at C <= 128. Two kernels,
     chosen by shape before the launch (:func:`_split_plan`): the wgmma body
     of csrc/split_wg.cu for bf16 calls with LayerNorm, no b1 or bd and
     E = C = 128, 256 or 512 (``fused_ln_split_proj.launches_wg`` counts

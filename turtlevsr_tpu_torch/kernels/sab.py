@@ -85,7 +85,7 @@ _SB_BOX, _SB_ALIGN, _SB_CAND = 128 * 128, 1024, 8
 _SB_SLOTS = (2 * _SB_NL + 1) ** 2
 _SB_MAX_KEYS = 1 << 20  # sb_key_row's fp32 grid row is exact below 2^22
 # Where the wgmma body was the faster one on an H100 (PERF.md, row 7): a
-# block of it takes some 35 us besides its key tiles (the q tile, the
+# block of it has a fixed cost besides its key tiles (the q tile, the
 # finishing of 128 rows), so sab.cu's many small blocks win when the body's
 # blocks fill fewer than half the SMs (a 13 x 17 grid, 3 maps of 4 frames:
 # 0.051 against 0.031 ms at D = 512), and at D <= 128 when they take more
@@ -113,9 +113,8 @@ def _sab_plan(b, nf, hw, d, dtype, n_local: int = 4, grid_wq: int = 1,
     geometry) for the wgmma body of csrc/sab_wg.cu (bf16, D a multiple of
     64 up to 512, a local radius of at most 4, where it was the faster one:
     see _SB_MIN_KEY_TILES), else ("tile", None) for sab.cu's
-    sab_probs_kernel.
-    The geometry: query rows of a block, the blocks (one an SM at most at a
-    time, n_sm of them), keys of a key tile and their count, the ring
+    sab_probs_kernel. The geometry: query rows of a block, the blocks (one
+    an SM at a time, n_sm SMs), keys of a key tile and their count, the ring
     stages and the shared memory."""
     blocks = -(-hw // _SB_ROWS) * nf * b
     key_tiles = -(-hw // _SB_KEYS)
