@@ -27,8 +27,10 @@ Phases, one JSON object per line on standard output:
            4, 6 and 7 on the body their plans give each call (the wgmma
            bodies of ffn_wg.cu, qkv_wg.cu, split_wg.cu, chm_wg.cu and
            sab_wg.cu also timed on the mma.sync bodies, tile_ms, and on
-           ragged maps; the mma.sync bodies of rows 3, 4, 6 and 7, off the
-           path now, at the latent's or dec3's shape); attention @ v
+           ragged maps; row 7's calls that its plan keeps on sab.cu also
+           on the wgmma body, wg_ms; the mma.sync bodies of rows 3, 4, 6
+           and 7, off the path now, at the latent's or dec3's shape);
+           attention @ v
            also at the whole frame's dec3 shape, the 3x3 conv also on maps
            and Cout that its tiles do not divide
   slice    five configurations at full width and depth, seeded random
@@ -152,8 +154,8 @@ LAUNCHES_PER_CALL = {
     "sr": {**_GOPRO, **_NONE},
     "sr_two_stage": {**_GOPRO, **_NONE, **_TWO_STAGE},
 }
-# tiled `gopro`: dec1's probabilities at 15 tiles of 20 x 20 tokens stay on
-# sab.cu (kernels/sab.py _sab_plan), whole frames take the wgmma body
+# tiled `gopro`: dec1's probabilities on 20 x 20 tokens stay on sab.cu
+# (kernels/sab.py _sab_plan), whole frames take the wgmma body
 TILED_LAUNCHES = {"gopro": {"sab_wg": 2}}
 FRAMES_PER_RUN = 6  # whole-frame and tiled streams: the 3-frame rings wrap
 MAX_TILE_BATCH = 15  # the engine's default chunk
@@ -297,23 +299,12 @@ def require(cond: bool, what: str) -> None:
         raise SmokeFailure(what)
 
 
-# cycles of the sleep kernel that holds the device while the host queues one
-# timed call (about a millisecond at the H100's clocks)
-HOLD_CYCLES_PER_CALL = 2_000_000
-
-
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
-    """Device ms a call: CUDA events around iters calls, queued behind a
-    sleep kernel that holds the device until the host has queued them, so
-    the events time the calls back to back and not the host's pace of
-    launching them (a wrapper can take longer on the host than a small
-    kernel on the card)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(HOLD_CYCLES_PER_CALL * iters)
     start.record()
     for _ in range(iters):
         fn()
@@ -356,13 +347,15 @@ def numel_bytes(*tensors) -> int:
 # ---------------------------------------------------------------------------
 
 
+OLD_PLAN = ("tile", None)  # the FFN and split plans' answer: the old body
+
+
 @contextlib.contextmanager
-def old_body(mod, plan: str):
-    """mod.<plan> answers ("tile", None) whatever the shape: the mma.sync
-    body of rows 1, 4 and 7, the yardstick of their wgmma bodies on the same
-    inputs, here only."""
+def forced_body(mod, plan: str, answer):
+    """mod.<plan> answers `answer` whatever the shape: rows 1, 4 and 7 on
+    one body, the yardstick of the other on the same inputs, here only."""
     saved = getattr(mod, plan)
-    setattr(mod, plan, lambda *a, **kw: ("tile", None))
+    setattr(mod, plan, lambda *a, **kw: answer)
     try:
         yield
     finally:
@@ -418,7 +411,7 @@ def ffn_case(inp: Inputs, name, h, w, c, e, mode, *, pair=False, po=False,
     del want
     tile_ms = None
     if on_wg:
-        with old_body(K, "_ffn_plan"):
+        with forced_body(K, "_ffn_plan", OLD_PLAN):
             tile_ms = cuda_ms(lambda: K.fused_block_ffn(x, **kw), iters)
     px = batch * h * w
     flops = 2.0 * px * (c * ch + (9 * ch if dw else 0) + e * c
@@ -532,7 +525,7 @@ def split_case(inp: Inputs, name, h, w, c, n_out, iters=5, batch=1,
     x = inp(batch, h, w, c)
     kw = chain_weights(inp, c, n_out * c)
     wg_before = K.fused_ln_split_proj.launches_wg
-    with old_body(K, "_split_plan") if tile else contextlib.nullcontext():
+    with forced_body(K, "_split_plan", OLD_PLAN) if tile else contextlib.nullcontext():
         got = K.fused_ln_split_proj(x, n_out=n_out, **kw)
         torch.cuda.synchronize()
         ms = cuda_ms(lambda: K.fused_ln_split_proj(x, n_out=n_out, **kw),
@@ -541,7 +534,7 @@ def split_case(inp: Inputs, name, h, w, c, n_out, iters=5, batch=1,
             f"split_proj {name}: body")
     tile_ms = None
     if on_wg:
-        with old_body(K, "_split_plan"):
+        with forced_body(K, "_split_plan", OLD_PLAN):
             tile_ms = cuda_ms(
                 lambda: K.fused_ln_split_proj(x, n_out=n_out, **kw), iters)
     want = K.split_proj_plain(x, n_out=n_out, **kw)
@@ -672,24 +665,26 @@ def sab_compare(got, want):
     return 1.0 - same.float().mean().item(), err
 
 
-def sab_case(inp: Inputs, name, hq, wq, d, nf, iters=3, batch=1,
+def sab_case(inp: Inputs, name, hq, wq, d, nf, iters=10, batch=1,
              tile=False):
     """Row 7 on the body its plan gives the call (tile: on the mma.sync
     body): kernel "sab_wg" for the wgmma body (timed also on the mma.sync
-    body, tile_ms), else "sab"."""
+    body, tile_ms), else "sab" (where the plan chose it, timed also on the
+    wgmma body, wg_ms)."""
     hw = hq * wq
-    on_wg = not tile and S._sab_plan(
-        batch, nf, hw, d, torch.bfloat16, 4, wq,
-        K._sm_count(torch.device("cuda", 0)))[0] == "wg"
+    on_wg = not tile and S._sab_plan(batch, nf, hw, d, torch.bfloat16, 4,
+                                     wq) == "wg"
     kernel = "sab_wg" if on_wg else "sab"
     if skipped(kernel, name):
         return None
-    with old_body(S, "_sab_plan") if tile else contextlib.nullcontext():
+    with (forced_body(S, "_sab_plan", "tile") if tile
+          else contextlib.nullcontext()):
         return _sab_case(inp, name, hq, wq, d, nf, iters, batch, on_wg,
-                         kernel)
+                         kernel, time_wg=not (on_wg or tile))
 
 
-def _sab_case(inp, name, hq, wq, d, nf, iters, batch, on_wg, kernel):
+def _sab_case(inp, name, hq, wq, d, nf, iters, batch, on_wg, kernel,
+              time_wg):
     hw = hq * wq
     fv = torch.ones(nf, device="cuda")
     # (a) exact scores: the same support, bit for bit
@@ -714,14 +709,17 @@ def _sab_case(inp, name, hq, wq, d, nf, iters, batch, on_wg, kernel):
     del want
     b_ms, b_by = bound(numel_bytes(q, k, got),
                        2.0 * batch * nf * hw * hw * d)
-    tile_ms = None
+    timed = lambda: S.sab_attn_probs(q, k, temp, fv, grid_wq=wq)  # noqa: E731
+    tile_ms = wg_ms = None
     if on_wg:
-        with old_body(S, "_sab_plan"):
-            tile_ms = cuda_ms(lambda: S.sab_attn_probs(q, k, temp, fv,
-                                                       grid_wq=wq), iters)
+        with forced_body(S, "_sab_plan", "tile"):
+            tile_ms = cuda_ms(timed, iters)
+    if time_wg:
+        with forced_body(S, "_sab_plan", "wg"):
+            wg_ms = cuda_ms(timed, iters)
     return dict(kernel=kernel, case=name, shape=[batch, nf, hw, d],
                 grid=[hq, wq], body="wg" if on_wg else "tile",
-                tile_ms=tile_ms,
+                tile_ms=tile_ms, wg_ms=wg_ms,
                 max_abs_err=max(err, exact_err), rel_err=err,
                 exact_inputs_same_support=exact_same,
                 exact_inputs_max_abs_err=exact_err, tol_exact=SAB_EXACT_TOL,
@@ -729,8 +727,7 @@ def _sab_case(inp, name, hq, wq, d, nf, iters, batch, on_wg, kernel):
                 max_flip_share=SAB_MAX_FLIP_SHARE, tol=SAB_TOL,
                 ok=(exact_same and exact_err <= SAB_EXACT_TOL and rows_ok
                     and share <= SAB_MAX_FLIP_SHARE and err <= SAB_TOL),
-                ms=cuda_ms(lambda: S.sab_attn_probs(q, k, temp, fv,
-                                                    grid_wq=wq), iters),
+                ms=cuda_ms(timed, iters),
                 plain_ms=cuda_ms(lambda: S.sab_attn_probs_plain(
                     q, k, temp, fv, grid_wq=wq), 1, 0),
                 library_ms=None, bound_ms=b_ms, bound_by=b_by)
@@ -1156,7 +1153,8 @@ def kernel_cases(seed: int, h: int, w: int) -> list[dict]:
                          128, 2, 4, batch=2),
     ]
     # the wgmma bodies of rows 4 and 7 on maps and token grids their tiles do
-    # not divide (a ragged 13 x 17 grid: rows off the 16-byte grid); the
+    # not divide (a ragged 13 x 17 grid: rows off the 16-byte grid; at 3
+    # maps, 24 blocks of 128 rows, fewer than any path gives); the
     # mma.sync bodies, off the paths now (float32, biases, no LayerNorm,
     # other widths), at the latent's and dec3's shapes
     cases += [
@@ -1169,6 +1167,8 @@ def kernel_cases(seed: int, h: int, w: int) -> list[dict]:
                            4 * wr + 5, 128, 2, batch=2),
         lambda: sab_case(inp, "ragged 13x17 grid D=256, 15 maps", 13, 17, 256,
                          4, batch=15),
+        lambda: sab_case(inp, "ragged 13x17 grid D=512, 3 maps", 13, 17, 512,
+                         4, batch=3),
     ]
     # row 7 at the shapes of the SR tiles (the model's maps 256 x 256: 16 x
     # 16 window tokens at every CHM level), 15 tiles a call

@@ -240,9 +240,9 @@ def test_split_wg_smem_mirror_matches_the_source(dev):
 
 # the probabilities' wgmma body: (B, NF, hq, wq, D, k_top): chunks of 20 x
 # 20 token grids, the whole frame's 46 x 80, a ragged grid (HW = 221, rows
-# off the 16-byte grid), fewer keys than k_top, and every k_top; the calls
-# whose plan gives sab.cu (too few blocks, dec1 at 15 tiles) are sent to the
-# wgmma body here
+# off the 16-byte grid), fewer keys than k_top, and every k_top; the call
+# whose plan gives sab.cu (D = 128 on the 20 x 20 grid) is sent to the wgmma
+# body here like the others
 SAB_WG_CASES = [(2, 4, 20, 20, 512, 5), (15, 3, 20, 20, 128, 5),
                 (1, 4, 46, 80, 256, 4), (1, 3, 46, 80, 128, 3),
                 (3, 3, 13, 17, 128, 2), (1, 4, 2, 2, 64, 5),
@@ -262,7 +262,7 @@ def test_sab_wg_body_matches_plain(dev, case, monkeypatch):
 
     b, nf, hq, wq, d, k_top = case
     hw = hq * wq
-    monkeypatch.setattr(S, "_sab_plan", lambda *a, **kw: ("wg", None))
+    monkeypatch.setattr(S, "_sab_plan", lambda *a, **kw: "wg")
     for exact in (True, False):
         q, k, temp, fv = sab_kernel_case(Maker(19, torch.bfloat16, dev), b,
                                          nf, hq, wq, d, exact=exact)

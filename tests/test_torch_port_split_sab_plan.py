@@ -3,14 +3,14 @@ attention's probabilities (row 7) each call of the shipped families gets:
 the wgmma bodies of kernels/csrc/split_wg.cu (bf16, LayerNorm, no biases,
 E = C = 128, 256, 512: every call of the shipped families but dec1's SAB
 q, k at C = 64) and kernels/csrc/sab_wg.cu (bf16, D a multiple of 64 up to
-512, a local radius of at most 4: every call); the mma.sync bodies
-(split_proj.cu, sab.cu) for C = 64, float32, biases, no LayerNorm, other
-widths. Runs on the CPU: each family at full width
-through one frame of a small map (the plans depend on widths and forms, not
-on H and W), every call recorded and handed to the plan as the card would
-see it (bf16). Also the host's mirror of row 7's geometry (the local
-window's slots, the key's grid row in fp32, the order of the softmax's sum)
-against local_window_mask and row 12's order."""
+512, a local radius of at most 4: every call but dec1's on the 20 x 20
+token grid of a 320 tile); the mma.sync bodies (split_proj.cu, sab.cu) for
+those, float32, biases, no LayerNorm, other widths. Runs on the CPU: each
+family at full width through one frame of a small map (the plans depend on
+widths and forms, not on H and W), every call recorded and handed to the
+plan as the card would see it (bf16). Also row 7's arithmetic that the
+host can replay: the key's grid row in fp32 and the order of the softmax's
+sum against row 12's."""
 
 import numpy as np
 import pytest
@@ -21,7 +21,6 @@ from turtlevsr_tpu_torch.kernels import ffn as K
 from turtlevsr_tpu_torch.kernels import sab as S
 from turtlevsr_tpu_torch.models import blocks as blocks_mod
 from turtlevsr_tpu_torch.models import build_model
-from turtlevsr_tpu_torch.ops.attn_utils import local_window_mask
 
 from test_torch_port_ffn_plan import FAMILIES
 
@@ -95,21 +94,18 @@ PATH_GRIDS = [(1, 46, 80), (15, 20, 20), (15, 16, 16)]
 def test_plan_gives_every_row_7_call_its_body(family, monkeypatch):
     """The recorded calls' widths and frames at the paths' token grids (the
     plan depends on the grid too): the wgmma body everywhere but dec1's call
-    at 15 tiles of 320 (D = 128, 180 blocks of 128 rows over 4 key tiles),
-    where sab.cu was faster."""
+    at 15 tiles of 320 (D = 128 on a 20 x 20 grid), where sab.cu was
+    faster."""
     _, sab = _record(family, monkeypatch)
     assert [qs[-1] for qs, _, _ in sab] == SAB_CALLS[family]
     for _, (_, nf, _, d), kw in sab:
         for b, hq, wq in PATH_GRIDS:
-            hw = hq * wq
-            body, geo = S._sab_plan(b, nf, hw, d, torch.bfloat16,
-                                    kw.get("n_local", 4), wq)
+            body = S._sab_plan(b, nf, hq * wq, d, torch.bfloat16,
+                               kw.get("n_local", 4), wq)
             if d == 128 and (b, hq, wq) == (15, 20, 20):
-                assert (body, geo) == ("tile", None)
+                assert body == "tile"
                 continue
             assert body == "wg", (d, hq, wq)
-            assert geo["smem"] <= SMEM_LIMIT and geo["stages"] >= 2
-            assert geo["blocks"] == b * nf * (-(-hw // geo["rows"]))
 
 
 @pytest.mark.parametrize("c", K._SPLIT_WG_WIDTHS)
@@ -144,17 +140,31 @@ def test_split_plan_keeps_the_other_calls_on_the_tile_body(change):
 
 @pytest.mark.parametrize("change", ["float32", "d16", "d144", "d1024",
                                     "radius5", "keys_2e20_plus",
-                                    "few_blocks", "d128_two_waves"])
+                                    "d128_20x20_grid"])
 def test_sab_plan_keeps_the_other_calls_on_the_tile_body(change):
     args = dict(b=15, nf=4, hw=400, d=512, dtype=torch.bfloat16)
-    assert S._sab_plan(**args)[0] == "wg"
+    assert S._sab_plan(**args) == "wg"
     args.update({"float32": dict(dtype=torch.float32),
                  "d16": dict(d=16), "d144": dict(d=144),
                  "d1024": dict(d=1024), "radius5": dict(n_local=5),
                  "keys_2e20_plus": dict(b=1, hw=2 ** 20 + 8),
-                 "few_blocks": dict(b=3, hw=221),
-                 "d128_two_waves": dict(nf=3, d=128)}[change])
-    assert S._sab_plan(**args) == ("tile", None)
+                 "d128_20x20_grid": dict(nf=3, d=128)}[change])
+    assert S._sab_plan(**args) == "tile"
+
+
+# (B, NF, hq, wq, D) the plan sends to the wgmma body whatever the count of
+# its blocks: a small ragged grid (HW = 221, 24 blocks of 128 rows), the SR
+# tiles' 16 x 16 grid at D = 128, dec1's whole frame, a 2 x 2 grid, and
+# D = 256 on the 20 x 20 grid of fewer tiles
+WG_SHAPES = [(3, 4, 13, 17, 512), (15, 3, 16, 16, 128), (1, 3, 46, 80, 128),
+             (1, 1, 2, 2, 64), (5, 4, 20, 20, 256)]
+
+
+@pytest.mark.parametrize("shape", WG_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_sab_plan_sends_other_grids_to_the_wg_body(shape):
+    b, nf, hq, wq, d = shape
+    assert S._sab_plan(b, nf, hq * wq, d, torch.bfloat16, 4, wq) == "wg"
 
 
 # the token grids of a 320 tile at every CHM level, of a padded 720p frame,
@@ -164,33 +174,11 @@ GRIDS = [(20, 20), (46, 80), (13, 17)]
 
 
 @pytest.mark.parametrize("grid", GRIDS, ids=lambda g: f"{g[0]}x{g[1]}")
-def test_sab_wg_geometry_covers_the_grid(grid):
+def test_sab_wg_key_row_in_fp32_is_exact(grid):
+    """The key's grid row that sab_wg.cu's sb_key_row computes in fp32,
+    (j + 0.5) * (1 / wq) rounded down, is the integer one."""
     hq, wq = grid
     hw = hq * wq
-    _, geo = S._sab_plan(15, 3, hw, 512, torch.bfloat16, 4, wq)
-    row_blocks = geo["blocks"] // (15 * 3)
-    assert (row_blocks - 1) * geo["rows"] < hw <= row_blocks * geo["rows"]
-    assert ((geo["key_tiles"] - 1) * geo["keys"] < hw
-            <= geo["key_tiles"] * geo["keys"])
-
-
-@pytest.mark.parametrize("grid", GRIDS, ids=lambda g: f"{g[0]}x{g[1]}")
-def test_sab_wg_window_slots_are_the_local_mask(grid):
-    """The keys the body visits for a query's window are the nonzero columns
-    of local_window_mask's row, each once, in ascending order (the order of
-    row 12's sums), each in a slot of its own; the key's grid row that the
-    body computes in fp32 is the integer one."""
-    hq, wq = grid
-    hw = hq * wq
-    mask = local_window_mask(hq, wq, 4).numpy()
-    for qi in range(hw):
-        visited = S._sb_window(qi, hq, wq, 4)
-        js = [j for j, _ in visited]
-        slots = [s for _, s in visited]
-        assert js == sorted(set(js))
-        assert js == list(np.flatnonzero(mask[qi]))
-        assert len(set(slots)) == len(slots)
-        assert all(0 <= s < S._SB_SLOTS for s in slots)
     j = np.arange(hw)
     rwq = np.float32(1.0) / np.float32(wq)
     ky = ((j.astype(np.float32) + np.float32(0.5)) * rwq).astype(np.int64)

@@ -23,7 +23,6 @@ from turtlevsr_tpu_torch.kernels.ffn import (
     _call,
     _check,
     _need_cuda,
-    _sm_count,
 )
 from turtlevsr_tpu_torch.kernels.lattice import lattice_merge_plain
 from turtlevsr_tpu_torch.ops.attn_utils import (
@@ -75,23 +74,15 @@ def _pick_rows(hw: int, d: int, is_bf16: bool, lib) -> int:
         f"{_SMEM_LIMIT}")
 
 
-# the wgmma body (csrc/sab_wg.cu): query rows of a block, keys of a key
-# tile, the largest local radius it takes, its ring stages (a TMA box of 128
-# rows x 64 d each, up to _SB_MAX_STAGES) and the parts of its shared memory
+# the wgmma body (csrc/sab_wg.cu): query rows of a block, the largest
+# local radius it takes, its ring stages (a TMA box of 128 rows (keys) x 64
+# d each, up to _SB_MAX_STAGES) and the parts of its shared memory
 # beside them (the q tile, the window slots, the candidate buffers),
 # mirrored from the source (a card test holds the two equal)
-_SB_ROWS, _SB_KEYS, _SB_NL, _SB_MAX_STAGES = 128, 128, 4, 8
+_SB_ROWS, _SB_NL, _SB_MAX_STAGES = 128, 4, 8
 _SB_BOX, _SB_ALIGN, _SB_CAND = 128 * 128, 1024, 8
 _SB_SLOTS = (2 * _SB_NL + 1) ** 2
 _SB_MAX_KEYS = 1 << 20  # sb_key_row's fp32 grid row is exact below 2^22
-# Where the wgmma body was the faster one on an H100 (PERF.md, row 7): a
-# block of it has a fixed cost besides its key tiles (the q tile, the
-# finishing of 128 rows), so sab.cu's many small blocks win when the body's
-# blocks fill fewer than half the SMs (a 13 x 17 grid, 3 maps of 4 frames:
-# 0.051 against 0.031 ms at D = 512), and at D <= 128 when they take more
-# than one wave and a row fewer than _SB_MIN_KEY_TILES key tiles (dec1 at 15
-# tiles of 20 x 20 tokens: 0.113 against 0.103 ms)
-_SB_MIN_KEY_TILES = 8
 
 
 def _sb_smem(d: int) -> tuple[int, int]:
@@ -107,44 +98,24 @@ def _sb_smem(d: int) -> tuple[int, int]:
     return _SB_ALIGN + stages * _SB_BOX + rest + 8 * (2 * stages + 1), stages
 
 
-def _sab_plan(b, nf, hw, d, dtype, n_local: int = 4, grid_wq: int = 1,
-              n_sm: int = 132):
-    """The body of one sab_attn_probs call, chosen by its shape: ("wg",
-    geometry) for the wgmma body of csrc/sab_wg.cu (bf16, D a multiple of
-    64 up to 512, a local radius of at most 4, where it was the faster one:
-    see _SB_MIN_KEY_TILES), else ("tile", None) for sab.cu's
-    sab_probs_kernel. The geometry: query rows of a block, the blocks (one
-    an SM at a time, n_sm SMs), keys of a key tile and their count, the ring
-    stages and the shared memory."""
-    blocks = -(-hw // _SB_ROWS) * nf * b
-    key_tiles = -(-hw // _SB_KEYS)
+def _sab_plan(b, nf, hw, d, dtype, n_local: int = 4,
+              grid_wq: int = 1) -> str:
+    """The body of one sab_attn_probs call, chosen by its shape: "wg" for
+    the wgmma body of csrc/sab_wg.cu (bf16, D a multiple of 64 up to 512, a
+    local radius of at most 4), "tile" for sab.cu's sab_probs_kernel.
+
+    One shape the wgmma body takes stays on sab.cu: D = 128 on the 20 x 20
+    token grid of a 320 tile (dec1 of the tiled deblur path), where sab.cu
+    measured faster on an H100 (PERF.md, row 7: the grid fills 3.1 of the
+    body's 4 blocks of 128 rows and 4 key tiles, and at D = 128 the
+    products no longer hide that). It is kept so that the wgmma body is the
+    faster one at every shape of the paths that it takes."""
     if (dtype != torch.bfloat16 or d % 64 or not 64 <= d <= 512
             or not 0 <= n_local <= _SB_NL or hw > _SB_MAX_KEYS
             or b * nf * hw >= 2 ** 31 or grid_wq < 1 or hw % grid_wq
-            or 2 * blocks < n_sm
-            or (d <= 128 and blocks > n_sm
-                and key_tiles < _SB_MIN_KEY_TILES)):
-        return "tile", None
-    smem, stages = _sb_smem(d)
-    return "wg", dict(rows=_SB_ROWS, blocks=blocks, keys=_SB_KEYS,
-                      key_tiles=key_tiles, stages=stages, smem=smem)
-
-
-def _sb_window(qi: int, hq: int, wq: int, n_local: int):
-    """The local window of query qi as the wgmma body visits it: (j, slot)
-    of every key within L1 distance n_local on the (hq, wq) grid, row by
-    row (dy, then dx), slot = (dy + 4) * 9 + dx + 4 in its row's table."""
-    qy, qx = divmod(qi, wq)
-    out = []
-    for dy in range(-n_local, n_local + 1):
-        ky = qy + dy
-        if not 0 <= ky < hq:
-            continue
-        r = n_local - abs(dy)
-        for kx in range(max(qx - r, 0), min(qx + r, wq - 1) + 1):
-            out.append((ky * wq + kx, (dy + _SB_NL) * (2 * _SB_NL + 1)
-                        + kx - qx + _SB_NL))
-    return out
+            or (d == 128 and hw == 400)):
+        return "tile"
+    return "wg"
 
 
 def _launch(q, k, temp, fvalid, grid_wq, k_top, n_local):
@@ -158,8 +129,7 @@ def _launch(q, k, temp, fvalid, grid_wq, k_top, n_local):
                          f"{d}")
     if not 1 <= k_top <= K_TOP_MAX:
         raise ValueError(f"sab_attn_probs: k_top must be 1..{K_TOP_MAX}")
-    body, _ = _sab_plan(b, nf, hw, d, q.dtype, n_local, grid_wq,
-                        _sm_count(q.device))
+    body = _sab_plan(b, nf, hw, d, q.dtype, n_local, grid_wq)
     lib = build.load("sab_wg" if body == "wg" else "sab")
     # the wgmma body's shared memory fits by construction (_sb_smem)
     rows = 0 if body == "wg" else _pick_rows(hw, d,
@@ -203,7 +173,7 @@ def sab_attn_probs(q, k, temp, fvalid=None, *, grid_wq: int, k_top: int = 5,
     bound by operations at D >= 256, by bytes at D = 128. Two kernels,
     chosen by shape before the launch (:func:`_sab_plan`): the wgmma body of
     csrc/sab_wg.cu for bf16 calls with D a multiple of 64 up to 512, a local
-    radius of at most 4 and enough work to fill it
+    radius of at most 4, but D = 128 on a 20 x 20 token grid
     (``sab_attn_probs.launches_wg`` counts them), csrc/sab.cu's
     sab_probs_kernel for every other call; one launch either way."""
     if q.dim() != 3 or k.dim() != 4:
