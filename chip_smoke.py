@@ -25,9 +25,9 @@ Phases, one JSON object per line on standard output:
            two-stage kernel also against the split launches it replaces, the
            sparse softmax also against the probabilities kernel; rows 1, 3,
            4, 6 and 7 on the body their plans give each call (the wgmma
-           bodies of ffn_wg.cu, qkv_wg.cu, split_wg.cu, chm_wg.cu and
-           sab_wg.cu also timed on the mma.sync bodies, tile_ms, and on
-           ragged maps; row 7's calls that its plan keeps on sab.cu also
+           bodies of ffn_wg.cu (one map, the CHM lists, the chained FFW),
+           qkv_wg.cu, split_wg.cu, chm_wg.cu and sab_wg.cu also timed on
+           the mma.sync bodies, tile_ms, and on ragged maps; row 7's calls that its plan keeps on sab.cu also
            on the wgmma body, wg_ms; the mma.sync bodies of rows 3, 4, 6
            and 7, off the path now, at the latent's or dec3's shape);
            attention @ v
@@ -129,23 +129,27 @@ TASKS = {"gopro": "deblur", "derain": "derain", "sr": "sr"}
 # attention @ v with the merge is one launch per CHM block. Under the
 # two_stage plan enc1's pair, enc2's three pairs and the refinement's two
 # blocks are 6 two-stage launches where the split route makes 12 FFN ones.
+# The FFN launches at C = 64 (enc1's two ReducedAttn+FFW blocks, dec1's two
+# blocks, the refinement's four passes: 8 a model call) are ffn.cu's, every
+# other one with a depthwise stage the wgmma body's (kernels/ffn.py
+# _ffn_plan; tests/test_torch_port_ffn_plan.py holds these counts to it).
 _NONE = {"attn_v_slots": 0, "attn_v_merge": 0, "level_run": 0, "ffn_no_dw": 0,
          "two_stage": 0, "sab_sparse_softmax": 0}
-_GOPRO = {"ffn": 51, "ffn_wg": 35, "qkv_stats": 34, "qkv_wg": 34,
+_GOPRO = {"ffn": 51, "ffn_wg": 43, "qkv_stats": 34, "qkv_wg": 34,
           "split_proj": 5, "split_wg": 4, "conv3x3": 11, "chm_stats": 3,
           "chm_wg": 3, "sab": 3, "sab_wg": 3, "lattice_merge": 3,
           "lattice_split": 3}
 _DERAIN = {**_GOPRO, "split_proj": 2, "split_wg": 2, "sab": 0, "sab_wg": 0}
-_TWO_STAGE = {"ffn": 39, "two_stage": 6}
+_TWO_STAGE = {"ffn": 39, "ffn_wg": 37, "two_stage": 6}
 LAUNCHES_PER_CALL = {
     "gopro": {**_GOPRO, **_NONE},
-    "gopro_t1_fhr": {"ffn": 51, "ffn_wg": 37, "qkv_stats": 37, "qkv_wg": 37,
+    "gopro_t1_fhr": {"ffn": 51, "ffn_wg": 43, "qkv_stats": 37, "qkv_wg": 37,
                      "split_proj": 2, "split_wg": 2,
                      "conv3x3": 8, "chm_stats": 0, "chm_wg": 0, "sab": 0,
                      "sab_wg": 0,
                      "lattice_merge": 0, "lattice_split": 0, **_NONE},
-    "gopro_enc3_ffw": {**_GOPRO, **_NONE, "ffn_no_dw": 10, "ffn_wg": 25},
-    "gopro_fused": {**_GOPRO, **_NONE, "ffn": 18, "ffn_wg": 2, "qkv_stats": 1,
+    "gopro_enc3_ffw": {**_GOPRO, **_NONE, "ffn_no_dw": 10, "ffn_wg": 33},
+    "gopro_fused": {**_GOPRO, **_NONE, "ffn": 18, "ffn_wg": 10, "qkv_stats": 1,
                     "qkv_wg": 1,
                     "lattice_merge": 0, "attn_v_merge": 3, "level_run": 4},
     "gopro_two_stage": {**_GOPRO, **_NONE, **_TWO_STAGE},
@@ -223,8 +227,9 @@ SPARSE_TOL = 2.0 ** -7
 
 KERNEL_INFO = {
     # row 1 has two bodies chosen by shape (kernels/ffn.py _ffn_plan): the
-    # wgmma body takes the single-map depthwise calls at C >= 128, ffn.cu
-    # the rest; "ffn" launches are those of ffn.cu's dw branch
+    # wgmma body takes the depthwise calls at C >= 128 (single maps, the CHM
+    # lists, the chained FFW), ffn.cu the rest; "ffn" launches are those of
+    # ffn.cu's dw branch
     "ffn": ("turtlevsr_tpu_torch/kernels/csrc/ffn.cu",
             "turtlevsr_tpu/kernels/ffn.py:2024"),
     "ffn_wg": ("turtlevsr_tpu_torch/kernels/csrc/ffn_wg.cu",
@@ -1122,7 +1127,8 @@ def kernel_cases(seed: int, h: int, w: int) -> list[dict]:
                           2 * wr + 1, 256, 256, False, ln=True),
     ]
     # the wgmma body of row 1 on maps its 8 x 8 tiles do not divide, at each
-    # width it takes (a shared po, a batch of two, the gelu form)
+    # width it takes (a shared po, a batch of two, the gelu form, the CHM
+    # lists at dec3's and dec2's widths, the chained FFW at enc2's)
     cases += [
         lambda: ffn_case(inp, "ragged gate+pair+po(B,C,C)+po_b C=512", hr, wr,
                          512, 1280, "gate", pair=True, po=True, biases=True),
@@ -1135,6 +1141,15 @@ def kernel_cases(seed: int, h: int, w: int) -> list[dict]:
         lambda: ffn_case(inp, "ragged gelu+scale C=128", 4 * hr + 3,
                          4 * wr + 5, 128, 256, "gelu", biases=True,
                          scale=True),
+        lambda: ffn_case(inp, "ragged gate + 4 stacked + 1 maps, po(B,C,C) "
+                         "each C=256", 2 * hr + 1, 2 * wr + 1, 256, 640,
+                         "gate", stacked=4),
+        lambda: ffn_case(inp, "ragged gate + 4 stacked + 1 maps, po(B,C,C) "
+                         "each C=128", 4 * hr + 3, 4 * wr + 5, 128, 320,
+                         "gate", stacked=4),
+        lambda: ffn_case(inp, "ragged gelu+scale+ffw2 C=128", 4 * hr + 3,
+                         4 * wr + 5, 128, 256, "gelu", biases=True,
+                         scale=True, ffw2=True),
     ]
     # the wgmma bodies of rows 3 and 6 on maps their 8 x 8 tiles do not
     # divide, batches of two whose entries the persistent grid splits

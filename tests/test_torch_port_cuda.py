@@ -20,6 +20,7 @@ from torch_port_util import (
     FFN_KERNEL_CASES,
     FFN_LIST_CASES,
     FFN_WG_CASES,
+    FFN_WG_LIST_CASES,
     KERNEL_TOL,
     LATTICE_KERNEL_SHAPES,
     LEVEL_KERNEL_SHAPES,
@@ -92,13 +93,18 @@ def test_ffn_kernel_matches_plain(dev, case, dtype):
     assert max_err(got, K.ffn_plain(x, **kw)) <= KERNEL_TOL[dtype]
 
 
-@pytest.mark.parametrize("case", list(FFN_WG_CASES))
+@pytest.mark.parametrize("case", list(FFN_WG_CASES) + list(FFN_WG_LIST_CASES))
 def test_ffn_wg_body_matches_plain(dev, case):
-    """The wgmma body (csrc/ffn_wg.cu) on the calls its plan gives it, and
-    the mma.sync body just outside them: one launch either way, within the
-    tolerance of the plain version, bitwise repeatable."""
-    x, kw = ffn_kernel_case(case, Maker(15, torch.bfloat16, dev),
-                            FFN_WG_CASES)
+    """The wgmma body (csrc/ffn_wg.cu) on the calls its plan gives it (one
+    map, lists of maps, the chained FFW), and the mma.sync body just outside
+    them: one launch either way, within the tolerance of the plain version,
+    bitwise repeatable."""
+    if case in FFN_WG_LIST_CASES:
+        x, kw = ffn_list_case(case, Maker(15, torch.bfloat16, dev),
+                              FFN_WG_LIST_CASES)
+    else:
+        x, kw = ffn_kernel_case(case, Maker(15, torch.bfloat16, dev),
+                                FFN_WG_CASES)
     on_wg = not case.startswith("tile_")
     before, wg_before = K.fused_block_ffn.launches, K.fused_block_ffn.launches_wg
     got = K.fused_block_ffn(x, **kw)
@@ -115,6 +121,8 @@ def test_ffn_wg_smem_mirror_matches_the_source(dev):
     from turtlevsr_tpu_torch.kernels import build
 
     lib = build.load("ffn_wg")
+    # every form of a width takes the same shared memory: the lists and the
+    # chained FFW live in the regions of the single-map form
     for c in (128, 256, 512):
         for gate in (0, 1):
             assert lib.turtle_ffn_wg_smem(c, gate) == K._wg_smem(c, gate)[0]
@@ -332,14 +340,18 @@ def test_conv3x3_kernel_matches_plain(dev, shape, dtype):
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
 @pytest.mark.parametrize("case", list(FFN_LIST_CASES))
-def test_ffn_kernel_with_lists_matches_plain(dev, case, dtype):
+def test_ffn_kernel_with_lists_matches_plain(dev, case, dtype, monkeypatch):
+    """ffn.cu's list form, the calls the plan sends to the wgmma body
+    (bf16 at C = 128, 256) forced onto it."""
     if FFN_LIST_CASES[case][3] > 128 and dtype == torch.float32:
         pytest.skip("the float32 kernels are built for C <= 128")
     x, kw = ffn_list_case(case, Maker(5, dtype, dev))
-    before = K.fused_block_ffn.launches
+    monkeypatch.setattr(K, "_ffn_plan", lambda *a: ("tile", None))
+    before, wg_before = K.fused_block_ffn.launches, K.fused_block_ffn.launches_wg
     got = K.fused_block_ffn(x, **kw)
     torch.cuda.synchronize()
     assert K.fused_block_ffn.launches == before + 1
+    assert K.fused_block_ffn.launches_wg == wg_before
     assert max_err(got, K.ffn_plain(x, **kw)) <= KERNEL_TOL[dtype]
 
 

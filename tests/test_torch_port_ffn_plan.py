@@ -1,11 +1,17 @@
 """Which body of the conv-FFN kernel (row 1) each FFN call of the shipped
 families gets: the wgmma body of kernels/csrc/ffn_wg.cu for every
-single-map depthwise call at C = 128, 256 and 512, the mma.sync body of
-kernels/csrc/ffn.cu for the lists of the causal history model, the chained
-FFW and C = 64. Runs on the CPU: each family at full width through one frame
-of a small map (the plan depends on widths and forms, not on H and W), every
-fused_block_ffn call recorded and handed to the plan as the card would see
-it (bf16)."""
+depthwise call at C = 128, 256 and 512 (single maps, the lists of the
+causal history model at C = 128 and 256, the chained FFW at C = 128), the
+mma.sync body of kernels/csrc/ffn.cu for C = 64 and the FFW pass without a
+depthwise stage. Runs on the CPU: each family at full width through one
+frame of a small map (the plan depends on widths and forms, not on H and
+W), every fused_block_ffn call recorded and handed to the plan as the card
+would see it (bf16); the same for each path of chip_smoke.py, whose table
+of launches a model call must be what the plan gives."""
+
+import functools
+import importlib.util
+import os
 
 import pytest
 import torch
@@ -28,13 +34,24 @@ FAMILIES = {
     "sr": ("options/Turtle_SR_MVSR.yml", {}, 16),
 }
 WG_WIDTHS = (128, 256, 512)
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def _record_calls(family, monkeypatch):
-    path, overrides, side = FAMILIES[family]
+@functools.lru_cache(maxsize=None)
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _record(path, overrides, side, fuse=()):
+    """Every fused_block_ffn call of one frame of the model the option file
+    (with overrides) describes, under the fused plan ``fuse``."""
     opt = load_options(path, is_train=False)
     opt.update(overrides)
-    model = build_model(opt, device="cpu")
+    model = build_model(opt, device="cpu", fuse=fuse)
     calls = []
     plain = blocks_mod.fused_block_ffn
 
@@ -42,13 +59,21 @@ def _record_calls(family, monkeypatch):
         calls.append((tuple(x.shape), kw))
         return plain(x, **kw)
 
-    monkeypatch.setattr(blocks_mod, "fused_block_ffn", recorder)
-    cache = model.init_cache(1, side, side)
-    frames = torch.rand(1, 2, side, side, 3,
-                        generator=torch.Generator().manual_seed(0))
-    with torch.no_grad():
-        model(frames, cache)
+    blocks_mod.fused_block_ffn = recorder
+    try:
+        cache = model.init_cache(1, side, side)
+        frames = torch.rand(1, 2, side, side, 3,
+                            generator=torch.Generator().manual_seed(0))
+        with torch.no_grad():
+            model(frames, cache)
+    finally:
+        blocks_mod.fused_block_ffn = plain
     return calls
+
+
+def _record_calls(family, monkeypatch):
+    del monkeypatch  # _record puts the wrapper back itself
+    return _record(*FAMILIES[family])
 
 
 def _plan(shape, kw):
@@ -60,33 +85,74 @@ def _plan(shape, kw):
     po = kw.get("po_w")
     batched = (po is not None and not isinstance(po, (list, tuple))
                and po.dim() == 3)
+    f = kw["ffw2"]["w1"].shape[1] if kw.get("ffw2") is not None else 0
     return K._ffn_plan(b, h, w, c, ch, e, mode, n_x2, po is not None, batched,
-                       kw.get("ffw2") is not None, kw.get("wd") is not None,
-                       torch.bfloat16)
+                       f, kw.get("wd") is not None, torch.bfloat16)
 
 
 @pytest.mark.parametrize("family", list(FAMILIES))
 def test_plan_gives_every_single_map_call_its_body(family, monkeypatch):
+    """Every recorded row 1 call, single maps, lists and the chained FFW
+    alike: the wgmma body for every depthwise call at C >= 128, the
+    mma.sync body for C = 64 and the FFW pass without a depthwise stage."""
     calls = _record_calls(family, monkeypatch)
     assert calls
-    n_wg = 0
+    n_wg, forms = 0, set()
     for shape, kw in calls:
         body, geo = _plan(shape, kw)
         c = shape[-1]
         lists = len(K._x2_maps(kw.get("x2"))) > 1
         chained = kw.get("ffw2") is not None
-        if lists or chained or kw.get("wd") is None or c not in WG_WIDTHS:
+        if kw.get("wd") is None or c not in WG_WIDTHS:
             assert body == "tile", (shape, kw["mode"])
             assert geo is None
         else:
-            assert body == "wg", (shape, kw["mode"])
+            assert body == "wg", (shape, kw["mode"], lists, chained)
             assert geo["smem"] <= 232448
             assert geo["stages"] >= 2
             assert geo["blocks"] == shape[0] * (-(-shape[1] // 8)) * (
                 -(-shape[2] // 8))
             n_wg += 1
-    # every family runs Channel blocks at C = 128, 256 and 512
+            forms.add(("lists" if lists else "ffw2" if chained else "one", c))
+    # every family runs Channel blocks at C = 128, 256 and 512, and enc2's
+    # ReducedAttn+FFW blocks; the CHM blocks of all but gopro_t1_fhr end
+    # dec3 and dec2 with lists
+    want = {("one", 128), ("one", 256), ("one", 512), ("ffw2", 128)}
+    if family != "gopro_t1_fhr":
+        want |= {("lists", 256), ("lists", 128)}
+    assert forms == want
     assert n_wg > 0
+
+
+# the paths chip_smoke.py drives, as (configuration, fused plan); tiled
+# streams make the same calls on tiles, whose sizes the plan does not read
+def _paths():
+    cs = _chip_smoke()
+    return {"gopro": ("gopro", ()), "gopro_t1_fhr": ("gopro_t1_fhr", ()),
+            "gopro_enc3_ffw": ("gopro_enc3_ffw", ()),
+            "gopro_fused": ("gopro", cs.FUSED_PLAN),
+            "gopro_two_stage": ("gopro", cs.TWO_STAGE),
+            "derain": ("derain", ()), "derain_two_stage": ("derain",
+                                                           cs.TWO_STAGE),
+            "sr": ("sr", ()), "sr_two_stage": ("sr", cs.TWO_STAGE)}
+
+
+@pytest.mark.parametrize("tag", ["gopro", "gopro_t1_fhr", "gopro_enc3_ffw",
+                                 "gopro_fused", "gopro_two_stage", "derain",
+                                 "derain_two_stage", "sr", "sr_two_stage"])
+def test_chip_smoke_launch_table_is_the_plans(tag):
+    """chip_smoke.py holds each path's FFN launches a model call to
+    LAUNCHES_PER_CALL: the calls of that path, the plan's answer for each."""
+    cs = _chip_smoke()
+    assert set(_paths()) == set(cs.LAUNCHES_PER_CALL)
+    config, fuse = _paths()[tag]
+    path, overrides = cs.CONFIGS[config]
+    calls = _record(path, overrides, 16 if config == "sr" else 64, fuse)
+    wg = sum(_plan(shape, kw)[0] == "wg" for shape, kw in calls)
+    no_dw = sum(kw.get("wd") is None for _, kw in calls)
+    want = cs.LAUNCHES_PER_CALL[tag]
+    assert (len(calls), wg, no_dw) == (want["ffn"], want["ffn_wg"],
+                                       want["ffn_no_dw"])
 
 
 @pytest.mark.parametrize("c", WG_WIDTHS)
@@ -101,14 +167,101 @@ def test_wg_shared_memory_fits_a_block(c, mode):
                                     "c64", "c96", "e48"])
 def test_plan_keeps_the_other_calls_on_the_tile_body(change):
     args = dict(b=2, h=37, w=53, c=256, ch=1280, e=640, mode="gate", n_x2=1,
-                has_po=True, po_batched=True, has_ffw2=False, has_dw=True,
+                has_po=True, po_batched=True, f=0, has_dw=True,
                 dtype=torch.bfloat16)
     assert K._ffn_plan(**args)[0] == "wg"
+    c64 = dict(c=64, ch=320, e=160)
     args.update({"float32": dict(dtype=torch.float32),
                  "no_dw": dict(has_dw=False),
-                 "ffw2": dict(has_ffw2=True),
-                 "two_maps": dict(n_x2=2),
-                 "c64": dict(c=64, ch=320, e=160),
+                 # enc1's ReducedAttn+FFW blocks and dec1's CHM list
+                 "ffw2": dict(c=64, ch=128, e=128, mode="gelu", n_x2=0,
+                              has_po=False, f=128),
+                 "two_maps": dict(c64, n_x2=4),
+                 "c64": c64,
                  "c96": dict(c=96, ch=480, e=240),
                  "e48": dict(ch=96, e=48)}[change])
     assert K._ffn_plan(**args) == ("tile", None)
+
+
+# the new forms of the wgmma body: (C, E, mode, x2 maps, F); the lists of the
+# CHM blocks at dec3 and dec2 (a stacked entry of 4 maps and one more), five
+# single maps, two maps, the chained FFW of enc2
+NEW_FORMS = {"dec3_lists": (256, 640, "gate", 5, 0),
+             "dec2_lists": (128, 320, "gate", 5, 0),
+             "two_maps_c256": (256, 640, "gate", 2, 0),
+             "five_maps_c128": (128, 320, "gate", 5, 0),
+             "enc2_ffw2": (128, 256, "gelu", 0, 256)}
+
+
+@pytest.mark.parametrize("form", list(NEW_FORMS))
+@pytest.mark.parametrize("batched", [True, False], ids=["po_b", "po_shared"])
+def test_plan_sends_lists_and_the_chained_ffw_to_the_wg_body(form, batched):
+    c, e, mode, n_x2, f = NEW_FORMS[form]
+    ch = 2 * e if mode == "gate" else e
+    body, geo = K._ffn_plan(15, 80, 80, c, ch, e, mode, n_x2, n_x2 > 0,
+                            batched, f, True, torch.bfloat16)
+    assert body == "wg"
+    assert geo["blocks"] == 15 * 100 and geo["stages"] >= 2
+    assert geo["smem"] == K._wg_smem(c, mode == "gate")[0] <= 232448
+
+
+@pytest.mark.parametrize("change", ["c512_lists", "gelu_lists", "ffw2_c256",
+                                    "ffw2_f192", "ffw2_gate", "ffw2_pair"])
+def test_plan_keeps_forms_outside_the_new_ones_on_the_tile_body(change):
+    """Just outside the new forms: lists at C = 512 (no path has them;
+    ffn.cu's shared memory refuses them too) or in gelu mode, the chained
+    FFW at another width, another F, in gate mode or with an x2 map."""
+    args = {"c512_lists": (512, 1280, "gate", 5, 0),
+            "gelu_lists": (128, 256, "gelu", 5, 0),
+            "ffw2_c256": (256, 512, "gelu", 0, 512),
+            "ffw2_f192": (128, 256, "gelu", 0, 192),
+            "ffw2_gate": (128, 320, "gate", 0, 256),
+            "ffw2_pair": (128, 256, "gelu", 1, 256)}[change]
+    c, e, mode, n_x2, f = args
+    ch = 2 * e if mode == "gate" else e
+    assert K._ffn_plan(2, 37, 53, c, ch, e, mode, n_x2, n_x2 > 1, True, f,
+                       True, torch.bfloat16) == ("tile", None)
+
+
+@pytest.mark.parametrize("c", WG_WIDTHS)
+def test_new_forms_live_in_the_regions_of_the_single_map_form(c):
+    """The shared memory the mirror gives a width holds the new forms'
+    buffers where the kernel puts them: a list's staged halo tile of x2 (100
+    x C bf16) in the fp32 hidden chunk (100 x 128), the chained FFW's y
+    (64 x (C + 8) bf16) in the LN halo (100 x (C + 8)) and its activation
+    (64 x (2C + 8) bf16) in the hidden chunk; at C = 512 neither fits, and
+    the plan keeps both forms off it."""
+    hid = K._WG_HALO * K._WG_HS * 4
+    halo = K._WG_HALO * (c + K._WG_XPAD) * 2
+    lists_fit = K._WG_HALO * c * 2 <= hid
+    ffw2_fit = (K._WG_PIXELS * (c + K._WG_XPAD) * 2 <= halo
+                and K._WG_PIXELS * (2 * c + K._WG_XPAD) * 2 <= hid)
+    assert lists_fit == (c in K._WG_LIST_WIDTHS)
+    assert ffw2_fit == (c <= 128) and ffw2_fit == (c == K._WG_FFW2_WIDTH)
+    assert K._wg_smem(c, True)[0] <= 232448
+
+
+def test_stacked_entries_are_read_in_place_map_by_map():
+    """The x2 addresses and batch strides the launch hands the kernel for a
+    stacked (B, M, H, W, C) entry and a single map, and the stacked
+    (M, B, C, C) matrices: map m of batch entry b starts at ptrs[m] +
+    b * strides[m] elements, its matrix at rows (m B + b) C of the stack
+    (the kernel's po tensor map)."""
+    b, m_st, h, w, c = 3, 4, 5, 7, 16
+    gen = torch.Generator().manual_seed(0)
+    x = torch.zeros(b, h, w, c, dtype=torch.bfloat16)
+    stack = torch.randn(b, m_st, h, w, c, generator=gen).bfloat16()
+    single = torch.randn(b, h, w, c, generator=gen).bfloat16()
+    pos = [torch.randn(b, c, c, generator=gen).bfloat16()
+           for _ in range(m_st + 1)]
+    ptrs, strides, n, po, batched = K._x2_operands(x, [stack, single], pos)
+    assert n == m_st + 1 and batched and po.shape == (n, b, c, c)
+    maps = [stack[:, j] for j in range(m_st)] + [single]
+    flat = po.reshape(-1, c)
+    for j, mp in enumerate(maps):
+        for bb in range(b):
+            start = ptrs[j] + bb * strides[j] * 2
+            assert start == mp[bb].data_ptr()
+            assert torch.equal(flat[(j * b + bb) * c:(j * b + bb + 1) * c],
+                               pos[j][bb])
+    assert ptrs[n:] == [None] * (K._MAX_X2 - n)

@@ -94,11 +94,11 @@ FFN_KERNEL_CASES = {
                    True),
 }
 # The calls the wgmma body takes (kernels/csrc/ffn_wg.cu: bf16, a depthwise
-# stage, at most one x2 map, no chained FFW, C in 128 / 256 / 512, E a
-# multiple of 32) at the model's widths, on a ragged map of two entries.
-# Cases named tile_* stay on the mma.sync body (csrc/ffn.cu): the model's
-# forms at C = 64, which the plan keeps there, and calls just outside the
-# new body's conditions (C, then E). Same fields as FFN_KERNEL_CASES.
+# stage, C in 128 / 256 / 512, E a multiple of 32; at most one x2 map, or the
+# chained FFW at C = 128) at the model's widths, on a ragged map of two
+# entries. Cases named tile_* stay on the mma.sync body (csrc/ffn.cu): the
+# model's forms at C = 64, which the plan keeps there, and calls just outside
+# the new body's conditions (C, then E). Same fields as FFN_KERNEL_CASES.
 FFN_WG_CASES = {
     **{f"gate_pair_po_batched_c{c}": (2, 37, 53, c, c * 5 // 2, "gate", True,
                                       "batched", True, False, False, True)
@@ -119,6 +119,14 @@ FFN_WG_CASES = {
                          False, False, True),
     "tile_outside_e48_c128": (2, 37, 53, 128, 48, "gate", True, "batched",
                               True, False, False, True),
+    # the chained FFW (enc2's ReducedAttn+FFW blocks; F = 2C), also with
+    # bias-free LayerNorms; at C = 64 (enc1's) it stays on ffn.cu
+    "gelu_scale_ffw2_c128": (2, 37, 53, 128, 256, "gelu", False, None, True,
+                             True, True, True),
+    "gelu_scale_ffw2_biasfree_ln_c128": (1, 19, 21, 128, 256, "gelu", False,
+                                         None, True, True, True, False),
+    "tile_gelu_scale_ffw2_c64": (2, 37, 53, 64, 128, "gelu", False, None,
+                                 True, True, True, True),
 }
 # (B, H, W, C, heads, biases)
 QKV_KERNEL_SHAPES = [(2, 11, 13, 16, 2, True), (1, 8, 9, 128, 2, False),
@@ -171,11 +179,11 @@ def ffn_kernel_case(name, m: Maker, cases=None):
                        scale=c ** -0.5)
         if biases:
             kw["po_b"] = m(c)
-    if ffw2:
+    if ffw2:  # ln_bias: both LayerNorms with a bias, or neither
         f = 2 * c
-        kw["ffw2"] = dict(ln_w=m(c), ln_b=m(c), w1=m(c, f, scale=c ** -0.5),
-                          b1=m(f), w2=m(f, c, scale=f ** -0.5), b2=m(c),
-                          scale=m(c))
+        kw["ffw2"] = dict(ln_w=m(c), ln_b=m(c) if lnb else None,
+                          w1=m(c, f, scale=c ** -0.5), b1=m(f),
+                          w2=m(f, c, scale=f ** -0.5), b2=m(c), scale=m(c))
     return x, kw
 
 
@@ -199,6 +207,32 @@ FFN_LIST_CASES = {
     "stack1_single_shared_c48": (1, 8, 9, 48, 24, 1, 1, False, False, False),
     "stack4_single_c144": (1, 8, 8, 144, 16, 4, 1, True, False, True),
     "two_singles": (1, 9, 8, 32, 16, 0, 2, True, False, True),
+    # the CHM blocks' widths at dec2 and dec3 (4 stacked history maps and the
+    # current one); on the card these are held on ffn.cu's list form, the
+    # wgmma body's being FFN_WG_LIST_CASES
+    "stack4_single_c128": (2, 11, 13, 128, 320, 4, 1, True, False, True),
+    "stack4_single_c256": (1, 9, 8, 256, 640, 4, 1, True, True, True),
+}
+# The lists the wgmma body takes (gate, C = 128 or 256; the CHM blocks'
+# call at dec3 and dec2): a stacked entry of 4 maps and one more on ragged
+# whole-frame maps (183 x 315, 367 x 633) and 15 tiles (80 x 80, 160 x 160),
+# five single maps with po_b, a shared po; tile_* stay on ffn.cu (dec1's C =
+# 64). Same fields as FFN_LIST_CASES.
+FFN_WG_LIST_CASES = {
+    "lists_stack4_single_c256_ragged": (1, 183, 315, 256, 640, 4, 1, True,
+                                        False, True),
+    "lists_stack4_single_c128_ragged": (1, 367, 633, 128, 320, 4, 1, True,
+                                        False, True),
+    "lists_stack4_single_c256_15_tiles": (15, 80, 80, 256, 640, 4, 1, True,
+                                          False, True),
+    "lists_stack4_single_c128_15_tiles": (15, 160, 160, 128, 320, 4, 1, True,
+                                          False, True),
+    "lists_five_singles_po_b_c128": (2, 37, 53, 128, 320, 0, 5, True, True,
+                                     True),
+    "lists_stack2_two_singles_shared_c256": (2, 37, 53, 256, 640, 2, 2,
+                                             False, True, False),
+    "tile_lists_stack4_single_c64": (2, 37, 53, 64, 160, 4, 1, True, False,
+                                     True),
 }
 # (B, H, W, C, heads, NF, ln_bias)
 CHM_KERNEL_SHAPES = [(2, 11, 13, 16, 2, 1, True), (1, 8, 9, 48, 1, 3, False),
@@ -215,9 +249,11 @@ LATTICE_KERNEL_SHAPES = [(2, 3, 5, 2, 8), (1, 2, 3, 4, 64), (3, 4, 2, 2, 128),
                          (1, 3, 2, 2, 48), (1, 2, 2, 8, 16), (2, 1, 3, 2, 144)]
 
 
-def ffn_list_case(name, m: Maker):
-    """(x, keyword arguments of fused_block_ffn) with lists of x2 maps."""
-    b, h, w, c, e, n_stack, n_single, batched, po_b, lnb = FFN_LIST_CASES[name]
+def ffn_list_case(name, m: Maker, cases=None):
+    """(x, keyword arguments of fused_block_ffn) with lists of x2 maps, of
+    ``cases`` (FFN_LIST_CASES by default)."""
+    b, h, w, c, e, n_stack, n_single, batched, po_b, lnb = (
+        FFN_LIST_CASES if cases is None else cases)[name]
     x = m(b, h, w, c)
     kw = dict(ln_w=m(c), ln_b=m(c) if lnb else None,
               w1=m(c, 2 * e, scale=c ** -0.5), wd=m(3, 3, 2 * e, scale=0.3),

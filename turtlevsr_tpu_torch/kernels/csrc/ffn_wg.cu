@@ -1,15 +1,25 @@
-// The Hopper body of the fused conv-FFN half (row 1) for its single-map
-// depthwise form: bf16, a depthwise stage, at most one x2 map (with or
-// without po, shared (C, C) or per batch (B, C, C), with or without po_b),
-// no chained FFW, mode gate or gelu, C in {128, 256, 512} and E a multiple
-// of 32. ffn.py's _ffn_plan sends every such call here and every other one
-// (C = 64, the lists, the chained FFW, no dw, float32, other widths) to
-// ffn.cu's mma.sync body. What it computes, and where it rounds, is in the
-// note of ffn.cu: x2 @ po rounded to bf16, + po_b rounded again, x' = x +
-// that summed in fp32 and rounded, LN(x') with fp32 statistics rounded,
-// pw1 + b1, the nine taps in row-major order and + bd in fp32 (the hidden
-// map zero outside the image after pw1 and its bias), gelu(a) * b rounded to
-// bf16, pw2 + b2, * scale, + x' in fp32 and one rounding at the end.
+// The Hopper body of the fused conv-FFN half (row 1) for its depthwise forms
+// at C >= 128: bf16, a depthwise stage, E a multiple of 32, and one of
+//
+//   * at most one x2 map (with or without po, shared (C, C) or per batch
+//     (B, C, C), with or without po_b), mode gate or gelu, C in {128, 256,
+//     512};
+//   * a list of 2 to MAX_X2 maps, each with its own po (the value maps of the
+//     causal history model, a stacked entry read in place through its batch
+//     stride), mode gate, C in {128, 256};
+//   * the chained pointwise FFW (a ReducedAttn+FFW block in one pass), mode
+//     gelu, no x2, C = 128 and F = 2 C.
+//
+// ffn.py's _ffn_plan sends every such call here and every other one (C = 64,
+// no dw, float32, other widths) to ffn.cu's mma.sync body. What it computes,
+// and where it rounds, is in the note of ffn.cu: each x2_j @ po_j rounded to
+// bf16, + po_b (map 0 only) rounded again, x' = x + those summed in fp32 in
+// map order and rounded, LN(x') with fp32 statistics rounded, pw1 + b1, the
+// nine taps in row-major order and + bd in fp32 (the hidden map zero outside
+// the image after pw1 and its bias), gelu(a) * b rounded to bf16, pw2 + b2,
+// * scale, + x' in fp32 and one rounding; with the chained FFW that is y,
+// and out = y + scale2 * (pw5(gelu(pw4(LN2 y) + b4)) + b5) with LN2(y) and
+// the activation rounded to bf16 and one rounding at the end.
 //
 // The chain is bound by operations at C >= 128 (about 17 C^2 flop a pixel
 // against 6 C bytes). What held ffn.cu's body back was the weights: every
@@ -39,9 +49,27 @@
 // x' of the 64 interior pixels goes to the output map in the prologue and
 // comes back from there (L2) in the epilogue, which overwrites it: shared
 // memory holds the ring, the halo, the fp32 hidden chunk and the activation
-// chunk only. C = 64 stays on ffn.cu: there the chain is bound by the dw
-// taps, the hidden map's stores and the prologue, not by the products, and
-// this body was not faster on an H100 (PERF.md, row 1).
+// chunk only, and the two other forms live in those regions while they are
+// idle, so every form of a width takes the same shared memory:
+//
+//   * lists: x' needs a sum in fp32 over the maps. A pass of 128 columns of
+//     po keeps it in registers, from x on, and runs the maps in order: map
+//     m's halo tile is staged in the hid chunk (free until pw1; 100 x C
+//     bf16, 16-byte pieces swizzled by the row), taken with all of its K
+//     into registers, and the next map's tile comes in by cp.async behind
+//     map m's products; po_m streams through the ring like po. At C = 256
+//     the tiles come in once a pass (two passes): registers hold one pass's
+//     sum, not all of C;
+//   * the chained FFW: after pw2 the two warpgroups hold half of y's columns
+//     each, and LN2 needs a pixel's whole row, so y (rounded) meets in the
+//     LN halo's space, LN2(y) overwrites it there, pw4 (N = F split between
+//     the warpgroups) and pw5 (N = C, the columns of each warpgroup's y) run
+//     as two M = 64 products, the activation in the hid chunk's space, f_w1
+//     and f_w2 through the ring after the last chunk's w2.
+//
+// C = 64 stays on ffn.cu: there the chain is bound by the dw taps, the
+// hidden map's stores and the prologue, not by the products, and this body
+// was not faster on an H100 (PERF.md, row 1).
 #include "ffn_tile.cuh"
 #include "pipe.cuh"
 
@@ -56,7 +84,12 @@ constexpr size_t WG_SMEM_MAX = 232448;
 
 struct WgMaps {
   CUtensorMap w1, w2, po;  // po: unset without po
+  CUtensorMap fw1, fw2;    // the chained FFW's pw4 and pw5, unset without it
 };
+
+// the forms of the chain (an instantiation takes one): at most one x2 map, a
+// list of maps, the chained FFW
+enum WgForm { WG_ONE = 0, WG_LIST = 1, WG_FFW2 = 2 };
 
 // activation columns a chunk, rows of w2 a stage
 __host__ __device__ constexpr int wg_aw(int gate) { return gate ? 64 : 128; }
@@ -220,6 +253,45 @@ __device__ __forceinline__ void wg_dw_column(const float* hid, const __nv_bfloat
   }
 }
 
+// LN2 of the chained FFW on the 64 pixel rows of ybuf (y rounded to bf16, row
+// stride C + XPAD), in place, rounded: a pixel's C channels over C / 8 lanes
+// in vectors of 8, fp32 statistics as in warp_layer_norm (common.cuh)
+template <int C>
+__device__ void wg_ffw2_ln(__nv_bfloat16* ybuf, const __nv_bfloat16* __restrict__ ln_w,
+                           const __nv_bfloat16* __restrict__ ln_b) {
+  constexpr int GL = C / 8, PP = 32 / GL, XS = C + XPAD;  // lanes a pixel, pixels a warp
+  static_assert(GL <= 32 && P % (NW * PP) == 0, "every lane has a pixel each round");
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int l = lane % GL;
+  float gw[8], bt[8];
+  load8(ln_w + 8 * l, gw);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) bt[i] = 0.f;
+  if (ln_b != nullptr) load8(ln_b + 8 * l, bt);
+  for (int pix = warp * PP + lane / GL; pix < P; pix += NW * PP) {
+    float v[8];
+    load8(ybuf + pix * XS + 8 * l, v);
+    float sum = 0.f;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) sum += v[i];
+#pragma unroll
+    for (int m = 16; m > 0; m >>= 1)
+      if (m < GL) sum += __shfl_xor_sync(0xffffffffu, sum, m);
+    const float mu = sum / (float)C;
+    float q = 0.f;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) q += (v[i] - mu) * (v[i] - mu);
+#pragma unroll
+    for (int m = 16; m > 0; m >>= 1)
+      if (m < GL) q += __shfl_xor_sync(0xffffffffu, q, m);
+    const float inv = 1.0f / sqrtf(q / (float)C + LN_EPS);
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      v[i] = ln_b != nullptr ? (v[i] - mu) * inv * gw[i] + bt[i] : v[i] * inv * gw[i];
+    store8(ybuf + pix * XS + 8 * l, v);
+  }
+}
+
 // the block's threads: two consumer warpgroups and a copy warpgroup, which
 // hands most of its registers to the consumers
 constexpr int WG_NT = NT + 128;
@@ -232,17 +304,20 @@ __device__ __forceinline__ uint64_t stage_desc(const unsigned char* stage, int r
   return panel_desc(stage + p * rows * 128 + k * 16 * 128, rows * 128);
 }
 
-// C: the map's width (128, 256, 512); GATE: the mode. NJ2 products of
-// m64nBN2k16 a k-step make a warpgroup's pw2 columns.
+// C: the map's width (128, 256, 512); GATE: the mode; FORM: a WgForm. NJ2
+// products of m64nBN2k16 a k-step make a warpgroup's pw2 columns.
 //
 // The ring's loads, in the order the copy thread starts them and the
-// consumers take them: with po, C / 128 passes of 128 columns of po, C / 64
-// stages of 64 rows each; then chunk by chunk NS1 stages of 64 rows of w1
-// (the chunk's two 64-column panels) and NS2 of R2 rows of w2. The
-// consumers commit one wgmma group a stage and keep one group in flight: a
-// stage goes back to the copy thread once the group after it has been
-// started and the wait for all but that one returned.
-template <int C, bool GATE>
+// consumers take them: with po, C / 128 passes of 128 columns of po, in
+// each the maps in order (one, or the list's), C / 64 stages of 64 rows a
+// map; then chunk by chunk NS1 stages of 64 rows of w1 (the chunk's two
+// 64-column panels) and NS2 of R2 rows of w2; with the chained FFW then C /
+// FR1 stages of FR1 rows of f_w1 (all F columns) and F / FR2 of FR2 rows of
+// f_w2 (all C columns). The consumers commit one wgmma group a stage and
+// keep one group in flight: a stage goes back to the copy thread once the
+// group after it has been started and the wait for all but that one
+// returned.
+template <int C, bool GATE, int FORM>
 __global__ void __launch_bounds__(WG_NT, 1)
     ffn_wg_kernel(const __grid_constant__ FfnArgs a, const __grid_constant__ WgMaps maps) {
   using T = __nv_bfloat16;
@@ -254,6 +329,14 @@ __global__ void __launch_bounds__(WG_NT, 1)
   constexpr int NS1 = C / WG_KB, NS2 = AW / R2;    // ring stages of pw1, pw2 a chunk
   constexpr int KS2 = R2 / 16;                     // k-steps of a pw2 stage
   constexpr int NPW = 128;                         // po columns a pass
+  // the chained FFW: F, the activation's row stride, rows of f_w1 and f_w2
+  // a ring stage
+  constexpr int FF = 2 * C, GS = FF + XPAD, FR1 = 8192 / FF, FR2 = 8192 / C;
+  static_assert(FORM != WG_LIST || (GATE && C <= 256),
+                "lists: gate, a halo tile of x2 within the hid chunk");
+  static_assert(FORM != WG_FFW2 || (!GATE && C == 128),
+                "the chained FFW: gelu at C = 128 (y and its activation within the LN "
+                "halo and the hid chunk, one pw2 product a warpgroup)");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* smem = align_smem<WG_ALIGN>(smem_raw);
   const int S = wg_stages(C, GATE);
@@ -292,13 +375,18 @@ __global__ void __launch_bounds__(WG_NT, 1)
         return s;
       };
       if (has_po) {
-        const int row0 = a.po_batched ? b * C : 0;
+        // po_m of this batch entry: rows (m B + b) C .. of the stacked
+        // (M, B, C, C) matrices, or m C .. of (M, C, C)
+        const int n_po = FORM == WG_LIST ? a.n_x2 : 1;
         for (int np = 0; np < C / NPW; ++np)
-          for (int kb = 0; kb < C / WG_KB; ++kb) {
-            const int s = next(NPW * WG_KB * 2);
-            for (int p = 0; p < NPW / 64; ++p)
-              tma_load_2d(ring + (size_t)s * WG_STAGE + p * WG_PW1_PANEL, &maps.po,
-                          np * NPW + 64 * p, row0 + kb * WG_KB, &full[s]);
+          for (int m = 0; m < n_po; ++m) {
+            const int row0 = (a.po_batched ? m * a.B + b : m) * C;
+            for (int kb = 0; kb < C / WG_KB; ++kb) {
+              const int s = next(NPW * WG_KB * 2);
+              for (int p = 0; p < NPW / 64; ++p)
+                tma_load_2d(ring + (size_t)s * WG_STAGE + p * WG_PW1_PANEL, &maps.po,
+                            np * NPW + 64 * p, row0 + kb * WG_KB, &full[s]);
+            }
           }
       }
       for (int ck = 0; ck < n_chunks; ++ck) {
@@ -315,6 +403,20 @@ __global__ void __launch_bounds__(WG_NT, 1)
           for (int p = 0; p < C / 64; ++p)
             tma_load_2d(ring + (size_t)s * WG_STAGE + p * R2 * 128, &maps.w2, 64 * p,
                         e0 + i * R2, &full[s]);
+        }
+      }
+      if constexpr (FORM == WG_FFW2) {
+        for (int i = 0; i < C / FR1; ++i) {
+          const int s = next(FR1 * FF * 2);
+          for (int p = 0; p < FF / 64; ++p)
+            tma_load_2d(ring + (size_t)s * WG_STAGE + p * FR1 * 128, &maps.fw1, 64 * p,
+                        i * FR1, &full[s]);
+        }
+        for (int i = 0; i < FF / FR2; ++i) {
+          const int s = next(FR2 * C * 2);
+          for (int p = 0; p < C / 64; ++p)
+            tma_load_2d(ring + (size_t)s * WG_STAGE + p * FR2 * 128, &maps.fw2, 64 * p,
+                        i * FR2, &full[s]);
         }
       }
     }
@@ -347,21 +449,9 @@ __global__ void __launch_bounds__(WG_NT, 1)
   const T* arow1 = xn + (hrow < NPH ? hrow : 0) * XS + (lane >> 4) * 8;
 
   if (has_po) {
-    // x' = x + x2 @ po on the halo tile: the x2 tile in xn, every warp's
-    // fragments of it (all of K) in registers, then xn overwritten pass by
-    // pass (a warp writes only the rows it read)
+    // x' = x + sum_m x2_m @ po_m on the halo tile in passes of 128 columns:
+    // a map's halo tile, all of its K, in every warp's registers
     const T* po_b = static_cast<const T*>(a.po_b);
-    const int c8n = C / 8;
-    for (int idx = tid; idx < NPH * c8n; idx += NT) {
-      const int p = idx / c8n, c8 = (idx - p * c8n) * 8;
-      if (halo_inside(p, H, W, y0, x0))
-        cp_async16(xn + p * XS + c8, x2 + halo_offset(p, W, C, y0, x0) + c8);
-      else
-        zero16(xn + p * XS + c8);
-    }
-    cp_async_commit();
-    cp_async_wait<0>();
-    consumers_sync();
     // this thread's two accumulator rows: halo pixel, inside, x there
     int prow[2];
     bool prow_in[2];
@@ -372,12 +462,9 @@ __global__ void __launch_bounds__(WG_NT, 1)
       prow_in[h] = prow[h] < NPH && halo_inside(prow[h], H, W, y0, x0);
       prow_x[h] = x + (prow_in[h] ? halo_offset(prow[h], W, C, y0, x0) : 0);
     }
-    AFrag<T> xf[C / 16];
-#pragma unroll
-    for (int k = 0; k < C / 16; ++k) ldsm_a(xf[k], arow1 + 16 * k);
-#pragma unroll 1
-    for (int np = 0; np < C / NPW; ++np) {
-      float pa[NPW / 2];
+    // pa = the tile in xf times this pass's 128 columns of po_m (the next
+    // C / 64 stages of the ring)
+    auto po_product = [&](float (&pa)[NPW / 2], const AFrag<T> (&xf)[C / 16]) {
 #pragma unroll
       for (int i = 0; i < NPW / 2; ++i) pa[i] = 0.f;
 #pragma unroll
@@ -396,27 +483,130 @@ __global__ void __launch_bounds__(WG_NT, 1)
       wgmma_wait<0>();
       pin(pa);
       release_upto(li);
+    };
+    // the product at this thread's column pair j of row h of pass np rounded
+    // to bf16, and with po_b (map 0 only) rounded again
+    auto rounded = [&](const float (&pa)[NPW / 2], int np, int j, int h, bool first) {
+      float a0 = round_to<T>(pa[4 * j + 2 * h]), a1 = round_to<T>(pa[4 * j + 2 * h + 1]);
+      if (first && po_b != nullptr) {
+        const float2 pb = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(po_b + np * NPW + 8 * j + 2 * t));
+        a0 = round_to<T>(a0 + pb.x);
+        a1 = round_to<T>(a1 + pb.y);
+      }
+      return make_float2(a0, a1);
+    };
+    if constexpr (FORM == WG_LIST) {
+      // the maps in order, their sum in fp32 registers from x on. Map m's
+      // halo tile is staged in the hid chunk (row p at p C, its 16-byte
+      // pieces swizzled by p & 7 so that ldmatrix's eight rows hit eight
+      // bank groups) and the next map's tile comes in behind map m's
+      // products; at C = 256 each pass stages every map once
+      T* stg = reinterpret_cast<T*>(hid);
+      auto stage = [&](int m) {
+        const T* src = static_cast<const T*>(a.x2[m]) + (size_t)b * a.x2_bs[m];
+        constexpr int c8n = C / 8;
+        for (int idx = tid; idx < NPH * c8n; idx += NT) {
+          const int p = idx / c8n, j = idx - p * c8n;
+          T* dst = stg + p * C + ((j ^ (p & 7)) << 3);
+          if (halo_inside(p, H, W, y0, x0))
+            cp_async16(dst, src + halo_offset(p, W, C, y0, x0) + 8 * j);
+          else
+            zero16(dst);
+        }
+        cp_async_commit();
+      };
+      const int srow = hrow < NPH ? hrow : 0, sw = srow & 7, half = lane >> 4;
+      const T* arow_s = stg + srow * C;
+      const int nm = a.n_x2;
+      stage(0);
+#pragma unroll 1
+      for (int np = 0; np < C / NPW; ++np) {
+        float sum[NPW / 2];
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        if (!prow_in[h]) continue;
-        uint32_t xv[NPW / 8];  // x at this thread's column pairs, loaded together
+        for (int h = 0; h < 2; ++h)
 #pragma unroll
-        for (int j = 0; j < NPW / 8; ++j)
-          xv[j] = __ldg(
-              reinterpret_cast<const unsigned int*>(prow_x[h] + np * NPW + 8 * j + 2 * t));
-#pragma unroll
-        for (int j = 0; j < NPW / 8; ++j) {
-          const int c = np * NPW + 8 * j + 2 * t;
-          float a0 = round_to<T>(pa[4 * j + 2 * h]), a1 = round_to<T>(pa[4 * j + 2 * h + 1]);
-          if (po_b != nullptr) {
-            const float2 pb =
-                __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(po_b + c));
-            a0 = round_to<T>(a0 + pb.x);
-            a1 = round_to<T>(a1 + pb.y);
+          for (int j = 0; j < NPW / 8; ++j) {
+            float2 xx = make_float2(0.f, 0.f);
+            if (prow_in[h]) {
+              const uint32_t xv = __ldg(
+                  reinterpret_cast<const unsigned int*>(prow_x[h] + np * NPW + 8 * j + 2 * t));
+              xx = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&xv));
+            }
+            sum[4 * j + 2 * h] = xx.x;
+            sum[4 * j + 2 * h + 1] = xx.y;
           }
-          const float2 xx = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&xv[j]));
-          *reinterpret_cast<__nv_bfloat162*>(xn + prow[h] * XS + c) =
-              __floats2bfloat162_rn(xx.x + a0, xx.y + a1);
+#pragma unroll 1
+        for (int m = 0; m < nm; ++m) {
+          cp_async_wait<0>();
+          consumers_sync();
+          AFrag<T> xf[C / 16];
+#pragma unroll
+          for (int k = 0; k < C / 16; ++k)
+            ldsm_a(xf[k], arow_s + (((2 * k + half) ^ sw) << 3));
+          consumers_sync();  // every warp holds its fragments: the next tile may come in
+          if (m + 1 < nm)
+            stage(m + 1);
+          else if (np + 1 < C / NPW)
+            stage(0);
+          float pa[NPW / 2];
+          po_product(pa, xf);
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int j = 0; j < NPW / 8; ++j) {
+              const float2 p2 = rounded(pa, np, j, h, m == 0);
+              sum[4 * j + 2 * h] += p2.x;
+              sum[4 * j + 2 * h + 1] += p2.y;
+            }
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          if (!prow_in[h]) continue;
+#pragma unroll
+          for (int j = 0; j < NPW / 8; ++j)
+            *reinterpret_cast<__nv_bfloat162*>(xn + prow[h] * XS + np * NPW + 8 * j + 2 * t) =
+                __floats2bfloat162_rn(sum[4 * j + 2 * h], sum[4 * j + 2 * h + 1]);
+        }
+      }
+    } else {
+      // one map: its tile in xn, every warp's fragments of it taken once,
+      // then xn overwritten pass by pass (a warp writes only the rows it
+      // read)
+      const int c8n = C / 8;
+      for (int idx = tid; idx < NPH * c8n; idx += NT) {
+        const int p = idx / c8n, c8 = (idx - p * c8n) * 8;
+        if (halo_inside(p, H, W, y0, x0))
+          cp_async16(xn + p * XS + c8, x2 + halo_offset(p, W, C, y0, x0) + c8);
+        else
+          zero16(xn + p * XS + c8);
+      }
+      cp_async_commit();
+      cp_async_wait<0>();
+      consumers_sync();
+      AFrag<T> xf[C / 16];
+#pragma unroll
+      for (int k = 0; k < C / 16; ++k) ldsm_a(xf[k], arow1 + 16 * k);
+#pragma unroll 1
+      for (int np = 0; np < C / NPW; ++np) {
+        float pa[NPW / 2];
+        po_product(pa, xf);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          if (!prow_in[h]) continue;
+          uint32_t xv[NPW / 8];  // x at this thread's column pairs, loaded together
+#pragma unroll
+          for (int j = 0; j < NPW / 8; ++j)
+            xv[j] = __ldg(
+                reinterpret_cast<const unsigned int*>(prow_x[h] + np * NPW + 8 * j + 2 * t));
+#pragma unroll
+          for (int j = 0; j < NPW / 8; ++j) {
+            const float2 p2 = rounded(pa, np, j, h, true);
+            const float2 xx =
+                __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&xv[j]));
+            *reinterpret_cast<__nv_bfloat162*>(xn + prow[h] * XS + np * NPW + 8 * j + 2 * t) =
+                __floats2bfloat162_rn(xx.x + p2.x, xx.y + p2.y);
+          }
         }
       }
     }
@@ -542,7 +732,8 @@ __global__ void __launch_bounds__(WG_NT, 1)
   release_upto(li);
 
   // epilogue: y = (acc + b2) * scale + x', x' read back from the output map
-  // (this block wrote it there in the prologue), one rounding
+  // (this block wrote it there in the prologue), one rounding; with the
+  // chained FFW y stays in acc, rounded (zero for pixels outside the image)
   const T* b2 = static_cast<const T*>(a.b2);
   const T* sc = static_cast<const T*>(a.scale);
   __nv_bfloat162* orow[2];
@@ -570,28 +761,143 @@ __global__ void __launch_bounds__(WG_NT, 1)
       const float s0 = sc ? to_f(sc[c]) : 1.f, s1 = sc ? to_f(sc[c + 1]) : 1.f;
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        if (!oin[h]) continue;
+        const int i = 4 * j + 2 * h;
+        if (!oin[h]) {
+          acc[n][i] = acc[n][i + 1] = 0.f;
+          continue;
+        }
         const float2 xx = __bfloat1622float2(xr[h][j]);
-        orow[h][c / 2] = __floats2bfloat162_rn((acc[n][4 * j + 2 * h] + bb0) * s0 + xx.x,
-                                               (acc[n][4 * j + 2 * h + 1] + bb1) * s1 + xx.y);
+        const __nv_bfloat162 yv = __floats2bfloat162_rn((acc[n][i] + bb0) * s0 + xx.x,
+                                                        (acc[n][i + 1] + bb1) * s1 + xx.y);
+        if constexpr (FORM == WG_FFW2) {
+          const float2 yf = __bfloat1622float2(yv);
+          acc[n][i] = yf.x;
+          acc[n][i + 1] = yf.y;
+        } else {
+          orow[h][c / 2] = yv;
+        }
+      }
+    }
+  }
+
+  if constexpr (FORM == WG_FFW2) {
+    // the chained FFW on y, M = 64 pixels: y meets in the LN halo's space
+    // (ybuf, row stride XS) and LN2(y) overwrites it; pw4's F columns are
+    // split between the warpgroups, gelu(h2 + b4) goes to the hid chunk's
+    // space (gbuf, row stride GS), pw5 gives each warpgroup the columns of
+    // its y. Both spaces are free: every warp passed the barrier after the
+    // last chunk's dw, the last reader of xn and hid.
+    T* ybuf = xn;
+    T* gbuf = reinterpret_cast<T*>(hid);
+    static_assert(P * XS <= NPH * XS && P * GS * 2 <= NPH * WG_HS * 4, "y and g fit");
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int j = 0; j < BN2 / 8; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(ybuf + (16 * q + g + 8 * h) * XS + wg * NW2 + 8 * j +
+                                           2 * t) =
+            __floats2bfloat162_rn(acc[0][4 * j + 2 * h], acc[0][4 * j + 2 * h + 1]);
+    consumers_sync();
+    wg_ffw2_ln<C>(ybuf, static_cast<const T*>(a.f_ln_w), static_cast<const T*>(a.f_ln_b));
+    consumers_sync();
+    // pw4: columns [wg F / 2, (wg + 1) F / 2) of h2, K = C in stages of FR1
+    // rows of all F columns
+    const T* arow4 = ybuf + (16 * q + (lane & 15)) * XS + (lane >> 4) * 8;
+    float h2[FF / 4];
+#pragma unroll
+    for (int i = 0; i < FF / 4; ++i) h2[i] = 0.f;
+#pragma unroll
+    for (int st = 0; st < C / FR1; ++st) {
+      const unsigned char* bs = take();
+      AFrag<T> af[FR1 / 16];
+#pragma unroll
+      for (int k = 0; k < FR1 / 16; ++k) ldsm_a(af[k], arow4 + st * FR1 + k * 16);
+      wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < FR1 / 16; ++k)
+        wgmma_rs<FF / 2>(h2, af[k], stage_desc(bs, FR1, wg * (FF / 128), k));
+      wgmma_commit();
+      wgmma_wait<1>();
+      release_upto(li - 1);
+    }
+    wgmma_wait<0>();
+    pin(h2);
+    release_upto(li);
+    const T* f_b1 = static_cast<const T*>(a.f_b1);
+#pragma unroll
+    for (int j = 0; j < FF / 16; ++j) {
+      const int f = wg * (FF / 2) + 8 * j + 2 * t;
+      const float2 bias = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(f_b1 + f));
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<__nv_bfloat162*>(gbuf + (16 * q + g + 8 * h) * GS + f) =
+            __floats2bfloat162_rn(gelu_exact(h2[4 * j + 2 * h] + bias.x),
+                                  gelu_exact(h2[4 * j + 2 * h + 1] + bias.y));
+    }
+    consumers_sync();
+    // pw5: this warpgroup's C / 2 columns, K = F in stages of FR2 rows of all
+    // C columns
+    const T* arow5 = gbuf + (16 * q + (lane & 15)) * GS + (lane >> 4) * 8;
+    float o2[NW2 / 2];
+#pragma unroll
+    for (int i = 0; i < NW2 / 2; ++i) o2[i] = 0.f;
+#pragma unroll
+    for (int st = 0; st < FF / FR2; ++st) {
+      const unsigned char* bs = take();
+      AFrag<T> af[FR2 / 16];
+#pragma unroll
+      for (int k = 0; k < FR2 / 16; ++k) ldsm_a(af[k], arow5 + st * FR2 + k * 16);
+      wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < FR2 / 16; ++k)
+        wgmma_rs<NW2>(o2, af[k], stage_desc(bs, FR2, wg * (NW2 / 64), k));
+      wgmma_commit();
+      wgmma_wait<1>();
+      release_upto(li - 1);
+    }
+    wgmma_wait<0>();
+    pin(o2);
+    release_upto(li);
+    // out = (o2 + b5) * scale2 + y, one rounding
+    const T* f_b2 = static_cast<const T*>(a.f_b2);
+    const T* f_sc = static_cast<const T*>(a.f_scale);
+#pragma unroll
+    for (int j = 0; j < NW2 / 8; ++j) {
+      const int c = wg * NW2 + 8 * j + 2 * t;
+      const float2 bb = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(f_b2 + c));
+      const float2 ss = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(f_sc + c));
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (!oin[h]) continue;
+        orow[h][c / 2] =
+            __floats2bfloat162_rn((o2[4 * j + 2 * h] + bb.x) * ss.x + acc[0][4 * j + 2 * h],
+                                  (o2[4 * j + 2 * h + 1] + bb.y) * ss.y + acc[0][4 * j + 2 * h + 1]);
       }
     }
   }
 }
 
-template <int C, bool GATE>
+template <int C, bool GATE, int FORM>
 static int launch_ffn_wg(const FfnArgs& a, cudaStream_t stream) {
   WgMaps maps;
-  const uint64_t c = a.C, ch = a.CH, e = a.E;
-  const uint64_t po_rows = a.po_batched ? (uint64_t)a.B * c : c;
-  constexpr int R2 = wg_r2(C, GATE);
+  const uint64_t c = a.C, ch = a.CH, e = a.E, f = a.F;
+  // po: one (C, C) matrix a map, per batch entry or shared
+  const uint64_t po_rows = (uint64_t)(FORM == WG_LIST ? a.n_x2 : 1) *
+                           (a.po_batched ? (uint64_t)a.B : 1) * c;
+  constexpr int R2 = wg_r2(C, GATE), FR1 = 8192 / (2 * C), FR2 = 8192 / C;
   if (!encode_bf16<2>(&maps.w1, a.w1, {ch, c}, {ch * 2}, {64, WG_KB},
                       CU_TENSOR_MAP_SWIZZLE_128B) ||
       !encode_bf16<2>(&maps.w2, a.w2, {c, e}, {c * 2}, {64, R2}, CU_TENSOR_MAP_SWIZZLE_128B) ||
       (a.po_w != nullptr && !encode_bf16<2>(&maps.po, a.po_w, {c, po_rows}, {c * 2},
                                              {64, WG_KB}, CU_TENSOR_MAP_SWIZZLE_128B)))
     return -2;
-  auto kern = ffn_wg_kernel<C, GATE>;
+  if (FORM == WG_FFW2 &&
+      (!encode_bf16<2>(&maps.fw1, a.f_w1, {f, c}, {f * 2}, {64, FR1},
+                       CU_TENSOR_MAP_SWIZZLE_128B) ||
+       !encode_bf16<2>(&maps.fw2, a.f_w2, {c, f}, {c * 2}, {64, FR2},
+                       CU_TENSOR_MAP_SWIZZLE_128B)))
+    return -2;
+  auto kern = ffn_wg_kernel<C, GATE, FORM>;
   const size_t smem = wg_smem(C, GATE);
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
@@ -605,9 +911,9 @@ static int launch_ffn_wg(const FfnArgs& a, cudaStream_t stream) {
 template <bool GATE>
 static int dispatch_ffn_wg(const FfnArgs& a, cudaStream_t stream) {
   switch (a.C) {
-    case 128: return launch_ffn_wg<128, GATE>(a, stream);
-    case 256: return launch_ffn_wg<256, GATE>(a, stream);
-    case 512: return launch_ffn_wg<512, GATE>(a, stream);
+    case 128: return launch_ffn_wg<128, GATE, WG_ONE>(a, stream);
+    case 256: return launch_ffn_wg<256, GATE, WG_ONE>(a, stream);
+    case 512: return launch_ffn_wg<512, GATE, WG_ONE>(a, stream);
   }
   return -1;
 }
@@ -616,9 +922,9 @@ static int dispatch_ffn_wg(const FfnArgs& a, cudaStream_t stream) {
 
 extern "C" size_t turtle_ffn_wg_smem(int C, int gate) { return turtle::wg_smem(C, gate); }
 
-// ptrs and ints: those of turtle_ffn_launch (ffn.cu); the chained FFW's
-// pointers are null and F = 0. Returns the CUDA error code (0 = launched),
-// -1 for a call this body does not take, -2 when a tensor map is refused.
+// ptrs and ints: those of turtle_ffn_launch (ffn.cu). Returns the CUDA error
+// code (0 = launched), -1 for a call this body does not take, -2 when a
+// tensor map is refused.
 extern "C" int turtle_ffn_wg_launch(void* const* ptrs, const int* ints, int is_bf16,
                                     void* stream) {
   using namespace turtle;
@@ -626,16 +932,31 @@ extern "C" int turtle_ffn_wg_launch(void* const* ptrs, const int* ints, int is_b
   a.x = ptrs[0]; a.po_w = ptrs[1]; a.po_b = ptrs[2];
   a.ln_w = ptrs[3]; a.ln_b = ptrs[4]; a.w1 = ptrs[5]; a.b1 = ptrs[6];
   a.wd = ptrs[7]; a.bd = ptrs[8]; a.w2 = ptrs[9]; a.b2 = ptrs[10]; a.scale = ptrs[11];
-  a.out = ptrs[19];
+  a.f_ln_w = ptrs[12]; a.f_ln_b = ptrs[13]; a.f_w1 = ptrs[14]; a.f_b1 = ptrs[15];
+  a.f_w2 = ptrs[16]; a.f_b2 = ptrs[17]; a.f_scale = ptrs[18]; a.out = ptrs[19];
   a.B = ints[0]; a.H = ints[1]; a.W = ints[2]; a.C = ints[3]; a.CH = ints[4];
   a.E = ints[5]; a.F = ints[6]; a.gate = ints[7]; a.po_batched = ints[8];
   a.n_x2 = ints[9];
-  a.x2[0] = a.n_x2 > 0 ? ptrs[20] : nullptr;
-  a.x2_bs[0] = ints[10];
-  if (!is_bf16 || a.wd == nullptr || a.ln_w == nullptr || ptrs[14] != nullptr || a.F != 0 ||
-      a.n_x2 > 1 || (a.po_w != nullptr && a.n_x2 != 1) || a.E % 32 != 0 ||
-      a.CH != (a.gate ? 2 * a.E : a.E))
+  if (a.n_x2 < 0 || a.n_x2 > MAX_X2) return -1;
+  for (int j = 0; j < MAX_X2; ++j) {
+    a.x2[j] = j < a.n_x2 ? ptrs[20 + j] : nullptr;
+    a.x2_bs[j] = ints[10 + j];
+  }
+  if (!is_bf16 || a.wd == nullptr || a.ln_w == nullptr || a.E % 32 != 0 ||
+      a.CH != (a.gate ? 2 * a.E : a.E) || (a.po_w != nullptr && a.n_x2 < 1))
     return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (a.f_w1 != nullptr) {  // the chained FFW: gelu, no x2, C = 128, F = 2 C
+    if (a.gate || a.n_x2 != 0 || a.C != 128 || a.F != 2 * a.C || a.f_ln_w == nullptr ||
+        a.f_b1 == nullptr || a.f_w2 == nullptr || a.f_b2 == nullptr || a.f_scale == nullptr)
+      return -1;
+    return launch_ffn_wg<128, false, WG_FFW2>(a, s);
+  }
+  if (a.n_x2 > 1) {  // lists: gate, a po a map, C = 128 or 256
+    if (!a.gate || a.po_w == nullptr) return -1;
+    if (a.C == 128) return launch_ffn_wg<128, true, WG_LIST>(a, s);
+    if (a.C == 256) return launch_ffn_wg<256, true, WG_LIST>(a, s);
+    return -1;
+  }
   return a.gate ? dispatch_ffn_wg<true>(a, s) : dispatch_ffn_wg<false>(a, s);
 }

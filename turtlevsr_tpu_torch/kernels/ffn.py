@@ -344,10 +344,13 @@ def _x2_operands(x, x2, po_w):
     return (ptrs + [None] * pad, strides + [0] * pad, len(ptrs), po, batched)
 
 
-# the wgmma body (csrc/ffn_wg.cu): its widths, its ring stages (WG_STAGE
-# bytes each, up to WG_MAX_STAGES) and the parts of its shared memory beside
-# them, mirrored from the source (a card test holds the two equal)
+# the wgmma body (csrc/ffn_wg.cu): its widths (lists of maps at the first
+# two, the chained FFW at the first), its ring stages (WG_STAGE bytes each,
+# up to WG_MAX_STAGES) and the parts of its shared memory beside them,
+# mirrored from the source (a card test holds the two equal)
 _WG_WIDTHS = (128, 256, 512)
+_WG_LIST_WIDTHS = (128, 256)
+_WG_FFW2_WIDTH = 128
 _WG_STAGE, _WG_MAX_STAGES, _WG_ALIGN = 16384, 8, 1024
 _WG_HALO, _WG_HS, _WG_PIXELS, _WG_XPAD = 100, 128, 64, 8
 
@@ -356,7 +359,12 @@ def _wg_smem(c: int, gate: bool) -> tuple[int, int]:
     """(bytes of shared memory, ring stages) of the wgmma body at width c:
     the LN(x') halo (100 rows of c + 8 bf16), the fp32 hidden chunk (100 x
     128), the activation chunk (64 pixels x 64 (gate) or 128 columns + 8,
-    bf16), then as many ring stages, with their two mbarriers, as fit."""
+    bf16), then as many ring stages, with their two mbarriers, as fit. The
+    lists and the chained FFW take no more: a list stages each map's halo
+    tile (100 x c bf16) in the hidden chunk's space before pw1, the chained
+    FFW keeps y and LN2(y) (64 x (c + 8)) in the halo's space and its
+    activation (64 x (2 c + 8)) in the hidden chunk's after the last
+    chunk."""
     aw = 64 if gate else 128
     rest = (_WG_HALO * (c + _WG_XPAD) * 2 + _WG_HALO * _WG_HS * 4
             + _WG_PIXELS * (aw + _WG_XPAD) * 2)
@@ -365,19 +373,28 @@ def _wg_smem(c: int, gate: bool) -> tuple[int, int]:
     return _WG_ALIGN + stages * _WG_STAGE + rest + 16 * stages, stages
 
 
-def _ffn_plan(b, h, w, c, ch, e, mode, n_x2, has_po, po_batched, has_ffw2,
-              has_dw, dtype):
+def _ffn_plan(b, h, w, c, ch, e, mode, n_x2, has_po, po_batched, f, has_dw,
+              dtype):
     """The body of one fused_block_ffn call, chosen by its shape: ("wg",
-    geometry) for the wgmma body of csrc/ffn_wg.cu (bf16, a depthwise stage,
-    at most one x2 map, no chained FFW, C in 128 / 256 / 512, E a
-    multiple of 32), else ("tile", None) for the mma.sync body of
-    csrc/ffn.cu. The geometry: 8 x 8 output tiles, their count, the
-    activation columns of a chunk, the ring stages and the shared memory."""
+    geometry) for the wgmma body of csrc/ffn_wg.cu, else ("tile", None) for
+    the mma.sync body of csrc/ffn.cu. f: the chained FFW's hidden width (0:
+    none). The wgmma body takes the bf16 calls with a depthwise stage, C in
+    128 / 256 / 512 and E a multiple of 32 in three forms: at most one x2
+    map; a list of x2 maps (gate, C = 128 or 256: the causal history
+    model's call at dec3 and dec2); the chained FFW (gelu, no x2, C = 128, f
+    = 2 C: enc2's ReducedAttn+FFW blocks). Everything else (C = 64, no
+    depthwise stage, float32, other widths) goes to csrc/ffn.cu, whose
+    shared memory refuses lists at C = 512 (no path has them). The
+    geometry: 8 x 8 output tiles, their count, the activation columns of a
+    chunk, the ring stages and the shared memory."""
     del po_batched  # both bodies take a shared or a per-batch matrix
-    if (dtype != torch.bfloat16 or not has_dw or has_ffw2 or n_x2 > 1
-            or (has_po and n_x2 != 1) or mode not in ("gate", "gelu")
+    if (dtype != torch.bfloat16 or not has_dw or mode not in ("gate", "gelu")
             or c not in _WG_WIDTHS or e % 32
-            or ch != (2 * e if mode == "gate" else e)):
+            or ch != (2 * e if mode == "gate" else e)
+            or (has_po and n_x2 < 1)
+            or (n_x2 > 1 and (mode != "gate" or c not in _WG_LIST_WIDTHS))
+            or (f and (mode != "gelu" or n_x2 or c != _WG_FFW2_WIDTH
+                       or f != 2 * c))):
         return "tile", None
     smem, stages = _wg_smem(c, mode == "gate")
     return "wg", dict(tile=_TILE, blocks=b * _tiles(h, w),
@@ -423,7 +440,7 @@ def _ffn_launch(x, x2, po_w, po_b, ln_w, ln_b, w1, b1, wd, bd, w2, b2, scale,
         _check("b2", b2, x, (c,)), _check("scale", scale, x, (c,)),
         *fp, out.data_ptr(), *x2_ptrs]
     body, _ = _ffn_plan(b, h, w, c, ch, e, mode, n_x2, po is not None,
-                        po_batched, ffw2 is not None, wd is not None, x.dtype)
+                        po_batched, f, wd is not None, x.dtype)
     ints = [b, h, w, c, ch, e, f, int(mode == "gate"), int(po_batched), n_x2,
             *x2_strides]
     if body == "wg":  # its shared memory fits by construction (_wg_smem)
@@ -450,11 +467,13 @@ def fused_block_ffn(x, *, x2=None, po_w=None, po_b=None, ln_w, ln_b=None,
     dw branch and (``wd=None``: no depthwise stage) its no-dw branch; on an
     H100 bound by operations at C >= 128 and by bytes at C = 64. Two
     kernels, chosen by shape before the launch (:func:`_ffn_plan`): the
-    wgmma body of csrc/ffn_wg.cu for bf16 calls with a depthwise stage, at
-    most one x2 map, no ``ffw2``, C = 128, 256 or 512 and a hidden width E
-    that is a multiple of 32 (``fused_block_ffn.launches_wg`` counts them);
-    the mma.sync body of csrc/ffn.cu for every other call. A call is one
-    launch either way.
+    wgmma body of csrc/ffn_wg.cu for bf16 calls with a depthwise stage,
+    C = 128, 256 or 512 and a hidden width E that is a multiple of 32 (at
+    most one x2 map; or a list of maps in gate mode at C = 128, 256; or
+    ``ffw2`` in gelu mode at C = 128 with F = 2C, no x2;
+    ``fused_block_ffn.launches_wg`` counts them); the mma.sync body of
+    csrc/ffn.cu for every other call (C = 64, no depthwise stage, float32).
+    A call is one launch either way.
     x2: optional second addend map (the attention branch); po_w (C, C) or
     per batch (B, C, C) and po_b: optional projection applied to x2 in the
     kernel. x2 may also be a list of up to 5 maps, an entry being a map or
