@@ -27,12 +27,12 @@ Phases, one JSON object per line on standard output:
            4, 6 and 7 on the body their plans give each call (the wgmma
            bodies of ffn_wg.cu (one map, the CHM lists, the chained FFW),
            qkv_wg.cu, split_wg.cu, chm_wg.cu and sab_wg.cu also timed on
-           the mma.sync bodies, tile_ms, and on ragged maps; row 7's calls that its plan keeps on sab.cu also
-           on the wgmma body, wg_ms; the mma.sync bodies of rows 3, 4, 6
-           and 7, off the path now, at the latent's or dec3's shape);
-           attention @ v
-           also at the whole frame's dec3 shape, the 3x3 conv also on maps
-           and Cout that its tiles do not divide
+           the mma.sync bodies, tile_ms, and on ragged maps; row 7's
+           calls that its plan keeps on sab.cu also on the wgmma body,
+           wg_ms; the mma.sync bodies of rows 3, 4, 6 and 7, off the path
+           now, at the latent's or dec3's shape); attention @ v also at
+           the whole frame's dec3 shape, the 3x3 conv also on maps and Cout
+           that its tiles do not divide
   slice    five configurations at full width and depth, seeded random
            weights, frames streamed through InferenceEngine.step: `gopro`
            (options/Turtle_Deblur_Gopro.yml unchanged: CHM blocks end the

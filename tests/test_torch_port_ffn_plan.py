@@ -71,11 +71,6 @@ def _record(path, overrides, side, fuse=()):
     return calls
 
 
-def _record_calls(family, monkeypatch):
-    del monkeypatch  # _record puts the wrapper back itself
-    return _record(*FAMILIES[family])
-
-
 def _plan(shape, kw):
     b, h, w, c = shape
     ch = kw["w1"].shape[1]
@@ -91,11 +86,11 @@ def _plan(shape, kw):
 
 
 @pytest.mark.parametrize("family", list(FAMILIES))
-def test_plan_gives_every_single_map_call_its_body(family, monkeypatch):
+def test_plan_gives_every_single_map_call_its_body(family):
     """Every recorded row 1 call, single maps, lists and the chained FFW
     alike: the wgmma body for every depthwise call at C >= 128, the
     mma.sync body for C = 64 and the FFW pass without a depthwise stage."""
-    calls = _record_calls(family, monkeypatch)
+    calls = _record(*FAMILIES[family])
     assert calls
     n_wg, forms = 0, set()
     for shape, kw in calls:
@@ -126,26 +121,23 @@ def test_plan_gives_every_single_map_call_its_body(family, monkeypatch):
 
 # the paths chip_smoke.py drives, as (configuration, fused plan); tiled
 # streams make the same calls on tiles, whose sizes the plan does not read
-def _paths():
-    cs = _chip_smoke()
-    return {"gopro": ("gopro", ()), "gopro_t1_fhr": ("gopro_t1_fhr", ()),
-            "gopro_enc3_ffw": ("gopro_enc3_ffw", ()),
-            "gopro_fused": ("gopro", cs.FUSED_PLAN),
-            "gopro_two_stage": ("gopro", cs.TWO_STAGE),
-            "derain": ("derain", ()), "derain_two_stage": ("derain",
-                                                           cs.TWO_STAGE),
-            "sr": ("sr", ()), "sr_two_stage": ("sr", cs.TWO_STAGE)}
+FUSED, TWO_STAGE = ("channel_runs", "attn_v_merge"), ("two_stage",)
+PATHS = {"gopro": ("gopro", ()), "gopro_t1_fhr": ("gopro_t1_fhr", ()),
+         "gopro_enc3_ffw": ("gopro_enc3_ffw", ()),
+         "gopro_fused": ("gopro", FUSED),
+         "gopro_two_stage": ("gopro", TWO_STAGE),
+         "derain": ("derain", ()), "derain_two_stage": ("derain", TWO_STAGE),
+         "sr": ("sr", ()), "sr_two_stage": ("sr", TWO_STAGE)}
 
 
-@pytest.mark.parametrize("tag", ["gopro", "gopro_t1_fhr", "gopro_enc3_ffw",
-                                 "gopro_fused", "gopro_two_stage", "derain",
-                                 "derain_two_stage", "sr", "sr_two_stage"])
+@pytest.mark.parametrize("tag", list(PATHS))
 def test_chip_smoke_launch_table_is_the_plans(tag):
     """chip_smoke.py holds each path's FFN launches a model call to
     LAUNCHES_PER_CALL: the calls of that path, the plan's answer for each."""
     cs = _chip_smoke()
-    assert set(_paths()) == set(cs.LAUNCHES_PER_CALL)
-    config, fuse = _paths()[tag]
+    assert set(PATHS) == set(cs.LAUNCHES_PER_CALL)
+    assert (FUSED, TWO_STAGE) == (cs.FUSED_PLAN, cs.TWO_STAGE)
+    config, fuse = PATHS[tag]
     path, overrides = cs.CONFIGS[config]
     calls = _record(path, overrides, 16 if config == "sr" else 64, fuse)
     wg = sum(_plan(shape, kw)[0] == "wg" for shape, kw in calls)
@@ -221,24 +213,6 @@ def test_plan_keeps_forms_outside_the_new_ones_on_the_tile_body(change):
     ch = 2 * e if mode == "gate" else e
     assert K._ffn_plan(2, 37, 53, c, ch, e, mode, n_x2, n_x2 > 1, True, f,
                        True, torch.bfloat16) == ("tile", None)
-
-
-@pytest.mark.parametrize("c", WG_WIDTHS)
-def test_new_forms_live_in_the_regions_of_the_single_map_form(c):
-    """The shared memory the mirror gives a width holds the new forms'
-    buffers where the kernel puts them: a list's staged halo tile of x2 (100
-    x C bf16) in the fp32 hidden chunk (100 x 128), the chained FFW's y
-    (64 x (C + 8) bf16) in the LN halo (100 x (C + 8)) and its activation
-    (64 x (2C + 8) bf16) in the hidden chunk; at C = 512 neither fits, and
-    the plan keeps both forms off it."""
-    hid = K._WG_HALO * K._WG_HS * 4
-    halo = K._WG_HALO * (c + K._WG_XPAD) * 2
-    lists_fit = K._WG_HALO * c * 2 <= hid
-    ffw2_fit = (K._WG_PIXELS * (c + K._WG_XPAD) * 2 <= halo
-                and K._WG_PIXELS * (2 * c + K._WG_XPAD) * 2 <= hid)
-    assert lists_fit == (c in K._WG_LIST_WIDTHS)
-    assert ffw2_fit == (c <= 128) and ffw2_fit == (c == K._WG_FFW2_WIDTH)
-    assert K._wg_smem(c, True)[0] <= 232448
 
 
 def test_stacked_entries_are_read_in_place_map_by_map():

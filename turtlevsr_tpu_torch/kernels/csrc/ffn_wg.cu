@@ -789,7 +789,7 @@ __global__ void __launch_bounds__(WG_NT, 1)
     // last chunk's dw, the last reader of xn and hid.
     T* ybuf = xn;
     T* gbuf = reinterpret_cast<T*>(hid);
-    static_assert(P * XS <= NPH * XS && P * GS * 2 <= NPH * WG_HS * 4, "y and g fit");
+    static_assert(P * GS * 2 <= NPH * WG_HS * 4, "the activation fits the hid chunk");
 #pragma unroll
     for (int h = 0; h < 2; ++h)
 #pragma unroll
@@ -869,9 +869,9 @@ __global__ void __launch_bounds__(WG_NT, 1)
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         if (!oin[h]) continue;
-        orow[h][c / 2] =
-            __floats2bfloat162_rn((o2[4 * j + 2 * h] + bb.x) * ss.x + acc[0][4 * j + 2 * h],
-                                  (o2[4 * j + 2 * h + 1] + bb.y) * ss.y + acc[0][4 * j + 2 * h + 1]);
+        const int i = 4 * j + 2 * h;
+        orow[h][c / 2] = __floats2bfloat162_rn((o2[i] + bb.x) * ss.x + acc[0][i],
+                                               (o2[i + 1] + bb.y) * ss.y + acc[0][i + 1]);
       }
     }
   }
