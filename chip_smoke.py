@@ -5,8 +5,9 @@
                           [--profile] [--ptxas] [--cases TEXT]
 
 (--cases TEXT, with --phase kernels: only the kernel cases whose
-"<kernel>: <case>" holds TEXT, e.g. "ffn: gate+pair+po(B,C,C) latent"; such
-a run prints no result line and no ok line.)
+"<kernel>: <case>" holds TEXT, e.g. "ffn: gate+pair+po(B,C,C) latent"; given
+more than once, those that hold any of them; such a run prints no result
+line and no ok line.)
 
 (--profile traces a few more frames of each whole-frame stream but
 `gopro_enc3_ffw` and of each tiled stream under each plan, with
@@ -15,7 +16,7 @@ torch.profiler.)
 Phases, one JSON object per line on standard output:
 
   device   the card's name and power limit as nvidia-smi gives them
-  build    nvcc builds the fifteen sources of turtlevsr_tpu_torch/kernels/csrc
+  build    nvcc builds the sixteen sources of turtlevsr_tpu_torch/kernels/csrc
   kernels  each kernel's wrapper against its plain PyTorch version on the
            card at the shapes the 720p serving paths give it (bf16), whole
            padded frames and chunks of 15 tiles alike: errors beside the
@@ -26,8 +27,10 @@ Phases, one JSON object per line on standard output:
            sparse softmax also against the probabilities kernel; rows 1, 3,
            4, 6 and 7 on the body their plans give each call (the wgmma
            bodies of ffn_wg.cu (one map, the CHM lists, the chained FFW),
-           qkv_wg.cu, split_wg.cu, chm_wg.cu and sab_wg.cu also timed on
-           the mma.sync bodies, tile_ms, and on ragged maps; row 7's
+           ffn_c64.cu (row 1 at C = 64), qkv_wg.cu, split_wg.cu, chm_wg.cu
+           and sab_wg.cu also timed on the mma.sync bodies, tile_ms, and on
+           ragged maps; row 1's mma.sync body, off the paths now, at dec1's
+           shape; row 7's
            calls that its plan keeps on sab.cu also on the wgmma body,
            wg_ms; the mma.sync bodies of rows 3, 4, 6 and 7, off the path
            now, at the latent's or dec3's shape); attention @ v also at
@@ -130,20 +133,24 @@ TASKS = {"gopro": "deblur", "derain": "derain", "sr": "sr"}
 # two_stage plan enc1's pair, enc2's three pairs and the refinement's two
 # blocks are 6 two-stage launches where the split route makes 12 FFN ones.
 # The FFN launches at C = 64 (enc1's two ReducedAttn+FFW blocks, dec1's two
-# blocks, the refinement's four passes: 8 a model call) are ffn.cu's, every
-# other one with a depthwise stage the wgmma body's (kernels/ffn.py
-# _ffn_plan; tests/test_torch_port_ffn_plan.py holds these counts to it).
+# blocks, the refinement's four passes: 8 a model call; under two_stage
+# dec1's two) are the C = 64 body's (ffn_c64.cu), every other one with a
+# depthwise stage the wgmma body's (kernels/ffn.py _ffn_plan;
+# tests/test_torch_port_ffn_plan.py holds these counts to it); ffn.cu's dw
+# branch has none.
 _NONE = {"attn_v_slots": 0, "attn_v_merge": 0, "level_run": 0, "ffn_no_dw": 0,
          "two_stage": 0, "sab_sparse_softmax": 0}
-_GOPRO = {"ffn": 51, "ffn_wg": 43, "qkv_stats": 34, "qkv_wg": 34,
+_GOPRO = {"ffn": 51, "ffn_wg": 43, "ffn_c64": 8, "qkv_stats": 34,
+          "qkv_wg": 34,
           "split_proj": 5, "split_wg": 4, "conv3x3": 11, "chm_stats": 3,
           "chm_wg": 3, "sab": 3, "sab_wg": 3, "lattice_merge": 3,
           "lattice_split": 3}
 _DERAIN = {**_GOPRO, "split_proj": 2, "split_wg": 2, "sab": 0, "sab_wg": 0}
-_TWO_STAGE = {"ffn": 39, "ffn_wg": 37, "two_stage": 6}
+_TWO_STAGE = {"ffn": 39, "ffn_wg": 37, "ffn_c64": 2, "two_stage": 6}
 LAUNCHES_PER_CALL = {
     "gopro": {**_GOPRO, **_NONE},
-    "gopro_t1_fhr": {"ffn": 51, "ffn_wg": 43, "qkv_stats": 37, "qkv_wg": 37,
+    "gopro_t1_fhr": {"ffn": 51, "ffn_wg": 43, "ffn_c64": 8, "qkv_stats": 37,
+                     "qkv_wg": 37,
                      "split_proj": 2, "split_wg": 2,
                      "conv3x3": 8, "chm_stats": 0, "chm_wg": 0, "sab": 0,
                      "sab_wg": 0,
@@ -226,14 +233,16 @@ TWO_STAGE_REL_TOL = 2 * KERNEL_REL_TOL
 SPARSE_TOL = 2.0 ** -7
 
 KERNEL_INFO = {
-    # row 1 has two bodies chosen by shape (kernels/ffn.py _ffn_plan): the
+    # row 1 has three bodies chosen by shape (kernels/ffn.py _ffn_plan): the
     # wgmma body takes the depthwise calls at C >= 128 (single maps, the CHM
-    # lists, the chained FFW), ffn.cu the rest; "ffn" launches are those of
-    # ffn.cu's dw branch
+    # lists, the chained FFW), the C = 64 body those at C = 64, ffn.cu the
+    # rest; "ffn" launches are those of ffn.cu's dw branch
     "ffn": ("turtlevsr_tpu_torch/kernels/csrc/ffn.cu",
             "turtlevsr_tpu/kernels/ffn.py:2024"),
     "ffn_wg": ("turtlevsr_tpu_torch/kernels/csrc/ffn_wg.cu",
                "turtlevsr_tpu/kernels/ffn.py:2024"),
+    "ffn_c64": ("turtlevsr_tpu_torch/kernels/csrc/ffn_c64.cu",
+                "turtlevsr_tpu/kernels/ffn.py:2024"),
     # rows 3 and 6 have two bodies each, chosen by shape (kernels/ffn.py
     # _qkv_plan, _chm_plan): the wgmma bodies of qkv_wg.cu and chm_wg.cu
     # (stats_wg.cuh) take the bf16 calls with 64 channels a head, every call
@@ -287,12 +296,12 @@ class SmokeFailure(Exception):
     pass
 
 
-# --cases: only the kernel cases whose "<kernel>: <case>" holds this text
-CASE_FILTER = ""
+# --cases: only the kernel cases whose "<kernel>: <case>" holds one of these
+CASE_FILTER: tuple = ("",)
 
 
 def skipped(kernel: str, name: str) -> bool:
-    return CASE_FILTER not in f"{kernel}: {name}"
+    return not any(text in f"{kernel}: {name}" for text in CASE_FILTER)
 
 
 def emit(obj: dict) -> None:
@@ -369,10 +378,11 @@ def forced_body(mod, plan: str, answer):
 
 def ffn_case(inp: Inputs, name, h, w, c, e, mode, *, pair=False, po=False,
              biases=False, scale=False, ffw2=False, dw=True, iters=5,
-             stacked=0, batch=1, shared_po=False):
-    """Row 1 (or 2, without dw) on the body its plan gives the call: kernel
-    "ffn_wg" for the wgmma body (timed also on the mma.sync body, tile_ms),
-    else "ffn" / "ffn_no_dw"."""
+             stacked=0, batch=1, shared_po=False, tile=False):
+    """Row 1 (or 2, without dw) on the body its plan gives the call (tile: on
+    the mma.sync body): kernel "ffn_wg" for the wgmma body, "ffn_c64" for
+    the C = 64 body (both timed also on the mma.sync body, tile_ms), else
+    "ffn" / "ffn_no_dw"."""
     if skipped("ffn", name):
         return None
     ch = 2 * e if mode == "gate" else e
@@ -407,15 +417,20 @@ def ffn_case(inp: Inputs, name, h, w, c, e, mode, *, pair=False, po=False,
                           w1=inp(c, f, scale=c ** -0.5), b1=inp(f, scale=0.2),
                           w2=inp(f, c, scale=f ** -0.5), b2=inp(c, scale=0.2),
                           scale=inp(c, scale=0.5))
+    body = ((lambda: forced_body(K, "_ffn_plan", OLD_PLAN)) if tile
+            else contextlib.nullcontext)
     wg_before = K.fused_block_ffn.launches_wg
-    got = K.fused_block_ffn(x, **kw)
+    c64_before = K.fused_block_ffn.launches_c64
+    with body():
+        got = K.fused_block_ffn(x, **kw)
     torch.cuda.synchronize()
     on_wg = K.fused_block_ffn.launches_wg > wg_before
+    on_c64 = K.fused_block_ffn.launches_c64 > c64_before
     want = K.ffn_plain(x, **kw)
     err, rel = rel_err(got, want)
     del want
     tile_ms = None
-    if on_wg:
+    if on_wg or on_c64:
         with forced_body(K, "_ffn_plan", OLD_PLAN):
             tile_ms = cuda_ms(lambda: K.fused_block_ffn(x, **kw), iters)
     px = batch * h * w
@@ -428,12 +443,16 @@ def ffn_case(inp: Inputs, name, h, w, c, e, mode, *, pair=False, po=False,
         weights += kw["x2"] + kw["po_w"]
     n_bytes = numel_bytes(x, None if stacked else kw.get("x2"), got, *weights)
     b_ms, b_by = bound(n_bytes, flops)
-    return dict(kernel="ffn_wg" if on_wg else "ffn" if dw else "ffn_no_dw",
+    with body():
+        ms = cuda_ms(lambda: K.fused_block_ffn(x, **kw), iters)
+    return dict(kernel="ffn_wg" if on_wg else "ffn_c64" if on_c64
+                else "ffn" if dw else "ffn_no_dw",
                 case=name, shape=[batch, h, w, c], hidden=ch,
-                body="wg" if on_wg else "tile", tile_ms=tile_ms,
-                max_abs_err=err, rel_err=rel, tol_rel=KERNEL_REL_TOL,
+                body="wg" if on_wg else "c64" if on_c64 else "tile",
+                tile_ms=tile_ms, max_abs_err=err, rel_err=rel,
+                tol_rel=KERNEL_REL_TOL,
                 ok=rel <= KERNEL_REL_TOL and bool(torch.isfinite(got.float()).all()),
-                ms=cuda_ms(lambda: K.fused_block_ffn(x, **kw), iters),
+                ms=ms,
                 plain_ms=cuda_ms(lambda: K.ffn_plain(x, **kw), 2, 1),
                 library_ms=None, bound_ms=b_ms, bound_by=b_by)
 
@@ -1151,6 +1170,28 @@ def kernel_cases(seed: int, h: int, w: int) -> list[dict]:
                          4 * wr + 5, 128, 256, "gelu", biases=True,
                          scale=True, ffw2=True),
     ]
+    # the C = 64 body of row 1 on maps its 16 x 8 tiles do not divide, in
+    # each of its forms (a batch of two with per-batch po and po_b, dec1's
+    # list read in place); ffn.cu's dw branch, off the paths now, at dec1's
+    # shape
+    cases += [
+        lambda: ffn_case(inp, "ragged gate C=64", h - 5, w - 7, 64, 160,
+                         "gate", iters=3),
+        lambda: ffn_case(inp, "ragged gelu+scale C=64", h - 5, w - 7, 64, 128,
+                         "gelu", biases=True, scale=True, iters=3),
+        lambda: ffn_case(inp, "ragged gate+pair+po(B,C,C)+po_b, 2 maps C=64",
+                         h - 5, w - 7, 64, 160, "gate", pair=True, po=True,
+                         biases=True, batch=2, iters=3),
+        lambda: ffn_case(inp, "ragged gate + 3 stacked + 1 maps, po(B,C,C) "
+                         "each C=64", h - 5, w - 7, 64, 160, "gate",
+                         stacked=3, iters=3),
+        lambda: ffn_case(inp, "ragged gelu+scale+ffw2 C=64", h - 5, w - 7, 64,
+                         128, "gelu", biases=True, scale=True, ffw2=True,
+                         iters=3),
+        lambda: ffn_case(inp, "gate+pair+po(B,C,C) dec1 on the mma.sync body "
+                         "(off the paths)", h, w, 64, 160, "gate", pair=True,
+                         po=True, iters=3, tile=True),
+    ]
     # the wgmma bodies of rows 3 and 6 on maps their 8 x 8 tiles do not
     # divide, batches of two whose entries the persistent grid splits
     # between blocks; the mma.sync bodies, off the paths now (float32,
@@ -1598,9 +1639,9 @@ def kernel_rows(cases: list[dict], by_path: dict) -> list[dict]:
         counters = ("attn_v_merge", "attn_v_slots") if name == "attn_v" else (
             name,)
         per_path = {p: sum(c[k] for k in counters) for p, c in by_path.items()}
-        if name == "ffn":  # ffn.cu's dw branch: neither the wgmma body nor no-dw
-            per_path = {p: c["ffn"] - c["ffn_wg"] - c["ffn_no_dw"]
-                        for p, c in by_path.items()}
+        if name == "ffn":  # ffn.cu's dw branch: not the wgmma or C = 64 body, dw
+            per_path = {p: c["ffn"] - c["ffn_wg"] - c["ffn_c64"]
+                        - c["ffn_no_dw"] for p, c in by_path.items()}
         if name in ("qkv_stats", "chm_stats", "split_proj", "sab"):
             wg = name.split("_")[0] + "_wg"  # the mma.sync bodies
             per_path = {p: c[name] - c[wg] for p, c in by_path.items()}
@@ -1637,7 +1678,7 @@ def main(argv=None) -> int:
                          "`gopro_enc3_ffw`) and each tiled stream under each "
                          "plan, trace a few more frames with torch.profiler: "
                          "device time by kernel, idle share")
-    ap.add_argument("--cases", default="",
+    ap.add_argument("--cases", action="append", default=[],
                     help="--phase kernels: only the cases whose "
                          "'<kernel>: <case>' holds this text (no result "
                          "lines, no ok line)")
@@ -1645,7 +1686,7 @@ def main(argv=None) -> int:
                     help="print nvcc's register and shared-memory report")
     args = ap.parse_args(argv)
     global CASE_FILTER
-    CASE_FILTER = args.cases
+    CASE_FILTER = tuple(args.cases) or ("",)
     if args.cases and args.phase != "kernels":
         ap.error("--cases takes --phase kernels")
     width, height = (int(v) for v in args.size.lower().split("x"))
@@ -1704,18 +1745,19 @@ def main(argv=None) -> int:
             # counts were held above); attn_v_slots is the second epilogue of
             # the kernel that attn_v_merge launches and has no caller of its
             # own in the model, nor has sab_sparse_softmax (row 12)
-            t0_chm = ("ffn", "ffn_wg", "qkv_wg", "split_wg", "conv3x3",
-                      "chm_wg", "lattice_merge", "lattice_split")
+            t0_chm = ("ffn", "ffn_wg", "ffn_c64", "qkv_wg", "split_wg",
+                      "conv3x3", "chm_wg", "lattice_merge", "lattice_split")
             t1_chm = t0_chm + ("sab_wg",)
             on_path = {
-                "gopro_t1_fhr": ("ffn", "ffn_wg", "qkv_wg", "split_wg",
-                                 "conv3x3"),
-                "gopro": t1_chm, "gopro_enc3_ffw": ("ffn_no_dw", "ffn_wg"),
+                "gopro_t1_fhr": ("ffn", "ffn_wg", "ffn_c64", "qkv_wg",
+                                 "split_wg", "conv3x3"),
+                "gopro": t1_chm, "gopro_enc3_ffw": ("ffn_no_dw", "ffn_wg",
+                                                    "ffn_c64"),
                 "derain": t0_chm, "sr": t1_chm,
                 "gopro_two_stage": t1_chm + ("two_stage",), "tiled": t1_chm,
-                "tiled_fused": ("ffn", "ffn_wg", "qkv_wg", "split_wg",
-                                "conv3x3", "chm_wg", "sab_wg", "lattice_split",
-                                "attn_v_merge", "level_run"),
+                "tiled_fused": ("ffn", "ffn_wg", "ffn_c64", "qkv_wg",
+                                "split_wg", "conv3x3", "chm_wg", "sab_wg",
+                                "lattice_split", "attn_v_merge", "level_run"),
                 "tiled_two_stage": t1_chm + ("two_stage",),
                 "derain_tiled": t0_chm,
                 "derain_tiled_two_stage": t0_chm + ("two_stage",),

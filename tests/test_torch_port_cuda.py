@@ -17,6 +17,8 @@ from torch_port_util import (
     CHM_KERNEL_SHAPES,
     CONV_KERNEL_SHAPES,
     CONV_LN_KERNEL_SHAPES,
+    FFN_C64_CASES,
+    FFN_C64_LIST_CASES,
     FFN_KERNEL_CASES,
     FFN_LIST_CASES,
     FFN_WG_CASES,
@@ -126,6 +128,46 @@ def test_ffn_wg_smem_mirror_matches_the_source(dev):
     for c in (128, 256, 512):
         for gate in (0, 1):
             assert lib.turtle_ffn_wg_smem(c, gate) == K._wg_smem(c, gate)[0]
+
+
+@pytest.mark.parametrize("case", list(FFN_C64_CASES) + list(FFN_C64_LIST_CASES))
+def test_ffn_c64_body_matches_plain(dev, case):
+    """The C = 64 body (csrc/ffn_c64.cu) on the calls its plan gives it (no
+    x2, one map or a list with po, the chained FFW) on ragged and small maps,
+    batches with per-batch po, grids of fewer tiles than SMs; the mma.sync
+    body just outside its forms: one launch either way, within 2^-7 of the
+    largest output of the plain version, bitwise repeatable."""
+    if case in FFN_C64_LIST_CASES:
+        x, kw = ffn_list_case(case, Maker(16, torch.bfloat16, dev),
+                              FFN_C64_LIST_CASES)
+    else:
+        x, kw = ffn_kernel_case(case, Maker(16, torch.bfloat16, dev),
+                                FFN_C64_CASES)
+    on_c64 = not case.startswith("tile_")
+    before = K.fused_block_ffn.launches
+    c64_before = K.fused_block_ffn.launches_c64
+    got = K.fused_block_ffn(x, **kw)
+    torch.cuda.synchronize()
+    assert K.fused_block_ffn.launches == before + 1
+    assert K.fused_block_ffn.launches_c64 == c64_before + on_c64
+    want = K.ffn_plain(x, **kw)
+    assert torch.isfinite(got.float()).all()
+    assert max_err(got, want) <= 2.0 ** -7 * want.float().abs().max().item()
+    again = K.fused_block_ffn(x, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+
+
+def test_ffn_c64_smem_mirror_matches_the_source(dev):
+    from turtlevsr_tpu_torch.kernels import build
+
+    lib = build.load("ffn_c64")
+    for ch, e, gate, n_po, f in ((320, 160, 1, 0, 0), (320, 160, 1, 1, 0),
+                                 (320, 160, 1, 4, 0), (320, 160, 1, 5, 0),
+                                 (128, 128, 0, 0, 0), (128, 128, 0, 0, 128),
+                                 (64, 64, 0, 2, 0)):
+        assert lib.turtle_ffn_c64_smem(ch, e, gate, n_po, f) == K._c64_smem(
+            ch, e, bool(gate), n_po, f)[0]
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])

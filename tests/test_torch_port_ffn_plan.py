@@ -2,7 +2,9 @@
 families gets: the wgmma body of kernels/csrc/ffn_wg.cu for every
 depthwise call at C = 128, 256 and 512 (single maps, the lists of the
 causal history model at C = 128 and 256, the chained FFW at C = 128), the
-mma.sync body of kernels/csrc/ffn.cu for C = 64 and the FFW pass without a
+C = 64 body of kernels/csrc/ffn_c64.cu for every depthwise call at C = 64
+(the refinement's halves, dec1's Channel and CHM halves, enc1's chained
+FFW), the mma.sync body of kernels/csrc/ffn.cu for the FFW pass without a
 depthwise stage. Runs on the CPU: each family at full width through one
 frame of a small map (the plan depends on widths and forms, not on H and
 W), every fused_block_ffn call recorded and handed to the plan as the card
@@ -85,36 +87,52 @@ def _plan(shape, kw):
                        f, kw.get("wd") is not None, torch.bfloat16)
 
 
+def _form(kw):
+    lists = len(K._x2_maps(kw.get("x2"))) > 1
+    return "lists" if lists else "ffw2" if kw.get("ffw2") is not None else "one"
+
+
 @pytest.mark.parametrize("family", list(FAMILIES))
 def test_plan_gives_every_single_map_call_its_body(family):
     """Every recorded row 1 call, single maps, lists and the chained FFW
-    alike: the wgmma body for every depthwise call at C >= 128, the
-    mma.sync body for C = 64 and the FFW pass without a depthwise stage."""
+    alike: the wgmma body for every depthwise call at C >= 128, the C = 64
+    body for every depthwise call at C = 64, the mma.sync body for the FFW
+    pass without a depthwise stage."""
     calls = _record(*FAMILIES[family])
     assert calls
     n_wg, forms = 0, set()
     for shape, kw in calls:
         body, geo = _plan(shape, kw)
         c = shape[-1]
-        lists = len(K._x2_maps(kw.get("x2"))) > 1
-        chained = kw.get("ffw2") is not None
-        if kw.get("wd") is None or c not in WG_WIDTHS:
+        if kw.get("wd") is None:
             assert body == "tile", (shape, kw["mode"])
             assert geo is None
+        elif c == 64:
+            assert body == "c64", (shape, kw["mode"], _form(kw))
+            assert geo["smem"] <= 232448 and 2 <= geo["stages"] <= 4
+            assert geo["tiles"] == shape[0] * (-(-shape[1] // 16)) * (
+                -(-shape[2] // 8))
+            forms.add((_form(kw), kw["mode"], c))
         else:
-            assert body == "wg", (shape, kw["mode"], lists, chained)
+            assert c in WG_WIDTHS
+            assert body == "wg", (shape, kw["mode"], _form(kw))
             assert geo["smem"] <= 232448
             assert geo["stages"] >= 2
             assert geo["blocks"] == shape[0] * (-(-shape[1] // 8)) * (
                 -(-shape[2] // 8))
             n_wg += 1
-            forms.add(("lists" if lists else "ffw2" if chained else "one", c))
+            forms.add((_form(kw), kw["mode"], c))
     # every family runs Channel blocks at C = 128, 256 and 512, and enc2's
     # ReducedAttn+FFW blocks; the CHM blocks of all but gopro_t1_fhr end
-    # dec3 and dec2 with lists
-    want = {("one", 128), ("one", 256), ("one", 512), ("ffw2", 128)}
+    # dec3 and dec2 with lists. At C = 64: the refinement's GFFW and
+    # ReducedAttn halves, dec1's Channel half (CHM list in all but
+    # gopro_t1_fhr), enc1's ReducedAttn+FFW blocks
+    want = {("one", "gate", 128), ("one", "gate", 256), ("one", "gate", 512),
+            ("ffw2", "gelu", 128), ("one", "gate", 64), ("one", "gelu", 64),
+            ("ffw2", "gelu", 64)}
     if family != "gopro_t1_fhr":
-        want |= {("lists", 256), ("lists", 128)}
+        want |= {("lists", "gate", 256), ("lists", "gate", 128),
+                 ("lists", "gate", 64)}
     assert forms == want
     assert n_wg > 0
 
@@ -141,10 +159,13 @@ def test_chip_smoke_launch_table_is_the_plans(tag):
     path, overrides = cs.CONFIGS[config]
     calls = _record(path, overrides, 16 if config == "sr" else 64, fuse)
     wg = sum(_plan(shape, kw)[0] == "wg" for shape, kw in calls)
+    c64 = sum(_plan(shape, kw)[0] == "c64" for shape, kw in calls)
     no_dw = sum(kw.get("wd") is None for _, kw in calls)
     want = cs.LAUNCHES_PER_CALL[tag]
-    assert (len(calls), wg, no_dw) == (want["ffn"], want["ffn_wg"],
-                                       want["ffn_no_dw"])
+    assert (len(calls), wg, c64, no_dw) == (
+        want["ffn"], want["ffn_wg"], want["ffn_c64"], want["ffn_no_dw"])
+    # ffn.cu's dw branch: no launch on any path
+    assert len(calls) == wg + c64 + no_dw
 
 
 @pytest.mark.parametrize("c", WG_WIDTHS)
@@ -165,14 +186,47 @@ def test_plan_keeps_the_other_calls_on_the_tile_body(change):
     c64 = dict(c=64, ch=320, e=160)
     args.update({"float32": dict(dtype=torch.float32),
                  "no_dw": dict(has_dw=False),
-                 # enc1's ReducedAttn+FFW blocks and dec1's CHM list
-                 "ffw2": dict(c=64, ch=128, e=128, mode="gelu", n_x2=0,
-                              has_po=False, f=128),
-                 "two_maps": dict(c64, n_x2=4),
-                 "c64": c64,
+                 # just outside the C = 64 body's forms (the serving forms:
+                 # test_plan_sends_the_c64_forms_to_the_c64_body): the
+                 # chained FFW in gate mode, five maps (their po matrices
+                 # leave room for one ring slot), a map without po
+                 "ffw2": dict(c=64, ch=256, e=128, n_x2=0, has_po=False,
+                              f=128),
+                 "two_maps": dict(c64, n_x2=5),
+                 "c64": dict(c64, has_po=False),
                  "c96": dict(c=96, ch=480, e=240),
                  "e48": dict(ch=96, e=48)}[change])
     assert K._ffn_plan(**args) == ("tile", None)
+
+
+# the serving forms at C = 64: (E, mode, x2 maps, F); the refinement's GFFW
+# and ReducedAttn halves, dec1's Channel half and CHM list, enc1's chained
+# FFW; and lists of two or three maps
+C64_FORMS = {"refinement_gffw": (160, "gate", 0, 0),
+             "refinement_ra": (128, "gelu", 0, 0),
+             "dec1_channel": (160, "gate", 1, 0),
+             "dec1_lists": (160, "gate", 4, 0),
+             "enc1_ffw2": (128, "gelu", 0, 128),
+             "two_maps": (160, "gate", 2, 0), "three_maps": (160, "gate", 3, 0)}
+
+
+@pytest.mark.parametrize("form", list(C64_FORMS))
+@pytest.mark.parametrize("batched", [True, False], ids=["po_b", "po_shared"])
+def test_plan_sends_the_c64_forms_to_the_c64_body(form, batched):
+    e, mode, n_x2, f = C64_FORMS[form]
+    ch = 2 * e if mode == "gate" else e
+    body, geo = K._ffn_plan(15, 320, 320, 64, ch, e, mode, n_x2, n_x2 > 0,
+                            batched, f, True, torch.bfloat16)
+    assert body == "c64"
+    assert geo["tiles"] == 15 * 20 * 40 and geo["blocks"] == 132
+    assert (geo["smem"], geo["stages"]) == K._c64_smem(
+        ch, e, mode == "gate", n_x2, f)
+    assert 2 <= geo["stages"] <= 4 and geo["smem"] <= 232448
+    # a whole 736 x 1280 frame, and a grid of fewer tiles than SMs
+    assert K._ffn_plan(1, 736, 1280, 64, ch, e, mode, n_x2, n_x2 > 0,
+                       batched, f, True, torch.bfloat16)[1]["tiles"] == 7360
+    assert K._ffn_plan(1, 20, 20, 64, ch, e, mode, n_x2, n_x2 > 0, batched,
+                       f, True, torch.bfloat16)[1]["blocks"] == 6
 
 
 # the new forms of the wgmma body: (C, E, mode, x2 maps, F); the lists of the

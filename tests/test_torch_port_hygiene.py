@@ -48,7 +48,7 @@ def test_port_has_the_expected_modules():
         assert want in rel, want
     from turtlevsr_tpu_torch.kernels import build
 
-    assert len(build.KERNEL_SOURCES) == 15
+    assert len(build.KERNEL_SOURCES) == 16
     headers = ("common.cuh", "ffn_tile.cuh", "qkv_tile.cuh", "pipe.cuh",
                "stats_wg.cuh")
     for cu in (*headers, *(n + ".cu" for n in build.KERNEL_SOURCES)):
@@ -285,7 +285,8 @@ def test_launch_counters_cover_every_wrapper():
     assert set(counts) == {"ffn", "qkv_stats", "split_proj", "conv3x3",
                            "chm_stats", "sab", "lattice_merge",
                            "lattice_split", "attn_v_slots", "attn_v_merge",
-                           "level_run", "ffn_no_dw", "ffn_wg", "qkv_wg",
+                           "level_run", "ffn_no_dw", "ffn_wg", "ffn_c64",
+                           "qkv_wg",
                            "split_wg", "chm_wg", "sab_wg", "two_stage",
                            "sab_sparse_softmax"}
     kernels.reset_launch_counts()

@@ -128,6 +128,50 @@ FFN_WG_CASES = {
     "tile_gelu_scale_ffw2_c64": (2, 37, 53, 64, 128, "gelu", False, None,
                                  True, True, True, True),
 }
+# The calls the C = 64 body takes (kernels/csrc/ffn_c64.cu: bf16, a
+# depthwise stage, C = 64; no x2 map, one or a list of maps with a po each
+# in gate mode, the chained FFW in gelu mode, F = 2C) at the model's hidden
+# widths: ragged maps whose sides the 16 x 8 tiles do not divide, batches of
+# two with per-batch po, maps smaller than a tile and grids of fewer tiles
+# than the card has SMs. Cases named tile_* are just outside the body's
+# forms and stay on ffn.cu. Same fields as FFN_KERNEL_CASES.
+FFN_C64_CASES = {
+    "gate_no_pair_ragged": (2, 37, 53, 64, 160, "gate", False, None, False,
+                            False, False, True),
+    "gate_no_pair_biasfree_ln_one_tile": (1, 16, 8, 64, 160, "gate", False,
+                                          None, False, False, False, False),
+    "gelu_scale_ragged": (2, 37, 53, 64, 128, "gelu", False, None, True, True,
+                          False, True),
+    "gelu_scale_e64_smaller_than_a_tile": (1, 9, 7, 64, 64, "gelu", False,
+                                           None, True, True, False, True),
+    "gate_pair_po_batched_ragged": (2, 37, 53, 64, 160, "gate", True,
+                                    "batched", True, False, False, True),
+    "gate_pair_po_shared_few_tiles": (2, 20, 20, 64, 160, "gate", True,
+                                      "shared", False, False, False, True),
+    "gate_pair_po_batched_15_tiles": (15, 40, 40, 64, 160, "gate", True,
+                                      "batched", False, False, False, True),
+    "gelu_scale_ffw2_ragged": (2, 37, 53, 64, 128, "gelu", False, None, True,
+                               True, True, True),
+    "gelu_scale_ffw2_biasfree_ln_small": (1, 9, 11, 64, 128, "gelu", False,
+                                          None, True, True, True, False),
+    "tile_gate_pair_no_po": (2, 37, 53, 64, 160, "gate", True, None, False,
+                             False, False, True),
+    "tile_gelu_pair_po": (2, 37, 53, 64, 128, "gelu", True, "batched", True,
+                          False, False, True),
+}
+# The lists the C = 64 body takes (gate, up to 4 maps; dec1's CHM call is a
+# stacked entry of 3 maps and one more); tile_*: 5 maps, whose po matrices
+# do not fit its shared memory beside two ring slots. Same fields as
+# FFN_LIST_CASES.
+FFN_C64_LIST_CASES = {
+    "lists_stack3_single_ragged": (2, 37, 53, 64, 160, 3, 1, True, False,
+                                   True),
+    "lists_stack3_single_15_tiles": (15, 40, 40, 64, 160, 3, 1, True, False,
+                                     True),
+    "lists_two_singles_shared_po_b": (1, 20, 20, 64, 160, 0, 2, False, True,
+                                      False),
+    "tile_lists_stack4_single": (2, 37, 53, 64, 160, 4, 1, True, False, True),
+}
 # (B, H, W, C, heads, biases)
 QKV_KERNEL_SHAPES = [(2, 11, 13, 16, 2, True), (1, 8, 9, 128, 2, False),
                      (1, 9, 8, 48, 1, False)]

@@ -11,13 +11,16 @@
 // Replaces fused_block_ffn in turtlevsr_tpu/kernels/ffn.py: its dw branch
 // (_dw_kernel / _dw_gate_cm_kernel) and, with wd absent, its no-dw branch
 // (_pw_kernel), which here still computes pw1 on the halo it does not need.
-// This is one of the two bodies of the wrapper: ffn_wg.cu (TMA + wgmma)
+// This is one of the three bodies of the wrapper: ffn_wg.cu (TMA + wgmma)
 // takes the bf16 calls with a dw stage, C in {128, 256, 512} and E a
 // multiple of 32 (at most one x2 map; lists of maps in gate mode at C = 128
-// and 256; the chained FFW in gelu mode at C = 128, F = 2 C, no x2); this
-// body takes every other call (C = 64 in every form, no dw, float32, other
-// widths, lists at C = 512). ffn.py's _ffn_plan chooses by shape before the
-// launch.
+// and 256; the chained FFW in gelu mode at C = 128, F = 2 C, no x2);
+// ffn_c64.cu (a persistent grid, the weights resident, TMA + wgmma) takes
+// the bf16 calls with a dw stage at C = 64 in the serving forms (no x2; one
+// or up to 4 maps with a po each in gate mode; the chained FFW in gelu
+// mode, F = 2 C); this body takes every other call (no dw, float32, other
+// widths and forms, lists at C = 512). ffn.py's _ffn_plan chooses by shape
+// before the launch.
 // On an H100 the chain is bound by operations at the levels with C >= 128
 // and by bytes at C = 64 (2*(C*CH + E*C) flop per pixel
 // against 2-3 map reads and one write), so the design keeps every

@@ -10,8 +10,9 @@
 //   * the chained pointwise FFW (a ReducedAttn+FFW block in one pass), mode
 //     gelu, no x2, C = 128 and F = 2 C.
 //
-// ffn.py's _ffn_plan sends every such call here and every other one (C = 64,
-// no dw, float32, other widths) to ffn.cu's mma.sync body. What it computes,
+// ffn.py's _ffn_plan sends every such call here, the depthwise forms at C =
+// 64 to ffn_c64.cu and every other one (no dw, float32, other widths) to
+// ffn.cu's mma.sync body. What it computes,
 // and where it rounds, is in the note of ffn.cu: each x2_j @ po_j rounded to
 // bf16, + po_b (map 0 only) rounded again, x' = x + those summed in fp32 in
 // map order and rounded, LN(x') with fp32 statistics rounded, pw1 + b1, the
@@ -67,9 +68,10 @@
 //     as two M = 64 products, the activation in the hid chunk's space, f_w1
 //     and f_w2 through the ring after the last chunk's w2.
 //
-// C = 64 stays on ffn.cu: there the chain is bound by the dw taps, the
-// hidden map's stores and the prologue, not by the products, and this body
-// was not faster on an H100 (PERF.md, row 1).
+// C = 64 has a body of its own, ffn_c64.cu: there the chain is bound by the
+// dw taps, the hidden map's stores and the prologue, not by the products,
+// and this body, with its 16 KB ring stages and its 100 halo rows padded to
+// 128 a tile, was not faster than ffn.cu on an H100 (PERF.md, row 1).
 #include "ffn_tile.cuh"
 #include "pipe.cuh"
 

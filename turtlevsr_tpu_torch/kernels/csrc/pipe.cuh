@@ -88,6 +88,10 @@ __device__ __forceinline__ void wgmma_commit() {
 template <int N> __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
+// generic-proxy stores to shared memory made visible to wgmma's reads
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
 // the accumulators stay where the asynchronous products write them
 template <int N> __device__ __forceinline__ void pin(float (&d)[N]) {
 #pragma unroll

@@ -100,11 +100,6 @@ __device__ __forceinline__ uint64_t sw_stage_desc(const unsigned char* stage, in
   return panel_desc(stage + p * SW_PANEL + k * 16 * 128, SW_PANEL);
 }
 
-// generic-proxy stores to shared memory made visible to wgmma's reads
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
 // d (m64n64, fp32) += a^T b over 16 pixels: a and b 64 x 64 bf16 tiles in
 // shared memory (rows = pixels), both read transposed (MN-major) by their
 // descriptors

@@ -15,7 +15,8 @@ Every wrapper counts its kernel launches in ``<wrapper>.launches``
 (``turtlevsr_tpu_torch.kernels.launch_counts`` reads them all);
 ``fused_block_ffn.launches_no_dw`` counts those of them that ran the branch
 without a depthwise stage, ``fused_block_ffn.launches_wg`` those on the
-wgmma body of csrc/ffn_wg.cu; ``fused_qkv_stats.launches_wg`` and
+wgmma body of csrc/ffn_wg.cu, ``fused_block_ffn.launches_c64`` those on the
+C = 64 body of csrc/ffn_c64.cu; ``fused_qkv_stats.launches_wg`` and
 ``fused_chm_stats.launches_wg`` those of the statistics on the wgmma body of
 csrc/stats_wg.cuh (qkv_wg.cu, chm_wg.cu); ``fused_ln_split_proj.launches_wg``
 those of the split projection on the wgmma body of csrc/split_wg.cu.
@@ -373,22 +374,93 @@ def _wg_smem(c: int, gate: bool) -> tuple[int, int]:
     return _WG_ALIGN + stages * _WG_STAGE + rest + 16 * stages, stages
 
 
+# the C = 64 body (csrc/ffn_c64.cu): its output tile (16 rows x 8 columns,
+# a halo of 18 x 10), ring slots (_C64_SLOT bytes each, 2 to
+# _C64_MAX_STAGES) and the parts of its shared memory beside them, mirrored
+# from the source (a card test holds the two equal)
+_C64_TH, _C64_TW = 16, 8
+_C64_SLOT, _C64_MAX_STAGES, _C64_MAX_MAPS = 23552, 4, 4
+_C64_PANEL, _C64_NPH, _C64_HS, _C64_P = 8192, 180, 64, 128
+
+
+def _c64_smem(ch: int, e: int, gate: bool, n_po: int, f: int
+              ) -> tuple[int, int]:
+    """(bytes of shared memory, ring slots) of the C = 64 body: the LN(x')
+    halo (a slot's bytes), w1 (64 x ch), w2 (e x 64), the n_po po matrices,
+    f_w1 and f_w2 (64 x f, f x 64), the fp32 hidden chunk (180 x 64), the
+    activation chunk (128 pixels x 32 (gate) or 64 columns + 8, bf16), wd (9
+    x ch), then as many ring slots, each with its mbarrier, as fit (0: fewer
+    than two, the body does not take the call)."""
+    aw = 32 if gate else 64
+    rest = (_C64_SLOT + 128 * ch + 128 * e + n_po * _C64_PANEL + 256 * f
+            + _C64_NPH * _C64_HS * 4 + _C64_P * (aw + _WG_XPAD) * 2 + 18 * ch)
+    if rest + _WG_ALIGN >= _SMEM_LIMIT:
+        return _WG_ALIGN + rest, 0
+    stages = min(_C64_MAX_STAGES,
+                 (_SMEM_LIMIT - _WG_ALIGN - rest) // (_C64_SLOT + 8))
+    return _WG_ALIGN + stages * _C64_SLOT + rest + 8 * stages, stages
+
+
+def _c64_tiles(h: int, w: int) -> int:
+    return -(-h // _C64_TH) * -(-w // _C64_TW)
+
+
+def _c64_walk(b: int, n_tiles: int, blocks: int) -> list[range]:
+    """The persistent grid's walk: block g takes items [g T / G, (g + 1) T /
+    G) of the T = b * n_tiles (batch entry, tile) items, entry-major (the
+    kernel's it0, it1)."""
+    total = b * n_tiles
+    return [range(g * total // blocks, (g + 1) * total // blocks)
+            for g in range(blocks)]
+
+
+def _c64_form(c, ch, e, mode, n_x2, has_po, f) -> bool:
+    """Whether a bf16 depthwise call has a form of the C = 64 body: no x2
+    map (gate or gelu); one map or a list of up to _C64_MAX_MAPS with a po
+    each, in gate mode; the chained FFW in gelu mode, no x2, f = 2 C."""
+    gate = mode == "gate"
+    if (c != 64 or mode not in ("gate", "gelu")
+            or ch != (2 * e if gate else e) or e % (32 if gate else 64)):
+        return False
+    if f:
+        return not gate and n_x2 == 0 and f == 2 * c
+    return n_x2 == 0 or (has_po and gate and n_x2 <= _C64_MAX_MAPS)
+
+
 def _ffn_plan(b, h, w, c, ch, e, mode, n_x2, has_po, po_batched, f, has_dw,
-              dtype):
+              dtype, n_sm: int = 132):
     """The body of one fused_block_ffn call, chosen by its shape: ("wg",
-    geometry) for the wgmma body of csrc/ffn_wg.cu, else ("tile", None) for
-    the mma.sync body of csrc/ffn.cu. f: the chained FFW's hidden width (0:
-    none). The wgmma body takes the bf16 calls with a depthwise stage, C in
-    128 / 256 / 512 and E a multiple of 32 in three forms: at most one x2
-    map; a list of x2 maps (gate, C = 128 or 256: the causal history
-    model's call at dec3 and dec2); the chained FFW (gelu, no x2, C = 128, f
-    = 2 C: enc2's ReducedAttn+FFW blocks). Everything else (C = 64, no
-    depthwise stage, float32, other widths) goes to csrc/ffn.cu, whose
-    shared memory refuses lists at C = 512 (no path has them). The
-    geometry: 8 x 8 output tiles, their count, the activation columns of a
-    chunk, the ring stages and the shared memory."""
-    del po_batched  # both bodies take a shared or a per-batch matrix
-    if (dtype != torch.bfloat16 or not has_dw or mode not in ("gate", "gelu")
+    geometry) for the wgmma body of csrc/ffn_wg.cu, ("c64", geometry) for
+    the C = 64 body of csrc/ffn_c64.cu, else ("tile", None) for the mma.sync
+    body of csrc/ffn.cu. f: the chained FFW's hidden width (0: none). The
+    wgmma body takes the bf16 calls with a depthwise stage, C in 128 / 256 /
+    512 and E a multiple of 32 in three forms: at most one x2 map; a list of
+    x2 maps (gate, C = 128 or 256: the causal history model's call at dec3
+    and dec2); the chained FFW (gelu, no x2, C = 128, f = 2 C: enc2's
+    ReducedAttn+FFW blocks). The C = 64 body takes the bf16 depthwise calls
+    at C = 64 in its forms (:func:`_c64_form`: the refinement's halves,
+    dec1's Channel and CHM halves, enc1's ReducedAttn+FFW blocks; each
+    measured faster there than on csrc/ffn.cu, PERF.md row 1). Everything
+    else (no depthwise stage, float32, other widths and forms) goes to
+    csrc/ffn.cu, whose shared memory refuses lists at C = 512 (no path has
+    them). The geometry: the output tiles,
+    their count, the activation columns of a chunk, the ring stages and the
+    shared memory; for the C = 64 body also the persistent grid's blocks
+    (one an SM, n_sm of them at most)."""
+    del po_batched  # every body takes a shared or a per-batch matrix
+    if dtype != torch.bfloat16 or not has_dw:
+        return "tile", None
+    if c == 64:
+        smem, stages = _c64_smem(ch, e, mode == "gate",
+                                 n_x2 if has_po else 0, f)
+        if not _c64_form(c, ch, e, mode, n_x2, has_po, f) or stages < 2:
+            return "tile", None
+        n_tiles = b * _c64_tiles(h, w)
+        return "c64", dict(tile=(_C64_TH, _C64_TW), tiles=n_tiles,
+                           blocks=min(n_tiles, n_sm),
+                           chunk=32 if mode == "gate" else 64, stages=stages,
+                           smem=smem)
+    if (mode not in ("gate", "gelu")
             or c not in _WG_WIDTHS or e % 32
             or ch != (2 * e if mode == "gate" else e)
             or (has_po and n_x2 < 1)
@@ -439,14 +511,19 @@ def _ffn_launch(x, x2, po_w, po_b, ln_w, ln_b, w1, b1, wd, bd, w2, b2, scale,
         _check("bd", bd, x, (ch,)), _check("w2", w2, x, (e, c)),
         _check("b2", b2, x, (c,)), _check("scale", scale, x, (c,)),
         *fp, out.data_ptr(), *x2_ptrs]
-    body, _ = _ffn_plan(b, h, w, c, ch, e, mode, n_x2, po is not None,
-                        po_batched, f, wd is not None, x.dtype)
+    body, geo = _ffn_plan(b, h, w, c, ch, e, mode, n_x2, po is not None,
+                          po_batched, f, wd is not None, x.dtype,
+                          _sm_count(x.device))
     ints = [b, h, w, c, ch, e, f, int(mode == "gate"), int(po_batched), n_x2,
             *x2_strides]
     if body == "wg":  # its shared memory fits by construction (_wg_smem)
         _call(build.load("ffn_wg").turtle_ffn_wg_launch, ptrs, ints, x,
               "fused_block_ffn")
         fused_block_ffn.launches_wg += 1
+    elif body == "c64":  # likewise (_c64_smem)
+        _call(build.load("ffn_c64").turtle_ffn_c64_launch, ptrs,
+              ints + [geo["blocks"]], x, "fused_block_ffn")
+        fused_block_ffn.launches_c64 += 1
     else:
         lib = build.load("ffn")
         _check_smem("fused_block_ffn", lib.turtle_ffn_smem(
@@ -465,15 +542,20 @@ def fused_block_ffn(x, *, x2=None, po_w=None, po_b=None, ln_w, ln_b=None,
 
     Replaces ``fused_block_ffn`` of turtlevsr_tpu/kernels/ffn.py, both its
     dw branch and (``wd=None``: no depthwise stage) its no-dw branch; on an
-    H100 bound by operations at C >= 128 and by bytes at C = 64. Two
+    H100 bound by operations at C >= 128 and by bytes at C = 64. Three
     kernels, chosen by shape before the launch (:func:`_ffn_plan`): the
     wgmma body of csrc/ffn_wg.cu for bf16 calls with a depthwise stage,
     C = 128, 256 or 512 and a hidden width E that is a multiple of 32 (at
     most one x2 map; or a list of maps in gate mode at C = 128, 256; or
     ``ffw2`` in gelu mode at C = 128 with F = 2C, no x2;
-    ``fused_block_ffn.launches_wg`` counts them); the mma.sync body of
-    csrc/ffn.cu for every other call (C = 64, no depthwise stage, float32).
-    A call is one launch either way.
+    ``fused_block_ffn.launches_wg`` counts them); the C = 64 body of
+    csrc/ffn_c64.cu (a persistent grid, the weights resident in shared
+    memory, halo tiles of 16 x 8 outputs by TMA, wgmma) for bf16 calls with
+    a depthwise stage at C = 64 in the serving forms (no x2 map, or one or a
+    list of up to 4 with a po each in gate mode, or ``ffw2`` in gelu mode
+    with F = 2C; ``fused_block_ffn.launches_c64`` counts them); the
+    mma.sync body of csrc/ffn.cu for every other call (no depthwise stage,
+    float32, other forms). A call is one launch either way.
     x2: optional second addend map (the attention branch); po_w (C, C) or
     per batch (B, C, C) and po_b: optional projection applied to x2 in the
     kernel. x2 may also be a list of up to 5 maps, an entry being a map or
@@ -497,6 +579,7 @@ def fused_block_ffn(x, *, x2=None, po_w=None, po_b=None, ln_w, ln_b=None,
 fused_block_ffn.launches = 0
 fused_block_ffn.launches_no_dw = 0  # those of them without a depthwise stage
 fused_block_ffn.launches_wg = 0  # those of them on the wgmma body (ffn_wg.cu)
+fused_block_ffn.launches_c64 = 0  # those of them on the C = 64 body (ffn_c64.cu)
 
 
 # ---------------------------------------------------------------------------
