@@ -9,14 +9,13 @@
 more than once, those that hold any of them; such a run prints no result
 line and no ok line.)
 
-(--profile traces a few more frames of each whole-frame stream but
-`gopro_enc3_ffw` and of each tiled stream under each plan, with
-torch.profiler.)
+(--profile traces a few more frames of each whole-frame stream and of each
+tiled stream under each plan, with torch.profiler.)
 
 Phases, one JSON object per line on standard output:
 
   device   the card's name and power limit as nvidia-smi gives them
-  build    nvcc builds the sixteen sources of turtlevsr_tpu_torch/kernels/csrc
+  build    nvcc builds the eighteen sources of turtlevsr_tpu_torch/kernels/csrc
   kernels  each kernel's wrapper against its plain PyTorch version on the
            card at the shapes the 720p serving paths give it (bf16), whole
            padded frames and chunks of 15 tiles alike: errors beside the
@@ -24,11 +23,12 @@ Phases, one JSON object per line on standard output:
            version's, a PyTorch library call's where one computes the same
            function, and the least time the card could take (bound); the
            two-stage kernel also against the split launches it replaces, the
-           sparse softmax also against the probabilities kernel; rows 1, 3,
-           4, 6 and 7 on the body their plans give each call (the wgmma
+           sparse softmax also against the probabilities kernel; rows 1, 2,
+           3, 4, 6 and 7 on the body their plans give each call (the wgmma
            bodies of ffn_wg.cu (one map, the CHM lists, the chained FFW),
-           ffn_c64.cu (row 1 at C = 64), qkv_wg.cu, split_wg.cu, chm_wg.cu
-           and sab_wg.cu also timed on the mma.sync bodies, tile_ms, and on
+           ffn_c64.cu (row 1 at C = 64), ffn_pw.cu (row 2), qkv_wg.cu,
+           split_wg.cu, split_c64.cu (row 4 at C = 64), chm_wg.cu and
+           sab_wg.cu also timed on the mma.sync bodies, tile_ms, and on
            ragged maps; row 1's mma.sync body, off the paths now, at dec1's
            shape; row 7's
            calls that its plan keeps on sab.cu also on the wgmma body,
@@ -135,27 +135,33 @@ TASKS = {"gopro": "deblur", "derain": "derain", "sr": "sr"}
 # The FFN launches at C = 64 (enc1's two ReducedAttn+FFW blocks, dec1's two
 # blocks, the refinement's four passes: 8 a model call; under two_stage
 # dec1's two) are the C = 64 body's (ffn_c64.cu), every other one with a
-# depthwise stage the wgmma body's (kernels/ffn.py _ffn_plan;
-# tests/test_torch_port_ffn_plan.py holds these counts to it); ffn.cu's dw
-# branch has none.
+# depthwise stage the wgmma body's, the FFW passes without one (enc3 of
+# gopro_enc3_ffw) ffn_pw.cu's (kernels/ffn.py _ffn_plan;
+# tests/test_torch_port_ffn_plan.py holds these counts to it); ffn.cu has
+# none. The split projection's calls at C >= 128 (the latent FHR blocks,
+# the SAB q, k at dec3 and dec2) are split_wg.cu's, dec1's SAB q, k
+# split_c64.cu's (_split_plan; tests/test_torch_port_split_sab_plan.py);
+# split_proj.cu has none.
 _NONE = {"attn_v_slots": 0, "attn_v_merge": 0, "level_run": 0, "ffn_no_dw": 0,
-         "two_stage": 0, "sab_sparse_softmax": 0}
+         "ffn_pw": 0, "two_stage": 0, "sab_sparse_softmax": 0}
 _GOPRO = {"ffn": 51, "ffn_wg": 43, "ffn_c64": 8, "qkv_stats": 34,
           "qkv_wg": 34,
-          "split_proj": 5, "split_wg": 4, "conv3x3": 11, "chm_stats": 3,
-          "chm_wg": 3, "sab": 3, "sab_wg": 3, "lattice_merge": 3,
-          "lattice_split": 3}
-_DERAIN = {**_GOPRO, "split_proj": 2, "split_wg": 2, "sab": 0, "sab_wg": 0}
+          "split_proj": 5, "split_wg": 4, "split_c64": 1, "conv3x3": 11,
+          "chm_stats": 3, "chm_wg": 3, "sab": 3, "sab_wg": 3,
+          "lattice_merge": 3, "lattice_split": 3}
+_DERAIN = {**_GOPRO, "split_proj": 2, "split_wg": 2, "split_c64": 0,
+           "sab": 0, "sab_wg": 0}
 _TWO_STAGE = {"ffn": 39, "ffn_wg": 37, "ffn_c64": 2, "two_stage": 6}
 LAUNCHES_PER_CALL = {
     "gopro": {**_GOPRO, **_NONE},
     "gopro_t1_fhr": {"ffn": 51, "ffn_wg": 43, "ffn_c64": 8, "qkv_stats": 37,
                      "qkv_wg": 37,
-                     "split_proj": 2, "split_wg": 2,
+                     "split_proj": 2, "split_wg": 2, "split_c64": 0,
                      "conv3x3": 8, "chm_stats": 0, "chm_wg": 0, "sab": 0,
                      "sab_wg": 0,
                      "lattice_merge": 0, "lattice_split": 0, **_NONE},
-    "gopro_enc3_ffw": {**_GOPRO, **_NONE, "ffn_no_dw": 10, "ffn_wg": 33},
+    "gopro_enc3_ffw": {**_GOPRO, **_NONE, "ffn_no_dw": 10, "ffn_pw": 10,
+                       "ffn_wg": 33},
     "gopro_fused": {**_GOPRO, **_NONE, "ffn": 18, "ffn_wg": 10, "qkv_stats": 1,
                     "qkv_wg": 1,
                     "lattice_merge": 0, "attn_v_merge": 3, "level_run": 4},
@@ -243,6 +249,11 @@ KERNEL_INFO = {
                "turtlevsr_tpu/kernels/ffn.py:2024"),
     "ffn_c64": ("turtlevsr_tpu_torch/kernels/csrc/ffn_c64.cu",
                 "turtlevsr_tpu/kernels/ffn.py:2024"),
+    # row 2, the branch without a depthwise stage: ffn_pw.cu takes its bf16
+    # pointwise FFW at C = 128, 256 (every call of the paths), ffn.cu the
+    # rest; "ffn_no_dw" launches are those of ffn.cu's branch
+    "ffn_pw": ("turtlevsr_tpu_torch/kernels/csrc/ffn_pw.cu",
+               "turtlevsr_tpu/kernels/ffn.py:1843"),
     # rows 3 and 6 have two bodies each, chosen by shape (kernels/ffn.py
     # _qkv_plan, _chm_plan): the wgmma bodies of qkv_wg.cu and chm_wg.cu
     # (stats_wg.cuh) take the bf16 calls with 64 channels a head, every call
@@ -261,6 +272,9 @@ KERNEL_INFO = {
                    "turtlevsr_tpu/kernels/ffn.py:1732"),
     "split_wg": ("turtlevsr_tpu_torch/kernels/csrc/split_wg.cu",
                  "turtlevsr_tpu/kernels/ffn.py:1732"),
+    # row 4 at C = 64 (dec1's SAB q, k) on a body of its own
+    "split_c64": ("turtlevsr_tpu_torch/kernels/csrc/split_c64.cu",
+                  "turtlevsr_tpu/kernels/ffn.py:1732"),
     "conv3x3": ("turtlevsr_tpu_torch/kernels/csrc/conv3x3.cu",
                 "turtlevsr_tpu/kernels/ffn.py:1622"),
     "chm_stats": ("turtlevsr_tpu_torch/kernels/csrc/chm_stats.cu",
@@ -275,7 +289,7 @@ KERNEL_INFO = {
                       "turtlevsr_tpu/kernels/lattice.py:59"),
     "lattice_split": ("turtlevsr_tpu_torch/kernels/csrc/lattice.cu",
                       "turtlevsr_tpu/kernels/lattice.py:79"),
-    # the FFN kernel's branch without a depthwise stage (wd absent)
+    # the FFN kernel's branch without a depthwise stage (wd absent) on ffn.cu
     "ffn_no_dw": ("turtlevsr_tpu_torch/kernels/csrc/ffn.cu",
                   "turtlevsr_tpu/kernels/ffn.py:1843"),
     # one kernel with two epilogues and a wrapper for each (the model calls
@@ -381,8 +395,8 @@ def ffn_case(inp: Inputs, name, h, w, c, e, mode, *, pair=False, po=False,
              stacked=0, batch=1, shared_po=False, tile=False):
     """Row 1 (or 2, without dw) on the body its plan gives the call (tile: on
     the mma.sync body): kernel "ffn_wg" for the wgmma body, "ffn_c64" for
-    the C = 64 body (both timed also on the mma.sync body, tile_ms), else
-    "ffn" / "ffn_no_dw"."""
+    the C = 64 body, "ffn_pw" for row 2's body (each timed also on the
+    mma.sync body, tile_ms), else "ffn" / "ffn_no_dw"."""
     if skipped("ffn", name):
         return None
     ch = 2 * e if mode == "gate" else e
@@ -421,16 +435,18 @@ def ffn_case(inp: Inputs, name, h, w, c, e, mode, *, pair=False, po=False,
             else contextlib.nullcontext)
     wg_before = K.fused_block_ffn.launches_wg
     c64_before = K.fused_block_ffn.launches_c64
+    pw_before = K.fused_block_ffn.launches_pw
     with body():
         got = K.fused_block_ffn(x, **kw)
     torch.cuda.synchronize()
     on_wg = K.fused_block_ffn.launches_wg > wg_before
     on_c64 = K.fused_block_ffn.launches_c64 > c64_before
+    on_pw = K.fused_block_ffn.launches_pw > pw_before
     want = K.ffn_plain(x, **kw)
     err, rel = rel_err(got, want)
     del want
     tile_ms = None
-    if on_wg or on_c64:
+    if on_wg or on_c64 or on_pw:
         with forced_body(K, "_ffn_plan", OLD_PLAN):
             tile_ms = cuda_ms(lambda: K.fused_block_ffn(x, **kw), iters)
     px = batch * h * w
@@ -446,9 +462,10 @@ def ffn_case(inp: Inputs, name, h, w, c, e, mode, *, pair=False, po=False,
     with body():
         ms = cuda_ms(lambda: K.fused_block_ffn(x, **kw), iters)
     return dict(kernel="ffn_wg" if on_wg else "ffn_c64" if on_c64
-                else "ffn" if dw else "ffn_no_dw",
+                else "ffn_pw" if on_pw else "ffn" if dw else "ffn_no_dw",
                 case=name, shape=[batch, h, w, c], hidden=ch,
-                body="wg" if on_wg else "c64" if on_c64 else "tile",
+                body="wg" if on_wg else "c64" if on_c64 else "pw" if on_pw
+                else "tile",
                 tile_ms=tile_ms, max_abs_err=err, rel_err=rel,
                 tol_rel=KERNEL_REL_TOL,
                 ok=rel <= KERNEL_REL_TOL and bool(torch.isfinite(got.float()).all()),
@@ -538,26 +555,31 @@ def qkv_case(inp: Inputs, name, h, w, c, heads, iters=5, batch=1,
 def split_case(inp: Inputs, name, h, w, c, n_out, iters=5, batch=1,
                tile=False):
     """Row 4 on the body its plan gives the call (tile: on the mma.sync
-    body): kernel "split_wg" for the wgmma body (timed also on the mma.sync
-    body, tile_ms), else "split_proj"."""
-    on_wg = not tile and K._split_plan(
+    body): kernel "split_wg" for the wgmma body, "split_c64" for the C = 64
+    body (both timed also on the mma.sync body, tile_ms), else
+    "split_proj"."""
+    body = "tile" if tile else K._split_plan(
         batch, h, w, c, c, n_out, True, False, torch.bfloat16,
-        K._sm_count(torch.device("cuda", 0)))[0] == "wg"
-    kernel = "split_wg" if on_wg else "split_proj"
+        K._sm_count(torch.device("cuda", 0)))[0]
+    kernel = {"wg": "split_wg", "c64": "split_c64"}.get(body, "split_proj")
     if skipped(kernel, name):
         return None
     x = inp(batch, h, w, c)
     kw = chain_weights(inp, c, n_out * c)
-    wg_before = K.fused_ln_split_proj.launches_wg
+    before = (K.fused_ln_split_proj.launches_wg,
+              K.fused_ln_split_proj.launches_c64)
     with forced_body(K, "_split_plan", OLD_PLAN) if tile else contextlib.nullcontext():
         got = K.fused_ln_split_proj(x, n_out=n_out, **kw)
         torch.cuda.synchronize()
         ms = cuda_ms(lambda: K.fused_ln_split_proj(x, n_out=n_out, **kw),
                      iters)
-    require(on_wg == (K.fused_ln_split_proj.launches_wg > wg_before),
+    after = (K.fused_ln_split_proj.launches_wg,
+             K.fused_ln_split_proj.launches_c64)
+    require(((body == "wg", body == "c64")
+             == (after[0] > before[0], after[1] > before[1])),
             f"split_proj {name}: body")
     tile_ms = None
-    if on_wg:
+    if body != "tile":
         with forced_body(K, "_split_plan", OLD_PLAN):
             tile_ms = cuda_ms(
                 lambda: K.fused_ln_split_proj(x, n_out=n_out, **kw), iters)
@@ -568,7 +590,7 @@ def split_case(inp: Inputs, name, h, w, c, n_out, iters=5, batch=1,
     b_ms, b_by = bound(numel_bytes(x, *got, *kw.values()), flops)
     return dict(kernel=kernel, case=name, shape=[batch, h, w, c],
                 n_out=n_out, max_abs_err=err, rel_err=rel,
-                body="wg" if on_wg else "tile", tile_ms=tile_ms,
+                body=body, tile_ms=tile_ms,
                 tol_rel=KERNEL_REL_TOL, ok=rel <= KERNEL_REL_TOL, ms=ms,
                 plain_ms=cuda_ms(
                     lambda: K.split_proj_plain(x, n_out=n_out, **kw), 2, 1),
@@ -1093,15 +1115,22 @@ def kernel_cases(seed: int, h: int, w: int) -> list[dict]:
     h3, w3, h4, w4 = h // 4, w // 4, h // 8, w // 8
     tb, tl = MAX_TILE_BATCH, TILE
     cases = path_cases(inp, 1, h, w)
-    # the branch without a depthwise stage: an FFW half alone, and the FFW
-    # pass of enc3 in `gopro_enc3_ffw` (whole-frame only)
+    # the branch without a depthwise stage: the FFW pass of enc3 in
+    # `gopro_enc3_ffw` (whole-frame only; its v map and per-batch po, row 2's
+    # body) also on a ragged batch of two, and an FFW half alone at C = 64
+    # (ffn.cu; no path)
     cases += [
+        lambda: ffn_case(inp, "gelu+scale+pair+po(B,C,C), no dw (FFW pass of "
+                         "enc3 in gopro_enc3_ffw)", h3, w3, 256, 512, "gelu",
+                         biases=True, scale=True, pair=True, po=True,
+                         dw=False),
+        lambda: ffn_case(inp, "ragged gelu+scale+pair+po(B,C,C)+po_b, 2 maps, "
+                         "no dw C=256", h3 - 1, w3 - 5, 256, 512, "gelu",
+                         biases=True, scale=True, pair=True, po=True,
+                         dw=False, batch=2),
         lambda: ffn_case(inp, "gelu+scale, no dw (an FFW half alone; not on "
                          "the main path)", h, w, 64, 128, "gelu", biases=True,
                          scale=True, dw=False, iters=3),
-        lambda: ffn_case(inp, "gelu+scale, no dw (FFW pass of enc3 in "
-                         "gopro_enc3_ffw)", h3, w3, 256, 512, "gelu",
-                         biases=True, scale=True, dw=False),
     ]
     # tiled streaming, 15 tiles of 320 x 320 a model call: every kernel of
     # the path again at that batch (grid dimensions, offsets and the partial
@@ -1221,16 +1250,21 @@ def kernel_cases(seed: int, h: int, w: int) -> list[dict]:
         lambda: split_case(inp, "ragged q,k,v C=512", hr, wr, 512, 3),
         lambda: split_case(inp, "ragged q,k C=128, 2 maps", 4 * hr + 3,
                            4 * wr + 5, 128, 2, batch=2),
+        lambda: split_case(inp, "ragged q,k C=64", h - 5, w - 7, 64, 2,
+                           iters=3),
         lambda: sab_case(inp, "ragged 13x17 grid D=256, 15 maps", 13, 17, 256,
                          4, batch=15),
         lambda: sab_case(inp, "ragged 13x17 grid D=512, 3 maps", 13, 17, 512,
                          4, batch=3),
     ]
     # row 7 at the shapes of the SR tiles (the model's maps 256 x 256: 16 x
-    # 16 window tokens at every CHM level), 15 tiles a call
+    # 16 window tokens at every CHM level), 15 tiles a call; row 4 at dec1
+    # there
     for lvl, (_, c, _, _, ring) in CHM_LEVELS.items():
         cases.append(lambda lvl=lvl, c=c, nf=ring + 1: sab_case(
             inp, f"{lvl}, {tb} SR tiles", 16, 16, 2 * c, nf, batch=tb))
+    cases.append(lambda: split_case(inp, f"SAB q,k dec1, {tb} SR tiles", 256,
+                                    256, 64, 2, batch=tb))
     # under the two_stage plan: the conv-only levels (enc1 and enc2 pairs of
     # ReducedAttn+FFW blocks, the refinement's ReducedAttn+GFFW blocks),
     # whole padded frames and 15 tiles
@@ -1644,7 +1678,12 @@ def kernel_rows(cases: list[dict], by_path: dict) -> list[dict]:
                         - c["ffn_no_dw"] for p, c in by_path.items()}
         if name in ("qkv_stats", "chm_stats", "split_proj", "sab"):
             wg = name.split("_")[0] + "_wg"  # the mma.sync bodies
-            per_path = {p: c[name] - c[wg] for p, c in by_path.items()}
+            c64 = "split_c64" if name == "split_proj" else None
+            per_path = {p: c[name] - c[wg] - c.get(c64, 0)
+                        for p, c in by_path.items()}
+        if name == "ffn_no_dw":  # ffn.cu's branch without a depthwise stage
+            per_path = {p: c["ffn_no_dw"] - c["ffn_pw"]
+                        for p, c in by_path.items()}
         rows.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=sum(per_path.values()), launches_by_path=per_path,
@@ -1674,10 +1713,10 @@ def main(argv=None) -> int:
     ap.add_argument("--phase", default="all",
                     choices=("all", "build", "kernels", "slice", "tiled"))
     ap.add_argument("--profile", action="store_true",
-                    help="after each whole-frame stream (but "
-                         "`gopro_enc3_ffw`) and each tiled stream under each "
-                         "plan, trace a few more frames with torch.profiler: "
-                         "device time by kernel, idle share")
+                    help="after each whole-frame stream and each tiled "
+                         "stream under each plan, trace a few more frames "
+                         "with torch.profiler: device time by kernel, idle "
+                         "share")
     ap.add_argument("--cases", action="append", default=[],
                     help="--phase kernels: only the cases whose "
                          "'<kernel>: <case>' holds this text (no result "
@@ -1732,8 +1771,7 @@ def main(argv=None) -> int:
                 tag = config + ("_two_stage" if fuse else "")
                 by_path[tag] = run_slice(
                     config, args.seed, n, width, height, fuse=fuse,
-                    trace=args.profile and config != "gopro_enc3_ffw"
-                )["launches"]
+                    trace=args.profile)["launches"]
         if args.phase in ("all", "tiled"):
             # the command line's tiled streams, each under its plans
             for config in TILED_PLANS:
@@ -1747,17 +1785,17 @@ def main(argv=None) -> int:
             # own in the model, nor has sab_sparse_softmax (row 12)
             t0_chm = ("ffn", "ffn_wg", "ffn_c64", "qkv_wg", "split_wg",
                       "conv3x3", "chm_wg", "lattice_merge", "lattice_split")
-            t1_chm = t0_chm + ("sab_wg",)
+            t1_chm = t0_chm + ("sab_wg", "split_c64")
             on_path = {
                 "gopro_t1_fhr": ("ffn", "ffn_wg", "ffn_c64", "qkv_wg",
                                  "split_wg", "conv3x3"),
-                "gopro": t1_chm, "gopro_enc3_ffw": ("ffn_no_dw", "ffn_wg",
-                                                    "ffn_c64"),
+                "gopro": t1_chm, "gopro_enc3_ffw": t1_chm + ("ffn_pw",),
                 "derain": t0_chm, "sr": t1_chm,
                 "gopro_two_stage": t1_chm + ("two_stage",), "tiled": t1_chm,
                 "tiled_fused": ("ffn", "ffn_wg", "ffn_c64", "qkv_wg",
-                                "split_wg", "conv3x3", "chm_wg", "sab_wg",
-                                "lattice_split", "attn_v_merge", "level_run"),
+                                "split_wg", "split_c64", "conv3x3", "chm_wg",
+                                "sab_wg", "lattice_split", "attn_v_merge",
+                                "level_run"),
                 "tiled_two_stage": t1_chm + ("two_stage",),
                 "derain_tiled": t0_chm,
                 "derain_tiled_two_stage": t0_chm + ("two_stage",),
@@ -1772,6 +1810,13 @@ def main(argv=None) -> int:
                             f"the {path} path never launched {name}")
             require(by_path["tiled_fused"]["lattice_merge"] == 0,
                     "the fused plan still launched lattice_merge")
+            # every launch of rows 1, 2 and 4 runs on a body designed for
+            # the card: none on the mma.sync bodies of ffn.cu and
+            # split_proj.cu
+            for path, c in by_path.items():
+                require(c["ffn"] == c["ffn_wg"] + c["ffn_c64"] + c["ffn_pw"]
+                        and c["split_proj"] == c["split_wg"] + c["split_c64"],
+                        f"the {path} path launched ffn.cu or split_proj.cu")
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1

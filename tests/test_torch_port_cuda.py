@@ -44,6 +44,7 @@ from torch_port_util import (
     sparse_kernel_case,
     two_stage_kernel_case,
 )
+from test_torch_port_pw_split_c64 import FFN_PW_CASES, SPLIT_C64_CASES
 from turtlevsr_tpu_torch.kernels import chain2 as C2
 from turtlevsr_tpu_torch.kernels import ffn as K
 from turtlevsr_tpu_torch.kernels import lattice as L
@@ -158,6 +159,42 @@ def test_ffn_c64_body_matches_plain(dev, case):
     assert torch.equal(got, again)
 
 
+# sha256 of the C = 64 body's output (its bf16 bits) on one card case a
+# form, as the body gave them before its walk, ring, LN pass and taps moved
+# into csrc/c64_tile.cuh (NVIDIA H100 80GB HBM3): the move changed no bit
+FFN_C64_BITS = {
+    "gate_no_pair_ragged":
+        "1a513e0a8b843bfabdd4315457d8819a0c58d43a2b491cb6190d775b965e978e",
+    "gelu_scale_ragged":
+        "8a4708ae398476273c12aed774a9203f63dae6c510e83acbdb328f9502c05a57",
+    "gate_pair_po_batched_ragged":
+        "8991560f7e35b4c8b8a40beb7c15dd8eaab7e481e8c104ebe2ae46294207119c",
+    "gate_pair_po_batched_15_tiles":
+        "6a60da66e977340c5b2bf0e7be0be74958fc8333bf616ad9922dce557f82255f",
+    "gelu_scale_ffw2_ragged":
+        "cf80423e7edec65555804402c60a80c92c1f8f87695de2a35ebf2445c7e263c2",
+    "lists_stack3_single_ragged":
+        "cfefee384fd25dd943a213529f6b42bbe6907d4432cfcdc4f3c5fe6e0f8b153c",
+}
+
+
+@pytest.mark.parametrize("case", list(FFN_C64_BITS))
+def test_ffn_c64_bits_unchanged_by_the_shared_header(dev, case):
+    import hashlib
+
+    m = Maker(16, torch.bfloat16, dev)
+    if case in FFN_C64_LIST_CASES:
+        x, kw = ffn_list_case(case, m, FFN_C64_LIST_CASES)
+    else:
+        x, kw = ffn_kernel_case(case, m, FFN_C64_CASES)
+    before = K.fused_block_ffn.launches_c64
+    got = K.fused_block_ffn(x, **kw)
+    torch.cuda.synchronize()
+    assert K.fused_block_ffn.launches_c64 == before + 1
+    bits = got.view(torch.int16).cpu().numpy().tobytes()
+    assert hashlib.sha256(bits).hexdigest() == FFN_C64_BITS[case]
+
+
 def test_ffn_c64_smem_mirror_matches_the_source(dev):
     from turtlevsr_tpu_torch.kernels import build
 
@@ -168,6 +205,73 @@ def test_ffn_c64_smem_mirror_matches_the_source(dev):
                                  (64, 64, 0, 2, 0)):
         assert lib.turtle_ffn_c64_smem(ch, e, gate, n_po, f) == K._c64_smem(
             ch, e, bool(gate), n_po, f)[0]
+
+
+@pytest.mark.parametrize("case", list(FFN_PW_CASES))
+def test_ffn_pw_body_matches_plain(dev, case):
+    """The body without a depthwise stage (csrc/ffn_pw.cu) on the calls its
+    plan gives it (one map with a per-batch or shared po, with and without
+    po_b, a map without po, no map; ragged pixel counts, maps smaller than a
+    tile, batches the persistent grid splits), and ffn.cu just outside its
+    forms: one launch either way, within 2^-7 of the largest output of the
+    plain version, bitwise repeatable."""
+    x, kw = ffn_kernel_case(case, Maker(20, torch.bfloat16, dev), FFN_PW_CASES)
+    on_pw = not case.startswith("tile_")
+    before = K.fused_block_ffn.launches
+    pw_before = K.fused_block_ffn.launches_pw
+    no_dw_before = K.fused_block_ffn.launches_no_dw
+    got = K.fused_block_ffn(x, **kw)
+    torch.cuda.synchronize()
+    assert K.fused_block_ffn.launches == before + 1
+    assert K.fused_block_ffn.launches_no_dw == no_dw_before + 1
+    assert K.fused_block_ffn.launches_pw == pw_before + on_pw
+    want = K.ffn_plain(x, **kw)
+    assert torch.isfinite(got.float()).all()
+    assert max_err(got, want) <= 2.0 ** -7 * want.float().abs().max().item()
+    again = K.fused_block_ffn(x, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+
+
+def test_ffn_pw_smem_mirror_matches_the_source(dev):
+    from turtlevsr_tpu_torch.kernels import build
+
+    lib = build.load("ffn_pw")
+    for c in K._PW_WIDTHS:
+        assert lib.turtle_ffn_pw_smem(c) == K._pw_smem(c)[0]
+
+
+@pytest.mark.parametrize("case", list(SPLIT_C64_CASES))
+def test_split_c64_body_matches_plain(dev, case):
+    """The split projection's C = 64 body (csrc/split_c64.cu) at 1-4 chains,
+    with and without ln_b, on ragged maps, a map smaller than a tile, one
+    tile and 15 tiles: one launch, every map within 2^-7 of the largest
+    output of the plain version, bitwise repeatable."""
+    b, h, w, n_out, ln_bias = SPLIT_C64_CASES[case]
+    x, kw = chain_kernel_case(Maker(21, torch.bfloat16, dev), b, h, w, 64,
+                              n_out * 64, False, ln_bias=ln_bias)
+    before = K.fused_ln_split_proj.launches
+    c64_before = K.fused_ln_split_proj.launches_c64
+    got = K.fused_ln_split_proj(x, n_out=n_out, **kw)
+    torch.cuda.synchronize()
+    assert K.fused_ln_split_proj.launches == before + 1
+    assert K.fused_ln_split_proj.launches_c64 == c64_before + 1
+    want = K.split_proj_plain(x, n_out=n_out, **kw)
+    assert len(got) == n_out
+    for g, w_ in zip(got, want):
+        assert torch.isfinite(g.float()).all()
+        assert max_err(g, w_) <= 2.0 ** -7 * w_.float().abs().max().item()
+    again = K.fused_ln_split_proj(x, n_out=n_out, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+
+
+def test_split_c64_smem_mirror_matches_the_source(dev):
+    from turtlevsr_tpu_torch.kernels import build
+
+    lib = build.load("split_c64")
+    for n_out in (1, 2, 3, 4):
+        assert lib.turtle_split_c64_smem(n_out) == K._sc_smem(n_out)[0]
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])

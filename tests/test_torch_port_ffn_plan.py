@@ -4,8 +4,9 @@ depthwise call at C = 128, 256 and 512 (single maps, the lists of the
 causal history model at C = 128 and 256, the chained FFW at C = 128), the
 C = 64 body of kernels/csrc/ffn_c64.cu for every depthwise call at C = 64
 (the refinement's halves, dec1's Channel and CHM halves, enc1's chained
-FFW), the mma.sync body of kernels/csrc/ffn.cu for the FFW pass without a
-depthwise stage. Runs on the CPU: each family at full width through one
+FFW), the body of kernels/csrc/ffn_pw.cu for the FFW pass without a
+depthwise stage at C = 128 and 256 (enc3's in gopro_enc3_ffw); the
+mma.sync body of kernels/csrc/ffn.cu for none of them. Runs on the CPU: each family at full width through one
 frame of a small map (the plan depends on widths and forms, not on H and
 W), every fused_block_ffn call recorded and handed to the plan as the card
 would see it (bf16); the same for each path of chip_smoke.py, whose table
@@ -96,8 +97,8 @@ def _form(kw):
 def test_plan_gives_every_single_map_call_its_body(family):
     """Every recorded row 1 call, single maps, lists and the chained FFW
     alike: the wgmma body for every depthwise call at C >= 128, the C = 64
-    body for every depthwise call at C = 64, the mma.sync body for the FFW
-    pass without a depthwise stage."""
+    body for every depthwise call at C = 64, row 2's body for an FFW pass
+    without a depthwise stage at C = 128 or 256 (ffn.cu at other widths)."""
     calls = _record(*FAMILIES[family])
     assert calls
     n_wg, forms = 0, set()
@@ -105,8 +106,8 @@ def test_plan_gives_every_single_map_call_its_body(family):
         body, geo = _plan(shape, kw)
         c = shape[-1]
         if kw.get("wd") is None:
-            assert body == "tile", (shape, kw["mode"])
-            assert geo is None
+            assert body == ("pw" if c in (128, 256) else "tile"), (
+                shape, kw["mode"])
         elif c == 64:
             assert body == "c64", (shape, kw["mode"], _form(kw))
             assert geo["smem"] <= 232448 and 2 <= geo["stages"] <= 4
@@ -160,12 +161,14 @@ def test_chip_smoke_launch_table_is_the_plans(tag):
     calls = _record(path, overrides, 16 if config == "sr" else 64, fuse)
     wg = sum(_plan(shape, kw)[0] == "wg" for shape, kw in calls)
     c64 = sum(_plan(shape, kw)[0] == "c64" for shape, kw in calls)
+    pw = sum(_plan(shape, kw)[0] == "pw" for shape, kw in calls)
     no_dw = sum(kw.get("wd") is None for _, kw in calls)
     want = cs.LAUNCHES_PER_CALL[tag]
-    assert (len(calls), wg, c64, no_dw) == (
-        want["ffn"], want["ffn_wg"], want["ffn_c64"], want["ffn_no_dw"])
-    # ffn.cu's dw branch: no launch on any path
-    assert len(calls) == wg + c64 + no_dw
+    assert (len(calls), wg, c64, no_dw, pw) == (
+        want["ffn"], want["ffn_wg"], want["ffn_c64"], want["ffn_no_dw"],
+        want["ffn_pw"])
+    # ffn.cu: no launch on any path, with a depthwise stage or without
+    assert len(calls) == wg + c64 + pw and pw == no_dw
 
 
 @pytest.mark.parametrize("c", WG_WIDTHS)

@@ -48,9 +48,9 @@ def test_port_has_the_expected_modules():
         assert want in rel, want
     from turtlevsr_tpu_torch.kernels import build
 
-    assert len(build.KERNEL_SOURCES) == 16
+    assert len(build.KERNEL_SOURCES) == 18
     headers = ("common.cuh", "ffn_tile.cuh", "qkv_tile.cuh", "pipe.cuh",
-               "stats_wg.cuh")
+               "stats_wg.cuh", "c64_tile.cuh")
     for cu in (*headers, *(n + ".cu" for n in build.KERNEL_SOURCES)):
         assert os.path.isfile(os.path.join(PORT, "kernels", "csrc", cu)), cu
         assert cu in headers or cu[:-3] in build._SIGNATURES
@@ -286,8 +286,8 @@ def test_launch_counters_cover_every_wrapper():
                            "chm_stats", "sab", "lattice_merge",
                            "lattice_split", "attn_v_slots", "attn_v_merge",
                            "level_run", "ffn_no_dw", "ffn_wg", "ffn_c64",
-                           "qkv_wg",
-                           "split_wg", "chm_wg", "sab_wg", "two_stage",
+                           "ffn_pw", "qkv_wg", "split_wg", "split_c64",
+                           "chm_wg", "sab_wg", "two_stage",
                            "sab_sparse_softmax"}
     kernels.reset_launch_counts()
     assert set(kernels.launch_counts().values()) == {0}

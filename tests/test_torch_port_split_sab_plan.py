@@ -2,10 +2,11 @@
 attention's probabilities (row 7) each call of the shipped families gets:
 the wgmma bodies of kernels/csrc/split_wg.cu (bf16, LayerNorm, no biases,
 E = C = 128, 256, 512: every call of the shipped families but dec1's SAB
-q, k at C = 64) and kernels/csrc/sab_wg.cu (bf16, D a multiple of 64 up to
-512, a local radius of at most 4: every call but dec1's on the 20 x 20
-token grid of a 320 tile); the mma.sync bodies (split_proj.cu, sab.cu) for
-those, float32, biases, no LayerNorm, other widths. Runs on the CPU: each
+q, k at C = 64, which takes the C = 64 body of kernels/csrc/split_c64.cu)
+and kernels/csrc/sab_wg.cu (bf16, D a multiple of 64 up to 512, a local
+radius of at most 4: every call but dec1's on the 20 x 20 token grid of a
+320 tile); the mma.sync bodies (split_proj.cu, sab.cu) for that grid,
+float32, biases, no LayerNorm, other widths. Runs on the CPU: each
 family at full width through one frame of a small map (the plans depend on
 widths and forms, not on H and W), every call recorded and handed to the
 plan as the card would see it (bf16). Also row 7's arithmetic that the
@@ -74,8 +75,12 @@ def test_plan_gives_every_row_4_call_its_body(family, monkeypatch):
         assert kw.get("ln_w") is not None and not has_bias and e == c
         body, geo = K._split_plan(b, h, w, c, e, n_out, True, has_bias,
                                   torch.bfloat16)
-        if c == 64:  # dec1's SAB q, k: split_proj.cu is faster there
-            assert (body, geo) == ("tile", None)
+        if c == 64:  # dec1's SAB q, k: the C = 64 body
+            assert body == "c64", n_out
+            assert (geo["smem"], geo["stages"]) == K._sc_smem(n_out)
+            assert geo["smem"] <= SMEM_LIMIT and geo["stages"] >= 2
+            assert geo["tiles"] == b * (-(-h // 16)) * (-(-w // 8))
+            assert geo["blocks"] == min(geo["tiles"], 132)
             continue
         assert body == "wg", (c, n_out)
         assert geo["smem"] <= SMEM_LIMIT and geo["stages"] >= 2
@@ -132,7 +137,8 @@ def test_split_plan_keeps_the_other_calls_on_the_tile_body(change):
                  "biases": dict(has_bias=True),
                  "no_ln": dict(has_ln=False),
                  "e_ne_c": dict(e=128, n_out=4),
-                 "c64": dict(c=64, e=64),
+                 # C = 64 without LayerNorm: outside the C = 64 body too
+                 "c64": dict(c=64, e=64, has_ln=False),
                  "c96": dict(c=96, e=96),
                  "c1024": dict(c=1024, e=1024)}[change])
     assert K._split_plan(**args) == ("tile", None)
@@ -226,3 +232,51 @@ def test_sab_wg_sum_order_is_row_12s(seed):
     idx = rng.choice(3680, n, replace=False)
     vals = np.exp(rng.standard_normal(n).astype(np.float32) * 4)
     assert _row_7_wg_sum(idx, vals) == _row_12_sum(idx, vals)
+
+
+# the paths chip_smoke.py drives whole-frame, as (configuration, fused plan)
+SPLIT_PATHS = {"gopro": ("gopro", ()), "gopro_t1_fhr": ("gopro_t1_fhr", ()),
+               "gopro_enc3_ffw": ("gopro_enc3_ffw", ()),
+               "gopro_fused": ("gopro", ("channel_runs", "attn_v_merge")),
+               "gopro_two_stage": ("gopro", ("two_stage",)),
+               "derain": ("derain", ()), "sr": ("sr", ())}
+
+
+@pytest.mark.parametrize("tag", list(SPLIT_PATHS))
+def test_chip_smoke_split_launch_table_is_the_plans(tag, monkeypatch):
+    """chip_smoke.py holds each path's row 4 launches a model call to
+    LAUNCHES_PER_CALL: the path's calls, the plan's answer for each (whole
+    padded frames and chunks of 15 tiles alike); split_proj.cu takes
+    none."""
+    from test_torch_port_ffn_plan import _chip_smoke
+
+    cs = _chip_smoke()
+    config, fuse = SPLIT_PATHS[tag]
+    path, overrides = cs.CONFIGS[config]
+    opt = load_options(path, is_train=False)
+    opt.update(overrides)
+    model = build_model(opt, device="cpu", fuse=fuse)
+    calls = []
+    plain = blocks_mod.fused_ln_split_proj
+
+    def rec(x, **kw):
+        calls.append((tuple(x.shape), kw))
+        return plain(x, **kw)
+
+    monkeypatch.setattr(blocks_mod, "fused_ln_split_proj", rec)
+    side = 16 if config == "sr" else 64
+    cache = model.init_cache(1, side, side)
+    frames = torch.rand(1, 2, side, side, 3,
+                        generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        model(frames, cache)
+    want = cs.LAUNCHES_PER_CALL[tag]
+    for b, h, w in ((1, 736, 1280), (15, 320, 320)):
+        bodies = [K._split_plan(b, h, w, shape[-1],
+                                kw["w1"].shape[1] // kw["n_out"], kw["n_out"],
+                                kw.get("ln_w") is not None,
+                                kw.get("b1") is not None, torch.bfloat16)[0]
+                  for shape, kw in calls]
+        assert (len(bodies), bodies.count("wg"), bodies.count("c64")) == (
+            want["split_proj"], want["split_wg"], want["split_c64"])
+        assert "tile" not in bodies

@@ -28,11 +28,15 @@ def launch_counts() -> dict:
     ``ffn_no_dw`` are those of ``ffn`` without a depthwise stage,
     ``ffn_wg``, ``qkv_wg``, ``split_wg``, ``chm_wg`` and ``sab_wg`` those
     of ``ffn``, ``qkv_stats``, ``split_proj``, ``chm_stats`` and ``sab`` on
-    their wgmma bodies, ``ffn_c64`` those of ``ffn`` on its C = 64 body."""
+    their wgmma bodies, ``ffn_c64`` and ``split_c64`` those of ``ffn`` and
+    ``split_proj`` on their C = 64 bodies, ``ffn_pw`` those of ``ffn_no_dw``
+    on the body of csrc/ffn_pw.cu."""
     fns = _counted()
     counts = {name: fn.launches for name, fn in fns.items()}
     counts["ffn_no_dw"] = fns["ffn"].launches_no_dw
     counts["ffn_c64"] = fns["ffn"].launches_c64
+    counts["ffn_pw"] = fns["ffn"].launches_pw
+    counts["split_c64"] = fns["split_proj"].launches_c64
     for name in _WG_BODIES:
         counts[name.split("_")[0] + "_wg"] = fns[name].launches_wg
     return counts
@@ -48,5 +52,7 @@ def reset_launch_counts() -> None:
         fn.launches = 0
     fns["ffn"].launches_no_dw = 0
     fns["ffn"].launches_c64 = 0
+    fns["ffn"].launches_pw = 0
+    fns["split_proj"].launches_c64 = 0
     for name in _WG_BODIES:
         fns[name].launches_wg = 0

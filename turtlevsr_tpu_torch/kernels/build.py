@@ -19,9 +19,9 @@ import threading
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
-KERNEL_SOURCES = ("ffn", "ffn_wg", "ffn_c64", "qkv_stats", "qkv_wg", "split_proj",
-                  "split_wg", "conv3x3", "chm_stats", "chm_wg", "sab", "sab_wg", "lattice",
-                  "level", "attn_v", "chain2")
+KERNEL_SOURCES = ("ffn", "ffn_wg", "ffn_c64", "ffn_pw", "qkv_stats", "qkv_wg",
+                  "split_proj", "split_wg", "split_c64", "conv3x3", "chm_stats", "chm_wg",
+                  "sab", "sab_wg", "lattice", "level", "attn_v", "chain2")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -37,6 +37,8 @@ _SIGNATURES = {
                "turtle_ffn_wg_smem": ([ctypes.c_int] * 2, ctypes.c_size_t)},
     "ffn_c64": {"turtle_ffn_c64_launch": (_LAUNCH_ARGS, ctypes.c_int),
                 "turtle_ffn_c64_smem": ([ctypes.c_int] * 5, ctypes.c_size_t)},
+    "ffn_pw": {"turtle_ffn_pw_launch": (_LAUNCH_ARGS, ctypes.c_int),
+               "turtle_ffn_pw_smem": ([ctypes.c_int], ctypes.c_size_t)},
     "qkv_stats": {"turtle_qkv_stats_launch": (_LAUNCH_ARGS, ctypes.c_int),
                   "turtle_qkv_stats_smem": ([ctypes.c_int] * 3,
                                             ctypes.c_size_t),
@@ -52,6 +54,8 @@ _SIGNATURES = {
                                               ctypes.c_size_t)},
     "split_wg": {"turtle_split_wg_launch": (_LAUNCH_ARGS, ctypes.c_int),
                  "turtle_split_wg_smem": ([ctypes.c_int], ctypes.c_size_t)},
+    "split_c64": {"turtle_split_c64_launch": (_LAUNCH_ARGS, ctypes.c_int),
+                  "turtle_split_c64_smem": ([ctypes.c_int], ctypes.c_size_t)},
     "conv3x3": {"turtle_conv3x3_launch": (_LAUNCH_ARGS, ctypes.c_int),
                 "turtle_conv3x3_smem": ([ctypes.c_int] * 2,
                                         ctypes.c_size_t)},

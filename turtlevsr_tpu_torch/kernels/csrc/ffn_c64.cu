@@ -11,7 +11,8 @@
 // these calls. ffn.py's _ffn_plan sends the forms the serving paths run at
 // C = 64 here (the refinement's GFFW and ReducedAttn halves, dec1's Channel
 // and CHM halves, enc1's ReducedAttn+FFW blocks); C >= 128 goes to
-// ffn_wg.cu, the rest (no dw, float32, other forms) to ffn.cu. What it
+// ffn_wg.cu, the FFW pass without dw at C = 128, 256 to ffn_pw.cu, the rest
+// (float32, other forms) to ffn.cu. What it
 // computes, and where it rounds, is in the note of ffn.cu: each x2_j @ po_j
 // rounded to bf16, + po_b (map 0 only) rounded again, x' = x + those summed
 // in fp32 in map order and rounded, LN(x') with fp32 statistics rounded, pw1
@@ -49,26 +50,16 @@
 //     hidden columns down its share of a tile column with a sliding window
 //     of vector loads; two block barriers a chunk.
 //
-// Every form's shared memory is ct_smem: the ring takes as many slots (2 to
+// The walk, the ring of halo tiles, the LN pass and the taps are
+// c64_tile.cuh's, shared with row 4's C = 64 body (split_c64.cu). Every
+// form's shared memory is ct_smem: the ring takes as many slots (2 to
 // CT_MAX_STAGES) as fit beside the rest.
+#include "c64_tile.cuh"
 #include "ffn_tile.cuh"
-#include "pipe.cuh"
 
 namespace turtle {
 
-constexpr int CT_C = 64;                          // the width this body takes
-constexpr int CT_TH = 16, CT_TW = 8;              // output tile: rows x columns
-constexpr int CT_P = CT_TH * CT_TW;               // 128 output pixels
-constexpr int CT_HW = CT_TW + 2;                  // halo tile: 18 x 10
-constexpr int CT_NPH = (CT_TH + 2) * CT_HW;       // 180 halo pixels
-constexpr int CT_HALO = CT_NPH * CT_C * 2;        // 23040 bytes of a halo tile
-constexpr int CT_SLOT = 23552;                    // a ring slot (1024-byte multiple)
-constexpr int CT_PANEL = 64 * 128;                // a 64-row panel of 64 bf16 columns
-constexpr int CT_HS = 64;                         // columns of the fp32 hidden chunk
-constexpr int CT_NT = 384;                        // three warpgroups
-constexpr int CT_MAX_STAGES = 4;
 constexpr int CT_MAX_MAPS = 4;                    // x2 maps with po
-constexpr size_t CT_SMEM_MAX = 232448;
 
 // activations a chunk, and the row stride of the activation chunk
 __host__ __device__ constexpr int ct_aw(int gate) { return gate ? 32 : 64; }
@@ -97,133 +88,6 @@ struct C64Maps {
   CUtensorMap m[1 + CT_MAX_MAPS];  // x, then the x2 maps: (C, W, H, B), a halo tile a box
 };
 
-// byte offset of (row r, 16-byte piece j) in a tile of 128-byte rows in the
-// 128-byte swizzle (what TMA writes, what wgmma's panels and ldmatrix read)
-__device__ __forceinline__ int ct_sw(int r, int j) { return r * 128 + ((j ^ (r & 7)) << 4); }
-
-// a K x 64 panel in that layout, row k's piece j from src + k ld + col(j)
-template <class ColFn>
-__device__ __forceinline__ void ct_panel(unsigned char* dst, const __nv_bfloat16* src, int ld,
-                                         int K, ColFn col) {
-  for (int idx = threadIdx.x; idx < K * 8; idx += CT_NT) {
-    const int k = idx >> 3, j = idx & 7;
-    *reinterpret_cast<uint4*>(dst + ct_sw(k, j)) =
-        __ldg(reinterpret_cast<const uint4*>(src + (size_t)k * ld + col(j)));
-  }
-}
-
-// the fp32 hidden chunk: halo pixel r, column c; the columns swizzled by
-// the row so that a warp's accumulator stores spread over the banks
-__device__ __forceinline__ int ct_hid(int r, int c) { return r * CT_HS + (c ^ ((r & 3) << 3)); }
-
-// LN of the 180 halo rows of src (x' in bf16, the swizzled layout) into xn,
-// rounded, zero rows outside the image: 8 lanes a pixel, lane l its piece l
-// (channels 8 l ..), fp32 statistics as ln_prologue's (common.cuh)
-__device__ void ct_ln_pass(const unsigned char* src, unsigned char* xn, const float (&gw)[8],
-                           const float (&bt)[8], bool has_b, int H, int W, int y0, int x0) {
-  using T = __nv_bfloat16;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, l = lane & 7;
-  for (int p0 = warp * 4; p0 < CT_NPH; p0 += CT_NT / 8) {  // 180 = 45 x 4: every lane a pixel
-    const int p = p0 + (lane >> 3);
-    const int gy = y0 - 1 + p / CT_HW, gx = x0 - 1 + p % CT_HW;
-    const bool inside = gy >= 0 && gy < H && gx >= 0 && gx < W;
-    const int off = ct_sw(p, l);
-    float v[8];
-    load8(reinterpret_cast<const T*>(src + off), v);
-    float s = 0.f;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) s += v[i];
-#pragma unroll
-    for (int m = 1; m < 8; m <<= 1) s += __shfl_xor_sync(0xffffffffu, s, m);
-    const float mu = s / (float)CT_C;
-    float q = 0.f;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) q += (v[i] - mu) * (v[i] - mu);
-#pragma unroll
-    for (int m = 1; m < 8; m <<= 1) q += __shfl_xor_sync(0xffffffffu, q, m);
-    const float inv = 1.0f / sqrtf(q / (float)CT_C + LN_EPS);
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-      v[i] = !inside ? 0.f : has_b ? (v[i] - mu) * inv * gw[i] + bt[i] : v[i] * inv * gw[i];
-    store8(reinterpret_cast<T*>(xn + off), v);
-  }
-}
-
-// The taps of a chunk: dw3x3 of the fp32 hidden chunk + bd, the activation
-// rounded into act. A warpgroup takes output rows [row0, row0 + NR), its
-// thread i the tile column i >> 4 and the hidden columns 4k .. 4k + 3, k = i
-// & 15 (one float4 a halo pixel): gelu channels e0 + 4k .., gate the a
-// channels e0 + 2k, + 1 and their b partners E + e0 + 2k, + 1 (ct_chan). A
-// sliding window of three halo rows, the nine taps in row-major order in
-// fp32.
-template <bool GATE, int NR>
-__device__ __forceinline__ void ct_taps(const float* hid, const __nv_bfloat16* wds,
-                                        const __nv_bfloat16* __restrict__ bd, int CH, int E,
-                                        int e0, __nv_bfloat16* act, int row0, int i) {
-  using T = __nv_bfloat16;
-  constexpr int AS = ct_as(GATE);
-  const int k = i & 15, px = i >> 4;
-  // the channels of the four columns, in pairs
-  const int ch0 = GATE ? e0 + 2 * k : e0 + 4 * k;
-  const int ch1 = GATE ? E + e0 + 2 * k : e0 + 4 * k + 2;
-  float w[9][4], bias[4];
-#pragma unroll
-  for (int tap = 0; tap < 9; ++tap) {
-    const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(wds + tap * CH + ch0));
-    const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(wds + tap * CH + ch1));
-    w[tap][0] = lo.x; w[tap][1] = lo.y; w[tap][2] = hi.x; w[tap][3] = hi.y;
-  }
-  {
-    float2 lo = make_float2(0.f, 0.f), hi = lo;
-    if (bd != nullptr) {
-      lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(bd + ch0));
-      hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(bd + ch1));
-    }
-    bias[0] = lo.x; bias[1] = lo.y; bias[2] = hi.x; bias[3] = hi.y;
-  }
-  auto ld = [&](int hy, int hx, float (&v)[4]) {
-    const float4 f = *reinterpret_cast<const float4*>(hid + ct_hid(hy * CT_HW + hx, 4 * k));
-    v[0] = f.x; v[1] = f.y; v[2] = f.z; v[3] = f.w;
-  };
-  float r[3][3][4];
-#pragma unroll
-  for (int tx = 0; tx < 3; ++tx) {
-    ld(row0, px + tx, r[0][tx]);
-    ld(row0 + 1, px + tx, r[1][tx]);
-  }
-#pragma unroll
-  for (int py = 0; py < NR; ++py) {
-#pragma unroll
-    for (int tx = 0; tx < 3; ++tx) ld(row0 + py + 2, px + tx, r[2][tx]);
-    float o[4];
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      float s = 0.f;
-#pragma unroll
-      for (int ty = 0; ty < 3; ++ty)
-#pragma unroll
-        for (int tx = 0; tx < 3; ++tx) s += r[ty][tx][c] * w[ty * 3 + tx][c];
-      o[c] = s + bias[c];
-    }
-    T* dst = act + ((row0 + py) * CT_TW + px) * AS;
-    if (GATE) {
-      *reinterpret_cast<__nv_bfloat162*>(dst + 2 * k) =
-          __floats2bfloat162_rn(gelu_exact(o[0]) * o[2], gelu_exact(o[1]) * o[3]);
-    } else {
-      __nv_bfloat162 v2[2] = {__floats2bfloat162_rn(gelu_exact(o[0]), gelu_exact(o[1])),
-                              __floats2bfloat162_rn(gelu_exact(o[2]), gelu_exact(o[3]))};
-      *reinterpret_cast<uint2*>(dst + 4 * k) = *reinterpret_cast<const uint2*>(v2);
-    }
-#pragma unroll
-    for (int tx = 0; tx < 3; ++tx)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        r[0][tx][c] = r[1][tx][c];
-        r[1][tx][c] = r[2][tx][c];
-      }
-  }
-}
-
 // the channel of hidden chunk column c (chunk start e0): gelu e0 + c; gate
 // column 4k + i holds a channel e0 + 2k + i (i < 2) or its b partner E + e0 +
 // 2k + i - 2, so that a taps thread's a and b columns are one float4
@@ -232,24 +96,6 @@ __device__ __forceinline__ int ct_chan(int c, int e0, int E) {
   if (!GATE) return e0 + c;
   const int k = c >> 2, i = c & 3;
   return (i < 2 ? e0 : E + e0) + 2 * k + (i & 1);
-}
-
-__device__ __forceinline__ uint32_t ct_pack(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// the A operand of k-step kk (16 columns) from the accumulators d of an
-// m64nN product (rows g, g + 8 of the warp's 16 at columns 8 j + 2 t, + 1):
-// the accumulator layout is the A fragment's, two column groups a k-step
-template <int N>
-__device__ __forceinline__ AFrag<__nv_bfloat16> ct_afrag(const float (&d)[N / 2], int kk) {
-  AFrag<__nv_bfloat16> a;
-  a.r[0] = ct_pack(d[8 * kk], d[8 * kk + 1]);
-  a.r[1] = ct_pack(d[8 * kk + 2], d[8 * kk + 3]);
-  a.r[2] = ct_pack(d[8 * kk + 4], d[8 * kk + 5]);
-  a.r[3] = ct_pack(d[8 * kk + 6], d[8 * kk + 7]);
-  return a;
 }
 
 // GATE: the mode; FFW2: the chained FFW (gelu, no x2). The loads of the
@@ -294,31 +140,21 @@ __global__ void __launch_bounds__(CT_NT, 1)
   const bool hold = n_po == 0 && !FFW2;
   const int n_loads = (int)(it1 - it0) * L;
 
+  const CtRing ring{stg, full, S};
   auto issue = [&](int li) {  // thread 0
-    const long long it = it0 + li / L;
     const int kind = li % L;
-    const int b = (int)(it / nt), tile = (int)(it - (long long)b * nt);
-    const int y0 = (tile / tiles_x) * CT_TH, x0 = (tile % tiles_x) * CT_TW;
+    const CtTile tl = ct_tile(it0 + li / L, tiles_x, nt);
     const CUtensorMap* m = &maps.m[0];
 #pragma unroll
     for (int i = 1; i <= CT_MAX_MAPS; ++i)
       if (kind == i) m = &maps.m[i];
-    const int s = li % S;
-    mbar_expect_tx(&full[s], CT_HALO);
-    tma_load_4d(stg + (size_t)s * CT_SLOT, m, 0, x0 - 1, y0 - 1, b, &full[s]);
-  };
-  auto wait_load = [&](int li) {
-    mbar_wait(&full[li % S], (li / S) & 1);
-    return stg + (size_t)(li % S) * CT_SLOT;
+    ring.load(li, m, tl.b, tl.y0, tl.x0);
   };
   auto refill = [&](int li) {
     if (tid == 0 && li + S < n_loads) issue(li + S);
   };
 
-  if (tid == 0) {
-    for (int s = 0; s < S; ++s) mbar_init(&full[s], 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
+  if (tid == 0) ring.init();
   __syncthreads();
   if (tid == 0)
     for (int li = 0; li < S && li < n_loads; ++li) issue(li);
@@ -331,7 +167,7 @@ __global__ void __launch_bounds__(CT_NT, 1)
     if (GATE) {
       for (int idx = tid; idx < CT_C * 32; idx += CT_NT) {
         const int k = idx >> 5, c = 2 * (idx & 31);
-        *reinterpret_cast<uint32_t*>(w1s + ck * CT_PANEL + ct_sw(k, c >> 3) + 2 * (c & 7)) =
+        *reinterpret_cast<uint32_t*>(w1s + ck * CT_PANEL + sw128(k, c >> 3) + 2 * (c & 7)) =
             __ldg(reinterpret_cast<const uint32_t*>(w1 + (size_t)k * CH + ct_chan<true>(c, e0, E)));
       }
     } else {
@@ -374,7 +210,7 @@ __global__ void __launch_bounds__(CT_NT, 1)
   // warp q; this thread's accumulator rows hrow[h]
   const int arow = 64 * wg + 16 * q + (lane & 15) < CT_NPH ? 64 * wg + 16 * q + (lane & 15) : 0;
   auto a_at = [&](const unsigned char* tile, int kk) {
-    return reinterpret_cast<const T*>(tile + ct_sw(arow, 2 * kk + (lane >> 4)));
+    return reinterpret_cast<const T*>(tile + sw128(arow, 2 * kk + (lane >> 4)));
   };
   int hrow[2];
   bool hrow_ok[2];
@@ -387,8 +223,8 @@ __global__ void __launch_bounds__(CT_NT, 1)
   int li = 0, po_entry = -1;
 #pragma unroll 1
   for (long long it = it0; it < it1; ++it) {
-    const int b = (int)(it / nt), tile = (int)(it - (long long)b * nt);
-    const int y0 = (tile / tiles_x) * CT_TH, x0 = (tile % tiles_x) * CT_TW;
+    const CtTile tl = ct_tile(it, tiles_x, nt);
+    const int b = tl.b, y0 = tl.y0, x0 = tl.x0;
     const size_t boff = (size_t)b * H * W * CT_C;
     T* out = static_cast<T*>(a.out) + boff;
     if (has_po && (po_entry < 0 || (a.po_batched && po_entry != b))) {
@@ -412,7 +248,7 @@ __global__ void __launch_bounds__(CT_NT, 1)
     // x' and LN(x') of the halo tile into xn; with po maps x' of the
     // interior pixels also goes to the output map, which the epilogue reads
     // and overwrites
-    unsigned char* xs = wait_load(li);
+    unsigned char* xs = ring.wait(li);
     if (!has_po) {
       ct_ln_pass(xs, xn, gw, bt, ln_b != nullptr, H, W, y0, x0);
       __syncthreads();
@@ -429,13 +265,13 @@ __global__ void __launch_bounds__(CT_NT, 1)
           float2 v = make_float2(0.f, 0.f);
           if (hrow_ok[h])
             v = __bfloat1622float2(
-                *reinterpret_cast<const __nv_bfloat162*>(xs + ct_sw(hrow[h], j) + 4 * t));
+                *reinterpret_cast<const __nv_bfloat162*>(xs + sw128(hrow[h], j) + 4 * t));
           sum[h][2 * j] = v.x;
           sum[h][2 * j + 1] = v.y;
         }
 #pragma unroll 1
       for (int m = 0; m < n_po; ++m) {
-        const unsigned char* ms = wait_load(li + 1 + m);
+        const unsigned char* ms = ring.wait(li + 1 + m);
         AFrag<T> af[4];
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk) ldsm_a(af[kk], a_at(ms, kk));
@@ -478,7 +314,7 @@ __global__ void __launch_bounds__(CT_NT, 1)
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
           const __nv_bfloat162 v = __floats2bfloat162_rn(sum[h][2 * j], sum[h][2 * j + 1]);
-          *reinterpret_cast<__nv_bfloat162*>(xn + ct_sw(hrow[h], j) + 4 * t) = v;
+          *reinterpret_cast<__nv_bfloat162*>(xn + sw128(hrow[h], j) + 4 * t) = v;
           if (interior) *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + 2 * t) = v;
         }
       }
@@ -527,11 +363,23 @@ __global__ void __launch_bounds__(CT_NT, 1)
         }
       }
       __syncthreads();
-      // the taps: output rows 0-5, 6-10, 11-15 a warpgroup
+      // the taps: output rows 0-5, 6-10, 11-15 a warpgroup, the activation
+      // rounded into act
+      auto to_act = [&](int row, int px, int k, const float (&o)[4]) {
+        T* dst = act + (row * CT_TW + px) * AS;
+        if (GATE) {
+          *reinterpret_cast<__nv_bfloat162*>(dst + 2 * k) =
+              __floats2bfloat162_rn(gelu_exact(o[0]) * o[2], gelu_exact(o[1]) * o[3]);
+        } else {
+          __nv_bfloat162 v2[2] = {__floats2bfloat162_rn(gelu_exact(o[0]), gelu_exact(o[1])),
+                                  __floats2bfloat162_rn(gelu_exact(o[2]), gelu_exact(o[3]))};
+          *reinterpret_cast<uint2*>(dst + 4 * k) = *reinterpret_cast<const uint2*>(v2);
+        }
+      };
       if (wg == 0)
-        ct_taps<GATE, 6>(hid, wds, bd, CH, E, e0, act, 0, tid & 127);
+        ct_taps<GATE, 6>(hid, wds, bd, CH, E, e0, 0, tid & 127, to_act);
       else
-        ct_taps<GATE, 5>(hid, wds, bd, CH, E, e0, act, wg == 1 ? 6 : 11, tid & 127);
+        ct_taps<GATE, 5>(hid, wds, bd, CH, E, e0, wg == 1 ? 6 : 11, tid & 127, to_act);
       __syncthreads();
       // pw2: rows e0 .. e0 + AW of w2 into the accumulators of the 64 pixels
       if (wg < 2) {
@@ -580,7 +428,7 @@ __global__ void __launch_bounds__(CT_NT, 1)
         y[h][j] = __floats2bfloat162_rn(0.f, 0.f);
         if (!oin[h]) continue;
         const float2 xx = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
-            hold ? static_cast<const void*>(xs + ct_sw(ri[h], j) + 4 * t)
+            hold ? static_cast<const void*>(xs + sw128(ri[h], j) + 4 * t)
                  : static_cast<const void*>(res + poff[h] + c)));
         y[h][j] = __floats2bfloat162_rn((acc[4 * j + 2 * h] + bb.x) * ss.x + xx.x,
                                         (acc[4 * j + 2 * h + 1] + bb.y) * ss.y + xx.y);
@@ -641,7 +489,7 @@ __global__ void __launch_bounds__(CT_NT, 1)
       {
         AFrag<T> a4[4];
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk) a4[kk] = ct_afrag<64>(yn, kk);
+        for (int kk = 0; kk < 4; ++kk) a4[kk] = acc_afrag<64>(yn, kk);
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk)
@@ -668,7 +516,7 @@ __global__ void __launch_bounds__(CT_NT, 1)
       {
         AFrag<T> a5[8];
 #pragma unroll
-        for (int kk = 0; kk < 8; ++kk) a5[kk] = ct_afrag<128>(h2, kk);
+        for (int kk = 0; kk < 8; ++kk) a5[kk] = acc_afrag<128>(h2, kk);
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < 8; ++kk)
@@ -701,15 +549,11 @@ __global__ void __launch_bounds__(CT_NT, 1)
 template <bool GATE, bool FFW2>
 static int launch_ffn_c64(const FfnArgs& a, int blocks, cudaStream_t stream) {
   C64Maps maps;
-  const uint64_t c = CT_C, w = a.W, h = a.H;
   const int n_po = a.po_w != nullptr ? a.n_x2 : 0;
-  auto encode = [&](CUtensorMap* m, const void* base, uint64_t batch_stride) {
-    return encode_bf16<4>(m, base, {c, w, h, (uint64_t)a.B}, {c * 2, w * c * 2, batch_stride * 2},
-                          {CT_C, CT_HW, CT_TH + 2, 1}, CU_TENSOR_MAP_SWIZZLE_128B);
-  };
-  if (!encode(&maps.m[0], a.x, h * w * c)) return -2;
+  if (!ct_encode_halo(&maps.m[0], a.x, a.B, a.H, a.W, (uint64_t)a.H * a.W * CT_C)) return -2;
   for (int j = 0; j < n_po; ++j)
-    if (!encode(&maps.m[1 + j], a.x2[j], (uint64_t)a.x2_bs[j])) return -2;
+    if (!ct_encode_halo(&maps.m[1 + j], a.x2[j], a.B, a.H, a.W, (uint64_t)a.x2_bs[j]))
+      return -2;
   auto kern = ffn_c64_kernel<GATE, FFW2>;
   const size_t smem = ct_smem(a.CH, a.E, GATE, n_po, FFW2 ? a.F : 0);
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -170,6 +170,29 @@ __device__ __forceinline__ uint64_t panel_desc(const void* p, int panel_bytes) {
          ((uint64_t)(WG_SBO >> 4) << 32) | (1ull << 62);
 }
 
+// byte offset of (row r, 16-byte piece j) in a tile of 128-byte rows in the
+// 128-byte swizzle (what TMA writes, what wgmma's panels and ldmatrix read)
+__device__ __forceinline__ int sw128(int r, int j) { return r * 128 + ((j ^ (r & 7)) << 4); }
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// the A operand of k-step kk (16 columns) from the accumulators d of an
+// m64nN product (rows g, g + 8 of the warp's 16 at columns 8 j + 2 t, + 1),
+// rounded to bf16: the accumulator layout is the A fragment's, two column
+// groups a k-step
+template <int N>
+__device__ __forceinline__ AFrag<__nv_bfloat16> acc_afrag(const float (&d)[N / 2], int kk) {
+  AFrag<__nv_bfloat16> a;
+  a.r[0] = pack_bf16x2(d[8 * kk], d[8 * kk + 1]);
+  a.r[1] = pack_bf16x2(d[8 * kk + 2], d[8 * kk + 3]);
+  a.r[2] = pack_bf16x2(d[8 * kk + 4], d[8 * kk + 5]);
+  a.r[3] = pack_bf16x2(d[8 * kk + 6], d[8 * kk + 7]);
+  return a;
+}
+
 // the consumer warpgroups' own barrier (the copy warp does not take part)
 __device__ __forceinline__ void consumers_sync() {
   asm volatile("bar.sync 1, %0;\n" ::"n"(NT) : "memory");

@@ -14,12 +14,14 @@ the order of fp32 sums.
 Every wrapper counts its kernel launches in ``<wrapper>.launches``
 (``turtlevsr_tpu_torch.kernels.launch_counts`` reads them all);
 ``fused_block_ffn.launches_no_dw`` counts those of them that ran the branch
-without a depthwise stage, ``fused_block_ffn.launches_wg`` those on the
+without a depthwise stage (``fused_block_ffn.launches_pw`` those of these on
+the body of csrc/ffn_pw.cu), ``fused_block_ffn.launches_wg`` those on the
 wgmma body of csrc/ffn_wg.cu, ``fused_block_ffn.launches_c64`` those on the
 C = 64 body of csrc/ffn_c64.cu; ``fused_qkv_stats.launches_wg`` and
 ``fused_chm_stats.launches_wg`` those of the statistics on the wgmma body of
 csrc/stats_wg.cuh (qkv_wg.cu, chm_wg.cu); ``fused_ln_split_proj.launches_wg``
-those of the split projection on the wgmma body of csrc/split_wg.cu.
+and ``.launches_c64`` those of the split projection on the wgmma body of
+csrc/split_wg.cu and on the C = 64 body of csrc/split_c64.cu.
 """
 
 from __future__ import annotations
@@ -427,29 +429,68 @@ def _c64_form(c, ch, e, mode, n_x2, has_po, f) -> bool:
     return n_x2 == 0 or (has_po and gate and n_x2 <= _C64_MAX_MAPS)
 
 
+# the body without a depthwise stage (csrc/ffn_pw.cu): its widths, its
+# tile of pixels, its ring stages (_PW_STAGE bytes each, up to
+# _PW_MAX_STAGES) and the parts of its shared memory beside them, mirrored
+# from the source (a card test holds the two equal)
+_PW_WIDTHS = (128, 256)
+_PW_TP, _PW_STAGE, _PW_MAX_STAGES = 128, 16384, 8
+
+
+def _pw_smem(c: int) -> tuple[int, int]:
+    """(bytes of shared memory, ring stages) of the body without a depthwise
+    stage at width c: the tiles of x and x2 (128 pixels x c bf16 each), four
+    mbarriers, then as many ring stages, with their two mbarriers, as
+    fit."""
+    tiles = 2 * _PW_TP * c * 2
+    stages = min(_PW_MAX_STAGES,
+                 (_SMEM_LIMIT - _WG_ALIGN - tiles - 32) // (_PW_STAGE + 16))
+    return _WG_ALIGN + tiles + stages * _PW_STAGE + 16 * stages + 32, stages
+
+
+def _pw_form(c, ch, e, mode, n_x2, has_po, f) -> bool:
+    """Whether a bf16 call without a depthwise stage has the form of
+    csrc/ffn_pw.cu: the pointwise FFW (gelu, F = E = 2C, no chained FFW) at
+    C = 128 or 256, with no x2 map or one with its po."""
+    return (mode == "gelu" and c in _PW_WIDTHS and e == 2 * c and ch == e
+            and not f and n_x2 == int(has_po))
+
+
 def _ffn_plan(b, h, w, c, ch, e, mode, n_x2, has_po, po_batched, f, has_dw,
               dtype, n_sm: int = 132):
     """The body of one fused_block_ffn call, chosen by its shape: ("wg",
     geometry) for the wgmma body of csrc/ffn_wg.cu, ("c64", geometry) for
-    the C = 64 body of csrc/ffn_c64.cu, else ("tile", None) for the mma.sync
-    body of csrc/ffn.cu. f: the chained FFW's hidden width (0: none). The
-    wgmma body takes the bf16 calls with a depthwise stage, C in 128 / 256 /
-    512 and E a multiple of 32 in three forms: at most one x2 map; a list of
-    x2 maps (gate, C = 128 or 256: the causal history model's call at dec3
-    and dec2); the chained FFW (gelu, no x2, C = 128, f = 2 C: enc2's
-    ReducedAttn+FFW blocks). The C = 64 body takes the bf16 depthwise calls
-    at C = 64 in its forms (:func:`_c64_form`: the refinement's halves,
-    dec1's Channel and CHM halves, enc1's ReducedAttn+FFW blocks; each
-    measured faster there than on csrc/ffn.cu, PERF.md row 1). Everything
-    else (no depthwise stage, float32, other widths and forms) goes to
-    csrc/ffn.cu, whose shared memory refuses lists at C = 512 (no path has
-    them). The geometry: the output tiles,
-    their count, the activation columns of a chunk, the ring stages and the
-    shared memory; for the C = 64 body also the persistent grid's blocks
-    (one an SM, n_sm of them at most)."""
+    the C = 64 body of csrc/ffn_c64.cu, ("pw", geometry) for the body
+    without a depthwise stage of csrc/ffn_pw.cu, else ("tile", None) for the
+    mma.sync body of csrc/ffn.cu. f: the chained FFW's hidden width (0:
+    none). The wgmma body takes the bf16 calls with a depthwise stage, C in
+    128 / 256 / 512 and E a multiple of 32 in three forms: at most one x2
+    map; a list of x2 maps (gate, C = 128 or 256: the causal history
+    model's call at dec3 and dec2); the chained FFW (gelu, no x2, C = 128,
+    f = 2 C: enc2's ReducedAttn+FFW blocks). The C = 64 body takes the bf16
+    depthwise calls at C = 64 in its forms (:func:`_c64_form`: the
+    refinement's halves, dec1's Channel and CHM halves, enc1's
+    ReducedAttn+FFW blocks; each measured faster there than on csrc/ffn.cu,
+    PERF.md row 1). The body of
+    csrc/ffn_pw.cu takes the bf16 calls without a depthwise stage in its
+    form (:func:`_pw_form`: gopro_enc3_ffw's FFW passes at enc3). Everything
+    else (float32, other widths and forms) goes to csrc/ffn.cu, whose shared
+    memory refuses lists at C = 512 (no path has them). The geometry: the
+    output tiles, their count, the activation columns of a chunk, the ring
+    stages and the shared memory; for the persistent bodies (C = 64, no
+    depthwise stage) also the grid's blocks (one an SM, n_sm of them at
+    most)."""
     del po_batched  # every body takes a shared or a per-batch matrix
-    if dtype != torch.bfloat16 or not has_dw:
+    if dtype != torch.bfloat16:
         return "tile", None
+    if not has_dw:
+        if not _pw_form(c, ch, e, mode, n_x2, has_po, f):
+            return "tile", None
+        smem, stages = _pw_smem(c)
+        n_tiles = b * -(-(h * w) // _PW_TP)
+        return "pw", dict(tile=_PW_TP, tiles=n_tiles,
+                          blocks=min(n_tiles, n_sm), chunk=64, stages=stages,
+                          smem=smem)
     if c == 64:
         smem, stages = _c64_smem(ch, e, mode == "gate",
                                  n_x2 if has_po else 0, f)
@@ -524,6 +565,10 @@ def _ffn_launch(x, x2, po_w, po_b, ln_w, ln_b, w1, b1, wd, bd, w2, b2, scale,
         _call(build.load("ffn_c64").turtle_ffn_c64_launch, ptrs,
               ints + [geo["blocks"]], x, "fused_block_ffn")
         fused_block_ffn.launches_c64 += 1
+    elif body == "pw":  # likewise (_pw_smem)
+        _call(build.load("ffn_pw").turtle_ffn_pw_launch, ptrs,
+              ints + [geo["blocks"]], x, "fused_block_ffn")
+        fused_block_ffn.launches_pw += 1
     else:
         lib = build.load("ffn")
         _check_smem("fused_block_ffn", lib.turtle_ffn_smem(
@@ -542,7 +587,7 @@ def fused_block_ffn(x, *, x2=None, po_w=None, po_b=None, ln_w, ln_b=None,
 
     Replaces ``fused_block_ffn`` of turtlevsr_tpu/kernels/ffn.py, both its
     dw branch and (``wd=None``: no depthwise stage) its no-dw branch; on an
-    H100 bound by operations at C >= 128 and by bytes at C = 64. Three
+    H100 bound by operations at C >= 128 and by bytes at C = 64. Four
     kernels, chosen by shape before the launch (:func:`_ffn_plan`): the
     wgmma body of csrc/ffn_wg.cu for bf16 calls with a depthwise stage,
     C = 128, 256 or 512 and a hidden width E that is a multiple of 32 (at
@@ -553,9 +598,13 @@ def fused_block_ffn(x, *, x2=None, po_w=None, po_b=None, ln_w, ln_b=None,
     memory, halo tiles of 16 x 8 outputs by TMA, wgmma) for bf16 calls with
     a depthwise stage at C = 64 in the serving forms (no x2 map, or one or a
     list of up to 4 with a po each in gate mode, or ``ffw2`` in gelu mode
-    with F = 2C; ``fused_block_ffn.launches_c64`` counts them); the
-    mma.sync body of csrc/ffn.cu for every other call (no depthwise stage,
-    float32, other forms). A call is one launch either way.
+    with F = 2C; ``fused_block_ffn.launches_c64`` counts them); the body of
+    csrc/ffn_pw.cu (a persistent grid over tiles of 128 pixels, the weights
+    through a TMA ring, wgmma, no halo) for bf16 calls without a depthwise
+    stage in gelu mode, C = 128 or 256, F = 2C, no x2 map or one with its
+    po (``fused_block_ffn.launches_pw`` counts them); the mma.sync body of
+    csrc/ffn.cu for every other call (float32, other forms). A call is one
+    launch either way.
     x2: optional second addend map (the attention branch); po_w (C, C) or
     per batch (B, C, C) and po_b: optional projection applied to x2 in the
     kernel. x2 may also be a list of up to 5 maps, an entry being a map or
@@ -580,6 +629,7 @@ fused_block_ffn.launches = 0
 fused_block_ffn.launches_no_dw = 0  # those of them without a depthwise stage
 fused_block_ffn.launches_wg = 0  # those of them on the wgmma body (ffn_wg.cu)
 fused_block_ffn.launches_c64 = 0  # those of them on the C = 64 body (ffn_c64.cu)
+fused_block_ffn.launches_pw = 0  # those without dw on the body of ffn_pw.cu
 
 
 # ---------------------------------------------------------------------------
@@ -755,9 +805,10 @@ fused_qkv_stats.launches_wg = 0  # those of them on the wgmma body (qkv_wg.cu)
 
 
 # the wgmma body of the split projection (csrc/split_wg.cu): the widths the
-# plan sends to it (C = 64 stays on split_proj.cu, faster there on an H100:
-# PERF.md, row 4); its ring stages and the parts of its shared memory beside
-# them, mirrored from the source (a card test holds the two equal)
+# plan sends to it (C = 64 has a body of its own, csrc/split_c64.cu: the
+# 8 x 8 tiles of split_wg.cu measured slower than split_proj.cu there on an
+# H100, PERF.md row 4); its ring stages and the parts of its shared memory
+# beside them, mirrored from the source (a card test holds the two equal)
 _SPLIT_WG_WIDTHS = (128, 256, 512)
 
 
@@ -774,18 +825,43 @@ def _spw_smem(c: int) -> tuple[int, int]:
     return _WG_ALIGN + stages * _SW_STAGE + rest + 16 * stages, stages
 
 
+def _sc_smem(n_out: int) -> tuple[int, int]:
+    """(bytes of shared memory, ring slots) of the split projection's C = 64
+    body (csrc/split_c64.cu): the LN halo (a slot's bytes), w1 (64 x 64
+    n_out), two fp32 hidden chunks (180 x 64 each), wd (9 x 64 n_out), then
+    as many ring slots of ffn_c64.cu's size, each with its mbarrier, as fit
+    (up to _C64_MAX_STAGES); mirrored from the source (a card test holds the
+    two equal)."""
+    rest = (_C64_SLOT + n_out * _C64_PANEL + 2 * _C64_NPH * _C64_HS * 4
+            + 18 * 64 * n_out)
+    stages = min(_C64_MAX_STAGES,
+                 (_SMEM_LIMIT - _WG_ALIGN - rest) // (_C64_SLOT + 8))
+    return _WG_ALIGN + stages * _C64_SLOT + rest + 8 * stages, stages
+
+
 def _split_plan(b, h, w, c, e, n_out, has_ln, has_bias, dtype,
                 n_sm: int = 132):
     """The body of one fused_ln_split_proj call, chosen by its shape: ("wg",
     geometry) for the wgmma body of csrc/split_wg.cu (bf16, LayerNorm, no b1
     or bd, E = C in _SPLIT_WG_WIDTHS, n_out * E a multiple of 128: the
-    latent FHR q, k, v and the SAB q, k at dec3 and dec2), else ("tile",
-    None) for the mma.sync body of csrc/split_proj.cu. The geometry: 8 x 8
-    tiles, the persistent grid (one block an SM, n_sm of them at most), the
-    128-column passes of a tile, the ring stages and the shared memory."""
+    latent FHR q, k, v and the SAB q, k at dec3 and dec2), ("c64",
+    geometry) for the C = 64 body of csrc/split_c64.cu (bf16, LayerNorm, no
+    b1 or bd, E = C = 64: dec1's SAB q, k), else ("tile", None) for the
+    mma.sync body of csrc/split_proj.cu. The geometry: the output tiles (8 x
+    8; 16 x 8 at C = 64), the persistent grid (one block an SM, n_sm of them
+    at most), the ring stages and the shared memory; for the wgmma body also
+    the 128-column passes of a tile, for the C = 64 body the tiles'
+    count."""
     if (dtype != torch.bfloat16 or not has_ln or has_bias or e != c
-            or c not in _SPLIT_WG_WIDTHS or (n_out * e) % 128
             or not 1 <= n_out <= 4):
+        return "tile", None
+    if c == 64:
+        smem, stages = _sc_smem(n_out)
+        n_tiles = b * _c64_tiles(h, w)
+        return "c64", dict(tile=(_C64_TH, _C64_TW), tiles=n_tiles,
+                           blocks=min(n_tiles, n_sm), stages=stages,
+                           smem=smem)
+    if c not in _SPLIT_WG_WIDTHS or (n_out * e) % 128:
         return "tile", None
     smem, stages = _spw_smem(c)
     return "wg", dict(tile=_TILE, blocks=min(b * _tiles(h, w), n_sm),
@@ -818,6 +894,11 @@ def _split_proj_launch(x, ln_w, ln_b, w1, b1, wd, bd, n_out):
               ptrs[:4] + ptrs[5:6] + ptrs[7:],
               [b, h, w, c, e, n_out, geo["blocks"]], x, "fused_ln_split_proj")
         fused_ln_split_proj.launches_wg += 1
+    elif body == "c64":  # likewise (_sc_smem)
+        _call(build.load("split_c64").turtle_split_c64_launch,
+              ptrs[:4] + ptrs[5:6] + ptrs[7:],
+              [b, h, w, c, e, n_out, geo["blocks"]], x, "fused_ln_split_proj")
+        fused_ln_split_proj.launches_c64 += 1
     else:
         lib = build.load("split_proj")
         _check_smem("fused_ln_split_proj", lib.turtle_split_proj_smem(
@@ -835,11 +916,13 @@ def fused_ln_split_proj(x, *, ln_w=None, ln_b=None, w1, b1=None, wd, bd=None,
     side by side. Without ``ln_w`` the chains run on x itself.
 
     Replaces ``fused_ln_split_proj`` in turtlevsr_tpu/kernels/ffn.py; bound
-    by operations on an H100 at C >= 256, by bytes at C <= 128. Two kernels,
-    chosen by shape before the launch (:func:`_split_plan`): the wgmma body
-    of csrc/split_wg.cu for bf16 calls with LayerNorm, no b1 or bd and
-    E = C = 128, 256 or 512 (``fused_ln_split_proj.launches_wg`` counts
-    them), csrc/split_proj.cu for every other call; one launch either way."""
+    by operations on an H100 at C >= 256, by bytes at C <= 128. Three
+    kernels, chosen by shape before the launch (:func:`_split_plan`): the
+    wgmma body of csrc/split_wg.cu for bf16 calls with LayerNorm, no b1 or bd
+    and E = C = 128, 256 or 512 (``fused_ln_split_proj.launches_wg`` counts
+    them), the C = 64 body of csrc/split_c64.cu for those at E = C = 64
+    (``fused_ln_split_proj.launches_c64``), csrc/split_proj.cu for every
+    other call; one launch either way."""
     if x.device.type == "cpu":
         return split_proj_plain(x, ln_w=ln_w, ln_b=ln_b, w1=w1, b1=b1, wd=wd,
                                 bd=bd, n_out=n_out)
@@ -849,6 +932,7 @@ def fused_ln_split_proj(x, *, ln_w=None, ln_b=None, w1, b1=None, wd, bd=None,
 
 fused_ln_split_proj.launches = 0
 fused_ln_split_proj.launches_wg = 0  # those of them on the wgmma body (split_wg.cu)
+fused_ln_split_proj.launches_c64 = 0  # those on the C = 64 body (split_c64.cu)
 
 
 # ---------------------------------------------------------------------------
