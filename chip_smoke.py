@@ -15,7 +15,7 @@ tiled stream under each plan, with torch.profiler.)
 Phases, one JSON object per line on standard output:
 
   device   the card's name and power limit as nvidia-smi gives them
-  build    nvcc builds the eighteen sources of turtlevsr_tpu_torch/kernels/csrc
+  build    nvcc builds the nineteen sources of turtlevsr_tpu_torch/kernels/csrc
   kernels  each kernel's wrapper against its plain PyTorch version on the
            card at the shapes the 720p serving paths give it (bf16), whole
            padded frames and chunks of 15 tiles alike: errors beside the
@@ -29,8 +29,10 @@ Phases, one JSON object per line on standard output:
            ffn_c64.cu (row 1 at C = 64), ffn_pw.cu (row 2), qkv_wg.cu,
            split_wg.cu, split_c64.cu (row 4 at C = 64), chm_wg.cu and
            sab_wg.cu also timed on the mma.sync bodies, tile_ms, and on
-           ragged maps; row 1's mma.sync body, off the paths now, at dec1's
-           shape; row 7's
+           ragged maps; row 14's runs on level_wg.cu also timed on level.cu,
+           tile_ms, and against the model's split route, split_ms; row 1's
+           mma.sync body and level.cu, off the paths now, at dec1's and the
+           latent's shape; row 7's
            calls that its plan keeps on sab.cu also on the wgmma body,
            wg_ms; the mma.sync bodies of rows 3, 4, 6 and 7, off the path
            now, at the latent's or dec3's shape); attention @ v also at
@@ -59,6 +61,12 @@ Phases, one JSON object per line on standard output:
            plan and ("two_stage",), `gopro` under ("channel_runs",
            "attn_v_merge") too; each against the same frames through the
            plain versions on the card
+
+and, run alone (not part of all; no result line, no ok line):
+
+  level-phases  row 14's Hopper body (csrc/level_wg.cu) with each of its
+           phases left out in turn, beside the whole body, its split route
+           and that route's two kernels on the same inputs
 
 then, when the kernels, the slice and the tiled phase ran, the line
 {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
@@ -128,7 +136,9 @@ TASKS = {"gopro": "deblur", "derain": "derain", "sr": "sr"}
 # probabilities, lattice merge, statistics, FFN; t0: composite v conv,
 # lattice split, lattice merge, statistics, FFN); a Channel block the
 # statistics and the FFN. Under the fused plan the 33 Channel blocks of the
-# four runs (enc3 10, latent 9, dec3 9, dec2 5) are 4 run launches, and
+# four runs (enc3 10, latent 9, dec3 9, dec2 5) are 4 run launches, all on
+# csrc/level_wg.cu (kernels/level.py _level_plan; level.cu has none;
+# tests/test_torch_port_level_plan.py holds these counts to it), and
 # attention @ v with the merge is one launch per CHM block. Under the
 # two_stage plan enc1's pair, enc2's three pairs and the refinement's two
 # blocks are 6 two-stage launches where the split route makes 12 FFN ones.
@@ -142,7 +152,8 @@ TASKS = {"gopro": "deblur", "derain": "derain", "sr": "sr"}
 # the SAB q, k at dec3 and dec2) are split_wg.cu's, dec1's SAB q, k
 # split_c64.cu's (_split_plan; tests/test_torch_port_split_sab_plan.py);
 # split_proj.cu has none.
-_NONE = {"attn_v_slots": 0, "attn_v_merge": 0, "level_run": 0, "ffn_no_dw": 0,
+_NONE = {"attn_v_slots": 0, "attn_v_merge": 0, "level_run": 0, "level_wg": 0,
+         "ffn_no_dw": 0,
          "ffn_pw": 0, "two_stage": 0, "sab_sparse_softmax": 0}
 _GOPRO = {"ffn": 51, "ffn_wg": 43, "ffn_c64": 8, "qkv_stats": 34,
           "qkv_wg": 34,
@@ -164,7 +175,8 @@ LAUNCHES_PER_CALL = {
                        "ffn_wg": 33},
     "gopro_fused": {**_GOPRO, **_NONE, "ffn": 18, "ffn_wg": 10, "qkv_stats": 1,
                     "qkv_wg": 1,
-                    "lattice_merge": 0, "attn_v_merge": 3, "level_run": 4},
+                    "lattice_merge": 0, "attn_v_merge": 3, "level_run": 4,
+                    "level_wg": 4},
     "gopro_two_stage": {**_GOPRO, **_NONE, **_TWO_STAGE},
     "derain": {**_DERAIN, **_NONE},
     "derain_two_stage": {**_DERAIN, **_NONE, **_TWO_STAGE},
@@ -229,7 +241,10 @@ ATTN_V_REL_TOL = 2.0 ** -7
 # level.cu runs), only the exp and the divide of the small softmax differ:
 # one limit whatever the length of the run. Against the split route the
 # model takes (row 3 on the wgmma body, whose Grams sum in another order) a
-# run is held to its plain version's limit.
+# run is held to its plain version's limit. level_wg.cu runs that route's
+# bodies on the same partition, so it is held to the one limit against that
+# route (the softmax's exp and divide and the sum order of po' differ) and
+# to the plain limit against the route on qkv_stats.cu.
 RUN_SPLIT_REL_TOL = 2.0 ** -7
 # two chained stages against their plain version: KERNEL_REL_TOL a stage
 TWO_STAGE_REL_TOL = 2 * KERNEL_REL_TOL
@@ -297,8 +312,14 @@ KERNEL_INFO = {
     # same pallas_call there): its launches are those of both wrappers
     "attn_v": ("turtlevsr_tpu_torch/kernels/csrc/attn_v.cu",
                "turtlevsr_tpu/kernels/sab.py:223"),
+    # row 14 has two bodies chosen by shape (kernels/level.py _level_plan):
+    # level_wg.cu takes the bf16 runs with 64 channels a head at C = 128,
+    # 256, 512 (every run of the paths), level.cu the rest; "level_run"
+    # launches are those of level.cu
     "level_run": ("turtlevsr_tpu_torch/kernels/csrc/level.cu",
                   "turtlevsr_tpu/kernels/level.py:315"),
+    "level_wg": ("turtlevsr_tpu_torch/kernels/csrc/level_wg.cu",
+                 "turtlevsr_tpu/kernels/level.py:315"),
     "two_stage": ("turtlevsr_tpu_torch/kernels/csrc/chain2.cu",
                   "turtlevsr_tpu/kernels/chain2.py:308"),
     "sab_sparse_softmax": ("turtlevsr_tpu_torch/kernels/csrc/sab.cu",
@@ -854,13 +875,9 @@ def attn_v_case(inp: Inputs, name, b, nf, hq, wq, ws, c, merge=True, iters=5):
                 bound_by=b_by)
 
 
-def run_case(inp: Inputs, name, b, h, w, c, heads, n_blocks, iters=3):
-    """A run of Channel+GFFW blocks: the run kernel against its plain version,
-    against the 2 N split launches it replaces (their time is split_ms, no
-    library call computes the run) and against the same launches with row 3
-    on qkv_stats.cu, the tile code the run kernel shares."""
-    if skipped("level_run", name):
-        return None
+def run_inputs(inp: Inputs, b, h, w, c, heads, n_blocks):
+    """The map and the blocks' weights of a run at a level's shape (E = 2.5
+    C, LayerNorm biases, no conv biases)."""
     e = int(c * 2.5)
     x = inp(b, h, w, c)
     blocks = [dict(
@@ -872,18 +889,52 @@ def run_case(inp: Inputs, name, b, h, w, c, heads, n_blocks, iters=3):
         ln2_b=inp(c, scale=0.2), w1=inp(c, 2 * e, scale=c ** -0.5),
         wd=inp(3, 3, 2 * e, scale=0.3), w2=inp(e, c, scale=e ** -0.5))
         for _ in range(n_blocks)]
-    got = LV.fused_channel_gffw_run(x, blocks, heads)
+    return x, blocks
+
+
+def run_case(inp: Inputs, name, b, h, w, c, heads, n_blocks, iters=3,
+             tile=False):
+    """A run of Channel+GFFW blocks on the body its plan gives it (tile: on
+    level.cu): kernel "level_wg" for csrc/level_wg.cu (timed also on
+    level.cu on the same inputs, tile_ms), else "level_run"; against its
+    plain version, against the 2 N split launches it replaces (the model's
+    split route, row 3 on qkv_wg.cu: their time is split_ms, no library call
+    computes the run) and against the same launches with row 3 on
+    qkv_stats.cu, the tile code level.cu shares."""
+    kernel = "level_run" if tile else "level_wg"
+    if skipped(kernel, name):
+        return None
+    x, blocks = run_inputs(inp, b, h, w, c, heads, n_blocks)
+    e = blocks[0]["w2"].shape[0]
+
+    def fused():
+        return LV.fused_channel_gffw_run(x, blocks, heads)
+
+    def on_level_cu():
+        with forced_body(LV, "_level_plan", OLD_PLAN):
+            return fused()
+
+    body = on_level_cu if tile else fused
+    before = LV.fused_channel_gffw_run.launches_wg
+    got = body()
     torch.cuda.synchronize()
+    require(LV.fused_channel_gffw_run.launches_wg - before
+            == (0 if tile else -(-n_blocks // LV.MAX_RUN)),
+            f"{kernel} {name}: not on the body its plan gives it")
     with stats_widths((), K._CHM_WG_WIDTHS):
         split = LV.channel_gffw_run_split(x, blocks, heads)
     err_s, rel_s = rel_err(got, split)
     split = LV.channel_gffw_run_split(x, blocks, heads)
     err_m, rel_m = rel_err(got, split)
+    bit_equal = bool(torch.equal(got, split))
     del split
     want = LV.channel_gffw_run_plain(x, blocks, heads)
     err, rel = rel_err(got, want)
     del want
     tol = KERNEL_REL_TOL * n_blocks
+    # level.cu shares qkv_stats.cu's tile code (the tight limit against the
+    # split route on it), level_wg.cu the model's split route's bodies
+    rel_tight, rel_loose = (rel_s, rel_m) if tile else (rel_m, rel_s)
     # one map read, one map written, the weights; per pixel and block the
     # three chains, the head blocks of the Gram, the norms, v @ po', the
     # gate chains and pw2
@@ -892,22 +943,77 @@ def run_case(inp: Inputs, name, b, h, w, c, heads, n_blocks, iters=3):
                                    + c * c + c * 2 * e + 18 * e + e * c)
     weights = [v for blk in blocks for v in blk.values()]
     b_ms, b_by = bound(numel_bytes(x, got, *weights), flops)
-    return dict(kernel="level_run", case=name, shape=[b, h, w, c],
+    return dict(kernel=kernel, case=name, shape=[b, h, w, c],
                 heads=heads, blocks=n_blocks, max_abs_err=err, rel_err=rel,
                 tol_rel=tol, max_abs_err_vs_split=err_s,
-                rel_err_vs_split=rel_s, tol_rel_vs_split=RUN_SPLIT_REL_TOL,
-                max_abs_err_vs_model_split=err_m,
+                rel_err_vs_split=rel_s, max_abs_err_vs_model_split=err_m,
                 rel_err_vs_model_split=rel_m,
-                ok=(rel <= tol and rel_s <= RUN_SPLIT_REL_TOL and rel_m <= tol
+                bit_equal_to_model_split=bit_equal,
+                tol_rel_vs_tight_split=RUN_SPLIT_REL_TOL,
+                ok=(rel <= tol and rel_tight <= RUN_SPLIT_REL_TOL
+                    and rel_loose <= tol
                     and bool(torch.isfinite(got.float()).all())),
-                ms=cuda_ms(lambda: LV.fused_channel_gffw_run(x, blocks, heads),
-                           iters, 1),
+                ms=cuda_ms(body, iters, 1),
                 split_ms=cuda_ms(
                     lambda: LV.channel_gffw_run_split(x, blocks, heads),
                     iters, 1),
+                tile_ms=None if tile else cuda_ms(on_level_cu, iters, 1),
                 plain_ms=cuda_ms(
                     lambda: LV.channel_gffw_run_plain(x, blocks, heads), 1, 0),
                 library_ms=None, bound_ms=b_ms, bound_by=b_by)
+
+
+def level_phase_cases(seed: int, h: int, w: int) -> list[dict]:
+    """Row 14's Hopper body with each of its phases left out in turn (builds
+    of csrc/level_wg.cu with LV_PHASES = 6, 5, 3: without (a) the
+    statistics, (b) the softmax and po', (c) the FFN), beside the whole body,
+    its split route and that route's two kernels alone (N launches of row 3,
+    N of row 1 on the run's map), at the runs of the paths: what each phase
+    costs. A build without a phase gives wrong outputs; only its time is
+    read."""
+    inp = Inputs(seed)
+    whole = build.load("level_wg")
+    parts = dict(zip(("without_a_ms", "without_b_ms", "without_c_ms"),
+                     build.load_variants("level_wg", [
+                         ("-DLV_PHASES=6",), ("-DLV_PHASES=5",),
+                         ("-DLV_PHASES=3",)])))
+    tb, tl = MAX_TILE_BATCH, TILE
+    shapes = [(f"{lvl} x{n}, {tb} tiles", tb, tl // s_, tl // s_, c, heads, n)
+              for lvl, (s_, c, heads, n) in RUN_LEVELS.items()]
+    shapes.append(("latent x9, whole frame", 1, h // 8, w // 8, 512, 8, 9))
+    out = []
+    for name, b, hh, ww, c, heads, n in shapes:
+        x, blocks = run_inputs(inp, b, hh, ww, c, heads, n)
+
+        def run():
+            return LV.fused_channel_gffw_run(x, blocks, heads)
+
+        res = dict(phase="level_phases", case=name, shape=[b, hh, ww, c],
+                   blocks=n, ms=cuda_ms(run, 3, 1))
+        for key, lib in parts.items():
+            build._libs["level_wg"] = lib
+            try:
+                res[key] = cuda_ms(run, 3, 1)
+            finally:
+                build._libs["level_wg"] = whole
+        res["split_ms"] = cuda_ms(
+            lambda: LV.channel_gffw_run_split(x, blocks, heads), 3, 1)
+        stats = [dict(ln_w=blk["ln1_w"], ln_b=blk["ln1_b"], w1=blk["w_qkv"],
+                      wd=blk["wd_qkv"], heads=heads) for blk in blocks]
+        v, gram, st = K.fused_qkv_stats(x, **stats[0])
+        po = LV.channel_po(gram, st, blocks[0]["temp"], blocks[0]["wpo"],
+                           heads, x.dtype)
+        ffns = [dict(x2=v, po_w=po, ln_w=blk["ln2_w"], ln_b=blk["ln2_b"],
+                     w1=blk["w1"], wd=blk["wd"], w2=blk["w2"], mode="gate")
+                for blk in blocks]
+        res["split_stats_ms"] = cuda_ms(
+            lambda: [K.fused_qkv_stats(x, **kw) for kw in stats], 3, 1)
+        res["split_ffn_ms"] = cuda_ms(
+            lambda: [K.fused_block_ffn(x, **kw) for kw in ffns], 3, 1)
+        emit(res)
+        out.append(res)
+        torch.cuda.empty_cache()
+    return out
 
 
 def two_stage_case(inp: Inputs, name, kind, b, h, w, c, e1, e2, iters=3):
@@ -1144,6 +1250,11 @@ def kernel_cases(seed: int, h: int, w: int) -> list[dict]:
             n))
     cases.append(lambda: run_case(inp, "latent x9, whole frame", 1, h4, w4,
                                   512, 8, 9))
+    # level.cu, off the paths now (float32, other widths and head sizes), at
+    # the same shape
+    cases.append(lambda: run_case(inp, "latent x9, whole frame, on level.cu "
+                                  "(off the paths)", 1, h4, w4, 512, 8, 9,
+                                  tile=True))
     for lvl, (s_, c, _, ws, ring) in CHM_LEVELS.items():
         side = tl // s_ // ws
         cases.append(lambda lvl=lvl, c=c, ws=ws, ring=ring, side=side:
@@ -1681,6 +1792,9 @@ def kernel_rows(cases: list[dict], by_path: dict) -> list[dict]:
             c64 = "split_c64" if name == "split_proj" else None
             per_path = {p: c[name] - c[wg] - c.get(c64, 0)
                         for p, c in by_path.items()}
+        if name == "level_run":  # level.cu: not the Hopper body
+            per_path = {p: c["level_run"] - c["level_wg"]
+                        for p, c in by_path.items()}
         if name == "ffn_no_dw":  # ffn.cu's branch without a depthwise stage
             per_path = {p: c["ffn_no_dw"] - c["ffn_pw"]
                         for p, c in by_path.items()}
@@ -1698,6 +1812,7 @@ def kernel_rows(cases: list[dict], by_path: dict) -> list[dict]:
                                       "tile_partial_row_bytes",
                                       "rel_err_vs_split", "bit_equal_to_split",
                                       "rel_err_vs_model_split",
+                                      "bit_equal_to_model_split",
                                       "bit_equal_to_row_7") if k in c}
                    for c in mine]))
     return rows
@@ -1711,7 +1826,11 @@ def main(argv=None) -> int:
     ap.add_argument("--size", default="1280x720", help="WIDTHxHEIGHT")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--phase", default="all",
-                    choices=("all", "build", "kernels", "slice", "tiled"))
+                    choices=("all", "build", "kernels", "slice", "tiled",
+                             "level-phases"),
+                    help="level-phases: row 14's Hopper body with each of "
+                         "its phases left out in turn (not part of all; no "
+                         "result line, no ok line)")
     ap.add_argument("--profile", action="store_true",
                     help="after each whole-frame stream and each tiled "
                          "stream under each plan, trace a few more frames "
@@ -1754,6 +1873,9 @@ def main(argv=None) -> int:
         hp, wp = turtle_mod.padded_hw(
             model_config_from_options(options_of("gopro")), height, width)
         cases, by_path = [], {}
+        if args.phase == "level-phases":
+            level_phase_cases(args.seed, hp, wp)
+            return 0
         if args.phase in ("all", "kernels"):
             cases = kernel_cases(args.seed, hp, wp)
             bad = [c["case"] for c in cases if not c["ok"]]
@@ -1795,7 +1917,7 @@ def main(argv=None) -> int:
                 "tiled_fused": ("ffn", "ffn_wg", "ffn_c64", "qkv_wg",
                                 "split_wg", "split_c64", "conv3x3", "chm_wg",
                                 "sab_wg", "lattice_split", "attn_v_merge",
-                                "level_run"),
+                                "level_run", "level_wg"),
                 "tiled_two_stage": t1_chm + ("two_stage",),
                 "derain_tiled": t0_chm,
                 "derain_tiled_two_stage": t0_chm + ("two_stage",),
@@ -1810,13 +1932,15 @@ def main(argv=None) -> int:
                             f"the {path} path never launched {name}")
             require(by_path["tiled_fused"]["lattice_merge"] == 0,
                     "the fused plan still launched lattice_merge")
-            # every launch of rows 1, 2 and 4 runs on a body designed for
+            # every launch of rows 1, 2, 4 and 14 runs on a body designed for
             # the card: none on the mma.sync bodies of ffn.cu and
-            # split_proj.cu
+            # split_proj.cu, none on level.cu
             for path, c in by_path.items():
                 require(c["ffn"] == c["ffn_wg"] + c["ffn_c64"] + c["ffn_pw"]
                         and c["split_proj"] == c["split_wg"] + c["split_c64"],
                         f"the {path} path launched ffn.cu or split_proj.cu")
+                require(c["level_run"] == c["level_wg"],
+                        f"the {path} path launched level.cu")
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1

@@ -675,6 +675,167 @@ def test_level_run_longer_than_one_launch(dev):
     assert max_err(got, LV.channel_gffw_run_plain(x, blocks, 1)) <= 1e-3
 
 
+# row 14's Hopper body (csrc/level_wg.cu): (B, H, W, C, E, heads, blocks,
+# ln_bias). The runs of the paths at 15 tiles and the latent's whole frame;
+# a ragged map of two entries; runs of 1, 2, 10 and 11 blocks (11: two
+# launches) with and without LayerNorm biases; E = 96, whose last 64-column
+# chunk is half empty (the stacked w2's 3-D tensor map reads zeros past E)
+LEVEL_WG_CASES = {
+    "enc3_15_tiles_x10": (15, 80, 80, 256, 640, 4, 10, True),
+    "latent_15_tiles_x9": (15, 40, 40, 512, 1280, 8, 9, True),
+    "dec2_15_tiles_x5": (15, 160, 160, 128, 320, 2, 5, True),
+    "latent_whole_frame_x9": (1, 92, 160, 512, 1280, 8, 9, True),
+    "ragged_2_maps_x3": (2, 37, 53, 256, 640, 4, 3, False),
+    **{f"x{n}_{'with' if ln else 'no'}_ln_b": (2, 19, 27, 128, 320, 2, n, ln)
+       for n in (1, 2, 10, 11) for ln in (True, False)},
+    "e96_half_chunk_x2": (1, 24, 40, 128, 96, 2, 2, True),
+}
+
+
+@pytest.mark.parametrize("case", list(LEVEL_WG_CASES))
+def test_level_wg_body_matches_plain_and_split(dev, case):
+    """The Hopper body on the runs its plan gives it: one launch a run of up
+    to 10 blocks, within the plain version's limit (KERNEL_TOL a block) and
+    within 2^-7 of the largest output of the model's split route, whose
+    bodies and partition it runs; bitwise repeatable."""
+    b, h, w, c, e, heads, n, ln_bias = LEVEL_WG_CASES[case]
+    x, blocks = level_kernel_case(Maker(19, torch.bfloat16, dev), b, h, w, c,
+                                  e, heads, n, ln_bias)
+    launches = -(-n // LV.MAX_RUN)
+    before = LV.fused_channel_gffw_run.launches
+    wg_before = LV.fused_channel_gffw_run.launches_wg
+    got = LV.fused_channel_gffw_run(x, blocks, heads)
+    torch.cuda.synchronize()
+    assert LV.fused_channel_gffw_run.launches == before + launches
+    assert LV.fused_channel_gffw_run.launches_wg == wg_before + launches
+    assert got.shape == x.shape and bool(torch.isfinite(got.float()).all())
+    want = LV.channel_gffw_run_plain(x, blocks, heads)
+    assert max_err(got, want) <= KERNEL_TOL[torch.bfloat16] * n
+    split = LV.channel_gffw_run_split(x, blocks, heads)
+    assert _rel(got, split) <= 2.0 ** -7
+    again = LV.fused_channel_gffw_run(x, blocks, heads)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+
+
+def test_level_wg_smem_mirror_matches_the_source(dev):
+    from turtlevsr_tpu_torch.kernels import build
+
+    for c in LV._LV_WG_WIDTHS:
+        assert build.load("level_wg").turtle_level_wg_smem(c) == LV._lv_smem(
+            c)[0]
+
+
+# sha256 of the outputs of qkv_wg.cu, chm_wg.cu and ffn_wg.cu (their bf16
+# and fp32 bits) on card cases, as the bodies gave them before their device
+# code moved into functions of (item, ring) for level_wg.cu (stats_wg.cuh,
+# ffn_wg.cuh; NVIDIA H100 80GB HBM3): the move changed no bit
+SW_BITS_MAPS = {"ragged": (2, 37, 53), "split": (3, 99, 101)}
+WG_BITS = {
+    "qkv_wg:64_ragged":
+        "8f667ff13fbdf033ccf7d731e8af166ff0d93c2643d8e0be48dfda62bb24f578",
+    "qkv_wg:64_split":
+        "6ed20d134bd7a762678b055ac49bb4ee493c200cc89c1076dd020b402748b5e8",
+    "qkv_wg:128_ragged":
+        "f1654fa81a9dcbe8a0d10d2be14b78610afc4e05e2bb20e9621c17f7873ea1ea",
+    "qkv_wg:128_split":
+        "8ada681d8003cde25b113eec6d4dc94e71d59872284bc77007046d59cafd597f",
+    "qkv_wg:256_ragged":
+        "771ed98904c54ee296b5a4efff29c1308d042cb7c3bf27d345dcd1398222d37f",
+    "qkv_wg:256_split":
+        "78d67a8c80784828cf8ebcb7e741266ac0db9422dd69a735cb2d53cad5e55197",
+    "qkv_wg:512_ragged":
+        "013398d230bfcfbae8f227de7a1dd6c6070429b3b0a592d0f0861af326aa8153",
+    "qkv_wg:512_split":
+        "4025eed5ebc3caf63344e819250290b9ec34a713609a91c27b6c3e1d7d7dcc12",
+    "chm_wg:64_ragged":
+        "2325f0a4812100b6b373e20b1574a4a860448863217cc70caed2bd79c80bef58",
+    "chm_wg:64_split":
+        "eb758d4b5a5a308c13e55156abcb94a44261d9c287c223f9ad03ad471b9af653",
+    "chm_wg:128_ragged":
+        "f0a4ca987e9a6c75dc3d5cf1884e0098e6d8fde3790d7e8c8f63fa20f7dd3783",
+    "chm_wg:128_split":
+        "5b832dc7e8c8313ef6e34125747300cd3e53b3a54e4ab3a5aa722cabe23f04d8",
+    "chm_wg:256_ragged":
+        "d4de1b729e79ab3b464dad18aac61b1cfd14086a794872830d715e6cdce9fe75",
+    "chm_wg:256_split":
+        "25bce8b6a07fe684aa422707c13b3add6d0e778495f15d8bb91e4854b990ab0b",
+    "ffn_wg:gate_pair_po_batched_c128":
+        "a4f6f14d7ef0b11b2ded59d874d269027960231d8fbd21dd592cbae377d76833",
+    "ffn_wg:gate_pair_po_batched_c256":
+        "fb265614d38dc9d00e9d672d5128c851d4142eebe8b89888e1d23f4948725812",
+    "ffn_wg:gate_pair_po_batched_c512":
+        "36e7db2968e4108f9f59a97cda7daf442fb669c84320e22c8e37d5a65b5e8fef",
+    "ffn_wg:gate_pair_no_po_c512":
+        "89cbb8be703eb1794f3a37b04b115d91b209135d351cab1a886b792b6f91e787",
+    "ffn_wg:gate_pair_po_shared_c256":
+        "0dc55650eed927119845c31442a7b93948b5b8612ce69bf4f99b5f8c54ff663f",
+    "ffn_wg:gelu_scale_c128":
+        "9d6c03668c4ac35f630dcf9500beb458fe46b7e6413a82948e433b5e951e5073",
+    "ffn_wg:gelu_scale_ffw2_c128":
+        "79434d1ff7d1391ef9ef6f0b9cb2db6a9b9f1da8c260e8e3e67d7d32d1edde90",
+    "ffn_wg:gelu_scale_ffw2_biasfree_ln_c128":
+        "9e523233ea29d2ac3d24c0b9e7086203596424a0026345a623d803de45364d09",
+    "ffn_wg:lists_stack4_single_c256_ragged":
+        "de5b6dedb65a543b77b951b3c38491cd0e5a7de604606bb6e2a49e298440fffc",
+    "ffn_wg:lists_stack4_single_c128_ragged":
+        "2f9a85a26110a44a0597706221fa4d96e8ad84aebf9ffadece7dec4c8dcbb2a2",
+    "ffn_wg:lists_stack4_single_c256_15_tiles":
+        "b5d13503c0675a410de8afc1c5b6feb0f97828a44e36eabcfaa3597fd9d090aa",
+    "ffn_wg:lists_stack4_single_c128_15_tiles":
+        "09e653f938e17b1877e7980d6c6f0caf1e5973749d6b4384f148de4efc20a17b",
+    "ffn_wg:lists_five_singles_po_b_c128":
+        "9a731f0f26064af15118c06b4266bccce42deeaba2019addde199d0e45c873c6",
+    "ffn_wg:lists_stack2_two_singles_shared_c256":
+        "095f2d85256c4456f969f031851f1583d215b9fb94254e314a3651de0640e6c1",
+}
+
+
+def _wg_outputs(case, dev):
+    kind, rest = case.split(":")
+    if kind in ("qkv_wg", "chm_wg"):
+        c, maps = rest.split("_")
+        c = int(c)
+        b, h, w = SW_BITS_MAPS[maps]
+        if kind == "qkv_wg":
+            x, kw = chain_kernel_case(Maker(16, torch.bfloat16, dev), b, h, w,
+                                      c, 3 * c, False)
+            n = K.fused_qkv_stats.launches_wg
+            got = K.fused_qkv_stats(x, heads=c // 64, **kw)
+            assert K.fused_qkv_stats.launches_wg == n + 1
+        else:
+            x, x_sp, kw = chm_kernel_case(Maker(17, torch.bfloat16, dev), b,
+                                          h, w, c, c // 64,
+                                          3 if c == 64 else 4, True)
+            n = K.fused_chm_stats.launches_wg
+            got = K.fused_chm_stats(x, x_sp, **kw)
+            assert K.fused_chm_stats.launches_wg == n + 1
+        return list(got)
+    m = Maker(15, torch.bfloat16, dev)
+    if rest in FFN_WG_LIST_CASES:
+        x, kw = ffn_list_case(rest, m, FFN_WG_LIST_CASES)
+    else:
+        x, kw = ffn_kernel_case(rest, m, FFN_WG_CASES)
+    n = K.fused_block_ffn.launches_wg
+    got = K.fused_block_ffn(x, **kw)
+    assert K.fused_block_ffn.launches_wg == n + 1
+    return [got]
+
+
+@pytest.mark.parametrize("case", list(WG_BITS))
+def test_wgmma_bodies_bits_unchanged_by_the_factoring(dev, case):
+    import hashlib
+
+    got = _wg_outputs(case, dev)
+    torch.cuda.synchronize()
+    h = hashlib.sha256()
+    for t in got:
+        t = t.contiguous()
+        h.update(t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+                 .cpu().numpy().tobytes())
+    assert h.hexdigest() == WG_BITS[case]
+
+
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
 @pytest.mark.parametrize("case", list(TWO_STAGE_KERNEL_CASES))
 def test_two_stage_kernel_matches_plain_and_split(dev, case, dtype):

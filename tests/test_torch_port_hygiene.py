@@ -48,9 +48,9 @@ def test_port_has_the_expected_modules():
         assert want in rel, want
     from turtlevsr_tpu_torch.kernels import build
 
-    assert len(build.KERNEL_SOURCES) == 18
+    assert len(build.KERNEL_SOURCES) == 19
     headers = ("common.cuh", "ffn_tile.cuh", "qkv_tile.cuh", "pipe.cuh",
-               "stats_wg.cuh", "c64_tile.cuh")
+               "stats_wg.cuh", "c64_tile.cuh", "ffn_wg.cuh")
     for cu in (*headers, *(n + ".cu" for n in build.KERNEL_SOURCES)):
         assert os.path.isfile(os.path.join(PORT, "kernels", "csrc", cu)), cu
         assert cu in headers or cu[:-3] in build._SIGNATURES
@@ -287,7 +287,7 @@ def test_launch_counters_cover_every_wrapper():
                            "lattice_split", "attn_v_slots", "attn_v_merge",
                            "level_run", "ffn_no_dw", "ffn_wg", "ffn_c64",
                            "ffn_pw", "qkv_wg", "split_wg", "split_c64",
-                           "chm_wg", "sab_wg", "two_stage",
+                           "chm_wg", "sab_wg", "level_wg", "two_stage",
                            "sab_sparse_softmax"}
     kernels.reset_launch_counts()
     assert set(kernels.launch_counts().values()) == {0}

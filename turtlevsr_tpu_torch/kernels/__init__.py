@@ -28,7 +28,8 @@ def launch_counts() -> dict:
     ``ffn_no_dw`` are those of ``ffn`` without a depthwise stage,
     ``ffn_wg``, ``qkv_wg``, ``split_wg``, ``chm_wg`` and ``sab_wg`` those
     of ``ffn``, ``qkv_stats``, ``split_proj``, ``chm_stats`` and ``sab`` on
-    their wgmma bodies, ``ffn_c64`` and ``split_c64`` those of ``ffn`` and
+    their wgmma bodies, ``level_wg`` those of ``level_run`` on
+    csrc/level_wg.cu, ``ffn_c64`` and ``split_c64`` those of ``ffn`` and
     ``split_proj`` on their C = 64 bodies, ``ffn_pw`` those of ``ffn_no_dw``
     on the body of csrc/ffn_pw.cu."""
     fns = _counted()
@@ -43,7 +44,8 @@ def launch_counts() -> dict:
 
 
 # the wrappers with a second, wgmma body
-_WG_BODIES = ("ffn", "qkv_stats", "split_proj", "chm_stats", "sab")
+_WG_BODIES = ("ffn", "qkv_stats", "split_proj", "chm_stats", "sab",
+              "level_run")
 
 
 def reset_launch_counts() -> None:

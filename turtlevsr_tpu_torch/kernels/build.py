@@ -21,7 +21,8 @@ CSRC_DIR = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
 KERNEL_SOURCES = ("ffn", "ffn_wg", "ffn_c64", "ffn_pw", "qkv_stats", "qkv_wg",
                   "split_proj", "split_wg", "split_c64", "conv3x3", "chm_stats", "chm_wg",
-                  "sab", "sab_wg", "lattice", "level", "attn_v", "chain2")
+                  "sab", "sab_wg", "lattice", "level", "level_wg", "attn_v",
+                  "chain2")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -74,6 +75,8 @@ _SIGNATURES = {
         + [ctypes.c_void_p], ctypes.c_int)},
     "level": {"turtle_level_launch": (_LAUNCH_ARGS, ctypes.c_int),
               "turtle_level_smem": ([ctypes.c_int] * 3, ctypes.c_size_t)},
+    "level_wg": {"turtle_level_wg_launch": (_LAUNCH_ARGS, ctypes.c_int),
+                 "turtle_level_wg_smem": ([ctypes.c_int], ctypes.c_size_t)},
     "attn_v": {"turtle_attn_v_launch": (_LAUNCH_ARGS, ctypes.c_int)},
     "chain2": {"turtle_two_stage_launch": (_LAUNCH_ARGS, ctypes.c_int),
                "turtle_two_stage_smem": ([ctypes.c_int] * 2,
@@ -92,11 +95,11 @@ def find_nvcc() -> str:
         "from source at first use and need the CUDA toolkit")
 
 
-def _lib_path(name: str) -> str:
+def _lib_path(name: str, flags: tuple = ()) -> str:
     """The library's path carries a hash of the flags, of ``<name>.cu`` and
     of every header of ``csrc/`` (a source may include any of them), so a
     changed source or header never meets a stale library."""
-    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha1(" ".join(NVCC_FLAGS + tuple(flags)).encode())
     headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
     for fn in (name + ".cu", *headers):
         with open(os.path.join(CSRC_DIR, fn), "rb") as f:
@@ -112,35 +115,53 @@ def declare(lib: ctypes.CDLL, name: str) -> ctypes.CDLL:
     return lib
 
 
+def _compile(jobs: dict, verbose: bool) -> None:
+    """Run nvcc for every job {key: (source name, library path, extra
+    flags)} at once; raise with the output of those that fail."""
+    nvcc = find_nvcc()
+    extra = ["-Xptxas", "-v"] if verbose else []
+    procs = {}
+    for key, (name, path, flags) in jobs.items():
+        tmp = f"{path}.{os.getpid()}.tmp"
+        cmd = [nvcc, *NVCC_FLAGS, *flags, *extra, "-o", tmp,
+               os.path.join(CSRC_DIR, name + ".cu")]
+        procs[key] = (name, path, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    failed = []
+    for key, (name, path, tmp, proc) in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{name}.cu {key}:\n{out}")
+            continue
+        if verbose:
+            print(f"[nvcc {name}.cu]\n{out}", flush=True)
+        os.replace(tmp, path)
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+
+
 def build_all(verbose: bool = False) -> dict[str, str]:
     """Compile every kernel source that has no library yet, in parallel.
     Returns {name: path of the shared library}."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     paths = {n: _lib_path(n) for n in KERNEL_SOURCES}
-    todo = {n: p for n, p in paths.items() if not os.path.isfile(p)}
-    if todo:
-        nvcc = find_nvcc()
-        extra = ["-Xptxas", "-v"] if verbose else []
-        procs = {}
-        for n, p in todo.items():
-            tmp = f"{p}.{os.getpid()}.tmp"
-            cmd = [nvcc, *NVCC_FLAGS, *extra, "-o", tmp,
-                   os.path.join(CSRC_DIR, n + ".cu")]
-            procs[n] = (tmp, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True))
-        failed = []
-        for n, (tmp, proc) in procs.items():
-            out, _ = proc.communicate()
-            if proc.returncode != 0:
-                failed.append(f"{n}.cu:\n{out}")
-                continue
-            if verbose:
-                print(f"[nvcc {n}.cu]\n{out}", flush=True)
-            os.replace(tmp, todo[n])
-        if failed:
-            raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    _compile({n: (n, p, ()) for n, p in paths.items()
+              if not os.path.isfile(p)}, verbose)
     return paths
+
+
+def load_variants(name: str, flags: list) -> list:
+    """Libraries of ``csrc/<name>.cu`` built with each entry of ``flags``
+    (a tuple of extra nvcc flags), in parallel and loaded: measurement
+    builds that change what a kernel runs (chip_smoke.py --phase
+    level-phases); the port's own calls never load them."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    paths = [_lib_path(name, tuple(f)) for f in flags]
+    _compile({i: (name, p, tuple(f))
+              for i, (p, f) in enumerate(zip(paths, flags))
+              if not os.path.isfile(p)}, False)
+    return [declare(ctypes.CDLL(p), name) for p in paths]
 
 
 def load(name: str) -> ctypes.CDLL:

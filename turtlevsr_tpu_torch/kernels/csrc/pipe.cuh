@@ -224,6 +224,20 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
         : "r"(smem_u32(bar)), "r"(parity)
         : "memory");
 }
+// A ring of TMA stages in shared memory on full / empty mbarriers (one
+// arrival a consumer warpgroup hands a stage back), as one side sees it: li
+// the next load (the copy thread: the next to start; the consumers: the next
+// to take), rel the next stage the consumers hand back. Load li lands in stage
+// li % S in round li / S, whose parity its waits read. A persistent kernel
+// that runs several bodies one after another (level_wg.cu) carries the ring
+// from one to the next: each body's loads continue the stage index and the
+// parities of the last.
+struct WgRing {
+  unsigned char* ring;
+  uint64_t *full, *empty;
+  int S, li, rel;
+};
+
 // the box at (c0, c1, ..) of a tensor map into shared memory (TMA), its
 // bytes counted on bar
 __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, int c0, int c1,

@@ -280,67 +280,68 @@ __device__ __forceinline__ int sw_first_block(int b, int nt, long long total) {
   return (int)((((long long)b * nt + 1) * gridDim.x - 1) / total);
 }
 
-// C: the map's width (64 to 512; row 6: 64 to 256), CHM: row 6. grid: one
-// block an SM (at most the number of tiles); part row (b, g - first block of
-// b) is this block's.
+// The copy thread's walk over items [it0, it1) of the flattened (batch
+// entry, tile) sequence: per item the passes' weights, NS stages of 64 rows
+// of K a pass, into the ring r, whose li it carries in and out. Z3: the
+// weights are 3-D maps of stacked matrices, (N, C, 3C), read at layer z
+// (row 14's runs, level_wg.cu); else 2-D maps.
+template <int C, bool CHM, bool Z3 = false>
+__device__ __forceinline__ void sw_copy_walk(const StatsWgMaps& maps, long long it0,
+                                             long long it1, int NF, WgRing& r, int z = 0) {
+  constexpr int NS = C / SW_KB;
+  const int n_pass = sw_passes<C, CHM>(NF);
+  const int S = r.S;
+  int& li = r.li;
+  for (long long it = it0; it < it1; ++it)
+    for (int p = 0; p < n_pass; ++p) {
+      const SwPass ps = sw_pass<C, CHM>(p);
+      const CUtensorMap* m = ps.kind <= SW_V ? &maps.w_qkv : &maps.w_kv;
+      for (int kb = 0; kb < NS; ++kb) {
+        const int s = li % S;
+        if (li >= S) mbar_wait(&r.empty[s], (li / S - 1) & 1);
+        mbar_expect_tx(&r.full[s], 2 * SW_PANEL);
+        ++li;
+        unsigned char* dst = r.ring + (size_t)s * SW_STAGE;
+        if constexpr (Z3) {
+          tma_load_3d(dst, m, ps.c0, kb * SW_KB, z, &r.full[s]);
+          tma_load_3d(dst + SW_PANEL, m, ps.c1, kb * SW_KB, z, &r.full[s]);
+        } else {
+          tma_load_2d(dst, m, ps.c0, kb * SW_KB, &r.full[s]);
+          tma_load_2d(dst + SW_PANEL, m, ps.c1, kb * SW_KB, &r.full[s]);
+        }
+      }
+    }
+}
+
+// The consumers' passes over items [it0, it1) (the 256 threads of the two
+// consumer warpgroups): v (and vh) into the maps, each tile's Grams and sums
+// of squares added to this block's partial rows. x, ln_w, ln_b, wd_qkv: the
+// current map and the weights of its chains (a's for rows 3 and 6; the run's
+// block for row 14). Shared memory: the q tiles qt, the k tiles kt, the fp32
+// hidden chunk hid, the LN halo xn. The ring r: its li and rel carried in and
+// out; every stage taken is handed back before the return.
 template <int C, bool CHM>
-__global__ void __launch_bounds__(SW_NT, 1)
-    stats_wg_kernel(const __grid_constant__ StatsWgArgs a, const __grid_constant__ StatsWgMaps maps) {
+__device__ __forceinline__ void sw_consume(const StatsWgArgs& a, const __nv_bfloat16* x,
+                                           const __nv_bfloat16* ln_w,
+                                           const __nv_bfloat16* ln_b,
+                                           const __nv_bfloat16* wd_qkv, long long it0,
+                                           long long it1, WgRing& r, __nv_bfloat16* qt,
+                                           __nv_bfloat16* kt, float* hid, __nv_bfloat16* xn) {
   using T = __nv_bfloat16;
   constexpr int HEADS = C / 64, XS = C + XPAD, NS = C / SW_KB, CH = 3 * C;
   constexpr int G2 = 64 * 64;  // a head's Gram
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  unsigned char* smem = align_smem<WG_ALIGN>(smem_raw);
-  const int S = sw_stages(C, CHM);
-  unsigned char* ring = smem;
-  T* qt = reinterpret_cast<T*>(ring + (size_t)S * SW_STAGE);
-  T* kt = qt + sw_qtiles(C, CHM) * P * 64;
-  float* hid = reinterpret_cast<float*>(kt + sw_ktiles(CHM) * P * 64);
-  T* xn = reinterpret_cast<T*>(hid + NPH * SW_HS);
-  uint64_t* full = reinterpret_cast<uint64_t*>(xn + NPH * XS);
-  uint64_t* empty = full + S;
-
+  const int S = r.S;
+  unsigned char* ring = r.ring;
+  uint64_t* full = r.full;
+  uint64_t* empty = r.empty;
   const int H = a.H, W = a.W, NF = CHM ? a.NF : 0;
   const int tiles_x = (W + TS - 1) / TS, nt = tiles_x * ((H + TS - 1) / TS);
   const long long total = (long long)a.B * nt;
-  const long long it0 = sw_item0(blockIdx.x, total), it1 = sw_item0(blockIdx.x + 1, total);
   const int n_pass = sw_passes<C, CHM>(NF);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-
-  if (tid == 0) {
-    for (int s = 0; s < S; ++s) {
-      mbar_init(&full[s], 1);
-      mbar_init(&empty[s], 2);  // one arrival a consumer warpgroup
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-
-  if (warp >= NW) {  // the copy warpgroup: thread NT starts every load
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(SW_REGS_COPY));
-    if (tid == NT) {
-      int li = 0;
-      for (long long it = it0; it < it1; ++it)
-        for (int p = 0; p < n_pass; ++p) {
-          const SwPass ps = sw_pass<C, CHM>(p);
-          const CUtensorMap* m = ps.kind <= SW_V ? &maps.w_qkv : &maps.w_kv;
-          for (int kb = 0; kb < NS; ++kb) {
-            const int s = li % S;
-            if (li >= S) mbar_wait(&empty[s], (li / S - 1) & 1);
-            mbar_expect_tx(&full[s], 2 * SW_PANEL);
-            ++li;
-            unsigned char* dst = ring + (size_t)s * SW_STAGE;
-            tma_load_2d(dst, m, ps.c0, kb * SW_KB, &full[s]);
-            tma_load_2d(dst + SW_PANEL, m, ps.c1, kb * SW_KB, &full[s]);
-          }
-        }
-    }
-    return;
-  }
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(SW_REGS_CONSUMER));
-
   const int g = lane >> 2, t = lane & 3, wg = warp >> 2, q = warp & 3;
-  int li = 0, rel = 0;
+  int& li = r.li;
+  int& rel = r.rel;
   auto take = [&]() {
     const int s = li % S;
     mbar_wait(&full[s], (li / S) & 1);
@@ -352,9 +353,6 @@ __global__ void __launch_bounds__(SW_NT, 1)
       if (lane == 0 && q == 0) mbar_arrive(&empty[rel % S]);
   };
 
-  const T* ln_w = static_cast<const T*>(a.ln_w);
-  const T* ln_b = static_cast<const T*>(a.ln_b);
-  const T* wd_qkv = static_cast<const T*>(a.wd_qkv);
   const T* wd_kv = static_cast<const T*>(a.wd_kv);
   const size_t map = (size_t)H * W * C;
   // the row's parts: Grams (NF + 1 sets of HEADS), then the sums of squares
@@ -409,7 +407,7 @@ __global__ void __launch_bounds__(SW_NT, 1)
     for (int p = 0; p < n_pass; ++p) {
       const SwPass ps = sw_pass<C, CHM>(p);
       if (p == 0)
-        sw_ln_pass<C>(static_cast<const T*>(a.x) + (size_t)b * map, ln_w, ln_b, H, W, y0, x0, xn);
+        sw_ln_pass<C>(x + (size_t)b * map, ln_w, ln_b, H, W, y0, x0, xn);
       else if (CHM && ps.kind == SW_KH && ps.idx == 0)  // a new aligned frame: no LN
         sw_ln_pass<C>(static_cast<const T*>(a.xsp) + ((size_t)b * NF + ps.frame) * map, nullptr,
                       nullptr, H, W, y0, x0, xn);
@@ -526,6 +524,51 @@ __global__ void __launch_bounds__(SW_NT, 1)
     }
   }
   add_gram();
+}
+
+// C: the map's width (64 to 512; row 6: 64 to 256), CHM: row 6. grid: one
+// block an SM (at most the number of tiles); part row (b, g - first block of
+// b) is this block's.
+template <int C, bool CHM>
+__global__ void __launch_bounds__(SW_NT, 1)
+    stats_wg_kernel(const __grid_constant__ StatsWgArgs a, const __grid_constant__ StatsWgMaps maps) {
+  using T = __nv_bfloat16;
+  constexpr int XS = C + XPAD;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* smem = align_smem<WG_ALIGN>(smem_raw);
+  const int S = sw_stages(C, CHM);
+  unsigned char* ring = smem;
+  T* qt = reinterpret_cast<T*>(ring + (size_t)S * SW_STAGE);
+  T* kt = qt + sw_qtiles(C, CHM) * P * 64;
+  float* hid = reinterpret_cast<float*>(kt + sw_ktiles(CHM) * P * 64);
+  T* xn = reinterpret_cast<T*>(hid + NPH * SW_HS);
+  uint64_t* full = reinterpret_cast<uint64_t*>(xn + NPH * XS);
+  uint64_t* empty = full + S;
+
+  const int nt = ((a.W + TS - 1) / TS) * ((a.H + TS - 1) / TS);
+  const long long total = (long long)a.B * nt;
+  const long long it0 = sw_item0(blockIdx.x, total), it1 = sw_item0(blockIdx.x + 1, total);
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2);  // one arrival a consumer warpgroup
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  WgRing r = {ring, full, empty, S, 0, 0};
+  if ((tid >> 5) >= NW) {  // the copy warpgroup: thread NT starts every load
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(SW_REGS_COPY));
+    if (tid == NT) sw_copy_walk<C, CHM>(maps, it0, it1, CHM ? a.NF : 0, r);
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(SW_REGS_CONSUMER));
+  sw_consume<C, CHM>(a, static_cast<const T*>(a.x), static_cast<const T*>(a.ln_w),
+                     static_cast<const T*>(a.ln_b), static_cast<const T*>(a.wd_qkv), it0, it1,
+                     r, qt, kt, hid, xn);
 }
 
 template <int C, bool CHM>

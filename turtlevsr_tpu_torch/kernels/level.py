@@ -1,12 +1,15 @@
 """A run of cacheless Channel + gated-FFN blocks over one map in one launch.
 
-``fused_channel_gffw_run`` launches the cooperative kernel of
-``csrc/level.cu`` on CUDA tensors (or raises); on CPU tensors, and only
-there, it runs the plain version beside it: a loop over the blocks' plain
-route (statistics, the small softmax, the FFN pass). ``channel_gffw_run_split``
-is the same loop through the split kernels (``fused_qkv_stats`` and
-``fused_block_ffn``), the route a model without the ``channel_runs`` plan
-takes block by block; the run kernel is held against it on the card.
+``fused_channel_gffw_run`` launches a cooperative kernel on CUDA tensors (or
+raises): ``csrc/level_wg.cu``, the Hopper body that runs the wgmma bodies of
+rows 3 and 1 as phases of one persistent grid, for the runs its plan takes
+(:func:`_level_plan`: every run of the shipped models), else
+``csrc/level.cu``; on CPU tensors, and only there, it runs the plain version
+beside it: a loop over the blocks' plain route (statistics, the small
+softmax, the FFN pass). ``channel_gffw_run_split`` is the same loop through
+the split kernels (``fused_qkv_stats`` and ``fused_block_ffn``), the route a
+model without the ``channel_runs`` plan takes block by block; the run
+kernels are held against it on the card.
 
 A block of a run is a dict of kernel-layout, bias-free weights:
 
@@ -30,7 +33,19 @@ from turtlevsr_tpu_torch.kernels.ffn import (
     _check_smem,
     _check_width,
     _need_cuda,
+    _sm_count,
+    _SW_STAGE,
+    _SW_TILE,
+    _WG_ALIGN,
+    _WG_HALO,
+    _WG_HS,
+    _WG_PIXELS,
+    _WG_STAGE,
+    _WG_XPAD,
+    _sw_geometry,
+    _sw_smem,
     _tiles,
+    _wg_smem,
     ffn_plain,
     fused_block_ffn,
     fused_qkv_stats,
@@ -39,9 +54,60 @@ from turtlevsr_tpu_torch.kernels.ffn import (
 from turtlevsr_tpu_torch.ops.attn_utils import acc_dtype, masked_softmax
 
 _NORM_EPS = 1e-12  # torch.nn.functional.normalize default clamp
-MAX_RUN = 10  # MAX_RUN of csrc/level.cu: blocks of a run per launch
+MAX_RUN = 10  # blocks of a run per launch (MAX_RUN of csrc/level.cu)
 _BLOCK_KEYS = ("ln1_w", "ln1_b", "w_qkv", "wd_qkv", "temp", "wpo", "ln2_w",
                "ln2_b", "w1", "wd", "w2")
+# the Hopper body (csrc/level_wg.cu): the widths it takes
+_LV_WG_WIDTHS = (128, 256, 512)
+
+
+def _lv_smem(c: int) -> tuple[int, int, int]:
+    """(bytes of shared memory, ring stages of the statistics phase, of the
+    FFN phase) of csrc/level_wg.cu at width c: a region that holds either
+    phase's ring and tiles (the statistics body's stages and its q and k
+    tiles, 2 x 64 x 64 bf16; the FFN body's stages and its 64 x 72 bf16
+    activation chunk), the fp32 hidden chunk (100 x 128) and the LN halo
+    (100 rows of c + 8 bf16) that both bodies lay out alike, the two rings'
+    mbarriers. Each phase keeps its own kernel's stages
+    (kernels/ffn.py :func:`_sw_smem`, :func:`_wg_smem`). A card test holds
+    it to the source."""
+    s_stats, s_ffn = _sw_smem(c, False)[1], _wg_smem(c, True)[1]
+    region = max(s_stats * _SW_STAGE + 2 * _SW_TILE,
+                 s_ffn * _WG_STAGE + _WG_PIXELS * (64 + _WG_XPAD) * 2)
+    smem = (_WG_ALIGN + region + _WG_HALO * _WG_HS * 4
+            + _WG_HALO * (c + _WG_XPAD) * 2 + 16 * (s_stats + s_ffn))
+    return smem, s_stats, s_ffn
+
+
+def _level_plan(b, h, w, c, heads, e, ch, dtype, ln_b, n_sm: int = 132):
+    """The body of one fused_channel_gffw_run launch, chosen by its shape:
+    ("wg", geometry) for csrc/level_wg.cu (bf16, C = 128, 256 or 512, 64
+    channels a head, E a multiple of 32 with w1 (C, 2E), and each LayerNorm
+    with a bias in every block or in none: ``ln_b`` is the set of the
+    blocks' (ln1_b present, ln2_b present) pairs), else ("tile", None) for
+    csrc/level.cu (float32, other widths, head sizes or hidden widths, runs
+    that mix the LayerNorm forms). A run carries no conv biases: its dicts
+    have no such keys. The geometry is that of the statistics body on the
+    same map (:func:`_sw_geometry`: one block an SM, n_sm of them at most,
+    the partial rows of a batch entry), so that the run's phase (a) splits
+    the map as the split route's row 3 launch does; its shared memory is
+    :func:`_lv_smem`'s."""
+    if (dtype != torch.bfloat16 or c not in _LV_WG_WIDTHS or c != 64 * heads
+            or e % 32 or ch != 2 * e or len(ln_b) != 1):
+        return "tile", None
+    smem, s_stats, s_ffn = _lv_smem(c)
+    return "wg", dict(_sw_geometry(b, h, w, c, False, n_sm), smem=smem,
+                      stages=(s_stats, s_ffn))
+
+
+def _stack(run, key):
+    """Weight ``key`` of the run's blocks as one (N, ...) tensor, block i at
+    [i] (None where the blocks have none): the layout csrc/level_wg.cu
+    reads, the first axis along which the JAX kernel stacks its weights
+    (turtlevsr_tpu/kernels/level.py, ``stack``)."""
+    if run[0].get(key) is None:
+        return None
+    return torch.stack([blk[key] for blk in run])
 
 
 def safe_norms(ss: torch.Tensor) -> torch.Tensor:
@@ -106,16 +172,28 @@ def _launch(x, blocks, heads):
     shapes = dict(ln1_w=(c,), ln1_b=(c,), w_qkv=(c, 3 * c),
                   wd_qkv=(3, 3, 3 * c), temp=(heads,), wpo=(c, c), ln2_w=(c,),
                   ln2_b=(c,), w1=(c, ch), wd=(3, 3, ch), w2=(e, c))
+    ptrs_of = [[_check(f"blocks[{i}].{k}", blk.get(k), x, shapes[k])
+                for k in _BLOCK_KEYS] for i, blk in enumerate(blocks)]
     ctok = c // heads
     width = heads * ctok * ctok + 2 * c
-    lib = build.load("level")
-    _check_smem("fused_channel_gffw_run", lib.turtle_level_smem(
-        c, heads, int(x.dtype == torch.bfloat16)))
+    ln_b = {(blk.get("ln1_b") is not None, blk.get("ln2_b") is not None)
+            for blk in blocks}
+    body, geo = _level_plan(b, h, w, c, heads, e, ch, x.dtype, ln_b,
+                            _sm_count(x.device))
     new = lambda *shape, dtype=x.dtype: torch.empty(  # noqa: E731
         shape, dtype=dtype, device=x.device)
     v, po = new(b, h, w, c), new(b, c, c)
-    part = new(b, _tiles(h, w), width, dtype=torch.float32)
     tot = new(b, width, dtype=torch.float32)
+    if body == "wg":  # its shared memory fits by construction (_lv_smem)
+        lib = build.load("level_wg")
+        # zero at the first launch; each launch leaves it zero
+        part = torch.zeros((b, geo["rows"], width), dtype=torch.float32,
+                           device=x.device)
+    else:
+        lib = build.load("level")
+        _check_smem("fused_channel_gffw_run", lib.turtle_level_smem(
+            c, heads, int(x.dtype == torch.bfloat16)))
+        part = new(b, _tiles(h, w), width, dtype=torch.float32)
     with torch.cuda.device(x.device):
         for i0 in range(0, len(blocks), MAX_RUN):
             run = blocks[i0:i0 + MAX_RUN]
@@ -124,13 +202,20 @@ def _launch(x, blocks, heads):
             ptrs = [_check("x", x, x), out.data_ptr(), tmp.data_ptr(),
                     v.data_ptr(), part.data_ptr(), tot.data_ptr(),
                     po.data_ptr()]
-            for j, blk in enumerate(run):
-                ptrs += [_check(f"blocks[{i0 + j}].{k}", blk.get(k), x,
-                                shapes[k]) for k in _BLOCK_KEYS]
-            ptrs += [None] * (len(_BLOCK_KEYS) * (MAX_RUN - len(run)))
-            _call(lib.turtle_level_launch, ptrs,
-                  [b, h, w, c, ch, e, heads, len(run)], x,
-                  "fused_channel_gffw_run")
+            if body == "wg":
+                stacked = [_stack(run, k) for k in _BLOCK_KEYS]
+                ptrs += [None if t is None else t.data_ptr() for t in stacked]
+                _call(lib.turtle_level_wg_launch, ptrs,
+                      [b, h, w, c, e, heads, len(run), geo["rows"],
+                       geo["blocks"]], x, "fused_channel_gffw_run")
+                fused_channel_gffw_run.launches_wg += 1
+            else:
+                for p in ptrs_of[i0:i0 + MAX_RUN]:
+                    ptrs += p
+                ptrs += [None] * (len(_BLOCK_KEYS) * (MAX_RUN - len(run)))
+                _call(lib.turtle_level_launch, ptrs,
+                      [b, h, w, c, ch, e, heads, len(run)], x,
+                      "fused_channel_gffw_run")
             fused_channel_gffw_run.launches += 1
             x = out
     return x
@@ -143,13 +228,18 @@ def fused_channel_gffw_run(x, blocks, heads: int):
       q, k, v = dw3x3(pw1(LN1 x));  attn_h = softmax(temp_h q_h^T k_h / norms)
       x' = x + v @ (blockdiag(attn)^T W_po);  x = x' + gate-FFN(LN2 x')
 
-    ``blocks``: the dicts of the module note (no conv biases). The
-    cooperative grid is sized by the occupancy, so that every thread block
-    is resident at once.
+    ``blocks``: the dicts of the module note (no conv biases). Two kernels,
+    chosen by shape before the launch (:func:`_level_plan`):
+    csrc/level_wg.cu for bf16 runs with 64 channels a head, C = 128, 256 or
+    512 and E a multiple of 32 (the statistics and FFN wgmma bodies as
+    phases of one persistent grid of one block an SM, the weights stacked
+    once a call; ``fused_channel_gffw_run.launches_wg`` counts them),
+    csrc/level.cu for every other run (the grid sized by the occupancy).
+    Either way a cooperative launch, every thread block resident at once.
 
     Replaces ``fused_channel_gffw_run`` in turtlevsr_tpu/kernels/level.py
-    (kernel: csrc/level.cu; bound by operations like the statistics and FFN
-    kernels whose device code it shares)."""
+    (bound by operations like the statistics and FFN kernels whose device
+    code it shares)."""
     if not blocks:
         raise ValueError("fused_channel_gffw_run needs at least one block")
     if x.device.type == "cpu":
@@ -159,3 +249,4 @@ def fused_channel_gffw_run(x, blocks, heads: int):
 
 
 fused_channel_gffw_run.launches = 0
+fused_channel_gffw_run.launches_wg = 0  # those of them on csrc/level_wg.cu
