@@ -15,7 +15,7 @@ tiled stream under each plan, with torch.profiler.)
 Phases, one JSON object per line on standard output:
 
   device   the card's name and power limit as nvidia-smi gives them
-  build    nvcc builds the nineteen sources of turtlevsr_tpu_torch/kernels/csrc
+  build    nvcc builds the twenty-one sources of turtlevsr_tpu_torch/kernels/csrc
   kernels  each kernel's wrapper against its plain PyTorch version on the
            card at the shapes the 720p serving paths give it (bf16), whole
            padded frames and chunks of 15 tiles alike: errors beside the
@@ -23,7 +23,10 @@ Phases, one JSON object per line on standard output:
            version's, a PyTorch library call's where one computes the same
            function, and the least time the card could take (bound); the
            two-stage kernel also against the split launches it replaces, the
-           sparse softmax also against the probabilities kernel; rows 1, 2,
+           sparse softmax also against the probabilities kernel; rows 12 and
+           13 on the bodies their plans give each call (sparse_wg.cu and
+           chain2_wg.cu, also timed on sab.cu and chain2.cu, tile_ms; those
+           two, off the paths now, at dec3's and enc1's shape); rows 1, 2,
            3, 4, 6 and 7 on the body their plans give each call (the wgmma
            bodies of ffn_wg.cu (one map, the CHM lists, the chained FFW),
            ffn_c64.cu (row 1 at C = 64), ffn_pw.cu (row 2), qkv_wg.cu,
@@ -67,6 +70,9 @@ and, run alone (not part of all; no result line, no ok line):
   level-phases  row 14's Hopper body (csrc/level_wg.cu) with each of its
            phases left out in turn, beside the whole body, its split route
            and that route's two kernels on the same inputs
+  two-stage-phases  row 13's Hopper bodies (csrc/chain2_wg.cu) with each of
+           their phases left out in turn, beside the whole body, its split
+           route and chain2.cu on the same inputs, at 15 tiles
 
 then, when the kernels, the slice and the tiled phase ran, the line
 {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
@@ -141,7 +147,9 @@ TASKS = {"gopro": "deblur", "derain": "derain", "sr": "sr"}
 # tests/test_torch_port_level_plan.py holds these counts to it), and
 # attention @ v with the merge is one launch per CHM block. Under the
 # two_stage plan enc1's pair, enc2's three pairs and the refinement's two
-# blocks are 6 two-stage launches where the split route makes 12 FFN ones.
+# blocks are 6 two-stage launches where the split route makes 12 FFN ones,
+# all on csrc/chain2_wg.cu (kernels/chain2.py _two_stage_plan; chain2.cu has
+# none; tests/test_torch_port_two_stage_plan.py holds these counts to it).
 # The FFN launches at C = 64 (enc1's two ReducedAttn+FFW blocks, dec1's two
 # blocks, the refinement's four passes: 8 a model call; under two_stage
 # dec1's two) are the C = 64 body's (ffn_c64.cu), every other one with a
@@ -154,7 +162,8 @@ TASKS = {"gopro": "deblur", "derain": "derain", "sr": "sr"}
 # split_proj.cu has none.
 _NONE = {"attn_v_slots": 0, "attn_v_merge": 0, "level_run": 0, "level_wg": 0,
          "ffn_no_dw": 0,
-         "ffn_pw": 0, "two_stage": 0, "sab_sparse_softmax": 0}
+         "ffn_pw": 0, "two_stage": 0, "two_stage_wg": 0,
+         "sab_sparse_softmax": 0, "sparse_wg": 0}
 _GOPRO = {"ffn": 51, "ffn_wg": 43, "ffn_c64": 8, "qkv_stats": 34,
           "qkv_wg": 34,
           "split_proj": 5, "split_wg": 4, "split_c64": 1, "conv3x3": 11,
@@ -162,7 +171,8 @@ _GOPRO = {"ffn": 51, "ffn_wg": 43, "ffn_c64": 8, "qkv_stats": 34,
           "lattice_merge": 3, "lattice_split": 3}
 _DERAIN = {**_GOPRO, "split_proj": 2, "split_wg": 2, "split_c64": 0,
            "sab": 0, "sab_wg": 0}
-_TWO_STAGE = {"ffn": 39, "ffn_wg": 37, "ffn_c64": 2, "two_stage": 6}
+_TWO_STAGE = {"ffn": 39, "ffn_wg": 37, "ffn_c64": 2, "two_stage": 6,
+              "two_stage_wg": 6}
 LAUNCHES_PER_CALL = {
     "gopro": {**_GOPRO, **_NONE},
     "gopro_t1_fhr": {"ffn": 51, "ffn_wg": 43, "ffn_c64": 8, "qkv_stats": 37,
@@ -320,10 +330,20 @@ KERNEL_INFO = {
                   "turtlevsr_tpu/kernels/level.py:315"),
     "level_wg": ("turtlevsr_tpu_torch/kernels/csrc/level_wg.cu",
                  "turtlevsr_tpu/kernels/level.py:315"),
+    # rows 13 and 12 have two bodies each, chosen by shape
+    # (kernels/chain2.py _two_stage_plan, kernels/sab.py _sparse_plan):
+    # chain2_wg.cu takes the bf16 forms of the conv-only levels (every call
+    # of the paths), sparse_wg.cu the bf16 rows of a multiple of 8 keys;
+    # chain2.cu and sab.cu the rest; "two_stage" and "sab_sparse_softmax"
+    # launches are those of chain2.cu and sab.cu
     "two_stage": ("turtlevsr_tpu_torch/kernels/csrc/chain2.cu",
                   "turtlevsr_tpu/kernels/chain2.py:308"),
+    "two_stage_wg": ("turtlevsr_tpu_torch/kernels/csrc/chain2_wg.cu",
+                     "turtlevsr_tpu/kernels/chain2.py:308"),
     "sab_sparse_softmax": ("turtlevsr_tpu_torch/kernels/csrc/sab.cu",
                            "turtlevsr_tpu/kernels/sab.py:328"),
+    "sparse_wg": ("turtlevsr_tpu_torch/kernels/csrc/sparse_wg.cu",
+                  "turtlevsr_tpu/kernels/sab.py:328"),
 }
 
 
@@ -360,6 +380,12 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def timed_in(body, fn, iters: int) -> float:
+    """cuda_ms of fn inside the context `body()` makes (a forced body)."""
+    with body():
+        return cuda_ms(fn, iters)
 
 
 def bound(n_bytes: float, flops: float) -> tuple[float, str]:
@@ -1016,14 +1042,9 @@ def level_phase_cases(seed: int, h: int, w: int) -> list[dict]:
     return out
 
 
-def two_stage_case(inp: Inputs, name, kind, b, h, w, c, e1, e2, iters=3):
-    """Row 13 at the shape a conv-only level gives it: a pair of
-    ReducedAttn+FFW blocks (kind "pair") or a ReducedAttn+GFFW block
-    ("ra_gffw"), against its plain version and against the split route it
-    replaces (two FFN launches; their time is split_ms, no library call
-    computes the chain)."""
-    if skipped("two_stage", name):
-        return None
+def two_stage_inputs(inp: Inputs, kind, b, h, w, c, e1, e2):
+    """(x, st1, st2, {ffw1, ffw2}) of row 13: a pair of ReducedAttn+FFW
+    blocks (kind "pair") or a ReducedAttn+GFFW block ("ra_gffw")."""
     x = inp(b, h, w, c)
 
     def stage(e, mode):
@@ -1048,9 +1069,80 @@ def two_stage_case(inp: Inputs, name, kind, b, h, w, c, e1, e2, iters=3):
         st2, ffw1, ffw2 = stage(e2, "gelu"), ffw(), ffw()
     else:
         st2, ffw1, ffw2 = stage(e2, "gate"), None, None
-    kw = dict(ffw1=ffw1, ffw2=ffw2)
-    got = C2.fused_two_stage(x, st1, st2, **kw)
+    return x, st1, st2, dict(ffw1=ffw1, ffw2=ffw2)
+
+
+def two_stage_phase_cases(seed: int) -> list[dict]:
+    """Row 13's Hopper bodies with each of their phases left out in turn
+    (builds of csrc/chain2_wg.cu with C2_PHASES = 14, 13, 11, 7: without the
+    taps, stage 2, the chained FFW, the products; the last three at C = 64
+    only), beside the whole body, its split route, the route's first launch
+    alone and chain2.cu, at the 15-tile shapes of the paths: what each phase
+    costs. A build without a phase gives wrong outputs; only its time is
+    read."""
+    inp = Inputs(seed)
+    whole = build.load("chain2_wg")
+    parts = dict(zip(("without_taps_ms", "without_stage2_ms",
+                      "without_ffw_ms", "without_products_ms"),
+                     build.load_variants("chain2_wg", [
+                         ("-DC2_PHASES=14",), ("-DC2_PHASES=13",),
+                         ("-DC2_PHASES=11",), ("-DC2_PHASES=7",)])))
+    tb, tl = MAX_TILE_BATCH, TILE
+    out = []
+    for name, kind, hh, c, e1, e2 in (
+            (f"enc1 pair, {tb} tiles", "pair", tl, 64, 128, 128),
+            (f"enc2 pair, {tb} tiles", "pair", tl // 2, 128, 256, 256),
+            (f"refinement RA+GFFW, {tb} tiles", "ra_gffw", tl, 64, 128, 160)):
+        x, st1, st2, kw = two_stage_inputs(inp, kind, tb, hh, hh, c, e1, e2)
+
+        def run():
+            return C2.fused_two_stage(x, st1, st2, **kw)
+
+        def split():
+            y = K.fused_block_ffn(x, ffw2=kw["ffw1"], **st1)
+            return K.fused_block_ffn(y, ffw2=kw["ffw2"], **st2)
+
+        res = dict(phase="two_stage_phases", case=name, shape=[tb, hh, hh, c],
+                   ms=cuda_ms(run, 3, 1))
+        for key, lib in parts.items():
+            if c == 128 and key not in ("without_taps_ms",):
+                continue
+            build._libs["chain2_wg"] = lib
+            try:
+                res[key] = cuda_ms(run, 3, 1)
+            finally:
+                build._libs["chain2_wg"] = whole
+        res["split_ms"] = cuda_ms(split, 3, 1)
+        res["split_stage1_ms"] = cuda_ms(
+            lambda: K.fused_block_ffn(x, ffw2=kw["ffw1"], **st1), 3, 1)
+        with forced_body(C2, "_two_stage_plan", OLD_PLAN):
+            res["chain2_cu_ms"] = cuda_ms(run, 3, 1)
+        emit(res)
+        out.append(res)
+        torch.cuda.empty_cache()
+    return out
+
+
+def two_stage_case(inp: Inputs, name, kind, b, h, w, c, e1, e2, iters=3,
+                   tile=False):
+    """Row 13 at the shape a conv-only level gives it: a pair of
+    ReducedAttn+FFW blocks (kind "pair") or a ReducedAttn+GFFW block
+    ("ra_gffw"), on the body its plan gives it (kernel "two_stage_wg" for
+    the Hopper bodies of chain2_wg.cu, timed also on chain2.cu, tile_ms;
+    else "two_stage"; tile: on chain2.cu), against its plain version and
+    against the split route it replaces (two FFN launches; their time is
+    split_ms, no library call computes the chain)."""
+    if skipped("two_stage", name):
+        return None
+    x, st1, st2, kw = two_stage_inputs(inp, kind, b, h, w, c, e1, e2)
+    ffw1, ffw2 = kw["ffw1"], kw["ffw2"]
+    body = ((lambda: forced_body(C2, "_two_stage_plan", OLD_PLAN)) if tile
+            else contextlib.nullcontext)
+    wg_before = C2.fused_two_stage.launches_wg
+    with body():
+        got = C2.fused_two_stage(x, st1, st2, **kw)
     torch.cuda.synchronize()
+    on_wg = C2.fused_two_stage.launches_wg > wg_before
     want = C2.two_stage_plain(x, st1, st2, **kw)
     err, rel = rel_err(got, want)
     del want
@@ -1073,26 +1165,35 @@ def two_stage_case(inp: Inputs, name, kind, b, h, w, c, e1, e2, iters=3):
         weights += [v for v in st.values() if torch.is_tensor(v)]
         weights += [v for v in (f or {}).values() if torch.is_tensor(v)]
     b_ms, b_by = bound(numel_bytes(x, got, *weights), flops)
-    return dict(kernel="two_stage", case=name, shape=[b, h, w, c],
-                hidden=[e1, e2], max_abs_err=err, rel_err=rel,
+    tile_ms = None
+    if on_wg:
+        with forced_body(C2, "_two_stage_plan", OLD_PLAN):
+            tile_ms = cuda_ms(lambda: C2.fused_two_stage(x, st1, st2, **kw),
+                              iters)
+    return dict(kernel="two_stage_wg" if on_wg else "two_stage", case=name,
+                shape=[b, h, w, c], body="wg" if on_wg else "tile",
+                tile_ms=tile_ms, hidden=[e1, e2], max_abs_err=err, rel_err=rel,
                 tol_rel=TWO_STAGE_REL_TOL, bit_equal_to_split=bit_equal,
                 max_abs_err_vs_split=err_s, rel_err_vs_split=rel_s,
                 ok=rel <= TWO_STAGE_REL_TOL and rel_s <= TWO_STAGE_REL_TOL
                 and bool(torch.isfinite(got.float()).all()),
-                ms=cuda_ms(lambda: C2.fused_two_stage(x, st1, st2, **kw),
-                           iters),
+                ms=timed_in(body, lambda: C2.fused_two_stage(x, st1, st2, **kw),
+                            iters),
                 split_ms=cuda_ms(split, iters),
                 plain_ms=cuda_ms(lambda: C2.two_stage_plain(x, st1, st2, **kw),
                                  1, 0),
                 library_ms=None, bound_ms=b_ms, bound_by=b_by)
 
 
-def sparse_case(inp: Inputs, name, b, nf, hq, wq, d, iters=3):
+def sparse_case(inp: Inputs, name, b, nf, hq, wq, d, iters=3, tile=False):
     """Row 12 on the scores of an alignment attention (B * NF entries of
-    HW x HW on an (hq, wq) window grid) and the grid's local mask, against
-    its plain version and against row 7 on the same q, k: exact inputs make
-    every score exact whatever the order of its sum, and the scores are
-    rounded to bf16 as row 7 rounds them, so the two agree bit for bit."""
+    HW x HW on an (hq, wq) window grid) and the grid's local mask, on the
+    body its plan gives it (kernel "sparse_wg" for the streaming body of
+    sparse_wg.cu, timed also on sab.cu's, tile_ms, and held to its bits;
+    else "sab_sparse_softmax"; tile: on sab.cu), against its plain version
+    and against row 7 on the same q, k: exact inputs make every score exact
+    whatever the order of its sum, and the scores are rounded to bf16 as row
+    7 rounds them, so the two agree bit for bit."""
     if skipped("sab_sparse_softmax", name):
         return None
     hw = hq * wq
@@ -1100,8 +1201,20 @@ def sparse_case(inp: Inputs, name, b, nf, hq, wq, d, iters=3):
     scores = (torch.einsum("bqd,bnkd->bnqk", q.float(), k.float())
               * temp).bfloat16().reshape(b * nf, hw, hw).contiguous()
     mask = local_window_mask(hq, wq, 4, torch.bfloat16, "cuda")
-    got = S.sab_sparse_softmax(scores, mask)
+    body = ((lambda: forced_body(S, "_sparse_plan", OLD_PLAN)) if tile
+            else contextlib.nullcontext)
+    wg_before = S.sab_sparse_softmax.launches_wg
+    with body():
+        got = S.sab_sparse_softmax(scores, mask)
     torch.cuda.synchronize()
+    on_wg = S.sab_sparse_softmax.launches_wg > wg_before
+    tile_ms, equal_tile = None, True
+    if on_wg:
+        with forced_body(S, "_sparse_plan", OLD_PLAN):
+            equal_tile = bool(torch.equal(got, S.sab_sparse_softmax(scores,
+                                                                     mask)))
+            tile_ms = cuda_ms(lambda: S.sab_sparse_softmax(scores, mask),
+                              iters)
     row7 = S.sab_attn_probs(q, k, temp, None, grid_wq=wq)
     equal_row7 = bool(torch.equal(got, row7.reshape(got.shape)))
     del row7
@@ -1110,12 +1223,16 @@ def sparse_case(inp: Inputs, name, b, nf, hq, wq, d, iters=3):
     err = (got.float() - want.float()).abs().max().item()
     del want
     b_ms, b_by = bound(numel_bytes(scores, mask, got), 0.0)
-    return dict(kernel="sab_sparse_softmax", case=name, shape=[b * nf, hw, hw],
+    return dict(kernel="sparse_wg" if on_wg else "sab_sparse_softmax",
+                case=name, shape=[b * nf, hw, hw], body="wg" if on_wg
+                else "tile", tile_ms=tile_ms, bit_equal_to_sab_cu=equal_tile,
                 grid=[hq, wq], max_abs_err=err, rel_err=err, tol=SPARSE_TOL,
                 same_support_as_plain=same_support,
                 bit_equal_to_row_7=equal_row7,
-                ok=same_support and err <= SPARSE_TOL and equal_row7,
-                ms=cuda_ms(lambda: S.sab_sparse_softmax(scores, mask), iters),
+                ok=same_support and err <= SPARSE_TOL and equal_row7
+                and equal_tile,
+                ms=timed_in(body, lambda: S.sab_sparse_softmax(scores, mask),
+                            iters),
                 plain_ms=cuda_ms(lambda: S.sparse_softmax_plain(scores, mask),
                                  1, 0),
                 library_ms=None, bound_ms=b_ms, bound_by=b_by)
@@ -1393,6 +1510,9 @@ def kernel_cases(seed: int, h: int, w: int) -> list[dict]:
                                tl2, tl2, 128, 256, 256),
         lambda: two_stage_case(inp, f"refinement RA+GFFW, {tb} tiles",
                                "ra_gffw", tb, tl, tl, 64, 128, 160),
+        # chain2.cu, off the paths now, at enc1's whole-frame shape
+        lambda: two_stage_case(inp, "enc1 pair on chain2.cu", "pair", 1, h, w,
+                               64, 128, 128, tile=True),
     ]
     # the sparse softmax on given scores: the window-token grids of the three
     # CHM levels (46 x 80 tokens at every level of a padded 720p frame), and
@@ -1403,6 +1523,11 @@ def kernel_cases(seed: int, h: int, w: int) -> list[dict]:
                      sparse_case(inp, f"{lvl} scores", 1, nf, hq, wq, 2 * c))
     cases.append(lambda: sparse_case(inp, f"dec3 scores, {tb} tiles", tb, 4,
                                      tl // 4 // 4, tl // 4 // 4, 512))
+    # sab.cu's row body, off the paths now, at dec3's scores
+    s3, c3, _, ws3, r3 = CHM_LEVELS["dec3"]
+    cases.append(lambda: sparse_case(inp, "dec3 scores on sab.cu", 1, r3 + 1,
+                                     h // s3 // ws3, w // s3 // ws3, 2 * c3,
+                                     tile=True))
     out = []
     for make in cases:
         t0 = time.perf_counter()
@@ -1798,6 +1923,9 @@ def kernel_rows(cases: list[dict], by_path: dict) -> list[dict]:
         if name == "ffn_no_dw":  # ffn.cu's branch without a depthwise stage
             per_path = {p: c["ffn_no_dw"] - c["ffn_pw"]
                         for p, c in by_path.items()}
+        if name in ("two_stage", "sab_sparse_softmax"):  # chain2.cu, sab.cu
+            wg = "two_stage_wg" if name == "two_stage" else "sparse_wg"
+            per_path = {p: c[name] - c[wg] for p, c in by_path.items()}
         rows.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=sum(per_path.values()), launches_by_path=per_path,
@@ -1813,7 +1941,8 @@ def kernel_rows(cases: list[dict], by_path: dict) -> list[dict]:
                                       "rel_err_vs_split", "bit_equal_to_split",
                                       "rel_err_vs_model_split",
                                       "bit_equal_to_model_split",
-                                      "bit_equal_to_row_7") if k in c}
+                                      "bit_equal_to_row_7",
+                                      "bit_equal_to_sab_cu") if k in c}
                    for c in mine]))
     return rows
 
@@ -1827,10 +1956,11 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--phase", default="all",
                     choices=("all", "build", "kernels", "slice", "tiled",
-                             "level-phases"),
-                    help="level-phases: row 14's Hopper body with each of "
-                         "its phases left out in turn (not part of all; no "
-                         "result line, no ok line)")
+                             "level-phases", "two-stage-phases"),
+                    help="level-phases, two-stage-phases: row 14's or row "
+                         "13's Hopper body with each of its phases left out "
+                         "in turn (not part of all; no result line, no ok "
+                         "line)")
     ap.add_argument("--profile", action="store_true",
                     help="after each whole-frame stream and each tiled "
                          "stream under each plan, trace a few more frames "
@@ -1876,6 +2006,9 @@ def main(argv=None) -> int:
         if args.phase == "level-phases":
             level_phase_cases(args.seed, hp, wp)
             return 0
+        if args.phase == "two-stage-phases":
+            two_stage_phase_cases(args.seed)
+            return 0
         if args.phase in ("all", "kernels"):
             cases = kernel_cases(args.seed, hp, wp)
             bad = [c["case"] for c in cases if not c["ok"]]
@@ -1913,16 +2046,18 @@ def main(argv=None) -> int:
                                  "split_wg", "conv3x3"),
                 "gopro": t1_chm, "gopro_enc3_ffw": t1_chm + ("ffn_pw",),
                 "derain": t0_chm, "sr": t1_chm,
-                "gopro_two_stage": t1_chm + ("two_stage",), "tiled": t1_chm,
+                "gopro_two_stage": t1_chm + ("two_stage", "two_stage_wg"),
+                "tiled": t1_chm,
                 "tiled_fused": ("ffn", "ffn_wg", "ffn_c64", "qkv_wg",
                                 "split_wg", "split_c64", "conv3x3", "chm_wg",
                                 "sab_wg", "lattice_split", "attn_v_merge",
                                 "level_run", "level_wg"),
-                "tiled_two_stage": t1_chm + ("two_stage",),
+                "tiled_two_stage": t1_chm + ("two_stage", "two_stage_wg"),
                 "derain_tiled": t0_chm,
-                "derain_tiled_two_stage": t0_chm + ("two_stage",),
+                "derain_tiled_two_stage": t0_chm + ("two_stage",
+                                                    "two_stage_wg"),
                 "sr_tiled": t1_chm, "sr_tiled_two_stage": t1_chm + (
-                    "two_stage",),
+                    "two_stage", "two_stage_wg"),
             }
             require(set(by_path) == set(on_path),
                     f"paths run: {sorted(by_path)}")
@@ -1932,15 +2067,17 @@ def main(argv=None) -> int:
                             f"the {path} path never launched {name}")
             require(by_path["tiled_fused"]["lattice_merge"] == 0,
                     "the fused plan still launched lattice_merge")
-            # every launch of rows 1, 2, 4 and 14 runs on a body designed for
-            # the card: none on the mma.sync bodies of ffn.cu and
-            # split_proj.cu, none on level.cu
+            # every launch of rows 1, 2, 4, 13 and 14 runs on a body designed
+            # for the card: none on the mma.sync bodies of ffn.cu and
+            # split_proj.cu, none on level.cu or chain2.cu
             for path, c in by_path.items():
                 require(c["ffn"] == c["ffn_wg"] + c["ffn_c64"] + c["ffn_pw"]
                         and c["split_proj"] == c["split_wg"] + c["split_c64"],
                         f"the {path} path launched ffn.cu or split_proj.cu")
                 require(c["level_run"] == c["level_wg"],
                         f"the {path} path launched level.cu")
+                require(c["two_stage"] == c["two_stage_wg"],
+                        f"the {path} path launched chain2.cu")
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1

@@ -31,6 +31,7 @@ from torch_port_util import (
     SPARSE_KERNEL_SHAPES,
     SPLIT_KERNEL_SHAPES,
     TWO_STAGE_KERNEL_CASES,
+    TWO_STAGE_WG_CASES,
     Maker,
     attn_v_kernel_case,
     chain_kernel_case,
@@ -893,6 +894,85 @@ def test_sparse_softmax_kernel_is_row_7_after_its_scores(dev, shape, dtype):
                                  local_window_mask(hq, wq, 4, dtype, dev))
     torch.cuda.synchronize()
     assert torch.equal(row12.reshape(row7.shape), row7)
+
+
+@pytest.mark.parametrize("case", list(TWO_STAGE_WG_CASES))
+def test_two_stage_wg_body_matches_plain_and_split(dev, case):
+    """Row 13's Hopper bodies (csrc/chain2_wg.cu) on the forms their plan
+    gives them, at ragged and small maps, batches and grids that walk several
+    tiles a block: one launch on the new body, within the tolerance of the
+    plain version and of the split route (two launches of row 1's Hopper
+    bodies, whose steps each pixel repeats), bitwise repeatable."""
+    x, st1, st2, ffw1, ffw2 = two_stage_kernel_case(
+        case, Maker(21, torch.bfloat16, dev), TWO_STAGE_WG_CASES)
+    before = C2.fused_two_stage.launches
+    wg_before = C2.fused_two_stage.launches_wg
+    got = C2.fused_two_stage(x, st1, st2, ffw1=ffw1, ffw2=ffw2)
+    torch.cuda.synchronize()
+    assert C2.fused_two_stage.launches == before + 1
+    assert C2.fused_two_stage.launches_wg == wg_before + 1
+    assert torch.isfinite(got.float()).all()
+    want = C2.two_stage_plain(x, st1, st2, ffw1=ffw1, ffw2=ffw2)
+    assert max_err(got, want) <= 2 * KERNEL_TOL[torch.bfloat16]
+    y = K.fused_block_ffn(x, ffw2=ffw1, **st1)
+    split = K.fused_block_ffn(y, ffw2=ffw2, **st2)
+    assert max_err(got, split) <= KERNEL_TOL[torch.bfloat16]
+    again = C2.fused_two_stage(x, st1, st2, ffw1=ffw1, ffw2=ffw2)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+
+
+def test_two_stage_wg_smem_mirror_matches_the_source(dev):
+    from turtlevsr_tpu_torch.kernels import build
+
+    lib = build.load("chain2_wg")
+    for form1, form2 in ((("gelu", 128, 128), ("gelu", 128, 128)),
+                         (("gelu", 128, 0), ("gate", 160, 0)),
+                         (("gelu", 64, 128), ("gelu", 192, 128))):
+        ints = []
+        for mode, e, f in (form1, form2):
+            ints += [2 * e if mode == "gate" else e, e, f]
+        assert lib.turtle_two_stage_wg_smem(64, *ints) == C2._k64_smem(
+            form1, form2)
+    assert lib.turtle_two_stage_wg_smem(128, 256, 256, 256, 256, 256,
+                                        256) == C2._k128_smem()[0]
+
+
+# (BN, Q, K, hq, wq, exact): the streaming body's shapes: entries that its
+# blocks of 4 do not divide, a whole frame's key count, many entries, the
+# least K it takes
+SPARSE_WG_SHAPES = [(5, 23, 400, 20, 20, False), (3, 12, 3680, 46, 80, True),
+                    (60, 8, 400, 20, 20, True), (2, 8, 8, 2, 4, False)]
+
+
+@pytest.mark.parametrize("shape", SPARSE_WG_SHAPES)
+def test_sparse_wg_body_matches_plain_and_sab_cu(dev, shape, monkeypatch):
+    """Row 12's streaming body (csrc/sparse_wg.cu): one launch on it, the
+    plain version's support and values within one bf16 rounding, and
+    sab.cu's body bit for bit (the same floats in the same order)."""
+    s, mask = sparse_kernel_case(Maker(22, torch.bfloat16, dev), *shape)
+    before = S.sab_sparse_softmax.launches
+    wg_before = S.sab_sparse_softmax.launches_wg
+    got = S.sab_sparse_softmax(s, mask)
+    torch.cuda.synchronize()
+    assert S.sab_sparse_softmax.launches == before + 1
+    assert S.sab_sparse_softmax.launches_wg == wg_before + 1
+    want = S.sparse_softmax_plain(s, mask)
+    assert torch.equal(got != 0, want != 0)
+    assert max_err(got, want) <= 2.0 ** -7
+    monkeypatch.setattr(S, "_sparse_plan", lambda *a, **kw: ("tile", None))
+    old = S.sab_sparse_softmax(s, mask)
+    torch.cuda.synchronize()
+    assert S.sab_sparse_softmax.launches_wg == wg_before + 1
+    assert torch.equal(got, old)
+
+
+def test_sparse_wg_smem_mirror_matches_the_source(dev):
+    from turtlevsr_tpu_torch.kernels import build
+
+    lib = build.load("sparse_wg")
+    for k in (8, 400, 3680, 9600):
+        assert lib.turtle_sparse_wg_smem(k) == S._spw_smem(k)
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):

@@ -48,7 +48,7 @@ def test_port_has_the_expected_modules():
         assert want in rel, want
     from turtlevsr_tpu_torch.kernels import build
 
-    assert len(build.KERNEL_SOURCES) == 19
+    assert len(build.KERNEL_SOURCES) == 21
     headers = ("common.cuh", "ffn_tile.cuh", "qkv_tile.cuh", "pipe.cuh",
                "stats_wg.cuh", "c64_tile.cuh", "ffn_wg.cuh")
     for cu in (*headers, *(n + ".cu" for n in build.KERNEL_SOURCES)):
@@ -288,7 +288,7 @@ def test_launch_counters_cover_every_wrapper():
                            "level_run", "ffn_no_dw", "ffn_wg", "ffn_c64",
                            "ffn_pw", "qkv_wg", "split_wg", "split_c64",
                            "chm_wg", "sab_wg", "level_wg", "two_stage",
-                           "sab_sparse_softmax"}
+                           "two_stage_wg", "sab_sparse_softmax", "sparse_wg"}
     kernels.reset_launch_counts()
     assert set(kernels.launch_counts().values()) == {0}
 

@@ -308,7 +308,8 @@ def test_launch_counters_do_not_count_plain_runs():
         "attn_v_slots": 0, "attn_v_merge": 0, "level_run": 0, "ffn_no_dw": 0,
         "ffn_wg": 0, "ffn_c64": 0, "ffn_pw": 0, "qkv_wg": 0, "split_wg": 0,
         "split_c64": 0, "chm_wg": 0, "sab_wg": 0, "level_wg": 0,
-        "two_stage": 0, "sab_sparse_softmax": 0}
+        "two_stage": 0, "two_stage_wg": 0, "sab_sparse_softmax": 0,
+        "sparse_wg": 0}
 
 
 def _no_dw(p):

@@ -418,6 +418,26 @@ TWO_STAGE_KERNEL_CASES = {
     "ra_gffw_c16_bias": (2, 7, 9, 16, 32, 20, "ra_gffw", True, False),
     "ra_gffw_tiny_map": (1, 3, 5, 32, 64, 24, "ra_gffw", True, True),
 }
+# the forms of the Hopper bodies of row 13 (csrc/chain2_wg.cu), bf16: maps
+# that the 16 x 8 (C = 64) or 8 x 8 (C = 128) output tiles do not divide,
+# maps smaller than a tile, batches, without biases or LN bias, and grids of
+# more tiles than an H100 has SMs (a block of the C = 64 body walks several,
+# its next input box loaded during the current one)
+TWO_STAGE_WG_CASES = {
+    "wg_pair_c64_ragged": (2, 37, 29, 64, 128, 128, "pair", True, True),
+    "wg_pair_c64_no_ln_bias": (1, 20, 24, 64, 128, 128, "pair", False, False),
+    "wg_pair_c64_smaller_than_a_tile": (1, 5, 3, 64, 128, 128, "pair", True,
+                                        True),
+    "wg_pair_c64_walk": (4, 64, 72, 64, 128, 128, "pair", True, True),
+    "wg_ra_gffw_c64_ragged": (2, 33, 41, 64, 128, 160, "ra_gffw", True, True),
+    "wg_ra_gffw_c64_walk": (3, 100, 60, 64, 128, 160, "ra_gffw", False,
+                            False),
+    "wg_pair_c128_ragged": (2, 19, 13, 128, 256, 256, "pair", True, True),
+    "wg_pair_c128_no_ln_bias": (1, 16, 24, 128, 256, 256, "pair", False,
+                                False),
+    "wg_pair_c128_smaller_than_a_tile": (1, 3, 5, 128, 128, 128, "pair",
+                                         True, True),
+}
 # (BN, Q, K, hq, wq of the mask's token grid, exact scores). K < 5 follows
 # the unfused chain; K = 20000 needs fewer rows a block
 SPARSE_KERNEL_SHAPES = [(2, 16, 128, 8, 16, False), (3, 10, 130, 10, 13, True),
@@ -425,9 +445,11 @@ SPARSE_KERNEL_SHAPES = [(2, 16, 128, 8, 16, False), (3, 10, 130, 10, 13, True),
                         (1, 5, 20000, 100, 200, True)]
 
 
-def two_stage_kernel_case(name, m: Maker):
-    """(x, st1, st2, ffw1, ffw2) of fused_two_stage."""
-    b, h, w, c, e1, e2, kind, biases, lnb = TWO_STAGE_KERNEL_CASES[name]
+def two_stage_kernel_case(name, m: Maker, cases=None):
+    """(x, st1, st2, ffw1, ffw2) of fused_two_stage, one case of ``cases``
+    (TWO_STAGE_KERNEL_CASES by default)."""
+    b, h, w, c, e1, e2, kind, biases, lnb = (cases or TWO_STAGE_KERNEL_CASES
+                                             )[name]
 
     def stage(e, mode, with_b, scale):
         ch = 2 * e if mode == "gate" else e

@@ -31,13 +31,17 @@ def launch_counts() -> dict:
     their wgmma bodies, ``level_wg`` those of ``level_run`` on
     csrc/level_wg.cu, ``ffn_c64`` and ``split_c64`` those of ``ffn`` and
     ``split_proj`` on their C = 64 bodies, ``ffn_pw`` those of ``ffn_no_dw``
-    on the body of csrc/ffn_pw.cu."""
+    on the body of csrc/ffn_pw.cu, ``two_stage_wg`` and ``sparse_wg`` those
+    of ``two_stage`` and ``sab_sparse_softmax`` on csrc/chain2_wg.cu and
+    csrc/sparse_wg.cu."""
     fns = _counted()
     counts = {name: fn.launches for name, fn in fns.items()}
     counts["ffn_no_dw"] = fns["ffn"].launches_no_dw
     counts["ffn_c64"] = fns["ffn"].launches_c64
     counts["ffn_pw"] = fns["ffn"].launches_pw
     counts["split_c64"] = fns["split_proj"].launches_c64
+    counts["two_stage_wg"] = fns["two_stage"].launches_wg
+    counts["sparse_wg"] = fns["sab_sparse_softmax"].launches_wg
     for name in _WG_BODIES:
         counts[name.split("_")[0] + "_wg"] = fns[name].launches_wg
     return counts
@@ -56,5 +60,7 @@ def reset_launch_counts() -> None:
     fns["ffn"].launches_c64 = 0
     fns["ffn"].launches_pw = 0
     fns["split_proj"].launches_c64 = 0
+    fns["two_stage"].launches_wg = 0
+    fns["sab_sparse_softmax"].launches_wg = 0
     for name in _WG_BODIES:
         fns[name].launches_wg = 0

@@ -21,8 +21,8 @@ CSRC_DIR = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
 KERNEL_SOURCES = ("ffn", "ffn_wg", "ffn_c64", "ffn_pw", "qkv_stats", "qkv_wg",
                   "split_proj", "split_wg", "split_c64", "conv3x3", "chm_stats", "chm_wg",
-                  "sab", "sab_wg", "lattice", "level", "level_wg", "attn_v",
-                  "chain2")
+                  "sab", "sab_wg", "sparse_wg", "lattice", "level", "level_wg",
+                  "attn_v", "chain2", "chain2_wg")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -70,6 +70,8 @@ _SIGNATURES = {
                                            ctypes.c_size_t)},
     "sab_wg": {"turtle_sab_wg_launch": (_LAUNCH_ARGS, ctypes.c_int),
                "turtle_sab_wg_smem": ([ctypes.c_int], ctypes.c_size_t)},
+    "sparse_wg": {"turtle_sparse_wg_launch": (_LAUNCH_ARGS, ctypes.c_int),
+                  "turtle_sparse_wg_smem": ([ctypes.c_int], ctypes.c_size_t)},
     "lattice": {"turtle_lattice_launch": (
         [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 6
         + [ctypes.c_void_p], ctypes.c_int)},
@@ -81,6 +83,9 @@ _SIGNATURES = {
     "chain2": {"turtle_two_stage_launch": (_LAUNCH_ARGS, ctypes.c_int),
                "turtle_two_stage_smem": ([ctypes.c_int] * 2,
                                          ctypes.c_size_t)},
+    "chain2_wg": {"turtle_two_stage_wg_launch": (_LAUNCH_ARGS, ctypes.c_int),
+                  "turtle_two_stage_wg_smem": ([ctypes.c_int] * 7,
+                                               ctypes.c_size_t)},
 }
 
 

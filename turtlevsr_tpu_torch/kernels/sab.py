@@ -4,7 +4,8 @@ on given scores and a given mask, and their product with the window values,
 stored slot by slot or straight as merged maps.
 
 ``sab_attn_probs`` launches the kernels of ``csrc/sab_wg.cu`` (bf16) or
-``csrc/sab.cu``, ``sab_sparse_softmax`` that of ``csrc/sab.cu``,
+``csrc/sab.cu``, ``sab_sparse_softmax`` that of ``csrc/sparse_wg.cu`` (bf16)
+or ``csrc/sab.cu``,
 ``sab_attn_v_slots`` and ``sab_attn_v_merge`` that of ``csrc/attn_v.cu``, on
 CUDA tensors (or they raise); on CPU tensors, and only there, each runs the
 plain version beside it. The plain versions round where the kernels round
@@ -230,6 +231,32 @@ def _sparse_rows(k: int, is_bf16: bool, lib) -> int:
                      f"{_SMEM_LIMIT}")
 
 
+# the streaming body (csrc/sparse_wg.cu): entries a block (one a warp) and
+# its shared memory (the block's mask row, each warp's score row and its
+# bits, a 32-bit word per 32 keys in pieces of 16 bytes), mirrored from the
+# source (a card test holds the two equal)
+_SPW_ENTRIES = 4
+
+
+def _spw_smem(k: int) -> int:
+    return 2 * k + _SPW_ENTRIES * (2 * k + -(-k // 128) * 16)
+
+
+def _sparse_plan(bn: int, q: int, k: int, dtype):
+    """The body of one sab_sparse_softmax call, chosen by its shape: ("wg",
+    geometry) for the streaming body of csrc/sparse_wg.cu (bf16, rows of
+    whole 16-byte pieces: K a multiple of 8, the block's rows within its
+    shared memory), else ("tile", None) for sab.cu's sparse_softmax_kernel.
+    The geometry: the grid (a block a query row and group of up to 4
+    entries, one a warp; the query rows of a group run next to each other,
+    so the mask is read from device memory about once a group) and the
+    shared memory."""
+    if dtype != torch.bfloat16 or k < 8 or k % 8 or _spw_smem(k) > _SMEM_LIMIT:
+        return "tile", None
+    return "wg", dict(entries=_SPW_ENTRIES,
+                      grid=(q, -(-bn // _SPW_ENTRIES)), smem=_spw_smem(k))
+
+
 def _sparse_launch(scores, local_mask, k_top):
     if scores.dtype not in _KERNEL_DTYPES:
         raise ValueError("sab_sparse_softmax: the kernel takes bfloat16 or "
@@ -239,13 +266,19 @@ def _sparse_launch(scores, local_mask, k_top):
         raise ValueError(f"sab_sparse_softmax: at most 65535 entries a "
                          f"launch, got {bn}")
     mask = local_mask.to(scores.dtype).contiguous()
-    lib = build.load("sab")
-    rows = _sparse_rows(k, scores.dtype == torch.bfloat16, lib)
     out = torch.empty_like(scores)
-    _call(lib.turtle_sparse_softmax_launch,
-          [_check("scores", scores, scores), _check("local_mask", mask, scores),
-           out.data_ptr()], [bn, q, k, k_top, rows], scores,
-          "sab_sparse_softmax")
+    ptrs = [_check("scores", scores, scores), _check("local_mask", mask, scores),
+            out.data_ptr()]
+    body, _ = _sparse_plan(bn, q, k, scores.dtype)
+    if body == "wg":  # its shared memory fits by construction
+        _call(build.load("sparse_wg").turtle_sparse_wg_launch, ptrs,
+              [bn, q, k, k_top], scores, "sab_sparse_softmax")
+        sab_sparse_softmax.launches_wg += 1
+    else:
+        lib = build.load("sab")
+        rows = _sparse_rows(k, scores.dtype == torch.bfloat16, lib)
+        _call(lib.turtle_sparse_softmax_launch, ptrs, [bn, q, k, k_top, rows],
+              scores, "sab_sparse_softmax")
     sab_sparse_softmax.launches += 1
     return out
 
@@ -264,8 +297,13 @@ def sab_sparse_softmax(scores, local_mask, k_top: int = 5):
 
     Row 7 (:func:`sab_attn_probs`) is this after its QK^T product, with the
     local mask taken from the token grid and the frame validity applied.
-    Replaces ``sab_sparse_softmax`` in turtlevsr_tpu/kernels/sab.py
-    (kernel: csrc/sab.cu, ``sparse_softmax_kernel``; bound by bytes)."""
+    Replaces ``sab_sparse_softmax`` in turtlevsr_tpu/kernels/sab.py (bound
+    by bytes). Two kernels, chosen by shape before the launch
+    (:func:`_sparse_plan`): the streaming body of csrc/sparse_wg.cu (each
+    score and mask row read once in 16-byte pieces, the row kept on chip,
+    the output written in 16-byte pieces) for bf16 rows of a multiple of 8
+    keys (``launches_wg`` counts them), sab.cu's ``sparse_softmax_kernel``
+    for the rest. Both give the same bits."""
     if scores.dim() != 3 or local_mask.shape != scores.shape[1:]:
         raise ValueError("sab_sparse_softmax takes scores (BN, Q, K) and a "
                          "local_mask (Q, K)")
@@ -278,6 +316,7 @@ def sab_sparse_softmax(scores, local_mask, k_top: int = 5):
 
 
 sab_sparse_softmax.launches = 0
+sab_sparse_softmax.launches_wg = 0  # those of them on csrc/sparse_wg.cu
 
 
 # ---------------------------------------------------------------------------
