@@ -64,6 +64,18 @@ Phases, one JSON object per line on standard output:
            plan and ("two_stage",), `gopro` under ("channel_runs",
            "attn_v_merge") too; each against the same frames through the
            plain versions on the card
+  train    `make_train_step` (BPTT over a clip, each frame checkpointed,
+           bf16 from float32 masters) at each option file's training recipe
+           (batch_size_per_gpu 2, n_sequence 5, gt_size 192, the file's
+           AdamW and schedule), seeded weights with the scales drawn,
+           synthetic clips: `gopro` four steps (ms per step: median of
+           steps 2-4), then one step each of `gopro` under ("two_stage",)
+           and under ("channel_runs", "attn_v_merge"), `derain` and `sr`
+           (LQ 48 x 48 in, 192 x 192 out). For each: the losses, peak
+           memory, the exact launches a step, and the gradient at the
+           initial weights of the kernel route against the plain versions'
+           in bf16 and float32 on the card (with --profile, one more `gopro`
+           step traced)
 
 and, run alone (not part of all; no result line, no ok line):
 
@@ -74,8 +86,8 @@ and, run alone (not part of all; no result line, no ok line):
            their phases left out in turn, beside the whole body, its split
            route and chain2.cu on the same inputs, at 15 tiles
 
-then, when the kernels, the slice and the tiled phase ran, the line
-{"kernels": [...]} and, last, {"ok": true, "device": {...}}.
+then, when the kernels, the slice, the tiled and the train phase ran, the
+line {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
 Any failed check exits non-zero; without a CUDA device the script exits 2
 before it prints any result.
 """
@@ -113,6 +125,13 @@ from turtlevsr_tpu_torch.models import blocks as blocks_mod
 from turtlevsr_tpu_torch.models import build_model
 from turtlevsr_tpu_torch.models import turtle as turtle_mod
 from turtlevsr_tpu_torch.ops.attn_utils import local_window_mask
+from turtlevsr_tpu_torch.train.lr_schedule import build_schedule
+from turtlevsr_tpu_torch.train.step import (
+    TrainState,
+    clip_loss_fn,
+    make_optimizer,
+    make_train_step,
+)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OPTION_FILE = os.path.join(ROOT, "options", "Turtle_Deblur_Gopro.yml")
@@ -213,6 +232,19 @@ RUN_LEVELS = {"enc3": (4, 256, 4, 10), "latent": (8, 512, 8, 9),
 # the decoder levels of `gopro`: (scale, C, heads, window, cached frames)
 CHM_LEVELS = {"dec3": (4, 256, 4, 4, 3), "dec2": (2, 128, 2, 8, 3),
               "dec1": (1, 64, 1, 16, 2)}
+
+# the train phase: (configuration, fused plan, steps) at the training
+# recipe of each option file (datasets.train: batch_size_per_gpu 2, gt_size
+# 192; n_sequence 5; the file's AdamW and schedule); the first run is the
+# main one (a warm-up step, then the timed ones), the others one step each
+TRAIN_RUNS = (("gopro", (), 4), ("gopro", TWO_STAGE, 1),
+              ("gopro", FUSED_PLAN, 1), ("derain", (), 1), ("sr", (), 1))
+# the gradient of the kernel route (bf16, kernels forward) against float32
+# plain versions may be at most this factor of the bf16 plain route's error
+# plus this slack (relative, L2 over every parameter): top-5 ties in bf16
+# may select other keys in the kernel than in the plain version, so the
+# two bf16 routes are each held to the float32 one, not to each other
+GRAD_REL_FACTOR, GRAD_REL_SLACK = 1.5, 1e-3
 
 # published peaks of one H100 SXM (dense): the bound of a kernel is the
 # larger of its bytes over the memory rate and its operations over the
@@ -1763,9 +1795,12 @@ def read_pngs(folder: str, n: int) -> list[np.ndarray]:
         for i in range(n)]
 
 
+def plan_suffix(fuse: tuple) -> str:
+    return {(): "", FUSED_PLAN: "_fused", TWO_STAGE: "_two_stage"}[tuple(fuse)]
+
+
 def tiled_tag(config: str, plan: tuple) -> str:
-    name = {(): "tiled", FUSED_PLAN: "tiled_fused",
-            TWO_STAGE: "tiled_two_stage"}[tuple(plan)]
+    name = "tiled" + plan_suffix(plan)
     return name if config == "gopro" else f"{config}_{name}"
 
 
@@ -1841,8 +1876,7 @@ def run_tiled(config: str, seed: int, width: int, height: int,
             for i, out in enumerate(res["outs"]):
                 require(out.shape == (height, width, 3),
                         f"{tag} frame {i}: output shape {out.shape}")
-            key = config + {(): "", FUSED_PLAN: "_fused",
-                            TWO_STAGE: "_two_stage"}[tuple(fuse)]
+            key = config + plan_suffix(fuse)
             for name, per_call in LAUNCHES_PER_CALL[key].items():
                 per_call = TILED_LAUNCHES.get(config, {}).get(name, per_call)
                 require(res["launches"][name] == per_call * calls * n,
@@ -1896,6 +1930,210 @@ def run_tiled(config: str, seed: int, width: int, height: int,
     finally:
         shutil.rmtree(work, ignore_errors=True)
     return by_plan
+
+
+# ---------------------------------------------------------------------------
+# training: the BPTT train step over a clip
+# ---------------------------------------------------------------------------
+
+
+def train_launches(config: str, fuse: tuple, frames: int) -> dict:
+    """Exact launches of one train step, from the launches of one model
+    call: each frame launches its kernels twice, in the forward and in the
+    per-frame checkpoint's recompute (the non-reentrant checkpoint stops its
+    recompute once every saved tensor is back; the last one is the loss's,
+    after the frame's last kernel, so every kernel launches again); the
+    backward adds one launch of the other lattice kernel per lattice call
+    (each permutation is the other's gradient) and no other kernel (the
+    other Functions' backward is autograd through the plain versions)."""
+    per = LAUNCHES_PER_CALL[config + plan_suffix(fuse)]
+    out = {k: 2 * frames * v for k, v in per.items()}
+    out["lattice_split"] += frames * per["lattice_merge"]
+    out["lattice_merge"] += frames * per["lattice_split"]
+    return out
+
+
+def train_clips(seed: int, b: int, t: int, size: int, scale: int):
+    """gt: b clips of t frames of make_frames' drifting pattern (one seed a
+    clip), size x size; lq: the same with noise (for SR box-averaged to size
+    / scale first). (B, T, H, W, 3) float32 in [0, 1]."""
+    gt = np.stack([np.stack(make_frames(seed + i, t, size, size))
+                   for i in range(b)])
+    lq = gt
+    if scale > 1:
+        lq = gt.reshape(b, t, size // scale, scale, size // scale, scale,
+                        3).mean(axis=(3, 5))
+    noise = np.random.RandomState(seed + b).standard_normal(lq.shape)
+    return np.clip(lq + 0.1 * noise, 0.0, 1.0).astype(np.float32), gt
+
+
+def grad_rel(got: dict, want: dict) -> float:
+    """|got - want| / |want|, L2 over every tensor of ``want``."""
+    num = sum(float((got[n].float() - w.float()).square().sum())
+              for n, w in want.items())
+    den = sum(float(w.float().square().sum()) for w in want.values())
+    return (num / den) ** 0.5
+
+
+def profile_train(step, state, lq, gt, untraced_ms: float,
+                  config: str) -> None:
+    """Device time by kernel name over one more train step, from
+    torch.profiler: the share of the port's kernels (names with "turtle";
+    the lattice ones, the only kernels of the backward, apart) and the
+    device's idle share against the untraced step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        state, _ = step(state, lq, gt)
+        torch.cuda.synchronize()
+    rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and e.self_device_time_total > 0), key=lambda r: -r[1])
+    busy = sum(r[1] for r in rows)
+    own = sum(ms for k, ms, _ in rows if "turtle" in k)
+    lattice = sum(ms for k, ms, _ in rows if "turtle" in k and "lattice" in k)
+    emit({"phase": "train_profile", "config": config, "steps": 1,
+          "own_kernels_ms_per_step": own,
+          "lattice_kernels_ms_per_step": lattice,
+          "device_busy_ms_per_step": busy if rows else "not measured",
+          "ms_per_step_untraced": untraced_ms,
+          "own_kernels_share_of_busy": own / busy if rows else None,
+          "device_idle_share": max(0.0, 1.0 - busy / untraced_ms) if rows
+          else "not measured",
+          "top_device_ms_per_step": [
+              {"name": k[:80], "ms": ms, "calls": n} for k, ms, n in rows[:30]]})
+
+
+def run_train(config: str, seed: int, fuse: tuple, steps: int,
+              trace: bool) -> dict:
+    """``make_train_step`` on the card at the option file's training recipe
+    (full width and depth, bf16 compute from float32 masters, BPTT over the
+    clip, each frame checkpointed), seeded weights with the scales drawn,
+    synthetic clips from the seed: ms per step, the losses, peak memory,
+    the exact launches a step; then the gradient at the initial weights of
+    the kernel route (the first step's) and of the plain versions on the
+    card in bf16 and in float32, each held to the float32 one."""
+    path, overrides = CONFIGS[config]
+    opt = load_options(path, is_train=True)
+    opt.update(overrides)
+    train_opt, ds = opt["train"], opt["datasets"]["train"]
+    b, t = int(ds["batch_size_per_gpu"]), int(opt["n_sequence"])
+    size = int(ds["gt_size"])
+    model = build_model(opt, device="cuda", fuse=fuse,
+                        generator=torch.Generator().manual_seed(seed))
+    randomise_scales(model, seed + 1)
+    cfg = model.cfg
+    scale = cfg.sr_scale if cfg.variant == "sr" else 1
+    init = {n: p.detach().clone() for n, p in model.named_parameters()}
+    del model
+    lq_np, gt_np = train_clips(seed + 2, b, t, size, scale)
+    lq, gt = torch.from_numpy(lq_np).cuda(), torch.from_numpy(gt_np).cuda()
+    tx = make_optimizer(train_opt, build_schedule(train_opt))
+    state = TrainState.create(init, tx)
+    step = make_train_step(cfg, tx, fuse=fuse)  # bf16, each frame remat
+
+    # main path: counts set to 0 just before, read just after; the peak of
+    # device memory counts what earlier phases left allocated, given beside
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before_gb = torch.cuda.memory_allocated() / 2 ** 30
+    kernels_pkg.reset_launch_counts()
+    times, losses, g_k = [], [], None
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, logs = step(state, lq, gt)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(logs["l_pix"]))
+        if i == 0:  # the gradient at the initial weights, kernels forward
+            g_k = {n: p.grad.detach().clone()
+                   for n, p in state.params.items()}
+    counts = kernels_pkg.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    want = train_launches(config, fuse, t)
+
+    def clip_grads(dtype):
+        params = {n: p.clone().requires_grad_() for n, p in init.items()}
+        loss = clip_loss_fn(params, cfg, lq, gt, compute_dtype=dtype,
+                            fuse=fuse)
+        loss.backward()
+        return float(loss.detach()), {
+            n: torch.zeros_like(p) if p.grad is None else p.grad
+            for n, p in params.items()}
+
+    kernels_pkg.reset_launch_counts()
+    with plain_versions():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        l_p, g_p = clip_grads(torch.bfloat16)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        l_ref, g_ref = clip_grads(torch.float32)
+    plain_counts = kernels_pkg.launch_counts()
+    err_k, err_p = grad_rel(g_k, g_ref), grad_rel(g_p, g_ref)
+    loss_k, loss_p = (abs(l - l_ref) / abs(l_ref) for l in (losses[0], l_p))
+    per_tensor = sorted(
+        ((grad_rel({n: g_k[n]}, {n: w}), n) for n, w in g_ref.items()
+         if float(w.float().square().sum()) > 0), reverse=True)
+    worst_err, worst = per_tensor[0]
+    res = dict(
+        phase="train", config=config, plan=list(fuse), variant=cfg.variant,
+        option_file=os.path.relpath(path, ROOT),
+        params=sum(p.numel() for p in init.values()), batch=b, frames=t,
+        gt_size=size, lq_size=size // scale, compute_dtype="bfloat16",
+        masters="float32", remat="each frame, policy nothing",
+        optimizer=dict(type="AdamW", betas=list(tx.betas), eps=tx.eps,
+                       weight_decay=tx.weight_decay),
+        lr_of_steps=[tx.schedule(i) for i in range(steps)],
+        steps=steps, ms_per_step=times,
+        ms_per_step_median_after_first=float(np.median(times[1:]))
+        if steps > 1 else None,
+        losses=losses, peak_memory_gib=peak_gb,
+        memory_allocated_before_gib=before_gb, launches=counts,
+        launches_per_step={k: v / steps for k, v in counts.items()},
+        plain_bf16_ms_per_loss_and_grad=plain_ms,
+        grad_rel_err_kernels_vs_fp32_plain=err_k,
+        grad_rel_err_bf16_plain_vs_fp32_plain=err_p,
+        grad_rel_err_limit=GRAD_REL_FACTOR * err_p + GRAD_REL_SLACK,
+        loss_rel_err_kernels_vs_fp32_plain=loss_k,
+        loss_rel_err_bf16_plain_vs_fp32_plain=loss_p,
+        loss_rel_err_limit=GRAD_REL_FACTOR * loss_p + GRAD_REL_SLACK,
+        worst_tensor=dict(name=worst, rel_err_kernels=worst_err,
+                          rel_err_bf16_plain=grad_rel({worst: g_p[worst]},
+                                                      {worst: g_ref[worst]})),
+        nonzero_grad_share=sum(bool(g.any()) for g in g_k.values())
+        / len(g_k),
+        plain_launches=sum(plain_counts.values()))
+    emit(res)
+    if trace:
+        profile_train(step, state, lq, gt,
+                      res["ms_per_step_median_after_first"], config)
+    for name, n in want.items():
+        require(counts[name] == n * steps,
+                f"train {config}{plan_suffix(fuse)} {name}: {counts[name]} "
+                f"launches over {steps} steps, expected {n} a step")
+    require(all(np.isfinite(losses)), f"non-finite loss: {losses}")
+    require(all(bool(torch.isfinite(g).all()) for g in g_k.values()),
+            "non-finite gradient")
+    require(not any(plain_counts.values()),
+            "the plain steps must launch no kernel")
+    require(err_k <= res["grad_rel_err_limit"],
+            f"gradient of the kernel route off: {err_k} against "
+            f"{res['grad_rel_err_limit']} (worst tensor {worst})")
+    require(loss_k <= res["loss_rel_err_limit"],
+            f"loss of the kernel route off: {loss_k} against "
+            f"{res['loss_rel_err_limit']}")
+    if steps > 1:  # over the timed steps (the first update overshoots)
+        require(losses[-1] < losses[1],
+                f"the loss did not fall over the timed steps: {losses}")
+    del state, step, g_k, g_p, g_ref, init
+    torch.cuda.empty_cache()
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -1956,7 +2194,7 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--phase", default="all",
                     choices=("all", "build", "kernels", "slice", "tiled",
-                             "level-phases", "two-stage-phases"),
+                             "train", "level-phases", "two-stage-phases"),
                     help="level-phases, two-stage-phases: row 14's or row "
                          "13's Hopper body with each of its phases left out "
                          "in turn (not part of all; no result line, no ok "
@@ -2033,6 +2271,12 @@ def main(argv=None) -> int:
                 for tag, res in run_tiled(config, args.seed, width, height,
                                           args.profile).items():
                     by_path[tag] = res["launches"]
+        if args.phase in ("all", "train"):
+            # the train step at each option file's training recipe
+            for config, fuse, steps in TRAIN_RUNS:
+                by_path["train_" + config + plan_suffix(fuse)] = run_train(
+                    config, args.seed, fuse, steps,
+                    args.profile and steps > 1)["launches"]
         if args.phase == "all":
             # every path launched the kernels that lie on it (the exact
             # counts were held above); attn_v_slots is the second epilogue of
@@ -2058,6 +2302,17 @@ def main(argv=None) -> int:
                                                     "two_stage_wg"),
                 "sr_tiled": t1_chm, "sr_tiled_two_stage": t1_chm + (
                     "two_stage", "two_stage_wg"),
+                # the train steps: the forward's kernels, and the lattice
+                # pair in the backward too
+                "train_gopro": t1_chm, "train_derain": t0_chm,
+                "train_sr": t1_chm,
+                "train_gopro_two_stage": t1_chm + ("two_stage",
+                                                   "two_stage_wg"),
+                "train_gopro_fused": ("ffn", "ffn_wg", "ffn_c64", "qkv_wg",
+                                      "split_wg", "split_c64", "conv3x3",
+                                      "chm_wg", "sab_wg", "lattice_split",
+                                      "lattice_merge", "attn_v_merge",
+                                      "level_run", "level_wg"),
             }
             require(set(by_path) == set(on_path),
                     f"paths run: {sorted(by_path)}")
@@ -2083,7 +2338,7 @@ def main(argv=None) -> int:
         return 1
     if args.cases:  # a filtered run proves nothing about the whole
         return 0
-    if cases and len(by_path) == 13:  # launches are those of this run's paths
+    if cases and len(by_path) == 18:  # launches are those of this run's paths
         emit({"kernels": kernel_rows(cases, by_path)})
     print(smi_line, flush=True)
     emit({"ok": True,

@@ -45,12 +45,14 @@ from torch_port_util import (
     sparse_kernel_case,
     two_stage_kernel_case,
 )
+from reference_oracle import tiny_opt
 from test_torch_port_pw_split_c64 import FFN_PW_CASES, SPLIT_C64_CASES
 from turtlevsr_tpu_torch.kernels import chain2 as C2
 from turtlevsr_tpu_torch.kernels import ffn as K
 from turtlevsr_tpu_torch.kernels import lattice as L
 from turtlevsr_tpu_torch.kernels import level as LV
 from turtlevsr_tpu_torch.kernels import sab as S
+from turtlevsr_tpu_torch.kernels import vjp as V
 
 pytestmark = pytest.mark.cuda
 DTYPES = [torch.float32, torch.bfloat16]
@@ -1012,3 +1014,186 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         LV.fused_channel_gffw_run(xl, [dict(blocks[0], wpo=m(16, 8))], 2)
     with pytest.raises(ValueError, match="C / heads"):
         LV.fused_channel_gffw_run(xl, blocks, 3)
+
+
+# ---------------------------------------------------------------------------
+# training: each kernel's Function (kernels/vjp.py) on the card, the lattice
+# pair's backward kernels, one train step against the CPU's
+# ---------------------------------------------------------------------------
+
+
+def _vjp_case(name, m):
+    """(dispatcher, launch counter's wrapper, plain version, args, kwargs)
+    of one Function at a small or ragged shape the kernels take."""
+    if name.startswith("ffn_"):
+        x, kw = ffn_kernel_case(name[4:], m)
+        return V.fused_block_ffn, K.fused_block_ffn, K.ffn_plain, (x,), kw
+    if name == "qkv_stats":
+        x, kw = chain_kernel_case(m, 2, 11, 13, 16, 48, True)
+        return (V.fused_qkv_stats, K.fused_qkv_stats, K.qkv_stats_plain,
+                (x,), dict(kw, heads=2))
+    if name == "split_proj":
+        x, kw = chain_kernel_case(m, 2, 11, 13, 16, 48, True)
+        return (V.fused_ln_split_proj, K.fused_ln_split_proj,
+                K.split_proj_plain, (x,), dict(kw, n_out=3))
+    if name.startswith("conv3x3"):
+        x = m(2, 11, 13, 16)
+        kw = (dict(ln_w=1.0 + m(16, scale=0.2), ln_b=m(16, scale=0.2))
+              if name.endswith("_ln") else {})
+        return (V.fused_conv3x3, K.fused_conv3x3, K.conv3x3_plain,
+                (x, m(3, 3, 16, 24, scale=0.1), m(24)), kw)
+    if name == "chm_stats":
+        x, x_sp, kw = chm_kernel_case(m, 2, 11, 13, 16, 2, 2, True)
+        return (V.fused_chm_stats, K.fused_chm_stats, K.chm_stats_plain,
+                (x, x_sp), kw)
+    if name == "sab_probs":
+        q, k, temp, fvalid = sab_kernel_case(m, *SAB_KERNEL_SHAPES[1],
+                                             exact=False)
+        return (V.sab_attn_probs, S.sab_attn_probs, S.sab_attn_probs_plain,
+                (q, k, temp.to(m.dtype), fvalid),
+                dict(grid_wq=SAB_KERNEL_SHAPES[1][3]))
+    if name == "attn_v_merge":
+        b, nf, hh, ww, ws, c, ring = ATTN_V_KERNEL_SHAPES[1]
+        a, vs = attn_v_kernel_case(m, b, nf, hh, ww, ws, c, ring)
+        return (V.sab_attn_v_merge, S.sab_attn_v_merge, S.attn_v_merge_plain,
+                (a, vs, ws, hh * ws, ww * ws), {})
+    if name == "sparse_softmax":
+        scores, mask = sparse_kernel_case(m, *SPARSE_KERNEL_SHAPES[0])
+        return (V.sab_sparse_softmax, S.sab_sparse_softmax,
+                S.sparse_softmax_plain, (scores, mask.bool()), {})
+    if name.startswith("two_stage_"):
+        x, st1, st2, ffw1, ffw2 = two_stage_kernel_case(name[10:], m)
+        return (V.fused_two_stage, C2.fused_two_stage, C2.two_stage_plain,
+                (x, st1, st2), dict(ffw1=ffw1, ffw2=ffw2))
+    x, blocks = level_kernel_case(m, *LEVEL_KERNEL_SHAPES[0])
+    return (V.fused_channel_gffw_run, LV.fused_channel_gffw_run,
+            LV.channel_gffw_run_plain, (x, blocks, LEVEL_KERNEL_SHAPES[0][5]),
+            {})
+
+
+VJP_CASES = ["ffn_gate_pair_po_batched", "ffn_gelu_ffw2", "ffn_gelu_no_dw",
+             "qkv_stats", "split_proj", "conv3x3", "conv3x3_ln", "chm_stats",
+             "sab_probs", "attn_v_merge", "sparse_softmax",
+             "two_stage_pair_c16", "two_stage_ra_gffw_c64", "channel_run"]
+
+
+def _outs(o):
+    return o if isinstance(o, tuple) else (o,)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("name", VJP_CASES)
+def test_function_forward_and_backward_on_the_card(dev, name, dtype):
+    """Forward: the Function launches its kernel once (the wrapper's
+    counter), within the kernel tolerance of the plain version. Backward:
+    autograd through the plain version on the card, the gradient that
+    autograd gives straight through the plain version on the same
+    inputs."""
+    fn, wrapper, plain, args, kw = _vjp_case(name, Maker(21, dtype, dev))
+    leaves = []
+    spec = V._flatten((args, kw), leaves)
+
+    def fresh():
+        ls = [a.detach().clone().requires_grad_(a.is_floating_point())
+              for a in leaves]
+        return ls, V._unflatten(spec, ls)
+
+    ls, (a, k) = fresh()
+    before = wrapper.launches
+    outs = _outs(fn(*a, **k))
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    assert type(outs[0].grad_fn).__name__.endswith("Backward")
+    with torch.no_grad():
+        want = _outs(plain(*a, **k))
+    for got, ref in zip(outs, want):
+        scale = max(1.0, ref.float().abs().max().item())
+        assert max_err(got, ref) <= KERNEL_TOL[dtype] * scale
+    gen = torch.Generator(device=dev).manual_seed(3)
+    cts = [torch.randn(o.shape, device=dev, generator=gen).to(o.dtype)
+           for o in outs]
+    wanted = [x for x in ls if x.requires_grad]
+    got = torch.autograd.grad(outs, wanted, cts, allow_unused=True)
+    ls2, (a2, k2) = fresh()
+    ref = torch.autograd.grad(_outs(plain(*a2, **k2)),
+                              [x for x in ls2 if x.requires_grad], cts,
+                              allow_unused=True)
+    assert wrapper.launches == before + 1  # the backward launches nothing
+    for g, r in zip(got, ref):
+        assert (g is None) == (r is None)
+        if g is not None:
+            scale = max(1e-6, r.float().abs().max().item())
+            tol = 1e-5 if dtype == torch.float32 else 2.0 ** -7
+            assert max_err(g, r) <= tol * scale
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+def test_lattice_backward_launches_the_other_kernel(dev, dtype):
+    m = Maker(22, dtype, dev)
+    x = m(2, 8, 12, 16).requires_grad_()
+    s0, m0 = L.lattice_split.launches, L.lattice_merge.launches
+    tok = V.lattice_split(x, 2)
+    ct = m(*tok.shape)
+    (g,) = torch.autograd.grad(tok, x, ct)
+    torch.cuda.synchronize()
+    assert (L.lattice_split.launches, L.lattice_merge.launches) == (s0 + 1,
+                                                                    m0 + 1)
+    assert torch.equal(g, L.lattice_merge_plain(ct, 2, 8, 12))
+    t_ = m(2, 24, 64).requires_grad_()
+    mp = V.lattice_merge(t_, 2, 8, 12)
+    (g,) = torch.autograd.grad(mp, t_, x.detach())
+    torch.cuda.synchronize()
+    assert (L.lattice_split.launches, L.lattice_merge.launches) == (s0 + 2,
+                                                                    m0 + 2)
+    assert torch.equal(g, L.lattice_split_plain(x.detach(), 2))
+
+
+def test_train_step_on_the_card_matches_the_cpu(dev):
+    """One make_train_step step of a tiny t1 model (CHM blocks; dim 16, the
+    narrowest width the kernels take) in float32, on the card with the
+    kernels forward and on the CPU with the plain versions: the same loss
+    and gradients within float32 sums in another order."""
+    from turtlevsr_tpu_torch import kernels as KP
+    from turtlevsr_tpu_torch.models import build_model
+    from turtlevsr_tpu_torch.train import (
+        TrainState,
+        build_schedule,
+        make_optimizer,
+        make_train_step,
+    )
+
+    train_opt = {"optim_g": {"lr": 4e-4, "weight_decay": 0,
+                             "betas": [0.9, 0.99]},
+                 "scheduler": {"type": "TrueCosineAnnealingLR",
+                               "T_max": 1000, "eta_min": 1e-7},
+                 "total_iter": 1000, "warmup_iter": -1}
+    model = build_model(tiny_opt(dim=16), device="cpu",
+                        generator=torch.Generator().manual_seed(5))
+    gen = torch.Generator().manual_seed(6)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.rsplit(".", 1)[-1] in ("gamma", "beta"):
+                p.copy_(0.3 * torch.randn(p.shape, generator=gen))
+    tx = make_optimizer(train_opt, build_schedule(train_opt))
+    lq = torch.rand(1, 3, 32, 32, 3, generator=gen)
+    gt = torch.rand(1, 3, 32, 32, 3, generator=gen)
+    states = {}
+    for device in ("cuda", "cpu"):
+        step = make_train_step(model.cfg, tx, compute_dtype=torch.float32,
+                               device=device)
+        state = TrainState.create(dict(model.named_parameters()), tx,
+                                   device=device)
+        KP.reset_launch_counts()
+        state, logs = step(state, lq.to(device), gt.to(device))
+        states[device] = (state, float(logs["l_pix"]),
+                          KP.launch_counts())
+    (sg, lg, counts), (sc, lc, _) = states["cuda"], states["cpu"]
+    for name in ("ffn", "qkv_stats", "split_proj", "conv3x3", "chm_stats",
+                 "sab", "lattice_split", "lattice_merge"):
+        assert counts[name] > 0, name
+    assert abs(lg - lc) <= 1e-5 * abs(lc)
+    num = sum(float((sg.params[n].grad.cpu() - p.grad).square().sum())
+              for n, p in sc.params.items())
+    den = sum(float(p.grad.square().sum()) for p in sc.params.values())
+    assert (num / den) ** 0.5 <= 1e-4
+    assert sg.step == sc.step == 1

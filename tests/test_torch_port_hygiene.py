@@ -34,6 +34,10 @@ def test_port_has_the_expected_modules():
                  "turtlevsr_tpu_torch/kernels/lattice.py",
                  "turtlevsr_tpu_torch/kernels/level.py",
                  "turtlevsr_tpu_torch/kernels/chain2.py",
+                 "turtlevsr_tpu_torch/kernels/vjp.py",
+                 "turtlevsr_tpu_torch/train/losses.py",
+                 "turtlevsr_tpu_torch/train/lr_schedule.py",
+                 "turtlevsr_tpu_torch/train/step.py",
                  "turtlevsr_tpu_torch/ops/resize.py",
                  "turtlevsr_tpu_torch/cli/infer.py",
                  "turtlevsr_tpu_torch/metrics/psnr_ssim.py",
@@ -205,6 +209,20 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card():
     model = build_model(tiny_fhr_opt(), device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         InferenceEngine(model)
+    # training: the train step and its state live on the card by default
+    from turtlevsr_tpu_torch.train import (
+        TrainState,
+        build_schedule,
+        make_optimizer,
+        make_train_step,
+    )
+
+    train_opt = {"optim_g": {"lr": 4e-4}, "total_iter": 10}
+    tx = make_optimizer(train_opt, build_schedule(train_opt))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_train_step(model.cfg, tx)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TrainState.create(dict(model.named_parameters()), tx)
 
 
 @pytest.mark.parametrize("fn", ["ffn", "qkv_stats", "split_proj", "conv3x3",

@@ -19,11 +19,28 @@ Slot layout (the same as the JAX package's ``core/cache.py``):
             never read (see sab_slot_append_v)
   n: int64 scalar tensor on the slot's device (write pointer = n % N;
      min(n, N) positions are valid)
+
+When autograd records (training), an append writes a new buffer instead
+(``torch.index_copy``): a later frame's attention saves the ring for its
+backward, and BPTT through the clip needs each frame's ring as it was, as
+the JAX package's functional cache gives it.
 """
 
 from __future__ import annotations
 
 import torch
+
+from turtlevsr_tpu_torch.kernels.vjp import records
+
+
+def _ring_write(buf: torch.Tensor, dim: int, idx: torch.Tensor,
+                new: torch.Tensor) -> torch.Tensor:
+    """buf with ``new`` at positions ``idx`` of ``dim``: in place, or out of
+    place when autograd records."""
+    new = new.to(buf.dtype)
+    if records(buf, new):
+        return torch.index_copy(buf, dim, idx, new)
+    return buf.index_copy_(dim, idx, new)
 
 
 def fhr_slot_init(batch: int, heads: int, n_frames: int, ctok: int, l: int,
@@ -45,15 +62,15 @@ def fhr_slot_append(slot: dict, k_new: torch.Tensor,
     ring position (a copy of the multi-hundred-MB cache per frame would cost
     more than the attention that reads it), so the slot passed in must not
     be used again. The returned dict shares those buffers and carries the
-    new count. The position comes from the device-side count without a host
-    read, as one index_copy_ along the token axis."""
+    new count (when autograd records, it holds new buffers; see the module
+    note). The position comes from the device-side count without a host
+    read, as one index_copy along the token axis."""
     ctok = k_new.shape[2]
     n_frames = slot["k"].shape[2] // ctok
     ptr = (slot["n"] % n_frames) * ctok
     idx = ptr + torch.arange(ctok, device=ptr.device)
-    slot["k"].index_copy_(2, idx, k_new.to(slot["k"].dtype))
-    slot["v"].index_copy_(2, idx, v_new.to(slot["v"].dtype))
-    return {"k": slot["k"], "v": slot["v"], "n": slot["n"] + 1}
+    return {"k": _ring_write(slot["k"], 2, idx, k_new),
+            "v": _ring_write(slot["v"], 2, idx, v_new), "n": slot["n"] + 1}
 
 
 def sab_slot_init(batch: int, n_frames: int, hw_q: int, dk: int, hw_v: int,
@@ -76,9 +93,9 @@ def sab_slot_append(slot: dict, k_new: torch.Tensor,
     without a host read."""
     n_frames = slot["v"].shape[1]
     idx = (slot["n"] % n_frames).reshape(1)
-    slot["k"].index_copy_(1, idx, k_new[:, None].to(slot["k"].dtype))
-    slot["v"].index_copy_(1, idx, v_new[:, None].to(slot["v"].dtype))
-    return {"k": slot["k"], "v": slot["v"], "n": slot["n"] + 1}
+    return {"k": _ring_write(slot["k"], 1, idx, k_new[:, None]),
+            "v": _ring_write(slot["v"], 1, idx, v_new[:, None]),
+            "n": slot["n"] + 1}
 
 
 def sab_slot_append_v(slot: dict, v_new: torch.Tensor) -> dict:
@@ -89,8 +106,9 @@ def sab_slot_append_v(slot: dict, v_new: torch.Tensor) -> dict:
     field. IN PLACE like :func:`sab_slot_append`."""
     n_frames = slot["v"].shape[1]
     idx = (slot["n"] % n_frames).reshape(1)
-    slot["v"].index_copy_(1, idx, v_new[:, None].to(slot["v"].dtype))
-    return {"k": slot["k"], "v": slot["v"], "n": slot["n"] + 1}
+    return {"k": slot["k"], "v": _ring_write(slot["v"], 1, idx,
+                                             v_new[:, None]),
+            "n": slot["n"] + 1}
 
 
 def frame_valid_mask(n: torch.Tensor, n_frames: int) -> torch.Tensor:

@@ -7,7 +7,11 @@ with feature order (a, b, c). ``lattice_split`` turns a map (N, H, W, C) into
 tokens (N, hh * ww, ws * ws * C); ``lattice_merge`` is its inverse. On a CUDA
 tensor both launch the copy kernel of ``csrc/lattice.cu`` (or raise); on a
 CPU tensor, and only there, they run the plain version beside them (a 6-D
-transpose)."""
+transpose). The two permutations are mutual inverses, so the gradient of
+each is the other: :class:`LatticeSplit` and :class:`LatticeMerge` run one
+wrapper forward and the other backward (on the card, each kernel is the
+other's backward kernel), as the JAX package's ``lattice_split_op`` and
+``lattice_merge_op`` do."""
 
 from __future__ import annotations
 
@@ -104,3 +108,30 @@ def lattice_merge(t: torch.Tensor, ws: int, h: int, w: int) -> torch.Tensor:
 
 
 lattice_merge.launches = 0
+
+
+class LatticeSplit(torch.autograd.Function):
+    """:func:`lattice_split` whose backward is :func:`lattice_merge`."""
+
+    @staticmethod
+    def forward(ctx, x, ws: int):
+        ctx.ws, ctx.hw = ws, tuple(x.shape[1:3])
+        return lattice_split(x, ws)
+
+    @staticmethod
+    def backward(ctx, g):
+        # the wrappers take contiguous inputs only
+        return lattice_merge(g.contiguous(), ctx.ws, *ctx.hw), None
+
+
+class LatticeMerge(torch.autograd.Function):
+    """:func:`lattice_merge` whose backward is :func:`lattice_split`."""
+
+    @staticmethod
+    def forward(ctx, t, ws: int, h: int, w: int):
+        ctx.ws = ws
+        return lattice_merge(t, ws, h, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        return lattice_split(g.contiguous(), ctx.ws), None, None, None

@@ -111,8 +111,12 @@ def _stack(run, key):
 
 
 def safe_norms(ss: torch.Tensor) -> torch.Tensor:
-    """max(sqrt(ss), 1e-12): zero rows (nothing to normalise) stay finite."""
-    return torch.sqrt(ss).clamp_min(_NORM_EPS)
+    """max(sqrt(ss), 1e-12): zero rows (nothing to normalise, such as an
+    empty ring frame's) stay finite, and so do their gradients: the sqrt
+    never sees a zero, whose derivative would give 0 * inf = NaN."""
+    nonzero = ss > 0
+    n = torch.sqrt(torch.where(nonzero, ss, torch.ones_like(ss)))
+    return torch.where(nonzero, n, torch.zeros_like(n)).clamp_min(_NORM_EPS)
 
 
 def channel_po(gram, stats, temp, wpo, heads: int, dtype) -> torch.Tensor:

@@ -47,6 +47,14 @@ Channel+GFFW blocks go to ``fused_channel_gffw_run``, which reads
 ``run_weights`` of each block; pairs of ReducedAttn+FFW blocks and each
 ReducedAttn+GFFW block go to ``fused_two_stage``, which reads the blocks'
 ``ra``, ``ffw2`` and ``ffn`` weights.
+
+The blocks reach the kernels through ``kernels/vjp.py``: when autograd
+records (training), each call is a Function whose backward runs autograd
+through the kernel's plain version, the kernel-layout weights are built
+inside the graph and not cached, the history rings are written out of
+place (``core/cache.py``) and attention @ v makes no ``out=`` product.
+Otherwise (serving) nothing of this runs: the wrappers are called as they
+are, the layout copies are cached and the rings are written in place.
 """
 
 from __future__ import annotations
@@ -64,16 +72,19 @@ from turtlevsr_tpu_torch.core.cache import (
     sab_slot_append_v,
     token_valid_mask,
 )
-from turtlevsr_tpu_torch.kernels.ffn import (
+from turtlevsr_tpu_torch.kernels.level import channel_po, safe_norms
+from turtlevsr_tpu_torch.kernels.vjp import (
     fused_block_ffn,
     fused_chm_stats,
     fused_conv3x3,
     fused_ln_split_proj,
     fused_qkv_stats,
+    lattice_merge,
+    lattice_split,
+    records,
+    sab_attn_probs,
+    sab_attn_v_merge,
 )
-from turtlevsr_tpu_torch.kernels.lattice import lattice_merge, lattice_split
-from turtlevsr_tpu_torch.kernels.level import channel_po, safe_norms
-from turtlevsr_tpu_torch.kernels.sab import sab_attn_probs, sab_attn_v_merge
 from turtlevsr_tpu_torch.ops.attn_utils import (
     acc_dtype,
     l2_normalize,
@@ -136,7 +147,8 @@ def conv3_hwio(conv: nn.Conv2d) -> torch.Tensor:
 class KernelWeights:
     """Mixin of an ``nn.Module``: caches the kernel-layout copies of its
     parameters; they are rebuilt when a parameter is replaced, retyped,
-    moved or written to."""
+    moved or written to. When autograd records, the copies are built inside
+    the graph, each call anew, so that gradients reach the parameters."""
 
     _kw = None
     _kw_key = None
@@ -145,8 +157,11 @@ class KernelWeights:
         raise NotImplementedError
 
     def kernel_weights(self) -> dict:
+        params = list(self.parameters())
+        if records(*params):
+            return self._make_kernel_weights()
         key = tuple((p.data_ptr(), p._version, p.dtype, p.device)
-                    for p in self.parameters())
+                    for p in params)
         if key != self._kw_key:
             with torch.no_grad():
                 self._kw = self._make_kernel_weights()
@@ -535,11 +550,16 @@ class TurtleAttnBlock(nn.Module, KernelWeights):
                 a.reshape(b * nf, hq * wq, hq * wq),
                 [vi.to(x.dtype) for vi in v_frames], ws, h, w)
         else:
-            # one matrix product per ring position, then the merge
-            out_tok = torch.empty((b, nf) + tuple(v.shape[1:]),
-                                  dtype=x.dtype, device=x.device)
-            for i, vi in enumerate(v_frames):
-                torch.matmul(a[:, i], vi.to(x.dtype), out=out_tok[:, i])
+            # one matrix product per ring position, then the merge (autograd
+            # takes no out= product: then the products are stacked)
+            if records(a, *v_frames):
+                out_tok = torch.stack([torch.matmul(a[:, i], vi.to(x.dtype))
+                                       for i, vi in enumerate(v_frames)], 1)
+            else:
+                out_tok = torch.empty((b, nf) + tuple(v.shape[1:]),
+                                      dtype=x.dtype, device=x.device)
+                for i, vi in enumerate(v_frames):
+                    torch.matmul(a[:, i], vi.to(x.dtype), out=out_tok[:, i])
             maps = lattice_merge(out_tok.reshape(b * nf, hq * wq, -1), ws, h,
                                  w)
         new_slot = None if slot is None else sab_slot_append(slot, k, v)

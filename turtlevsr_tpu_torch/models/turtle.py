@@ -38,12 +38,12 @@ from torch import nn
 
 from turtlevsr_tpu_torch.config.options import LevelSpec, ModelConfig
 from turtlevsr_tpu_torch.core.cache import fhr_slot_init, sab_slot_init
-from turtlevsr_tpu_torch.kernels.chain2 import (
+from turtlevsr_tpu_torch.kernels.chain2 import two_stage_supported
+from turtlevsr_tpu_torch.kernels.vjp import (
+    fused_channel_gffw_run,
+    fused_conv3x3,
     fused_two_stage,
-    two_stage_supported,
 )
-from turtlevsr_tpu_torch.kernels.ffn import fused_conv3x3
-from turtlevsr_tpu_torch.kernels.level import fused_channel_gffw_run
 from turtlevsr_tpu_torch.models.blocks import (
     BlockSpec,
     KernelWeights,
@@ -300,7 +300,8 @@ class Turtle(nn.Module):
     def forward(self, x_pair: torch.Tensor, cache: tuple):
         """One frame step. x_pair: (B, 2, H, W, C) = [previous, current]
         frames, NHWC, [0, 1]; cache: 8 slots from init_cache or a previous
-        step (its FHR and SAB slots are written in place). Returns (out (B,
+        step (its FHR and SAB slots are written in place, but out of place
+        when autograd records). Returns (out (B,
         H, W, C), new cache); (B, 4H, 4W, C) for the SR variant, whose frames
         are upsampled x4 (bilinear) before the pad. Mirrors Turtle.forward
         (turtle_arch.py:968-1056, turtlesuper_t1_arch.py:1063-1150)."""

@@ -41,10 +41,14 @@ _NORM_EPS = 1e-12  # torch.nn.functional.normalize default clamp
 def l2_normalize(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     """torch F.normalize(p=2): x / max(||x||, 1e-12). The sum of squares
     runs in the accumulation type, the scaling in x's type; zero rows (empty
-    cache frames) stay zero."""
+    cache frames) stay zero, with finite gradients (the sqrt never sees a
+    zero, whose derivative would give 0 * inf = NaN)."""
     ad = acc_dtype(x.dtype)
     ss = x.to(ad).square().sum(dim=dim, keepdim=True)
-    inv = (1.0 / torch.sqrt(ss).clamp_min(_NORM_EPS)).to(x.dtype)
+    nonzero = ss > 0
+    n = torch.sqrt(torch.where(nonzero, ss, torch.ones_like(ss)))
+    n = torch.where(nonzero, n, torch.zeros_like(n))
+    inv = (1.0 / n.clamp_min(_NORM_EPS)).to(x.dtype)
     return x * inv
 
 
