@@ -76,6 +76,20 @@ Phases, one JSON object per line on standard output:
            initial weights of the kernel route against the plain versions'
            in bf16 and float32 on the card (with --profile, one more `gopro`
            step traced)
+  train-cli  `turtlevsr_tpu_torch.cli.train.main` as a user runs it, on a
+           copy of options/Turtle_Deblur_Gopro.yml that changes only the
+           data folders (one synthetic video each, written from the seed at
+           the run's frame size: 8 train and 5 val frames) and three
+           frequencies (print 1, save 3, val 3): `--max_iters 6`, then
+           `--max_iters 8` (auto-resumed from 6), then `--export_pth`. Holds
+           every logged loss finite and every logged lr to the schedule,
+           the reference-format files of iterations 3, 6 and 8, the export
+           (loads strict, equals net_g_8 bit for bit), the exact launches
+           (the steps' and the validated frames'), and the validation PSNR
+           within 0.05 dB of the same masters through the plain versions;
+           reports each call's iteration and data times (the log's `time
+           (data)`), peak memory and seconds, beside the train phase's ms a
+           step when that ran
 
 and, run alone (not part of all; no result line, no ok line):
 
@@ -86,8 +100,9 @@ and, run alone (not part of all; no result line, no ok line):
            their phases left out in turn, beside the whole body, its split
            route and chain2.cu on the same inputs, at 15 tiles
 
-then, when the kernels, the slice, the tiled and the train phase ran, the
-line {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
+then, when the kernels, the slice, the tiled, the train and the train-cli
+phase ran, the line {"kernels": [...]} and, last, {"ok": true, "device":
+{...}}.
 Any failed check exits non-zero; without a CUDA device the script exits 2
 before it prints any result.
 """
@@ -97,7 +112,9 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import logging
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -115,6 +132,7 @@ from turtlevsr_tpu_torch.config.options import (
 from turtlevsr_tpu_torch.eval.engine import InferenceEngine
 from turtlevsr_tpu_torch import kernels as kernels_pkg
 from turtlevsr_tpu_torch.cli import infer as infer_cli
+from turtlevsr_tpu_torch.cli import train as train_cli
 from turtlevsr_tpu_torch.kernels import build
 from turtlevsr_tpu_torch.kernels import chain2 as C2
 from turtlevsr_tpu_torch.kernels import ffn as K
@@ -239,6 +257,20 @@ CHM_LEVELS = {"dec3": (4, 256, 4, 4, 3), "dec2": (2, 128, 2, 8, 3),
 # main one (a warm-up step, then the timed ones), the others one step each
 TRAIN_RUNS = (("gopro", (), 4), ("gopro", TWO_STAGE, 1),
               ("gopro", FUSED_PLAN, 1), ("derain", (), 1), ("sr", (), 1))
+# the train-cli phase: turtlevsr_tpu_torch.cli.train.main on a copy of the
+# GoPro option file that changes only the data folders and these keys (the
+# frequencies, so that a short run logs, saves and validates); frames of the
+# synthetic train and val folders (one video each, the frame size of the
+# run); the calls: (max_iters, whether it resumes), then --export_pth
+TRAIN_CLI_KEYS = {("logger", "print_freq"): 1,
+                  ("logger", "save_checkpoint_freq"): 3,
+                  ("val", "val_freq"): 3}
+TRAIN_CLI_FRAMES = {"train": 8, "val": 5}
+TRAIN_CLI_CALLS = ((6, False), (8, True))
+# the validation PSNR of the kernel route against the plain versions', the
+# same masters (dB): bf16 roundings in another order through 41 blocks, on
+# pictures of about 20 dB
+TRAIN_CLI_PSNR_TOL = 0.05
 # the gradient of the kernel route (bf16, kernels forward) against float32
 # plain versions may be at most this factor of the bf16 plain route's error
 # plus this slack (relative, L2 over every parameter): top-5 ties in bf16
@@ -391,8 +423,9 @@ def skipped(kernel: str, name: str) -> bool:
     return not any(text in f"{kernel}: {name}" for text in CASE_FILTER)
 
 
-def emit(obj: dict) -> None:
+def emit(obj: dict) -> dict:
     print(json.dumps(obj), flush=True)
+    return obj
 
 
 def require(cond: bool, what: str) -> None:
@@ -2137,6 +2170,209 @@ def run_train(config: str, seed: int, fuse: tuple, steps: int,
 
 
 # ---------------------------------------------------------------------------
+# the training command line
+# ---------------------------------------------------------------------------
+
+
+def write_video(root: str, seed: int, n: int, width: int, height: int) -> None:
+    """root/{gt,blur}/video0/%05d.png: make_frames' pattern as the gt, the
+    blur side the same with noise, uint8."""
+    from PIL import Image
+
+    gts = make_frames(seed, n, height, width)
+    rng = np.random.RandomState(seed + 1)
+    for sub in ("gt", "blur"):
+        os.makedirs(os.path.join(root, sub, "video0"))
+    for i, gt in enumerate(gts):
+        blur = np.clip(gt + 0.1 * rng.standard_normal(gt.shape), 0.0, 1.0)
+        for sub, fr in (("gt", gt), ("blur", blur)):
+            Image.fromarray((fr * 255.0).round().astype(np.uint8)).save(
+                os.path.join(root, sub, "video0", f"{i:05d}.png"))
+
+
+class LogLines(logging.Handler):
+    def __init__(self):
+        super().__init__()
+        self.lines = []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+
+
+ITER_LINE = re.compile(
+    r"iter:\s*([\d,]+), lr:\(([^,]+),\)\] \[eta: [^,]+(?:, [^,]+)?, "
+    r"time \(data\): ([\d.]+) \(([\d.]+)\)\] l_pix: (\S+) $")
+
+
+def run_train_cli(seed: int, width: int, height: int,
+                  step_ms: float | None) -> dict:
+    """turtlevsr_tpu_torch.cli.train.main as a user runs it, on a copy of
+    the GoPro option file (full width and depth, bs 2, 5 frames, 192 x 192
+    patches, AdamW, TrueCosine, save_img, use_tb_logger) that changes only
+    the data folders (synthetic, written from the seed, at the run's frame
+    size) and TRAIN_CLI_KEYS: six iterations (saves and validations at 3
+    and 6), then two more resumed from 6, then --export_pth. Holds the log's
+    losses and rates, the files, the export, the exact launches (the train
+    steps' and the validated frames'), and the validation PSNR against the
+    same masters through the plain versions on the card. ``step_ms``: the
+    train phase's ms per step at this recipe, when it ran."""
+    import yaml
+
+    from turtlevsr_tpu_torch.data import create_dataset
+    from turtlevsr_tpu_torch.io import load_state_dict_file
+    from turtlevsr_tpu_torch.utils.logger import LOGGER_NAME
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_train_cli_")
+    old_cwd = os.getcwd()
+    handler = LogLines()
+    logger = logging.getLogger(LOGGER_NAME)
+    logger.addHandler(handler)
+    try:
+        os.chdir(work)
+        t0 = time.perf_counter()
+        write_video("train", seed + 3, TRAIN_CLI_FRAMES["train"], width,
+                    height)
+        write_video("val", seed + 5, TRAIN_CLI_FRAMES["val"], width, height)
+        write_s = time.perf_counter() - t0
+        with open(OPTION_FILE) as f:
+            opt = yaml.safe_load(f)
+        opt["dir_data"] = [os.path.join(work, "train")]
+        opt["datasets"]["val"]["dir_data"] = [os.path.join(work, "val")]
+        for (sec, key), v in TRAIN_CLI_KEYS.items():
+            opt[sec][key] = v
+        yml = os.path.join(work, "gopro.yml")
+        with open(yml, "w") as f:
+            yaml.safe_dump(opt, f, sort_keys=False)
+        opt = load_options(yml, is_train=True)
+        exp = os.path.join("experiments", opt["name"])
+        schedule = build_schedule(opt["train"])
+        t_frames = int(opt["n_sequence"])
+        per_step = train_launches("gopro", (), t_frames)
+        per_frame = LAUNCHES_PER_CALL["gopro"]
+        # frames a validation streams: the val clips' frames
+        val_frames = len(create_dataset(opt, "val")) * t_frames
+
+        calls, counts_total = [], {}
+        for max_iters, resumes in TRAIN_CLI_CALLS:
+            handler.lines.clear()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            kernels_pkg.reset_launch_counts()
+            t0 = time.perf_counter()
+            res = train_cli.main(["-opt", yml, "--max_iters", str(max_iters)])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            counts = kernels_pkg.launch_counts()
+            peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+            for k, v in counts.items():
+                counts_total[k] = counts_total.get(k, 0) + v
+            lines = [m for m in handler.lines if ITER_LINE.search(m)]
+            parsed = [ITER_LINE.search(m).groups() for m in lines]
+            steps = res["iter"] - res["start_iter"]
+            require(len(parsed) == steps == len(res["logs"]),
+                    f"train-cli: {len(parsed)} iteration lines for {steps} "
+                    f"steps")
+            for (it, lr, _, _, loss), log in zip(parsed, res["logs"]):
+                it = int(it.replace(",", ""))
+                require(it == log["iter"], f"train-cli: line of iter {it}")
+                require(lr == f"{schedule(it - 1):.3e}"
+                        and log["lr"] == schedule(it - 1),
+                        f"train-cli iter {it}: lr {lr}, {log['lr']} against "
+                        f"the schedule's {schedule(it - 1)}")
+                require(np.isfinite(float(loss))
+                        and np.isfinite(log["l_pix"]),
+                        f"train-cli iter {it}: l_pix {loss}")
+            require(("Resuming training from iter "
+                     f"{TRAIN_CLI_CALLS[0][0]}" in handler.lines) == resumes,
+                    f"train-cli --max_iters {max_iters}: resume line")
+            validated = len(res["val"]) * val_frames
+            want = {k: steps * per_step.get(k, 0) + validated * per_frame[k]
+                    for k in per_frame}
+            for name, n in want.items():
+                require(counts[name] == n,
+                        f"train-cli --max_iters {max_iters} {name}: "
+                        f"{counts[name]} launches, expected {n} ({steps} "
+                        f"steps, {validated} validated frames)")
+            times = [log["time"] for log in res["logs"][1:]]
+            data = [log["data_time"] for log in res["logs"][1:]]
+            calls.append(emit(dict(
+                phase="train_cli", call=len(calls) + 1,
+                argv=["--max_iters", str(max_iters)], resumed=resumes,
+                start_iter=res["start_iter"], iter=res["iter"],
+                seconds=seconds, loop_seconds=res["seconds"],
+                iter_time_s=[log["time"] for log in res["logs"]],
+                data_time_s=[log["data_time"] for log in res["logs"]],
+                losses=[log["l_pix"] for log in res["logs"]],
+                median_iter_time_s_from_step_2=float(np.median(times))
+                if times else None,
+                median_data_time_s_from_step_2=float(np.median(data))
+                if data else None,
+                train_phase_ms_per_step=step_ms,
+                peak_memory_gib=peak_gb, val=res["val"],
+                validated_frames=validated, frame=[height, width, 3],
+                write_frames_s=write_s, launches=counts)))
+
+        # validation against the plain versions, the masters of iteration 6
+        last_val = max(calls[0]["val"])
+        vopt = dict(opt, val={**opt["val"], "save_img": False})
+        validate = train_cli.build_validation(
+            model_config_from_options(opt), vopt, device="cuda")
+        masters = load_state_dict_file(os.path.join(
+            exp, "models", f"net_g_{last_val}.pth"))
+        kernels_pkg.reset_launch_counts()
+        with plain_versions():
+            plain = validate(masters, create_dataset(opt, "val"))
+        require(not any(kernels_pkg.launch_counts().values()),
+                "the plain validation must launch no kernel")
+        psnr_k = calls[0]["val"][last_val]["psnr"]
+        psnr_p = plain["psnr"]
+        emit({"phase": "train_cli_validation", "iter": last_val,
+              "frames": val_frames, "val_psnr": psnr_k,
+              "plain_val_psnr": psnr_p, "tol_db": TRAIN_CLI_PSNR_TOL})
+
+        # the export: the newest masters as a reference .pth
+        handler.lines.clear()
+        export = os.path.join(work, "export.pth")
+        kernels_pkg.reset_launch_counts()
+        t0 = time.perf_counter()
+        train_cli.main(["-opt", yml, "--export_pth", export])
+        calls.append(emit(dict(
+            phase="train_cli", call=3, argv=["--export_pth", "FILE"],
+            seconds=time.perf_counter() - t0,
+            launches=sum(kernels_pkg.launch_counts().values()))))
+        last = TRAIN_CLI_CALLS[-1][0]
+        got, want = (load_state_dict_file(export), load_state_dict_file(
+            os.path.join(exp, "models", f"net_g_{last}.pth")))
+        model = build_model(opt, device="cuda")
+        model.load_state_dict(got, strict=True)
+        del model
+        require(calls[-1]["launches"] == 0, "the export launched kernels")
+        require(set(got) == set(want)
+                and all(torch.equal(got[k], want[k]) for k in want),
+                "the export is not the newest net_g bit for bit")
+        for it in (3, 6, 8):
+            for path in (os.path.join(exp, "models", f"net_g_{it}.pth"),
+                         os.path.join(exp, "training_states", f"{it}.state")):
+                require(os.path.isfile(path), f"train-cli: no {path}")
+        require(calls[1]["val"] == {}, "the resumed run validated")
+        require(np.isfinite(psnr_k) and np.isfinite(psnr_p),
+                f"validation PSNR {psnr_k}, plain {psnr_p}")
+        require(abs(psnr_k - psnr_p) <= TRAIN_CLI_PSNR_TOL,
+                f"validation PSNR {psnr_k} against the plain versions' "
+                f"{psnr_p}")
+        pngs = [f for _, _, fs in os.walk(os.path.join(exp, "visualization"))
+                for f in fs if f.endswith(".png")]
+        require(len(pngs) == 3 * val_frames,
+                f"train-cli: {len(pngs)} validation PNGs")
+    finally:
+        os.chdir(old_cwd)
+        logger.removeHandler(handler)
+        shutil.rmtree(work, ignore_errors=True)
+        torch.cuda.empty_cache()
+    return counts_total
+
+
+# ---------------------------------------------------------------------------
 
 
 def kernel_rows(cases: list[dict], by_path: dict) -> list[dict]:
@@ -2194,7 +2430,8 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--phase", default="all",
                     choices=("all", "build", "kernels", "slice", "tiled",
-                             "train", "level-phases", "two-stage-phases"),
+                             "train", "train-cli", "level-phases",
+                             "two-stage-phases"),
                     help="level-phases, two-stage-phases: row 14's or row "
                          "13's Hopper body with each of its phases left out "
                          "in turn (not part of all; no result line, no ok "
@@ -2240,7 +2477,7 @@ def main(argv=None) -> int:
               "flags": list(build.NVCC_FLAGS)})
         hp, wp = turtle_mod.padded_hw(
             model_config_from_options(options_of("gopro")), height, width)
-        cases, by_path = [], {}
+        cases, by_path, step_ms = [], {}, None
         if args.phase == "level-phases":
             level_phase_cases(args.seed, hp, wp)
             return 0
@@ -2274,9 +2511,15 @@ def main(argv=None) -> int:
         if args.phase in ("all", "train"):
             # the train step at each option file's training recipe
             for config, fuse, steps in TRAIN_RUNS:
-                by_path["train_" + config + plan_suffix(fuse)] = run_train(
-                    config, args.seed, fuse, steps,
-                    args.profile and steps > 1)["launches"]
+                res = run_train(config, args.seed, fuse, steps,
+                                args.profile and steps > 1)
+                by_path["train_" + config + plan_suffix(fuse)] = res["launches"]
+                if (config, fuse) == ("gopro", ()):
+                    step_ms = res["ms_per_step_median_after_first"]
+        if args.phase in ("all", "train-cli"):
+            # the training command line at the GoPro recipe
+            by_path["train_cli_gopro"] = run_train_cli(args.seed, width,
+                                                       height, step_ms)
         if args.phase == "all":
             # every path launched the kernels that lie on it (the exact
             # counts were held above); attn_v_slots is the second epilogue of
@@ -2305,6 +2548,7 @@ def main(argv=None) -> int:
                 # the train steps: the forward's kernels, and the lattice
                 # pair in the backward too
                 "train_gopro": t1_chm, "train_derain": t0_chm,
+                "train_cli_gopro": t1_chm,
                 "train_sr": t1_chm,
                 "train_gopro_two_stage": t1_chm + ("two_stage",
                                                    "two_stage_wg"),
@@ -2338,7 +2582,7 @@ def main(argv=None) -> int:
         return 1
     if args.cases:  # a filtered run proves nothing about the whole
         return 0
-    if cases and len(by_path) == 18:  # launches are those of this run's paths
+    if cases and len(by_path) == 19:  # launches are those of this run's paths
         emit({"kernels": kernel_rows(cases, by_path)})
     print(smi_line, flush=True)
     emit({"ok": True,

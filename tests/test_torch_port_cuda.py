@@ -1197,3 +1197,65 @@ def test_train_step_on_the_card_matches_the_cpu(dev):
     den = sum(float(p.grad.square().sum()) for p in sc.params.values())
     assert (num / den) ** 0.5 <= 1e-4
     assert sg.step == sc.step == 1
+
+
+def test_train_cli_on_the_card_matches_the_cpu(dev, tmp_path):
+    """Two iterations of turtlevsr_tpu_torch.cli.train.main on the tiny
+    option file (dim 16, the narrowest width the kernels take; pretrained
+    weights drawn from a seed), its train step in float32, on the card with
+    the kernels forward and on the CPU with the plain versions: the same
+    losses, and the same AdamW first moments (a sum of the two steps'
+    gradients) at the tolerance of
+    test_train_step_on_the_card_matches_the_cpu; the validation PSNR (bf16
+    in both, the serving wrappers on the card) within 0.05 dB."""
+    import os
+
+    from test_torch_port_train_cli import TINY_YML, _seeded_weights, \
+        _write_frames
+    from turtlevsr_tpu_torch import kernels as KP
+    from turtlevsr_tpu_torch.cli import train as TC
+    from turtlevsr_tpu_torch.config.options import load_options
+    from turtlevsr_tpu_torch.models import build_model
+
+    data = str(tmp_path / "data")
+    _write_frames(data)
+    pth = str(tmp_path / "pretrain.pth")
+    yml = str(tmp_path / "tiny.yml")
+    with open(yml, "w") as f:
+        f.write(TINY_YML.format(root=data).replace(
+            "name: tiny_debug_cli", "name: tiny_cli").replace(
+            "dim: 8", "dim: 16").replace("val_freq: 8", "val_freq: 2")
+            + f"path:\n  pretrain_network_g: {pth}\n")
+    model = build_model(load_options(yml), device="cpu")
+    _seeded_weights(model, 11)
+    torch.save({"params": model.state_dict()}, pth)
+    orig = TC.make_train_step
+    runs = {}
+    old = os.getcwd()
+    try:
+        for device in ("cuda", "cpu"):
+            os.makedirs(tmp_path / device)
+            os.chdir(tmp_path / device)
+            KP.reset_launch_counts()
+            with pytest.MonkeyPatch.context() as mp:
+                mp.setattr(TC, "make_train_step", lambda cfg, tx, **kw: orig(
+                    cfg, tx, **{**kw, "compute_dtype": torch.float32}))
+                res = TC.main(["-opt", yml, "--device", device,
+                               "--max_iters", "2"])
+            state = torch.load(os.path.join(
+                "experiments", "tiny_cli", "training_states", "2.state"),
+                weights_only=True)["optimizers"][0]["state"]
+            runs[device] = (res, state, KP.launch_counts())
+    finally:
+        os.chdir(old)
+    (rg, sg, counts), (rc, sc, _) = runs["cuda"], runs["cpu"]
+    for name in ("ffn", "qkv_stats", "split_proj", "conv3x3", "chm_stats",
+                 "sab", "lattice_split", "lattice_merge"):
+        assert counts[name] > 0, name
+    for a, b in zip(rg["logs"], rc["logs"]):
+        assert abs(a["l_pix"] - b["l_pix"]) <= 1e-5 * abs(b["l_pix"])
+    num = sum(float((sg[i]["exp_avg"] - s["exp_avg"]).square().sum())
+              for i, s in sc.items())
+    den = sum(float(s["exp_avg"].square().sum()) for s in sc.values())
+    assert (num / den) ** 0.5 <= 1e-4
+    assert abs(rg["val"][2]["psnr"] - rc["val"][2]["psnr"]) <= 0.05

@@ -43,6 +43,14 @@ def test_port_has_the_expected_modules():
                  "turtlevsr_tpu_torch/metrics/psnr_ssim.py",
                  "turtlevsr_tpu_torch/utils/img.py",
                  "turtlevsr_tpu_torch/data/loader.py",
+                 "turtlevsr_tpu_torch/data/dataset.py",
+                 "turtlevsr_tpu_torch/data/sampler.py",
+                 "turtlevsr_tpu_torch/data/transforms.py",
+                 "turtlevsr_tpu_torch/cli/train.py",
+                 "turtlevsr_tpu_torch/io/checkpoint.py",
+                 "turtlevsr_tpu_torch/utils/misc.py",
+                 "turtlevsr_tpu_torch/utils/logger.py",
+                 "turtlevsr_tpu_torch/utils/profiling.py",
                  "turtlevsr_tpu_torch/models/blocks.py",
                  "turtlevsr_tpu_torch/models/turtle.py",
                  "turtlevsr_tpu_torch/eval/engine.py",
@@ -223,6 +231,11 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card():
         make_train_step(model.cfg, tx)
     with pytest.raises(RuntimeError, match="CUDA"):
         TrainState.create(dict(model.named_parameters()), tx)
+    # the training command line: before it reads its option file
+    from turtlevsr_tpu_torch.cli import train as train_cli
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_cli.main(["-opt", "no_such_file.yml"])
 
 
 @pytest.mark.parametrize("fn", ["ffn", "qkv_stats", "split_proj", "conv3x3",

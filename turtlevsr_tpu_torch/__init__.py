@@ -1,6 +1,7 @@
 """turtlevsr_tpu_torch: the PyTorch/CUDA port of turtlevsr_tpu for NVIDIA
-Hopper. Serving path of Turtle_t1 with hand-written CUDA kernels; imports
-torch, never jax, and nothing of the JAX package."""
+Hopper. The serving and training paths of the Turtle models with
+hand-written CUDA kernels, and their command lines; imports torch, never
+jax, and nothing of the JAX package."""
 
 from turtlevsr_tpu_torch.config.options import (  # noqa: F401
     ModelConfig,

@@ -248,3 +248,16 @@ def model_config_from_options(opt: dict) -> ModelConfig:
         enc1=enc1, enc2=enc2, enc3=enc3, latent=latent,
         dec3=dec3, dec2=dec2, dec1=dec1, refinement=refinement,
     )
+
+
+def dict2str(opt: dict, indent_level: int = 1) -> str:
+    """An option dict as the reference prints it (options.py:99-117)."""
+    msg = "\n"
+    for k, v in opt.items():
+        if isinstance(v, dict):
+            msg += " " * (indent_level * 2) + k + ":["
+            msg += dict2str(v, indent_level + 1)
+            msg += " " * (indent_level * 2) + "]\n"
+        else:
+            msg += " " * (indent_level * 2) + k + ": " + str(v) + "\n"
+    return msg

@@ -14,6 +14,11 @@ def img_from_float(img: np.ndarray) -> np.ndarray:
     return (x * 255.0).round().astype(np.uint8)
 
 
+def float_from_img(img: np.ndarray) -> np.ndarray:
+    """uint8 -> float32 in [0, 1]."""
+    return np.asarray(img, np.float32) / 255.0
+
+
 def imwrite(img: np.ndarray, file_path: str, auto_mkdir: bool = True) -> None:
     """img_util.py:147-169; takes uint8 HWC RGB, or float in [0, 1]."""
     from PIL import Image
