@@ -90,6 +90,22 @@ Phases, one JSON object per line on standard output:
            reports each call's iteration and data times (the log's `time
            (data)`), peak memory and seconds, beside the train phase's ms a
            step when that ran
+  train-dist  data parallelism on the one card, at the same recipe and on
+           the same folders: `torch.distributed.run --nproc_per_node 1` of
+           `cli.train.main --launcher pytorch` (NCCL) against `--launcher
+           none`, 3 iterations each (one loader thread): the losses, the
+           validation, net_g and the training state bit for bit, the time of
+           one gradient all-reduce at world size 1; two ranks over gloo (a
+           copy of the file with dist_params.backend gloo, batch_size_per_gpu
+           1), 3 steps of make_train_step(group=...) on a clip each: the
+           masters bit for bit between the ranks, the group's first loss
+           against one process's step on both clips, the all-reduce's time,
+           each rank's peak memory; the tiled deblur stream with its 45 tiles
+           split into 3 shards on the card (InferenceEngine(devices=...))
+           against the single-device engine: frames and launches a frame bit
+           for bit, ms a frame of each. Each launch of ranks has a time
+           limit and its exit code is checked; the ranks report their
+           launches (`chip_smoke.py --child KIND OUT ARGS` is such a rank)
 
 and, run alone (not part of all; no result line, no ok line):
 
@@ -100,9 +116,9 @@ and, run alone (not part of all; no result line, no ok line):
            their phases left out in turn, beside the whole body, its split
            route and chain2.cu on the same inputs, at 15 tiles
 
-then, when the kernels, the slice, the tiled, the train and the train-cli
-phase ran, the line {"kernels": [...]} and, last, {"ok": true, "device":
-{...}}.
+then, when the kernels, the slice, the tiled, the train, the train-cli and
+the train-dist phase ran, the line {"kernels": [...]} and, last, {"ok": true,
+"device": {...}}.
 Any failed check exits non-zero; without a CUDA device the script exits 2
 before it prints any result.
 """
@@ -111,11 +127,15 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import copy
+import hashlib
 import json
 import logging
 import os
 import re
 import shutil
+import signal
+import socket
 import subprocess
 import sys
 import tempfile
@@ -143,6 +163,7 @@ from turtlevsr_tpu_torch.models import blocks as blocks_mod
 from turtlevsr_tpu_torch.models import build_model
 from turtlevsr_tpu_torch.models import turtle as turtle_mod
 from turtlevsr_tpu_torch.ops.attn_utils import local_window_mask
+from turtlevsr_tpu_torch import parallel
 from turtlevsr_tpu_torch.train.lr_schedule import build_schedule
 from turtlevsr_tpu_torch.train.step import (
     TrainState,
@@ -271,6 +292,18 @@ TRAIN_CLI_CALLS = ((6, False), (8, True))
 # same masters (dB): bf16 roundings in another order through 41 blocks, on
 # pictures of about 20 dB
 TRAIN_CLI_PSNR_TOL = 0.05
+# the train-dist phase: the iterations of each child run; the shards of the
+# tiled deblur grid split over the card (45 tiles: three shards of 15, the
+# single-device engine's three chunks of 15); a child launch's limit in
+# seconds (it is killed, and the phase fails, past it)
+TRAIN_DIST_ITERS = 3
+SPLIT_SHARDS = 3
+CHILD_SECONDS = 420
+# two ranks of one clip each against one process's step on both clips (the
+# first step, from the same masters): the same bf16 kernels on each clip;
+# the loss's float32 means, and the backward's reductions over the batch,
+# in another order. Relative, on the group's mean loss
+TRAIN_DIST_LOSS_REL_TOL = 1e-3
 # the gradient of the kernel route (bf16, kernels forward) against float32
 # plain versions may be at most this factor of the bf16 plain route's error
 # plus this slack (relative, L2 over every parameter): top-5 ties in bf16
@@ -2204,20 +2237,45 @@ ITER_LINE = re.compile(
     r"time \(data\): ([\d.]+) \(([\d.]+)\)\] l_pix: (\S+) $")
 
 
-def run_train_cli(seed: int, width: int, height: int,
-                  step_ms: float | None) -> dict:
-    """turtlevsr_tpu_torch.cli.train.main as a user runs it, on a copy of
-    the GoPro option file (full width and depth, bs 2, 5 frames, 192 x 192
-    patches, AdamW, TrueCosine, save_img, use_tb_logger) that changes only
-    the data folders (synthetic, written from the seed, at the run's frame
-    size) and TRAIN_CLI_KEYS: six iterations (saves and validations at 3
-    and 6), then two more resumed from 6, then --export_pth. Holds the log's
-    losses and rates, the files, the export, the exact launches (the train
-    steps' and the validated frames'), and the validation PSNR against the
-    same masters through the plain versions on the card. ``step_ms``: the
-    train phase's ms per step at this recipe, when it ran."""
+def write_train_data(root: str, seed: int, width: int,
+                     height: int) -> tuple[str, float]:
+    """The synthetic train and val folders under ``root`` (one video each,
+    written from the seed at the run's frame size) and the copy of the
+    GoPro option file that reads them, with TRAIN_CLI_KEYS: (the copy's
+    path, the seconds the PNG writes took). The train-cli and train-dist
+    phases share them."""
     import yaml
 
+    t0 = time.perf_counter()
+    write_video(os.path.join(root, "train"), seed + 3,
+                TRAIN_CLI_FRAMES["train"], width, height)
+    write_video(os.path.join(root, "val"), seed + 5, TRAIN_CLI_FRAMES["val"],
+                width, height)
+    write_s = time.perf_counter() - t0
+    with open(OPTION_FILE) as f:
+        opt = yaml.safe_load(f)
+    opt["dir_data"] = [os.path.join(root, "train")]
+    opt["datasets"]["val"]["dir_data"] = [os.path.join(root, "val")]
+    for (sec, key), v in TRAIN_CLI_KEYS.items():
+        opt[sec][key] = v
+    yml = os.path.join(root, "gopro.yml")
+    with open(yml, "w") as f:
+        yaml.safe_dump(opt, f, sort_keys=False)
+    return yml, write_s
+
+
+def run_train_cli(yml: str, write_s: float, width: int, height: int,
+                  step_ms: float | None) -> dict:
+    """turtlevsr_tpu_torch.cli.train.main as a user runs it, on the copy of
+    the GoPro option file of ``write_train_data`` (full width and depth, bs
+    2, 5 frames, 192 x 192 patches, AdamW, TrueCosine, save_img,
+    use_tb_logger; only the data folders and TRAIN_CLI_KEYS changed): six
+    iterations (saves and validations at 3 and 6), then two more resumed
+    from 6, then --export_pth. Holds the log's losses and rates, the files,
+    the export, the exact launches (the train steps' and the validated
+    frames'), and the validation PSNR against the same masters through the
+    plain versions on the card. ``step_ms``: the train phase's ms per step
+    at this recipe, when it ran."""
     from turtlevsr_tpu_torch.data import create_dataset
     from turtlevsr_tpu_torch.io import load_state_dict_file
     from turtlevsr_tpu_torch.utils.logger import LOGGER_NAME
@@ -2229,20 +2287,6 @@ def run_train_cli(seed: int, width: int, height: int,
     logger.addHandler(handler)
     try:
         os.chdir(work)
-        t0 = time.perf_counter()
-        write_video("train", seed + 3, TRAIN_CLI_FRAMES["train"], width,
-                    height)
-        write_video("val", seed + 5, TRAIN_CLI_FRAMES["val"], width, height)
-        write_s = time.perf_counter() - t0
-        with open(OPTION_FILE) as f:
-            opt = yaml.safe_load(f)
-        opt["dir_data"] = [os.path.join(work, "train")]
-        opt["datasets"]["val"]["dir_data"] = [os.path.join(work, "val")]
-        for (sec, key), v in TRAIN_CLI_KEYS.items():
-            opt[sec][key] = v
-        yml = os.path.join(work, "gopro.yml")
-        with open(yml, "w") as f:
-            yaml.safe_dump(opt, f, sort_keys=False)
         opt = load_options(yml, is_train=True)
         exp = os.path.join("experiments", opt["name"])
         schedule = build_schedule(opt["train"])
@@ -2373,6 +2417,419 @@ def run_train_cli(seed: int, width: int, height: int,
 
 
 # ---------------------------------------------------------------------------
+# data parallelism: the command line under a launcher, two ranks of the
+# train step, the tiled grid split over shards
+# ---------------------------------------------------------------------------
+
+
+def free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def torchrun(nproc: int) -> list:
+    """torch.distributed.run's command line for ``nproc`` processes on this
+    host, its store at a free local port; the script and its arguments
+    follow."""
+    return [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node",
+            str(nproc), "--master_addr", "127.0.0.1", "--master_port",
+            str(free_port())]
+
+
+def run_launch(cmd: list, cwd: str, what: str) -> float:
+    """Run a launch (a launcher and its ranks, or one process) as the leader
+    of a new process group: the seconds it took. Past CHILD_SECONDS every
+    process of that group is killed and the phase fails; so does a non-zero
+    exit."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [ROOT, os.environ.get("PYTHONPATH", "")]))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=cwd, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=CHILD_SECONDS)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise SmokeFailure(f"{what}: no end within {CHILD_SECONDS} s, killed")
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+    if proc.returncode != 0:
+        print(out[-6000:], file=sys.stderr)
+    require(proc.returncode == 0, f"{what}: exit code {proc.returncode}")
+    return time.perf_counter() - t0
+
+
+def child_command(kind: str, out: str, *args) -> list:
+    return [os.path.abspath(__file__), "--child", kind, out, *args]
+
+
+def dist_step_inputs(yml: str, seed: int):
+    """The train step's inputs of the train-dist ranks and of the process
+    they are held to: the option file, the model's config, its masters
+    (seeded, the scales drawn), AdamW, two clips at the file's recipe."""
+    opt = load_options(yml, is_train=True)
+    train_opt, ds = opt["train"], opt["datasets"]["train"]
+    model = build_model(opt, device="cuda",
+                        generator=torch.Generator().manual_seed(seed))
+    randomise_scales(model, seed + 1)
+    init = {n: p.detach().clone() for n, p in model.named_parameters()}
+    cfg = model.cfg
+    del model
+    lq, gt = train_clips(seed + 2, 2, int(opt["n_sequence"]),
+                         int(ds["gt_size"]), 1)
+    tx = make_optimizer(train_opt, build_schedule(train_opt))
+    return opt, cfg, init, tx, lq, gt
+
+
+def masters_hash(params: dict) -> str:
+    h = hashlib.sha256()
+    for n in sorted(params):
+        h.update(params[n].detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def run_child(kind: str, out: str, args: list) -> int:
+    """A rank started by the train-dist phase (``chip_smoke.py --child KIND
+    OUT ARGS``), on the card; writes what it measured as JSON.
+
+    train-cli: ``cli.train.main(ARGS)`` with the launch counts and the peak
+    memory of the run (OUT, by rank 0). train-step: ARGS = option file,
+    seed; the group of ``--launcher pytorch`` over the file's
+    ``dist_params.backend``, TRAIN_DIST_ITERS steps of
+    ``make_train_step(group=...)`` on this rank's clip of
+    ``dist_step_inputs``, then the time of the gradients' all-reduce, the
+    hash of the masters (OUT.RANK)."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    kernels_pkg.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    if kind == "train-cli":
+        res = train_cli.main(args)
+        res.update(launches=kernels_pkg.launch_counts(),
+                   peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+        if res["rank"] == 0:
+            with open(out, "w") as f:
+                json.dump(res, f)
+        return 0
+    yml, seed = args[0], int(args[1])
+    backend = load_options(yml, is_train=True)["dist_params"]["backend"]
+    rank, world = parallel.init_dist("pytorch", backend)
+    try:
+        opt, cfg, init, tx, lq, gt = dist_step_inputs(yml, seed)
+        b = parallel.per_process_batch_size(
+            opt["datasets"]["train"]["batch_size_per_gpu"])
+        lq = torch.from_numpy(lq[rank * b:(rank + 1) * b]).cuda()
+        gt = torch.from_numpy(gt[rank * b:(rank + 1) * b]).cuda()
+        state = TrainState.create(init, tx)
+        parallel.broadcast_params(state.params)
+        step = make_train_step(cfg, tx, group=parallel.default_group())
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels_pkg.reset_launch_counts()
+        losses, ms = [], []
+        for _ in range(TRAIN_DIST_ITERS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, logs = step(state, lq, gt)
+            losses.append(float(logs["l_pix"]))  # waits for the step
+            ms.append((time.perf_counter() - t0) * 1e3)
+        counts = kernels_pkg.launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        grads = {n: p.grad for n, p in state.params.items()}
+        reduce_ms = []
+        for _ in range(3):  # the step's all-reduce alone
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            parallel.all_reduce_mean_(grads)
+            torch.cuda.synchronize()
+            reduce_ms.append((time.perf_counter() - t0) * 1e3)
+        with open(f"{out}.{rank}", "w") as f:
+            json.dump({"rank": rank, "world_size": world, "backend": backend,
+                       "batch": b, "losses": losses, "ms_per_step": ms,
+                       "launches": counts, "peak_memory_gib": peak,
+                       "allreduce_ms": reduce_ms,
+                       "allreduce_bytes": sum(g.numel() * g.element_size()
+                                              for g in grads.values()),
+                       "masters_sha256": masters_hash(state.params)}, f)
+    finally:
+        parallel.close_dist()
+    return 0
+
+
+def nccl_world1_allreduce_ms(cfg) -> list:
+    """One all-reduce of gradients shaped like the model's parameters
+    (float32) over an NCCL group of one process, as the train step makes
+    it (the flat buffer, the sum, the division, the copies back), in this
+    process: ms of three calls after one more."""
+    import torch.distributed as dist
+
+    with torch.device("meta"):
+        shapes = {n: p.shape for n, p in turtle_mod.Turtle(cfg)
+                  .named_parameters()}
+    grads = {n: torch.randn(s, device="cuda") for n, s in shapes.items()}
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{free_port()}", rank=0, world_size=1)
+    try:
+        ms = []
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            parallel.all_reduce_mean_(grads)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        dist.destroy_process_group()
+    del grads
+    torch.cuda.empty_cache()
+    return ms[1:]
+
+
+def state_equal(a, b) -> bool:
+    """Two loaded checkpoints (nested dicts, lists, tensors, numbers)
+    equal bit for bit."""
+    if isinstance(a, torch.Tensor):
+        return isinstance(b, torch.Tensor) and a.dtype == b.dtype \
+            and torch.equal(a, b)
+    if isinstance(a, dict):
+        return isinstance(b, dict) and set(a) == set(b) and all(
+            state_equal(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(map(state_equal, a, b))
+    return a == b
+
+
+def run_tiled_split(seed: int, width: int, height: int) -> dict:
+    """The tiled deblur stream (the task's preset: 45 tiles of a 1280 x 720
+    frame) through InferenceEngine with the grid split into SPLIT_SHARDS
+    shards on this card, against the single-device engine on the same
+    model and frames, in turns (single, split, split, single): the frames
+    and the launches a frame bit for bit, ms a frame of each."""
+    preset = infer_cli.TASK_PRESETS["deblur"]
+    model = build_model(options_of("gopro"), device="cuda",
+                        generator=torch.Generator().manual_seed(seed))
+    randomise_scales(model, seed + 1)
+    frames = make_frames(seed + 2, FRAMES_PER_RUN, height, width)
+    kw = dict(mode="tiled", tile=preset["tile"],
+              tile_overlap=preset["tile_overlap"],
+              max_tile_batch=MAX_TILE_BATCH, dtype=torch.bfloat16)
+    engines = {"single": InferenceEngine(model, **kw),
+               "split": InferenceEngine(model, devices=("cuda:0",)
+                                        * SPLIT_SHARDS, **kw)}
+    _, _, _, his, wis = engines["single"].tile_plan(height, width)
+    n_tiles = len(his) * len(wis)
+    shards = parallel.shard_devices(engines["split"].devices, n_tiles)
+    runs = {"single": [], "split": []}
+    for name in ("single", "split", "split", "single"):
+        eng = engines[name]
+        eng.reset()
+        torch.cuda.synchronize()
+        kernels_pkg.reset_launch_counts()
+        outs, ms = [], []
+        for fr in frames:
+            t0 = time.perf_counter()
+            outs.append(eng.step(fr))  # fetched: waits for the frame
+            ms.append((time.perf_counter() - t0) * 1e3)
+        runs[name].append((outs, ms, kernels_pkg.launch_counts()))
+    (single, s_ms, s_counts), (split, p_ms, p_counts) = (runs["single"][0],
+                                                        runs["split"][0])
+    calls = -(-n_tiles // MAX_TILE_BATCH)
+    want = {k: TILED_LAUNCHES["gopro"].get(k, v) * calls * len(frames)
+            for k, v in LAUNCHES_PER_CALL["gopro"].items()}
+    res = emit(dict(
+        phase="train_dist", part="tiled_split", config="gopro",
+        task="deblur", frame=[height, width, 3], tiles=n_tiles,
+        shards=[[str(d), a, b] for d, a, b in shards],
+        max_tile_batch=MAX_TILE_BATCH, frames=len(frames),
+        bit_equal_frames=all(np.array_equal(a, b)
+                             for a, b in zip(single, split)),
+        launches=p_counts, launches_equal=p_counts == s_counts,
+        order=["single", "split", "split", "single"],
+        ms_per_frame_after_first={
+            name: [float(np.median(r[1][1:])) for r in rs]
+            for name, rs in runs.items()}))
+    require(len(shards) == SPLIT_SHARDS and all(
+        b - a == n_tiles // SPLIT_SHARDS for _, a, b in shards),
+        f"tiled split: shards {shards}")
+    require(res["bit_equal_frames"],
+            "tiled split: frames differ from the single-device engine's")
+    require(res["launches_equal"] and all(
+        p_counts[k] == n for k, n in want.items()),
+        f"tiled split: launches {p_counts}, single {s_counts}")
+    del engines, model
+    torch.cuda.empty_cache()
+    return p_counts
+
+
+def run_train_dist(yml: str, seed: int, width: int, height: int) -> dict:
+    """Data parallelism on the one card, at the GoPro recipe (full width
+    and depth) on the train-cli phase's synthetic folders:
+
+    (a) ``torch.distributed.run --nproc_per_node 1`` of ``cli.train.main
+        --launcher pytorch`` (NCCL, the file's dist_params) and the same
+        TRAIN_DIST_ITERS iterations with ``--launcher none``, each in a
+        process of its own, on a copy of the file with one loader thread
+        and the final save only: the losses, the validation, net_g and the
+        training state (masters, AdamW's moments) bit for bit, the exact
+        launches; then the time of one all-reduce of the gradients over an
+        NCCL group of one, in this process;
+    (b) two ranks over gloo on this card (a copy of the file with
+        dist_params.backend gloo and batch_size_per_gpu 1), TRAIN_DIST_ITERS
+        steps of ``make_train_step(group=...)``, each rank one of two
+        clips: the ranks' masters bit for bit, the group's step-1 loss
+        against one process's step on both clips (TRAIN_DIST_LOSS_REL_TOL),
+        the exact launches, the all-reduce's time, each rank's peak memory;
+    (c) ``run_tiled_split``.
+
+    Every kernel is built before the first child starts: the children load
+    the libraries. Returns the launches of each path."""
+    import yaml
+
+    from turtlevsr_tpu_torch.data import create_dataset
+
+    opt = load_options(yml, is_train=True)
+    frames_per_clip = int(opt["n_sequence"])
+    per_step = train_launches("gopro", (), frames_per_clip)
+    per_frame = LAUNCHES_PER_CALL["gopro"]
+    val_frames = len(create_dataset(opt, "val")) * frames_per_clip
+    work = tempfile.mkdtemp(prefix="chip_smoke_train_dist_")
+    paths = {}
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()  # the children share the card with this process
+    try:
+        # (a) the launcher at world size 1 against no launcher. The loader's
+        # threads share one generator (the JAX package's, kept), so with
+        # several the crops of a batch follow the threads' timing; with one
+        # they follow the seed alone, and two runs compare bit for bit
+        with open(yml) as f:
+            one = yaml.safe_load(f)
+        one["datasets"]["train"]["num_worker_per_gpu"] = 1
+        one["logger"]["save_checkpoint_freq"] = 0  # the final save only
+        one_yml = os.path.join(work, "one_worker.yml")
+        with open(one_yml, "w") as f:
+            yaml.safe_dump(one, f, sort_keys=False)
+        runs = {}
+        for launcher in ("pytorch", "none"):
+            cwd = os.path.join(work, launcher)
+            os.makedirs(cwd)
+            out = os.path.join(cwd, "result.json")
+            cmd = ((torchrun(1) if launcher == "pytorch" else [sys.executable])
+                   + child_command("train-cli", out, "-opt", one_yml,
+                                   "--max_iters", str(TRAIN_DIST_ITERS),
+                                   "--launcher", launcher))
+            seconds = run_launch(cmd, cwd, f"train-dist --launcher {launcher}")
+            with open(out) as f:
+                runs[launcher] = dict(json.load(f), launch_seconds=seconds)
+        exp = os.path.join("experiments", opt["name"])
+        files = {}
+        for name in (f"models/net_g_{TRAIN_DIST_ITERS}.pth",
+                     f"training_states/{TRAIN_DIST_ITERS}.state"):
+            a, b = (torch.load(os.path.join(work, launcher, exp, name),
+                               weights_only=True)
+                    for launcher in ("pytorch", "none"))
+            files[name] = state_equal(a, b)
+        nccl, none = runs["pytorch"], runs["none"]
+        validated = len(nccl["val"]) * val_frames
+        want = {k: TRAIN_DIST_ITERS * per_step.get(k, 0)
+                + validated * per_frame[k] for k in per_frame}
+        reduce_ms = nccl_world1_allreduce_ms(model_config_from_options(opt))
+        emit(dict(
+            phase="train_dist", part="nccl_world_1",
+            launch="torch.distributed.run --nproc_per_node 1, "
+                   "cli.train.main --launcher pytorch",
+            backend=opt["dist_params"]["backend"], iters=TRAIN_DIST_ITERS,
+            world_size=nccl["world_size"],
+            losses=[r["l_pix"] for r in nccl["logs"]],
+            losses_none=[r["l_pix"] for r in none["logs"]],
+            val=nccl["val"], val_none=none["val"],
+            bit_equal_files=files,
+            iter_time_s=[r["time"] for r in nccl["logs"]],
+            iter_time_s_none=[r["time"] for r in none["logs"]],
+            data_time_s=[r["data_time"] for r in nccl["logs"]],
+            peak_memory_gib=nccl["peak_memory_gib"],
+            peak_memory_gib_none=none["peak_memory_gib"],
+            launch_seconds=nccl["launch_seconds"],
+            launch_seconds_none=none["launch_seconds"],
+            allreduce_ms_nccl_world_1=reduce_ms,
+            launches=nccl["launches"], validated_frames=validated))
+        require(nccl["world_size"] == 1 and none["world_size"] == 1,
+                "train-dist (a): world sizes")
+        require(nccl["logs"] == [dict(r, time=n["time"],
+                                      data_time=n["data_time"])
+                                 for r, n in zip(none["logs"], nccl["logs"])]
+                and len(nccl["logs"]) == TRAIN_DIST_ITERS,
+                "train-dist (a): the losses differ from --launcher none's")
+        require(nccl["val"] == none["val"] and validated > 0,
+                "train-dist (a): the validation differs")
+        require(all(files.values()),
+                f"train-dist (a): files differ bit for bit: {files}")
+        for name, n in want.items():
+            require(nccl["launches"][name] == n == none["launches"][name],
+                    f"train-dist (a) {name}: {nccl['launches'][name]} and "
+                    f"{none['launches'][name]} launches, expected {n}")
+        paths["train_dist_nccl"] = nccl["launches"]
+
+        # (b) two ranks over gloo on the one card
+        gloo = copy.deepcopy(one)
+        gloo["dist_params"]["backend"] = "gloo"
+        gloo["datasets"]["train"]["batch_size_per_gpu"] = 1
+        gloo_yml = os.path.join(work, "gloo.yml")
+        with open(gloo_yml, "w") as f:
+            yaml.safe_dump(gloo, f, sort_keys=False)
+        out = os.path.join(work, "gloo_rank")
+        seconds = run_launch(torchrun(2) + child_command(
+            "train-step", out, gloo_yml, str(seed)), work,
+            "train-dist two gloo ranks")
+        ranks = []
+        for r in range(2):
+            with open(f"{out}.{r}") as f:
+                ranks.append(json.load(f))
+        _, cfg, init, tx, lq, gt = dist_step_inputs(gloo_yml, seed)
+        state = TrainState.create(init, tx)
+        _, logs = make_train_step(cfg, tx)(state, torch.from_numpy(lq).cuda(),
+                                           torch.from_numpy(gt).cuda())
+        one = float(logs["l_pix"])
+        del state, init, logs
+        torch.cuda.empty_cache()
+        rel = abs(ranks[0]["losses"][0] - one) / abs(one)
+        emit(dict(phase="train_dist", part="gloo_two_ranks",
+                  launch="torch.distributed.run --nproc_per_node 2, "
+                         "make_train_step(group=...)",
+                  launch_seconds=seconds, ranks=ranks,
+                  one_process_step1_loss_batch_2=one,
+                  step1_loss_rel_err=rel,
+                  loss_rel_tol=TRAIN_DIST_LOSS_REL_TOL))
+        a, b = ranks
+        require(a["world_size"] == 2 and b["world_size"] == 2 and
+                a["backend"] == "gloo" and a["batch"] == 1,
+                "train-dist (b): group")
+        require(a["masters_sha256"] == b["masters_sha256"]
+                and a["losses"] == b["losses"],
+                "train-dist (b): the ranks' masters or losses differ")
+        require(rel <= TRAIN_DIST_LOSS_REL_TOL,
+                f"train-dist (b): the group's loss {a['losses'][0]} against "
+                f"one process's {one}")
+        for name, n in per_step.items():
+            for rk in ranks:
+                require(rk["launches"][name] == TRAIN_DIST_ITERS * n,
+                        f"train-dist (b) rank {rk['rank']} {name}: "
+                        f"{rk['launches'][name]} launches, expected "
+                        f"{TRAIN_DIST_ITERS * n}")
+        paths["train_dist_gloo"] = a["launches"]
+
+        # (c) the tiled grid split over shards on the card
+        paths["tiled_split"] = run_tiled_split(seed, width, height)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        torch.cuda.empty_cache()
+    return paths
+
+
+# ---------------------------------------------------------------------------
 
 
 def kernel_rows(cases: list[dict], by_path: dict) -> list[dict]:
@@ -2422,6 +2879,13 @@ def kernel_rows(cases: list[dict], by_path: dict) -> list[dict]:
 
 
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if argv[:1] == ["--child"]:  # a rank that the train-dist phase started
+        try:
+            return run_child(argv[1], argv[2], argv[3:])
+        except SmokeFailure as exc:
+            print(f"chip_smoke --child: FAILED: {exc}", file=sys.stderr)
+            return 1
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--frames", type=int, default=FRAMES_PER_RUN,
                     help="frames of the whole-frame streams but "
@@ -2430,7 +2894,8 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--phase", default="all",
                     choices=("all", "build", "kernels", "slice", "tiled",
-                             "train", "train-cli", "level-phases",
+                             "train", "train-cli", "train-dist",
+                             "level-phases",
                              "two-stage-phases"),
                     help="level-phases, two-stage-phases: row 14's or row "
                          "13's Hopper body with each of its phases left out "
@@ -2467,6 +2932,7 @@ def main(argv=None) -> int:
     smi_line = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else ""
     emit({"phase": "device", "nvidia_smi_name_power_limit": smi_line,
           "torch": torch.__version__, "cuda": torch.version.cuda})
+    data_root = None  # the train phases' synthetic folders
     try:
         t0 = time.perf_counter()
         build.build_all(verbose=args.ptxas)
@@ -2516,10 +2982,17 @@ def main(argv=None) -> int:
                 by_path["train_" + config + plan_suffix(fuse)] = res["launches"]
                 if (config, fuse) == ("gopro", ()):
                     step_ms = res["ms_per_step_median_after_first"]
+        if args.phase in ("all", "train-cli", "train-dist"):
+            data_root = tempfile.mkdtemp(prefix="chip_smoke_train_data_")
+            yml, write_s = write_train_data(data_root, args.seed, width,
+                                            height)
         if args.phase in ("all", "train-cli"):
             # the training command line at the GoPro recipe
-            by_path["train_cli_gopro"] = run_train_cli(args.seed, width,
+            by_path["train_cli_gopro"] = run_train_cli(yml, write_s, width,
                                                        height, step_ms)
+        if args.phase in ("all", "train-dist"):
+            # data parallelism: a launcher, two ranks, the split tiled grid
+            by_path.update(run_train_dist(yml, args.seed, width, height))
         if args.phase == "all":
             # every path launched the kernels that lie on it (the exact
             # counts were held above); attn_v_slots is the second epilogue of
@@ -2550,6 +3023,10 @@ def main(argv=None) -> int:
                 "train_gopro": t1_chm, "train_derain": t0_chm,
                 "train_cli_gopro": t1_chm,
                 "train_sr": t1_chm,
+                # data parallelism: the command line under torchrun (NCCL),
+                # a rank of two over gloo, the grid split into shards
+                "train_dist_nccl": t1_chm, "train_dist_gloo": t1_chm,
+                "tiled_split": t1_chm,
                 "train_gopro_two_stage": t1_chm + ("two_stage",
                                                    "two_stage_wg"),
                 "train_gopro_fused": ("ffn", "ffn_wg", "ffn_c64", "qkv_wg",
@@ -2580,9 +3057,12 @@ def main(argv=None) -> int:
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
+    finally:
+        if data_root is not None:
+            shutil.rmtree(data_root, ignore_errors=True)
     if args.cases:  # a filtered run proves nothing about the whole
         return 0
-    if cases and len(by_path) == 19:  # launches are those of this run's paths
+    if cases and len(by_path) == 22:  # launches are those of this run's paths
         emit({"kernels": kernel_rows(cases, by_path)})
     print(smi_line, flush=True)
     emit({"ok": True,

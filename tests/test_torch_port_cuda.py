@@ -1259,3 +1259,61 @@ def test_train_cli_on_the_card_matches_the_cpu(dev, tmp_path):
     den = sum(float(s["exp_avg"].square().sum()) for s in sc.values())
     assert (num / den) ** 0.5 <= 1e-4
     assert abs(rg["val"][2]["psnr"] - rc["val"][2]["psnr"]) <= 0.05
+
+
+def test_two_gloo_ranks_on_the_card_equal_one_process(dev, tmp_path):
+    """Two ranks of make_train_step(group=...) over gloo on this card
+    (tests/torch_port_dist_worker.py: the tiny t1 model at dim 16, bf16
+    from float32 masters, the kernels forward), each on one clip of a
+    batch of two, against one process's step on the whole batch: the
+    ranks' masters bit for bit; the first step's loss (the group's mean)
+    and averaged gradients held to the one process's float32 step as the
+    train phase of chip_smoke.py holds a bf16 route (its relative L2 error
+    at most 1.5 times that of the one process's bf16 step, plus 1e-3: each
+    clip's bf16 gradient is rounded on its own there, the batch's once
+    here)."""
+    import os
+    import subprocess
+    import sys
+
+    from torch_port_dist_worker import batches, make_step, run_steps, \
+        seeded_model
+    from turtlevsr_tpu_torch.kernels import build
+
+    build.build_all()  # the ranks load the libraries, none builds them
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.dirname(here), here, os.environ.get("PYTHONPATH", "")]))
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.join(here, "torch_port_dist_worker.py"),
+         "step", str(tmp_path / f"rank{r}.pt"), str(tmp_path / "rendezvous"),
+         str(r), "2", "cuda", "bfloat16"], env=env, cwd=str(tmp_path),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(2)]
+    try:
+        one = {}
+        for dtype in ("bfloat16", "float32"):
+            step, state = make_step(seeded_model(dim=16), "cuda", dtype)
+            one[dtype] = run_steps(step, state, batches()[:1], "cuda")[:2]
+        outs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for p, out in zip(procs, outs):
+        assert p.returncode == 0, out[-4000:]
+    a, b = (torch.load(tmp_path / f"rank{r}.pt", weights_only=True)
+            for r in range(2))
+    assert a["losses"] == b["losses"]
+    assert all(torch.equal(a["params"][n], b["params"][n]) for n in a["params"])
+
+    def rel(got, want):
+        num = sum(float((got[n].float() - w.float()).square().sum())
+                  for n, w in want.items())
+        return (num / sum(float(w.float().square().sum())
+                          for w in want.values())) ** 0.5
+
+    (l_one, g_one), (l_ref, g_ref) = one["bfloat16"], one["float32"]
+    assert rel(a["grads"], g_ref) <= 1.5 * rel(g_one, g_ref) + 1e-3
+    assert abs(a["losses"][0] - l_ref[0]) <= (
+        1.5 * abs(l_one[0] - l_ref[0]) + 1e-3 * abs(l_ref[0]))

@@ -54,6 +54,7 @@ def test_port_has_the_expected_modules():
                  "turtlevsr_tpu_torch/models/blocks.py",
                  "turtlevsr_tpu_torch/models/turtle.py",
                  "turtlevsr_tpu_torch/eval/engine.py",
+                 "turtlevsr_tpu_torch/parallel/mesh.py",
                  "turtlevsr_tpu_torch/io/torch_convert.py",
                  "turtlevsr_tpu_torch/core/cache.py",
                  "turtlevsr_tpu_torch/config/options.py"):
@@ -325,9 +326,18 @@ def test_launch_counters_cover_every_wrapper():
 
 
 def test_no_environment_switches_in_the_port():
+    from turtlevsr_tpu_torch.parallel import mesh
+
     for path in _port_sources():
         if path.endswith("build.py") or path.endswith("chip_smoke.py"):
             continue  # build.py reads CUDA_HOME to find nvcc, nothing else
         with open(path) as f:
             src = f.read()
+        if path == mesh.__file__:
+            # the launchers' rendezvous variables, read in one place that
+            # takes only the names of LAUNCHER_VARIABLES
+            assert src.count("os.environ") == 1 and "getenv" not in src
+            with pytest.raises(KeyError):
+                mesh._launcher_env("TURTLE_SOMETHING", "0")
+            continue
         assert "os.environ" not in src and "getenv" not in src, path

@@ -338,15 +338,6 @@ def test_second_call_resumes_traces_and_exports(runs):
     assert all(torch.equal(got[k], want[k]) for k in want)
 
 
-def test_launchers_are_not_ported_yet():
-    from turtlevsr_tpu_torch.cli import train as TC
-
-    for launcher in ("pytorch", "slurm"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-            TC.main(["-opt", "no_such_file.yml", "--device", "cpu",
-                     "--launcher", launcher])
-
-
 def test_checkpoint_round_trip_is_bit_exact(tmp_path):
     """save, latest_checkpoint_step, restore: the masters, AdamW's moments
     and step counts bit for bit; one more step from the original state and

@@ -3,9 +3,13 @@
     python -m turtlevsr_tpu_torch.cli.train -opt options/Turtle_Deblur_Gopro.yml
         [--max_iters N] [--fuse PLAN ...] [--device cuda|cpu]
         [--export_pth FILE] [--trace_dir DIR [--trace_iters N]]
+    torchrun --nproc_per_node N -m turtlevsr_tpu_torch.cli.train \
+        -opt options/Turtle_Deblur_Gopro.yml --launcher pytorch
+    srun --ntasks N python -m turtlevsr_tpu_torch.cli.train \
+        -opt options/Turtle_Deblur_Gopro.yml --launcher slurm
 
 The flow of the JAX package's ``cli/train.py`` (train.py:33-293 of the
-reference) on one card:
+reference), one process a card:
 
   * the train step is ``make_train_step``: BPTT over each clip, bf16 compute
     from float32 masters (for the reference's AMP and GradScaler), each
@@ -16,14 +20,19 @@ reference) on one card:
   * validation streams each clip's frames through the model in bf16 with
     its history, as serving does (``build_validation``),
   * "debug" in the experiment's name sets the validation, print and save
-    frequencies to 8 / 1 / 8 (options.py:84-89).
+    frequencies to 8 / 1 / 8 (options.py:84-89),
+  * under a launcher (``parallel/mesh.py``, the option file's
+    ``dist_params``), each rank loads ``batch_size_per_gpu`` clips of its
+    share of the sampler's permutation and the train step averages the
+    gradients over the group; the masters are broadcast from rank 0 after
+    the warm start and the resume; validation takes every world-th clip on
+    each rank and sums over the group; rank 0 alone writes the experiment's
+    directories, log, TensorBoard events and checkpoints, and every rank
+    waits for each save.
 
 The log's ``time (data)`` are, as in the reference, the iteration's wall
 time (the wait for the loader, the batch's copy to the card and the step,
 up to its loss on the host) and that wait and copy alone.
-
-Not ported yet: data parallelism over several cards (``--launcher`` other
-than ``none``).
 """
 
 from __future__ import annotations
@@ -59,6 +68,19 @@ from turtlevsr_tpu_torch.metrics import calculate_psnr, calculate_ssim
 from turtlevsr_tpu_torch.models import build_model, require_device
 from turtlevsr_tpu_torch.models.blocks import FUSE_PLANS
 from turtlevsr_tpu_torch.models.turtle import Turtle
+from turtlevsr_tpu_torch.parallel.mesh import (
+    LAUNCHERS,
+    all_reduce_sums,
+    barrier,
+    broadcast_params,
+    close_dist,
+    default_group,
+    init_dist,
+    per_process_batch_size,
+    process_is_primary,
+    rank,
+    world_size,
+)
 from turtlevsr_tpu_torch.train.lr_schedule import build_schedule
 from turtlevsr_tpu_torch.train.step import (
     TrainState,
@@ -81,11 +103,13 @@ def parse_args(argv=None):
     p = argparse.ArgumentParser(description="Train a Turtle model.")
     p.add_argument("-opt", type=str, required=True,
                    help="path to the option YAML file")
-    p.add_argument("--launcher", choices=["none", "pytorch", "slurm"],
-                   default="none",
-                   help="the reference's launchers; only 'none' (one card) "
-                        "is ported")
-    p.add_argument("--local_rank", type=int, default=0)
+    p.add_argument("--launcher", choices=LAUNCHERS, default="none",
+                   help="none: one process; pytorch: started by "
+                        "torch.distributed.run (torchrun), one process a "
+                        "card; slurm: started by srun, one task a card")
+    p.add_argument("--local_rank", "--local-rank", type=int, default=0,
+                   help="the card of this process when LOCAL_RANK is unset "
+                        "(the old torch.distributed.launch)")
     p.add_argument("--max_iters", type=int, default=None,
                    help="override train.total_iter")
     p.add_argument("--export_pth", type=str, default=None,
@@ -111,7 +135,10 @@ def build_validation(cfg, opt, *, device="cuda", fuse=()):
     model under ``torch.inference_mode`` (so the serving wrappers run);
     the mean per-frame metrics of ``val.metrics`` (``calculate_psnr`` /
     ``calculate_ssim``) and, with ``val.save_img``, the res / gt / lq PNGs
-    under ``path.visualization``."""
+    under ``path.visualization``. In a process group each rank takes the
+    clips ``idx % world == rank`` (video_restoration_model.py:162-164) and
+    the counts and sums are added over the group, so every rank returns
+    the means over the whole set."""
     vopt = opt.get("val") or {}
     metrics_opt = vopt.get("metrics") or {}
     save_img = bool(vopt.get("save_img"))
@@ -135,7 +162,10 @@ def build_validation(cfg, opt, *, device="cuda", fuse=()):
         model = model_with(params)
         sums = {name: 0.0 for name in metrics_opt}
         cnt = 0
+        r, world = rank(), world_size()
         for idx in range(len(dataset)):
+            if idx % world != r:
+                continue
             item = dataset[idx]
             lq, gt = item["lq"], item["gt"]
             clip_key = str(item.get("key", idx)).replace("/", "_")
@@ -166,7 +196,8 @@ def build_validation(cfg, opt, *, device="cuda", fuse=()):
                         sums[name] += calculate_ssim(pred, gt[j], **kw)
                 cnt += 1
                 prev = frames[j]
-        return {k: float(v / max(cnt, 1)) for k, v in sums.items()}
+        cnt, *totals = all_reduce_sums([cnt, *sums.values()])
+        return {k: float(v / max(cnt, 1)) for k, v in zip(sums, totals)}
 
     return validate
 
@@ -178,16 +209,25 @@ def _given(path) -> bool:
 def main(argv=None) -> dict:
     """Run the command line; returns what the run did: the iterations it
     started from and reached, each logged iteration's numbers, the
-    validation metrics by iteration, the seconds of the loop."""
+    validation metrics by iteration, the seconds of the loop, the rank and
+    the world size."""
     args = parse_args(argv)
-    if args.launcher != "none":
-        raise NotImplementedError(
-            f"not ported yet: --launcher {args.launcher} (data parallelism "
-            "over several cards, ROADMAP Queue 1 item 4)")
     device = require_device(args.device)
-    fuse = tuple(args.fuse)
-
     opt = load_options(args.opt, is_train=True)
+    dist_params = opt.get("dist_params") or {}
+    opt["rank"], opt["world_size"] = init_dist(
+        args.launcher, dist_params.get("backend"), dist_params.get("port"),
+        device=device, local_rank=args.local_rank)
+    opt["dist"] = args.launcher != "none"
+    try:
+        return _train(args, opt, device)
+    finally:
+        close_dist()
+
+
+def _train(args, opt: dict, device: torch.device) -> dict:
+    fuse = tuple(args.fuse)
+    world, primary = opt["world_size"], process_is_primary()
     if args.max_iters:
         opt["train"]["total_iter"] = args.max_iters
 
@@ -218,32 +258,36 @@ def main(argv=None) -> dict:
             raise SystemExit("no checkpoint found under "
                              f"{exp_root}/training_states and no "
                              "pretrain_network_g to export")
-        print(f"exporting {src} params -> {args.export_pth}")
-        save_params(args.export_pth, restore_params(src))
+        if primary:
+            print(f"exporting {src} params -> {args.export_pth}")
+            save_params(args.export_pth, restore_params(src))
         return {"exported": args.export_pth, "source": src}
 
-    if resume_step is None:
-        make_exp_dirs(opt)
-    os.makedirs(exp_root, exist_ok=True)
+    if primary:  # the logger opens its file on rank 0 only
+        if resume_step is None:
+            make_exp_dirs(opt)
+        os.makedirs(exp_root, exist_ok=True)
     logger = get_root_logger(
         log_file=osp.join(exp_root, f"train_{opt['name']}.log"))
     logger.info(get_env_info())
     logger.info(dict2str(opt))
 
     seed = int(opt.get("manual_seed", 0))
-    set_random_seed(seed)
+    set_random_seed(seed + opt["rank"])
 
     cfg = model_config_from_options(opt)
     train_opt = opt["train"]
     schedule = build_schedule(train_opt)
     tx = make_optimizer(train_opt, schedule)
 
-    # the masters are drawn on the host and copied to the device once
+    # the masters are drawn on the host (the same on every rank) and copied
+    # to the device once
     model = build_model(opt, device="cpu",
                         generator=torch.Generator().manual_seed(seed))
     n_params = sum(p.numel() for p in model.parameters())
     logger.info(f"Model [{cfg.variant}] params: {n_params / 1e6:.2f} M; "
-                f"device: {device}; fused plan: {list(fuse)}")
+                f"device: {device}; fused plan: {list(fuse)}; "
+                f"processes: {world} ({args.launcher})")
     # warm start (path.pretrain_network_g, the reference's fine-tuning)
     if _given(pretrain) and resume_step is None:
         model.load_state_dict(restore_params(str(pretrain)),
@@ -259,21 +303,29 @@ def main(argv=None) -> dict:
         state = restore_checkpoint(exp_root, resume_step, state)
         start_iter = resume_step
         logger.info(f"Resuming training from iter {resume_step}")
+    broadcast_params(state.params)  # DDP's wrap: rank 0's masters
 
     step_fn = make_train_step(cfg, tx, compute_dtype=torch.bfloat16,
-                              remat=True, fuse=fuse, device=device)
+                              remat=True, fuse=fuse, device=device,
+                              group=default_group())
 
     train_ds = create_dataset(opt, "train")
     dataset_opt = (opt.get("datasets") or {}).get("train") or {}
-    batch = int(dataset_opt.get("batch_size_per_gpu", 2))
+    batch_per_gpu = int(dataset_opt.get("batch_size_per_gpu", 2))
+    batch = per_process_batch_size(batch_per_gpu)
     enlarge = int(dataset_opt.get("dataset_enlarge_ratio", 1))
-    sampler = EnlargedSampler(len(train_ds), 1, 0, ratio=enlarge)
+    # each rank its share of the permutation, all of one length, and whole
+    # batches only: every rank takes as many steps an epoch
+    sampler = EnlargedSampler(len(train_ds), world, opt["rank"],
+                              ratio=enlarge)
     workers = int(dataset_opt.get("num_worker_per_gpu", 2))
     loader = PrefetchLoader(train_ds, sampler, batch, num_workers=workers)
     if len(loader) == 0:  # the epoch loop would never take a step
         raise ValueError(f"{len(train_ds)} training clips make no batch of "
                          f"{batch}")
-    logger.info(f"Training clips: {len(train_ds)}; batch: {batch}")
+    logger.info(f"Training clips: {len(train_ds)}; global batch: "
+                f"{batch_per_gpu * world} ({batch_per_gpu}/device, "
+                f"{batch}/process)")
 
     val_ds = None
     if (opt.get("datasets") or {}).get("val") or (opt.get("val") or {}):
@@ -285,7 +337,7 @@ def main(argv=None) -> dict:
 
     logger_opt = opt.get("logger") or {}
     tb = None
-    if logger_opt.get("use_tb_logger"):
+    if logger_opt.get("use_tb_logger") and primary:
         init_wandb_logger(opt)  # wandb (if installed and set) syncs TB
         tb = init_tb_logger(osp.join("tb_logger", opt["name"]))
     msg_logger = MessageLogger(opt, start_iter + 1, tb)
@@ -346,7 +398,7 @@ def main(argv=None) -> dict:
 
             if save_freq and current_iter % save_freq == 0:
                 logger.info("Saving models and training states.")
-                save_checkpoint(exp_root, current_iter, state, epoch)
+                _save(exp_root, current_iter, state, epoch)
 
             if val_freq and val_ds is not None \
                     and current_iter % val_freq == 0:
@@ -366,14 +418,22 @@ def main(argv=None) -> dict:
         logger.info(f"Profiler trace written to {args.trace_dir}")
 
     logger.info("End of training. Saving the latest model.")
-    save_checkpoint(exp_root, current_iter, state, epoch)
+    _save(exp_root, current_iter, state, epoch)
     seconds = time.time() - t_start
     logger.info(f"Training done in {seconds:.1f}s ({current_iter} iters)")
     if tb is not None:
         tb.close()
     return {"start_iter": start_iter, "iter": current_iter,
             "exp_root": exp_root, "logs": logs_out, "val": val_out,
-            "seconds": seconds}
+            "seconds": seconds, "rank": opt["rank"], "world_size": world}
+
+
+def _save(exp_root: str, step: int, state, epoch: int) -> None:
+    """Rank 0 writes the checkpoint; every rank waits for it, so that none
+    finds a half-written one when it resumes."""
+    if process_is_primary():
+        save_checkpoint(exp_root, step, state, epoch)
+    barrier()
 
 
 if __name__ == "__main__":

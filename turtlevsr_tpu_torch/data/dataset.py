@@ -17,7 +17,10 @@ computes it in fixed point, so this LQ may differ from cv2's by one level of
 Items are dicts of NHWC float32 clips scaled by rgb_range (``lq``, ``gt``)
 and the frames' ``key``; the loader stacks them to (B, T, H, W, C). Two
 quirks of the JAX package are kept: ``manual_seed`` 0 gives an unseeded
-generator, and the loader's worker threads share one generator.
+generator, and the loader's worker threads share one generator. Rank r of a
+process group (the option dict's ``rank``) seeds it with ``manual_seed + r``,
+as the reference's ``set_random_seed(seed + rank)`` does: rank 0 draws what
+a single process draws.
 """
 
 from __future__ import annotations
@@ -92,8 +95,9 @@ class _FrameFolderBase:
         self.num_video = len(self.images_gt)
         self.num_frame = (sum(self.n_frames_video)
                           - (self.n_seq - 1) * len(self.n_frames_video))
+        seed = int(opt.get("manual_seed", 0))
         self._rng = np.random.RandomState(
-            int(opt.get("manual_seed", 0)) or None)
+            seed + int(opt.get("rank", 0)) if seed else None)
 
     def _lq_dir(self) -> str:
         return "blur"

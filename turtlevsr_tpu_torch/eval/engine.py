@@ -21,15 +21,22 @@ The SR variant takes high-resolution frames, as the reference's evaluation
 does (inference.py:214-220): each frame (whole mode) or each tile of the grid
 planned on the high-resolution frame (tiled mode) is resized bicubic /4 on
 the device, the model's caches are at that low resolution, and the x4 output
-is overlap-added at the input's resolution. Not ported: data parallelism
-over a mesh.
+is overlap-added at the input's resolution.
+
+With ``devices`` (the JAX engine's ``mesh``), the tile grid and its caches
+split into equal contiguous shards, one a device, each device with its own
+replica of the model; each shard runs in chunks of at most
+``max_tile_batch`` tiles, every shard's work is queued before any output is
+fetched, and the outputs come to the first device for the overlap-add.
 """
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import glob
 import os
-from typing import Iterator, Tuple
+from typing import Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -38,6 +45,7 @@ import torch.nn.functional as F
 from turtlevsr_tpu_torch.models import require_device
 from turtlevsr_tpu_torch.models.turtle import Turtle
 from turtlevsr_tpu_torch.ops.resize import resize_bicubic
+from turtlevsr_tpu_torch.parallel.mesh import shard_devices
 
 
 def _pad8(h: int, w: int) -> Tuple[int, int]:
@@ -92,13 +100,19 @@ class InferenceEngine:
     max_tile_batch: tiled mode runs the grid in chunks of at most this many
     tiles (720p at tile 320 / overlap 192 is 45 tiles), which bounds the
     activations of one model call.
+    devices: tiled mode only; the grid splits into one equal shard a
+    device (the number of tiles must divide over them, else ValueError),
+    in the order given; a device may repeat (several shards on one card);
+    the model is moved to the first, which takes the place of ``device``,
+    and copied to each other one.
     """
 
     def __init__(self, model: Turtle, *, mode: str = "whole",
                  tile: int = 320, tile_overlap: int = 128,
                  max_tile_batch: int = 15,
                  dtype: torch.dtype = torch.bfloat16,
-                 device: torch.device | str = "cuda"):
+                 device: torch.device | str = "cuda",
+                 devices: Optional[Sequence] = None):
         if mode not in ("whole", "tiled"):
             raise ValueError(f"unknown mode {mode!r}")
         if mode == "tiled" and (tile <= 0 or not 0 <= tile_overlap < tile
@@ -108,7 +122,13 @@ class InferenceEngine:
                 f"max_tile_batch >= 1, got tile={tile}, "
                 f"tile_overlap={tile_overlap}, "
                 f"max_tile_batch={max_tile_batch}")
-        self.device = require_device(device)
+        if devices is not None and mode != "tiled":
+            raise ValueError("devices split the tile grid: tiled mode only")
+        if devices is not None and not devices:
+            raise ValueError("devices: none given")
+        self.devices = (None if devices is None else
+                        tuple(require_device(d) for d in devices))
+        self.device = self.devices[0] if devices else require_device(device)
         self.dtype = dtype
         self.mode = mode
         self.tile = tile
@@ -116,6 +136,11 @@ class InferenceEngine:
         self.max_tile_batch = max_tile_batch
         self.model = model.to(device=self.device, dtype=dtype).eval()
         self.cfg = model.cfg
+        # one replica a device; shards on one device share it
+        self._replicas = {self.device: self.model}
+        for d in self.devices or ():
+            if d not in self._replicas:
+                self._replicas[d] = copy.deepcopy(self.model).to(d)
         self._cache = None
         self._prev = None
         self._shape = None
@@ -194,24 +219,36 @@ class InferenceEngine:
         x = self._model_input(
             torch.stack([tiles_of(prev), tiles_of(cur)], dim=1))
         n_tiles = x.shape[0]
+        shards = ([(self.device, 0, n_tiles)] if self.devices is None
+                  else shard_devices(self.devices, n_tiles))
         if self._cache is None:
-            self._cache = self.model.init_cache(n_tiles, *x.shape[2:4],
-                                                self.dtype)
-        cache = self._cache
-        outs, counts = [], None
-        for a in range(0, n_tiles, self.max_tile_batch):
-            b = min(a + self.max_tile_batch, n_tiles)
-            # the model writes the views in place; every chunk sees the
-            # count of the frame's start
-            out_c, new_c = self.model(
-                x[a:b], tuple(_slot_views(s, a, b) for s in cache))
-            outs.append(out_c)
-            counts = [None if s is None else s["n"] for s in new_c]
-        # the per-tile buffers now hold this frame; the counts advance once
-        self._cache = tuple(
-            None if s is None else {"k": s["k"], "v": s["v"], "n": n}
-            for s, n in zip(cache, counts))
-        outs = torch.cat(outs).float()
+            caches = [self._replicas[d].init_cache(b - a, *x.shape[2:4],
+                                                   self.dtype)
+                      for d, a, b in shards]
+        else:
+            caches = [self._cache] if self.devices is None else self._cache
+        outs, new_caches = [], []
+        for (d, a, b), cache in zip(shards, caches):
+            with (torch.cuda.device(d) if d.type == "cuda"
+                  else contextlib.nullcontext()):
+                xs = x[a:b].to(d, non_blocking=True)
+                counts = None
+                for ca in range(0, b - a, self.max_tile_batch):
+                    cb = min(ca + self.max_tile_batch, b - a)
+                    # the model writes the views in place; every chunk sees
+                    # the count of the frame's start
+                    out_c, new_c = self._replicas[d](
+                        xs[ca:cb], tuple(_slot_views(s, ca, cb)
+                                         for s in cache))
+                    outs.append(out_c)
+                    counts = [None if s is None else s["n"] for s in new_c]
+            # the per-tile buffers now hold this frame; the counts advance
+            # once
+            new_caches.append(tuple(
+                None if s is None else {"k": s["k"], "v": s["v"], "n": n}
+                for s, n in zip(cache, counts)))
+        self._cache = new_caches[0] if self.devices is None else new_caches
+        outs = torch.cat([o.to(self.device) for o in outs]).float()
         e = torch.zeros((hp, wp, cur.shape[-1]), dtype=torch.float32,
                         device=self.device)
         wgt = torch.zeros((hp, wp, 1), dtype=torch.float32,

@@ -17,7 +17,12 @@ from float32 masters. Here:
     model), so the gradients arrive in float32; AdamW keeps its state in
     float32,
   * the kernels run forward through ``kernels/vjp.py``, whose backward is
-    autograd through their plain versions.
+    autograd through their plain versions,
+  * with a process group (``parallel/mesh.py``), each rank takes the loss
+    of its own batch and the gradients are averaged over the group after
+    the backward, before AdamW: the gradient of the mean loss over the
+    global batch, since every rank takes a batch of the same size (the
+    JAX package's ``mesh=`` step).
 
 Inputs are NHWC clips (B, T, H, W, C) in [0, 1], as in the JAX package.
 """
@@ -38,6 +43,7 @@ from torch.utils.checkpoint import (
 from turtlevsr_tpu_torch.config.options import ModelConfig
 from turtlevsr_tpu_torch.models import require_device
 from turtlevsr_tpu_torch.models.turtle import Turtle, init_cache
+from turtlevsr_tpu_torch.parallel.mesh import all_reduce_mean_
 from turtlevsr_tpu_torch.train.losses import l1_loss
 
 
@@ -176,11 +182,16 @@ def clip_loss_fn(params: dict, cfg: ModelConfig, lq: torch.Tensor,
 def make_train_step(cfg: ModelConfig, tx: AdamW, *,
                     compute_dtype=torch.bfloat16, remat: bool = True,
                     remat_policy: str = "nothing", fuse=(),
-                    device: torch.device | str = "cuda"):
+                    device: torch.device | str = "cuda", group=None):
     """The train step ``step(state, lq, gt) -> (state, {"l_pix": loss})``:
     the clip's loss and its gradient into the masters, then one AdamW
     update at the schedule's rate of ``state.step``. ``device`` is where
-    the state lives (the card unless the caller asks for the CPU)."""
+    the state lives (the card unless the caller asks for the CPU).
+
+    ``group``: a process group (``parallel.mesh.default_group()``); each
+    rank passes its own batch, the gradients and the logged loss are
+    averaged over the group (the reference's DDP all-reduce and
+    ``reduce_loss_dict``), and every rank makes the same update."""
     require_device(device)
     if remat_policy not in REMAT_POLICIES:
         raise ValueError(f"unknown remat policy {remat_policy!r}: choose out "
@@ -199,12 +210,18 @@ def make_train_step(cfg: ModelConfig, tx: AdamW, *,
         for p in state.params.values():
             # a parameter the clip does not reach (the t0 SAB's dead q, k
             # chain) gets a zero gradient, as in the JAX package: AdamW
-            # then decays it like every other
+            # then decays it like every other, and every rank of a group
+            # averages the same tensors
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        loss = loss.detach()
+        if group is not None:
+            all_reduce_mean_({n: p.grad for n, p in state.params.items()},
+                             group)
+            all_reduce_mean_({"l_pix": loss.reshape(1)}, group)
         tx.update(state.opt_state, state.step)
         return (TrainState(step=state.step + 1, params=state.params,
                            opt_state=state.opt_state),
-                {"l_pix": loss.detach()})
+                {"l_pix": loss})
 
     return step
