@@ -64,6 +64,18 @@ Phases, one JSON object per line on standard output:
            plan and ("two_stage",), `gopro` under ("channel_runs",
            "attn_v_merge") too; each against the same frames through the
            plain versions on the card
+  app      `turtlevsr_tpu_torch.app.restore_video` for "Video Deblurring
+           (GoPro)" as the web app calls it: an mp4 of 6 synthetic 1280x720
+           frames (cv2), the shipped option file, reference-format weights
+           from the seed as custom_model_path; whole frames (tile 0) and
+           tiled (tile 320, the engine's overlap 128: 24 tiles), then
+           `restore_image` on one decoded frame. The restored PNGs and the
+           launches a frame bit for bit against InferenceEngine on the same
+           weights, grid and decoded frames; PSNR against the same app under
+           the plain versions; fps (the app's frame loop over all frames)
+           and its ms a frame, peak memory, and the frame counts and sizes
+           of the four videos (restored, wipe, side by side at double
+           width, slider)
   train    `make_train_step` (BPTT over a clip, each frame checkpointed,
            bf16 from float32 masters) at each option file's training recipe
            (batch_size_per_gpu 2, n_sequence 5, gt_size 192, the file's
@@ -116,9 +128,9 @@ and, run alone (not part of all; no result line, no ok line):
            their phases left out in turn, beside the whole body, its split
            route and chain2.cu on the same inputs, at 15 tiles
 
-then, when the kernels, the slice, the tiled, the train, the train-cli and
-the train-dist phase ran, the line {"kernels": [...]} and, last, {"ok": true,
-"device": {...}}.
+then the script's seconds, then, when the kernels, the slice, the tiled,
+the app, the train, the train-cli and the train-dist phase ran, the line
+{"kernels": [...]} and, last, {"ok": true, "device": {...}}.
 Any failed check exits non-zero; without a CUDA device the script exits 2
 before it prints any result.
 """
@@ -171,6 +183,7 @@ from turtlevsr_tpu_torch.train.step import (
     make_optimizer,
     make_train_step,
 )
+from turtlevsr_tpu_torch.utils.img import img_from_float
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OPTION_FILE = os.path.join(ROOT, "options", "Turtle_Deblur_Gopro.yml")
@@ -299,6 +312,10 @@ TRAIN_CLI_PSNR_TOL = 0.05
 TRAIN_DIST_ITERS = 3
 SPLIT_SHARDS = 3
 CHILD_SECONDS = 420
+# the app phase: frames of the synthetic mp4; the tile of its tiled run (the
+# engine's overlap 128: 24 tiles of a 1280x720 frame, two model calls)
+APP_FRAMES = 6
+APP_TILE = 320
 # two ranks of one clip each against one process's step on both clips (the
 # first step, from the same masters): the same bf16 kernels on each clip;
 # the loss's float32 means, and the backward's reductions over the batch,
@@ -924,6 +941,38 @@ def _sab_case(inp, name, hq, wq, d, nf, iters, batch, on_wg, kernel,
                 library_ms=None, bound_ms=b_ms, bound_by=b_by)
 
 
+def graph_ms(fn, reps: int = 10) -> float:
+    """Device time of one call of ``fn``: ``reps`` calls captured in a CUDA
+    graph, whose replays run the launches back to back, without the host
+    between them."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    ms = cuda_ms(graph.replay, 3, 0) / reps
+    del graph
+    return ms
+
+
+def host_ms(fn, calls: int = 50) -> float:
+    """The host's time a call of ``fn`` (the launches are queued, not
+    waited for)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    ms = (time.perf_counter() - t0) * 1e3 / calls
+    torch.cuda.synchronize()
+    return ms
+
+
 def lattice_case(inp: Inputs, name, h, w, c, ws, n, merge: bool, iters=5):
     if skipped("lattice_merge" if merge else "lattice_split", name):
         return None
@@ -943,11 +992,15 @@ def lattice_case(inp: Inputs, name, h, w, c, ws, n, merge: bool, iters=5):
     err = 0.0 if exact else rel_err(got, want)[0]
     b_ms, b_by = bound(2 * numel_bytes(src), 0.0)
     plain_ms = cuda_ms(plain, iters)
+    # the copies are short enough for the wrapper's host time to pace the
+    # events' clock: also the device's own time (graph_ms) and the host's a
+    # call (host_ms)
     return dict(kernel="lattice_merge" if merge else "lattice_split",
                 case=name, shape=list(src.shape), window=ws,
                 max_abs_err=err, rel_err=err, tol_rel=0.0, ok=exact,
                 ms=cuda_ms(fn, iters), plain_ms=plain_ms,
-                library_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+                library_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                graph_ms=graph_ms(fn), host_ms=host_ms(fn))
 
 
 def attn_v_case(inp: Inputs, name, b, nf, hq, wq, ws, c, merge=True, iters=5):
@@ -1936,6 +1989,8 @@ def run_tiled(config: str, seed: int, width: int, height: int,
             # kernels (one stream), so fetch i returns when frame i + 1 is
             # done and the last two fetches come together: the times of
             # frames 2 .. n - 1 are the differences but the last
+            # the gaps between fetches while the writer's queue (2 deep)
+            # fills: a transient, not the app's rate
             clock = res["fetch_clock"]
             ms = [(b - a) * 1e3 for a, b in zip(clock, clock[1:])]
             psnrs = [psnr(a, b) for a, b in zip(res["outs"], plain["outs"])]
@@ -1996,6 +2051,195 @@ def run_tiled(config: str, seed: int, width: int, height: int,
     finally:
         shutil.rmtree(work, ignore_errors=True)
     return by_plan
+
+
+# ---------------------------------------------------------------------------
+# the app: turtlevsr_tpu_torch.app on a video file
+# ---------------------------------------------------------------------------
+
+
+def decoded_video(path: str) -> dict:
+    """Frame count and size of an mp4, decoded by cv2."""
+    import cv2
+
+    cap = cv2.VideoCapture(path)
+    n, shape = 0, None
+    while True:
+        ok, fr = cap.read()
+        if not ok:
+            break
+        n, shape = n + 1, fr.shape
+    cap.release()
+    return {"frames": n, "height": shape and shape[0],
+            "width": shape and shape[1]}
+
+
+def run_app(seed: int, width: int, height: int) -> dict:
+    """``app.restore_video`` for "Video Deblurring (GoPro)" as the web app
+    calls it, on an mp4 of APP_FRAMES synthetic frames written by cv2, the
+    shipped option file and reference-format weights from the seed as
+    ``custom_model_path``: whole frames (tile 0) and tiled (APP_TILE, the
+    engine's overlap), then ``restore_image`` once. Each is held bit for bit
+    to an InferenceEngine run of the same weights, grid and decoded frames
+    (PNGs and launches a frame), and within SLICE_MIN_PSNR to the same app
+    under the plain versions; the four videos' frame counts and sizes."""
+    import cv2
+    from PIL import Image
+
+    from turtlevsr_tpu_torch import app as app_mod
+
+    task = "Video Deblurring (GoPro)"
+    n = APP_FRAMES
+    work = tempfile.mkdtemp(prefix="chip_smoke_app_")
+    dirs = []  # the app's job folders
+    out = {}
+    try:
+        model = build_model(options_of("gopro"), device="cuda",
+                            generator=torch.Generator().manual_seed(seed))
+        randomise_scales(model, seed + 1)
+        weights = os.path.join(work, "weights.pth")
+        torch.save({"params": model.state_dict()}, weights)  # the published form
+        del model  # the peaks below are the app's
+
+        def engine_model():
+            m = build_model(options_of("gopro"), device="cuda")
+            m.load_state_dict(torch.load(weights, weights_only=True)["params"])
+            return m
+
+        video = os.path.join(work, "in.mp4")
+        vw = cv2.VideoWriter(video, cv2.VideoWriter_fourcc(*"mp4v"), 30,
+                             (width, height))
+        for fr in make_frames(seed + 2, n, height, width):
+            vw.write((fr[..., ::-1] * 255.0).round().astype(np.uint8))
+        vw.release()
+        kw = dict(ckpt_dir=work, options_dir=os.path.join(ROOT, "options"),
+                  custom_model_path=weights)
+
+        def app_run(tile: int) -> dict:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            kernels_pkg.reset_launch_counts()
+            t0 = time.perf_counter()
+            res = app_mod.restore_video(video, task, tile=tile, **kw)
+            res["seconds"] = time.perf_counter() - t0
+            res["launches"] = kernels_pkg.launch_counts()
+            res["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+            dirs.append(res["work"])
+            require(res["status"] == "ok", f"app tile={tile}: {res['status']}")
+            res["outs"] = [np.asarray(Image.open(os.path.join(res["frames"], f)))
+                           for f in sorted(os.listdir(res["frames"]))]
+            torch.cuda.empty_cache()
+            return res
+
+        for tile in (0, APP_TILE):
+            tag = "app_tiled" if tile else "app_whole"
+            res = app_run(tile)
+            files = sorted(os.listdir(res["input_frames"]))
+            require(len(files) == n and len(res["outs"]) == n,
+                    f"{tag}: {len(files)} frames decoded, {len(res['outs'])} "
+                    f"restored, expected {n}")
+            # the same weights, grid and decoded frames straight through the
+            # engine (the route of cli.infer and the slice phase)
+            eng = (InferenceEngine(engine_model(), mode="tiled", tile=tile)
+                   if tile else InferenceEngine(engine_model()))
+            torch.cuda.synchronize()
+            kernels_pkg.reset_launch_counts()
+            direct = [img_from_float(eng.step(read_rgb(os.path.join(
+                res["input_frames"], f)))) for f in files]
+            direct_launches = kernels_pkg.launch_counts()
+            _, _, _, his, wis = eng.tile_plan(height, width)
+            tiles = len(his) * len(wis) if tile else 1
+            del eng
+            torch.cuda.empty_cache()
+            bits = all(np.array_equal(a, b) for a, b in zip(res["outs"], direct))
+            require(bits, f"{tag}: the app's PNGs differ from the engine's")
+            require(res["launches"] == direct_launches,
+                    f"{tag}: launches {res['launches']} against the engine's "
+                    f"{direct_launches}")
+            if not tile:
+                want = {k: v * n for k, v in LAUNCHES_PER_CALL["gopro"].items()}
+                require(all(res["launches"][k] == v for k, v in want.items()),
+                        f"{tag}: launches {res['launches']}, expected {want}")
+            with plain_versions():
+                plain = app_run(tile)
+            require(not any(plain["launches"].values()),
+                    "the plain run must launch no kernel")
+            psnrs = [psnr(a / 255.0, b / 255.0)
+                     for a, b in zip(res["outs"], plain["outs"])]
+            videos = {k: decoded_video(res[k]) for k in
+                      ("video", "comparison", "side_by_side", "slider")}
+            for k, v in videos.items():
+                require(v == {"frames": n, "height": height, "width": (
+                    2 * width if k == "side_by_side" else width)},
+                        f"{tag}: {k} video {v}")
+            # the gaps between fetches while the writer's queue (2 deep)
+            # fills: a transient, not the app's rate
+            clock = res["fetch_clock"]
+            ms = [(b - a) * 1e3 for a, b in zip(clock, clock[1:])]
+            # the host's share of a frame: one PNG decoded (main thread) and
+            # one written (the writer thread), alone
+            png_in = os.path.join(res["input_frames"], files[0])
+            t0 = time.perf_counter()
+            for _ in range(3):
+                read_rgb(png_in)
+            decode_ms = (time.perf_counter() - t0) * 1e3 / 3
+            t0 = time.perf_counter()
+            for _ in range(3):
+                Image.fromarray(res["outs"][0]).save(
+                    os.path.join(work, "probe.png"))
+            encode_ms = (time.perf_counter() - t0) * 1e3 / 3
+            out[tag] = emit(dict(
+                phase="app", entry="turtlevsr_tpu_torch.app.restore_video",
+                task=task, frame=[height, width, 3], frames=n, tile=tile,
+                tile_overlap=128 if tile else None, tiles=tiles,
+                dtype="bfloat16", seconds=res["seconds"], fps=res["fps"],
+                ms_per_frame=1e3 / res["fps"], ms_between_fetches=ms,
+                launches=res["launches"], launches_per_frame={
+                    k: v / n for k, v in res["launches"].items()},
+                bit_equal_to_engine=bits,
+                launches_equal_to_engine=res["launches"] == direct_launches,
+                psnr_vs_plain_db=psnrs, min_psnr_db=SLICE_MIN_PSNR,
+                plain_fps=plain["fps"], videos=videos,
+                host_png_decode_ms=decode_ms, host_png_encode_ms=encode_ms,
+                peak_memory_gib=res["peak_memory_gib"]))
+            require(min(psnrs) >= SLICE_MIN_PSNR,
+                    f"{tag}: the app's kernel path and plain path disagree: "
+                    f"PSNR {psnrs}")
+        # one image through restore_image: the first decoded frame, against a
+        # fresh whole-frame engine's first step on it
+        first = os.path.join(dirs[0], "frames",
+                             sorted(os.listdir(os.path.join(dirs[0],
+                                                            "frames")))[0])
+        kernels_pkg.reset_launch_counts()
+        img = app_mod.restore_image(first, task, **kw)
+        img_launches = kernels_pkg.launch_counts()
+        dirs.append(img["work"])
+        got = np.asarray(Image.open(img["image"]))
+        sbs = np.asarray(Image.open(img["side_by_side"]))
+        want = img_from_float(InferenceEngine(engine_model()).step(
+            read_rgb(first)))
+        require(np.array_equal(got, want),
+                "restore_image: its PNG differs from the engine's")
+        require(sbs.shape == (height, 2 * width, 3),
+                f"restore_image: side by side {sbs.shape}")
+        require(all(img_launches[k] == v for k, v in
+                    LAUNCHES_PER_CALL["gopro"].items()),
+                f"restore_image: launches {img_launches}")
+        out["app_image"] = emit(dict(
+            phase="app", entry="turtlevsr_tpu_torch.app.restore_image",
+            task=task, image=list(got.shape), side_by_side=list(sbs.shape),
+            bit_equal_to_engine=True, launches=img_launches))
+    finally:
+        for d in [work, *dirs]:
+            shutil.rmtree(d, ignore_errors=True)
+    return out
+
+
+def read_rgb(path: str) -> np.ndarray:
+    """A frame as the app reads it: RGB, float32 in [0, 1]."""
+    from PIL import Image
+
+    return np.asarray(Image.open(path).convert("RGB"), np.float32) / 255.0
 
 
 # ---------------------------------------------------------------------------
@@ -2873,7 +3117,8 @@ def kernel_rows(cases: list[dict], by_path: dict) -> list[dict]:
                                       "rel_err_vs_model_split",
                                       "bit_equal_to_model_split",
                                       "bit_equal_to_row_7",
-                                      "bit_equal_to_sab_cu") if k in c}
+                                      "bit_equal_to_sab_cu", "graph_ms",
+                                      "host_ms") if k in c}
                    for c in mine]))
     return rows
 
@@ -2894,7 +3139,7 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--phase", default="all",
                     choices=("all", "build", "kernels", "slice", "tiled",
-                             "train", "train-cli", "train-dist",
+                             "app", "train", "train-cli", "train-dist",
                              "level-phases",
                              "two-stage-phases"),
                     help="level-phases, two-stage-phases: row 14's or row "
@@ -2918,6 +3163,7 @@ def main(argv=None) -> int:
     if args.cases and args.phase != "kernels":
         ap.error("--cases takes --phase kernels")
     width, height = (int(v) for v in args.size.lower().split("x"))
+    t_script = time.perf_counter()
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device: the port's main path runs on the "
@@ -2974,6 +3220,10 @@ def main(argv=None) -> int:
                 for tag, res in run_tiled(config, args.seed, width, height,
                                           args.profile).items():
                     by_path[tag] = res["launches"]
+        if args.phase in ("all", "app"):
+            # the web app's entry points on a video file, whole and tiled
+            by_path.update({tag: res["launches"] for tag, res in run_app(
+                args.seed, width, height).items() if tag != "app_image"})
         if args.phase in ("all", "train"):
             # the train step at each option file's training recipe
             for config, fuse, steps in TRAIN_RUNS:
@@ -3027,6 +3277,8 @@ def main(argv=None) -> int:
                 # a rank of two over gloo, the grid split into shards
                 "train_dist_nccl": t1_chm, "train_dist_gloo": t1_chm,
                 "tiled_split": t1_chm,
+                # the app: restore_video whole-frame and tiled
+                "app_whole": t1_chm, "app_tiled": t1_chm,
                 "train_gopro_two_stage": t1_chm + ("two_stage",
                                                    "two_stage_wg"),
                 "train_gopro_fused": ("ffn", "ffn_wg", "ffn_c64", "qkv_wg",
@@ -3062,7 +3314,8 @@ def main(argv=None) -> int:
             shutil.rmtree(data_root, ignore_errors=True)
     if args.cases:  # a filtered run proves nothing about the whole
         return 0
-    if cases and len(by_path) == 22:  # launches are those of this run's paths
+    emit({"phase": "done", "script_seconds": time.perf_counter() - t_script})
+    if cases and len(by_path) == 24:  # launches are those of this run's paths
         emit({"kernels": kernel_rows(cases, by_path)})
     print(smi_line, flush=True)
     emit({"ok": True,

@@ -611,6 +611,41 @@ def test_lattice_kernels_match_plain(dev, shape, dtype):
     assert torch.equal(back, L.lattice_merge_plain(tok, ws, hh * ws, ww * ws))
 
 
+# (n, hh, ww, ws, C): the paths' token grids at the whole 736x1280 frame (n
+# = 1) and at 45 tiles of 320 (dec3 / dec2 / dec1: windows 4 / 8 / 16), and
+# ragged token grids whose images are no multiple of a block's 2048 vectors,
+# one of 3 vectors a pixel (C = 24 in bf16)
+LATTICE_GRID_SHAPES = [(1, 46, 80, 4, 256), (1, 46, 80, 8, 128),
+                       (1, 46, 80, 16, 64), (45, 20, 20, 4, 256),
+                       (45, 20, 20, 8, 128), (45, 20, 20, 16, 64),
+                       (1, 23, 17, 4, 256), (3, 13, 7, 8, 24),
+                       (2, 5, 11, 16, 8)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", LATTICE_GRID_SHAPES, ids=str)
+def test_lattice_kernels_bit_for_bit_on_the_paths_grids(dev, shape, dtype):
+    """The kernel walks each image's map vectors in blocks of 2048: bit for
+    bit both ways at one image and at 45, at every window of the paths, and
+    on token grids that leave a block partly empty."""
+    n, hh, ww, ws, c = shape
+    if (c * (4 if dtype == torch.float32 else 2)) % 16:
+        pytest.skip("a pixel's channels must fill 16-byte pieces")
+    h, w = hh * ws, ww * ws
+    x = Maker(13, dtype, dev)(n, h, w, c)
+    s0, m0 = L.lattice_split.launches, L.lattice_merge.launches
+    tok = L.lattice_split(x, ws)
+    back = L.lattice_merge(tok, ws, h, w)
+    torch.cuda.synchronize()
+    assert (L.lattice_split.launches, L.lattice_merge.launches) == (s0 + 1,
+                                                                    m0 + 1)
+    assert torch.equal(tok, L.lattice_split_plain(x, ws))
+    assert torch.equal(back, x)
+    other = torch.randn_like(tok)
+    assert torch.equal(L.lattice_merge(other, ws, h, w),
+                       L.lattice_merge_plain(other, ws, h, w))
+
+
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
 @pytest.mark.parametrize("shape", ATTN_V_KERNEL_SHAPES + ATTN_V_RAGGED_SHAPES)
 def test_attn_v_kernel_matches_plain(dev, shape, dtype):

@@ -57,11 +57,19 @@ def test_port_has_the_expected_modules():
                  "turtlevsr_tpu_torch/parallel/mesh.py",
                  "turtlevsr_tpu_torch/io/torch_convert.py",
                  "turtlevsr_tpu_torch/core/cache.py",
-                 "turtlevsr_tpu_torch/config/options.py"):
+                 "turtlevsr_tpu_torch/config/options.py",
+                 "turtlevsr_tpu_torch/app.py",
+                 "turtlevsr_tpu_torch/cli/video.py",
+                 "turtlevsr_tpu_torch/utils/video_io.py",
+                 "turtlevsr_tpu_torch/data/framepack.py",
+                 "turtlevsr_tpu_torch/io/file_client.py",
+                 "turtlevsr_tpu_torch/data/create_lmdb.py"):
         assert want in rel, want
     from turtlevsr_tpu_torch.kernels import build
 
     assert len(build.KERNEL_SOURCES) == 21
+    # the framepack reader's own copy of its C++ source (built by g++)
+    assert os.path.isfile(os.path.join(PORT, "data", "framepack.cc"))
     headers = ("common.cuh", "ffn_tile.cuh", "qkv_tile.cuh", "pipe.cuh",
                "stats_wg.cuh", "c64_tile.cuh", "ffn_wg.cuh")
     for cu in (*headers, *(n + ".cu" for n in build.KERNEL_SOURCES)):
@@ -237,6 +245,13 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card():
 
     with pytest.raises(RuntimeError, match="CUDA"):
         train_cli.main(["-opt", "no_such_file.yml"])
+    # the app: before it reads its option file or its video
+    from turtlevsr_tpu_torch import app
+
+    for fn in (app.restore_video, app.restore_image):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            fn("no_such_video.mp4", list(app.SUPPORTED_TASKS)[0],
+               "no_such_dir", "no_such_dir")
 
 
 @pytest.mark.parametrize("fn", ["ffn", "qkv_stats", "split_proj", "conv3x3",

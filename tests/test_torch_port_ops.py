@@ -180,3 +180,27 @@ def test_conv_init_statistics():
     again = torch.nn.Conv2d(16, 32, 3, bias=True)
     tconv.conv_init(again, torch.Generator().manual_seed(0))
     assert torch.equal(conv.weight, again.weight)
+
+
+@pytest.mark.parametrize("shape", [(4, 1, 1), (8, 3, 5), (12, 7, 2),
+                                   (64, 16, 24), (256, 23, 40)], ids=str)
+def test_posenc2d_matches(shape):
+    """The 2-D sine-cosine encoding (turtle_arch.py:412-439) in float64 at
+    1e-12, and its cast to float32 and bfloat16 on the CPU."""
+    d, h, w = shape
+    want = np.asarray(jattn.posenc2d(d, h, w, dtype=jnp.float64))
+    got = tattn.posenc2d(d, h, w, dtype=torch.float64)
+    assert got.shape == (h, w, d) and got.dtype == torch.float64
+    assert np.abs(got.numpy() - want).max() <= 1e-12
+    for dt in (torch.float32, torch.bfloat16):
+        low = tattn.posenc2d(d, h, w, dtype=dt, device="cpu")
+        assert low.dtype == dt and torch.equal(low, got.to(dt))
+
+
+@pytest.mark.parametrize("d_model", [2, 6, 10])
+def test_posenc2d_raises_unless_a_multiple_of_four(d_model):
+    with pytest.raises(ValueError) as want:
+        jattn.posenc2d(d_model, 2, 2)
+    with pytest.raises(ValueError) as got:
+        tattn.posenc2d(d_model, 2, 2)
+    assert str(got.value) == str(want.value)

@@ -7,6 +7,8 @@ written NaN-free for ring-buffer cache slots that are still empty.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 
@@ -88,3 +90,27 @@ def local_window_mask(h: int, w: int, n: int = 4,
     dy = (q[:, None] // w - idx[None, :] // w).abs()
     dx = (q[:, None] % w - idx[None, :] % w).abs()
     return (dy + dx <= n).to(dtype)
+
+
+def posenc2d(d_model: int, height: int, width: int,
+             dtype: torch.dtype = torch.float32,
+             device: torch.device | str = "cpu") -> torch.Tensor:
+    """(height, width, d_model) 2-D sine-cosine positional encoding
+    (turtle_arch.py:412-439), computed in float64 and cast: channels
+    [0, d/2) encode the column (sin, cos interleaved), [d/2, d) the row.
+    No block of either package calls it (the t0 alignment skips the chain
+    that would)."""
+    if d_model % 4 != 0:
+        raise ValueError(f"posenc2d needs d_model % 4 == 0, got {d_model}")
+    f64 = torch.float64
+    half = d_model // 2
+    div_term = torch.exp(torch.arange(0.0, half, 2, dtype=f64)
+                         * -(math.log(10000.0) / half))
+    ang_w = torch.arange(0.0, width, dtype=f64)[:, None] * div_term  # (W, d/4)
+    ang_h = torch.arange(0.0, height, dtype=f64)[:, None] * div_term  # (H, d/4)
+    pe = torch.zeros(height, width, d_model, dtype=f64)
+    pe[..., 0:half:2] = torch.sin(ang_w)[None]
+    pe[..., 1:half:2] = torch.cos(ang_w)[None]
+    pe[..., half::2] = torch.sin(ang_h)[:, None]
+    pe[..., half + 1::2] = torch.cos(ang_h)[:, None]
+    return pe.to(device=device, dtype=dtype)
