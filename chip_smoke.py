@@ -119,6 +119,24 @@ Phases, one JSON object per line on standard output:
            limit and its exit code is checked; the ranks report their
            launches (`chip_smoke.py --child KIND OUT ARGS` is such a rank)
 
+  bench    `turtlevsr_tpu_torch.cli.bench.main` as its users call it, on
+           the shipped option files and seeded weights: inference of
+           `gopro`, `derain` and `sr` at 256 x 256 (SR: the low-resolution
+           input, 1024 x 1024 out) and of `gopro` under ("two_stage",), 30
+           timed calls after 5: the parameters (the slice phase's count),
+           the MACs a frame (`count_macs`, against the counts of the
+           model's shapes), fps, the launches a model call (the slice
+           phase's), the first call's output against the same call under
+           the plain versions on the card (at least 40 dB); a run with
+           `--trace_dir` (the trace holds the card's kernels);
+           `--train_step` at the GoPro recipe, 2 timed steps after 1 (the
+           train phase's launches a step); `--numerics` at 256 x 256 (4
+           frames) and tiled at 448 x 448 (tile 320, overlap 192: 2 x 2
+           tiles, 3 frames), bf16 on the kernels against float32 on the
+           CPU's plain versions, at least 40 dB a frame, into one merged
+           artifact in a scratch folder; the traced run's device busy a
+           call and idle share
+
 and, run alone (not part of all; no result line, no ok line):
 
   level-phases  row 14's Hopper body (csrc/level_wg.cu) with each of its
@@ -129,8 +147,8 @@ and, run alone (not part of all; no result line, no ok line):
            route and chain2.cu on the same inputs, at 15 tiles
 
 then the script's seconds, then, when the kernels, the slice, the tiled,
-the app, the train, the train-cli and the train-dist phase ran, the line
-{"kernels": [...]} and, last, {"ok": true, "device": {...}}.
+the app, the bench, the train, the train-cli and the train-dist phase ran,
+the line {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
 Any failed check exits non-zero; without a CUDA device the script exits 2
 before it prints any result.
 """
@@ -163,6 +181,7 @@ from turtlevsr_tpu_torch.config.options import (
 )
 from turtlevsr_tpu_torch.eval.engine import InferenceEngine
 from turtlevsr_tpu_torch import kernels as kernels_pkg
+from turtlevsr_tpu_torch.cli import bench as bench_cli
 from turtlevsr_tpu_torch.cli import infer as infer_cli
 from turtlevsr_tpu_torch.cli import train as train_cli
 from turtlevsr_tpu_torch.kernels import build
@@ -267,7 +286,7 @@ LAUNCHES_PER_CALL = {
 # tiled `gopro`: dec1's probabilities on 20 x 20 tokens stay on sab.cu
 # (kernels/sab.py _sab_plan), whole frames take the wgmma body
 TILED_LAUNCHES = {"gopro": {"sab_wg": 2}}
-FRAMES_PER_RUN = 6  # whole-frame and tiled streams: the 3-frame rings wrap
+FRAMES_PER_RUN = 5  # whole-frame and tiled streams: the 3-frame rings wrap
 MAX_TILE_BATCH = 15  # the engine's default chunk
 FUSED_PLAN = ("channel_runs", "attn_v_merge")
 TWO_STAGE = ("two_stage",)
@@ -316,6 +335,24 @@ CHILD_SECONDS = 420
 # engine's overlap 128: 24 tiles of a 1280x720 frame, two model calls)
 APP_FRAMES = 6
 APP_TILE = 320
+# the bench phase: turtlevsr_tpu_torch.cli.bench.main as its users call it,
+# at the reference harness's input of 256 x 256 (the SR model's
+# low-resolution input: 1024 x 1024 out), BENCH_ITERS timed calls after the
+# default 5 (the harness's default is 100: cut for the script's time); the
+# train step timed over this many steps after one warm-up step; the tiled
+# numerics' frame side, tile and overlap (2 x 2 tiles of 320, two model
+# calls a frame in chunks of 3); the traced run's timed calls
+BENCH_SIZE = 256
+BENCH_RUNS = (("gopro", ()), ("derain", ()), ("sr", ()), ("gopro", TWO_STAGE))
+# the MACs of one call at BENCH_SIZE, as the model's shapes gave them block
+# by block when the harness was ported (tests/test_torch_port_bench.py holds
+# gopro's on the CPU)
+BENCH_MACS = {"gopro": 201_636_184_064, "derain": 190_003_281_920,
+              "sr": 4_823_780_163_584}
+BENCH_ITERS = 30
+BENCH_TRAIN_ITERS = 2
+BENCH_TILED = (448, 320, 192)
+BENCH_TRACE_ITERS = 5
 # two ranks of one clip each against one process's step on both clips (the
 # first step, from the same masters): the same bf16 kernels on each clip;
 # the loss's float32 means, and the backward's reductions over the batch,
@@ -2243,6 +2280,211 @@ def read_rgb(path: str) -> np.ndarray:
 
 
 # ---------------------------------------------------------------------------
+# the complexity and speed harness, as its users call it
+# ---------------------------------------------------------------------------
+
+
+def trace_busy(events: list, calls: int) -> dict:
+    """Device busy a model call (the union of the card's kernel intervals)
+    and the card's idle share of the traced window (from the first host
+    operation to the last kernel's end), from a Chrome trace's events."""
+    kern = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                  if e.get("cat") == "kernel")
+    busy, end = 0.0, -1.0
+    for a, b in kern:
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    start = min(e["ts"] for e in events if e.get("cat") in ("cpu_op",
+                                                           "kernel"))
+    window = end - start
+    return {"device_busy_ms_per_call": busy / 1e3 / calls,
+            "window_ms_per_call": window / 1e3 / calls,
+            "idle_share": 1.0 - busy / window}
+
+
+def require_launches(what: str, counts: dict, per_call: dict,
+                     calls: int) -> None:
+    for name, n in per_call.items():
+        require(counts[name] == n * calls,
+                f"{what}: {name}: {counts[name]} launches over {calls} "
+                f"model calls, expected {n} per call")
+
+
+def bench_main(argv: list) -> tuple[dict, dict, float]:
+    """(cli.bench.main's result, the launches of its run, its seconds): the
+    counts set to 0 just before and read just after."""
+    kernels_pkg.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = bench_cli.main(argv)
+    seconds = time.perf_counter() - t0
+    return res, kernels_pkg.launch_counts(), seconds
+
+
+def bench_first_call_vs_plain(argv: list, fuse: tuple,
+                              first: np.ndarray) -> tuple[float, float]:
+    """(PSNR, max |difference|) of the first model call of an inference
+    run of cli.bench.main against the same call under plain_versions() on
+    the card: the harness's own model (its seed-0 weights, bf16, the plan),
+    input and fresh cache."""
+    args = bench_cli.parse_args(argv)
+    h, w = args.size
+    model = build_model(load_options(args.opt, is_train=False),
+                        device="cuda", dtype=torch.bfloat16, fuse=fuse)
+    x = torch.from_numpy(np.random.RandomState(0).rand(1, 2, h, w, 3)).to(
+        "cuda", torch.bfloat16)
+    with torch.inference_mode(), plain_versions():
+        out, _ = model(x, model.init_cache(1, h, w, torch.bfloat16))
+    plain = out.float().cpu().numpy()
+    del model, out
+    torch.cuda.empty_cache()
+    require(plain.shape == first.shape, f"plain {plain.shape}, kernels "
+            f"{first.shape}")
+    return psnr(first, plain), float(np.abs(first - plain).max())
+
+
+def run_bench(slice_params: dict) -> dict:
+    """cli.bench.main's modes on the card: inference of `gopro`, `derain`
+    and `sr` and of `gopro` under ("two_stage",), a traced run, the train
+    step and the numerics whole-frame and tiled; each run's parameters and
+    MACs against the model's, its launches a model call against the slice
+    phase's, an inference run's first output against the plain versions',
+    its result line. Returns the launches of each run."""
+    out = {}
+    work = tempfile.mkdtemp(prefix="chip_smoke_bench_")
+    size = ["--size", str(BENCH_SIZE), str(BENCH_SIZE)]
+    try:
+        for config, fuse in BENCH_RUNS:
+            tag = "bench_" + config + plan_suffix(fuse)
+            opt = options_of(config)
+            cfg = model_config_from_options(opt)
+            argv = ["-opt", CONFIGS[config][0], *size, "--iters",
+                    str(BENCH_ITERS)]
+            if fuse:
+                argv += ["--fuse", *fuse]
+            res, counts, seconds = bench_main(argv)
+            with torch.device("meta"):
+                params = sum(p.numel() for p in turtle_mod.Turtle(
+                    cfg).parameters())
+            side = BENCH_SIZE * (cfg.sr_scale if cfg.variant == "sr" else 1)
+            require(res["params"] == slice_params.get(config, params)
+                    == params, f"{tag}: {res['params']} parameters")
+            require(res["macs"] == BENCH_MACS[config],
+                    f"{tag}: MACs {res['macs']}, expected "
+                    f"{BENCH_MACS[config]}")
+            require(res["finite"] and res["out_shape"] == [1, side, side, 3],
+                    f"{tag}: output {res['out_shape']}, finite "
+                    f"{res['finite']}")
+            require_launches(tag, counts, LAUNCHES_PER_CALL[
+                config + plan_suffix(fuse)], res["model_calls"])
+            db, err = bench_first_call_vs_plain(argv, fuse,
+                                                res["first_output"])
+            require(kernels_pkg.launch_counts() == counts,
+                    f"{tag}: the plain call must launch no kernel")
+            emit(dict(
+                phase="bench", run=tag, entry="turtlevsr_tpu_torch.cli.bench",
+                argv=argv, option_file=os.path.relpath(CONFIGS[config][0],
+                                                       ROOT),
+                plan=list(fuse), input=[1, 2, BENCH_SIZE, BENCH_SIZE, 3],
+                output=res["out_shape"], params=res["params"],
+                params_m=round(res["params"] / 1e6, 2), macs=res["macs"],
+                gmacs=res["macs"] / 1e9, fps=res["fps"],
+                ms_per_image=res["ms_per_image"], iters=res["iters"],
+                model_calls=res["model_calls"],
+                warmup_seconds=res["warmup_seconds"],
+                model_tflop_per_s=2 * res["macs"] * res["fps"] / 1e12,
+                launches_per_call={k: v / res["model_calls"]
+                                   for k, v in counts.items()},
+                first_call_psnr_vs_plain_db=db, min_psnr_db=SLICE_MIN_PSNR,
+                first_call_max_abs_err_vs_plain=err, seconds=seconds))
+            require(db >= SLICE_MIN_PSNR, f"{tag}: the first call's output "
+                    f"and the plain versions' disagree: PSNR {db} dB")
+            out[tag] = counts
+
+        # --trace_dir: a torch.profiler trace of the timed calls, with the
+        # card's kernels in it
+        logdir = os.path.join(work, "trace")
+        argv = ["-opt", CONFIGS["gopro"][0], *size, "--iters",
+                str(BENCH_TRACE_ITERS), "--warmup", "1", "--trace_dir",
+                logdir]
+        res, counts, seconds = bench_main(argv)
+        traces = [f for f in os.listdir(logdir) if f.startswith("trace_")
+                  and f.endswith(".json")]
+        require(len(traces) == 1, f"--trace_dir wrote {traces}")
+        with open(os.path.join(logdir, traces[0])) as f:
+            events = json.load(f)["traceEvents"]
+        on_card = sum(1 for e in events if e.get("cat") == "kernel")
+        require(on_card > 0, "the trace holds no kernel of the card")
+        require_launches("bench_gopro_trace", counts,
+                         LAUNCHES_PER_CALL["gopro"], res["model_calls"])
+        emit(dict(phase="bench", run="bench_gopro_trace", argv=argv,
+                  trace_file=traces[0], trace_bytes=os.path.getsize(
+                      os.path.join(logdir, traces[0])),
+                  trace_events=len(events), card_kernel_events=on_card,
+                  card_kernels_per_call=on_card / res["iters"],
+                  port_launches_per_call=sum(  # one count a wrapper
+                      counts[k] for k in kernels_pkg._counted())
+                  / res["model_calls"],
+                  **trace_busy(events, res["iters"]),
+                  fps=res["fps"], model_calls=res["model_calls"],
+                  seconds=seconds))
+        out["bench_gopro_trace"] = counts
+
+        # --train_step at the GoPro recipe
+        argv = ["-opt", CONFIGS["gopro"][0], "--train_step", "--iters",
+                str(BENCH_TRAIN_ITERS), "--warmup", "1"]
+        res, counts, seconds = bench_main(argv)
+        per_step = train_launches("gopro", (), res["frames"])
+        require_launches("bench_train_gopro", counts, per_step, res["steps"])
+        require(res["value"] > 0, f"train step: {res['value']} ms")
+        emit(dict(phase="bench", run="bench_train_gopro", argv=argv,
+                  metric=res["metric"], ms_per_step=res["ms"],
+                  value=res["value"], iters_per_day=res["iters_per_day"],
+                  batch=res["batch"], frames=res["frames"],
+                  patch=res["patch"], steps=res["steps"],
+                  warmup_seconds=res["warmup_seconds"],
+                  launches_per_step={k: v / res["steps"]
+                                     for k, v in counts.items()},
+                  seconds=seconds))
+        out["bench_train_gopro"] = counts
+
+        # --numerics whole-frame, then tiled, into one artifact in the
+        # scratch folder (never the repository's NUMERICS.json)
+        artifact = os.path.join(work, "numerics.json")
+        side, tile, overlap = BENCH_TILED
+        tiled_call = {**LAUNCHES_PER_CALL["gopro"], **TILED_LAUNCHES["gopro"]}
+        for i, (tag, argv, per_call, frames_calls) in enumerate((
+                ("bench_numerics", [*size, "--numerics"],
+                 LAUNCHES_PER_CALL["gopro"], bench_cli.NUMERICS_FRAMES),
+                ("bench_numerics_tiled",
+                 ["--size", str(side), str(side), "--numerics_tile",
+                  str(tile), "--numerics_overlap", str(overlap)], tiled_call,
+                 None))):
+            argv = ["-opt", CONFIGS["gopro"][0], *argv, "--numerics_json",
+                    artifact]
+            art, counts, seconds = bench_main(argv)
+            if frames_calls is None:  # chunks of 3 tiles a frame
+                frames_calls = bench_cli.NUMERICS_TILED_FRAMES * -(
+                    -art["tiles"] // bench_cli.NUMERICS_TILE_BATCH)
+                require(art["tiles"] == 4, f"{tag}: {art['tiles']} tiles")
+            require_launches(tag, counts, per_call, frames_calls)
+            require(min(art["per_frame_db"]) >= SLICE_MIN_PSNR,
+                    f"{tag}: PSNR {art['per_frame_db']}")
+            with open(artifact) as f:
+                merged = json.load(f)
+            require(merged[-1] == art and len(merged) == i + 1,
+                    f"{tag}: the artifact holds {len(merged)} entries")
+            emit(dict(phase="bench", run=tag, argv=argv,
+                      metric=art["metric"], per_frame_db=art["per_frame_db"],
+                      min_db=art["min_db"], limit_db=SLICE_MIN_PSNR,
+                      model_calls=frames_calls, artifact_entries=len(merged),
+                      seconds=seconds))
+            out[tag] = counts
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # training: the BPTT train step over a clip
 # ---------------------------------------------------------------------------
 
@@ -2666,10 +2908,19 @@ def run_train_cli(yml: str, write_s: float, width: int, height: int,
 # ---------------------------------------------------------------------------
 
 
+_PORTS_GIVEN = set()
+
+
 def free_port() -> int:
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        return sock.getsockname()[1]
+    """A free local port, never one given before (launches run side by
+    side)."""
+    while True:
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        if port not in _PORTS_GIVEN:
+            _PORTS_GIVEN.add(port)
+            return port
 
 
 def torchrun(nproc: int) -> list:
@@ -2681,30 +2932,44 @@ def torchrun(nproc: int) -> list:
             str(free_port())]
 
 
-def run_launch(cmd: list, cwd: str, what: str) -> float:
-    """Run a launch (a launcher and its ranks, or one process) as the leader
-    of a new process group: the seconds it took. Past CHILD_SECONDS every
-    process of that group is killed and the phase fails; so does a non-zero
-    exit."""
+def run_launches(launches: list) -> list:
+    """Run launches, each ``(cmd, cwd, what)`` (a launcher and its ranks, or
+    one process), side by side, each the leader of a new process group: the
+    seconds each took. Past CHILD_SECONDS every process of every launch is
+    killed and the phase fails; so does a non-zero exit."""
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [ROOT, os.environ.get("PYTHONPATH", "")]))
     t0 = time.perf_counter()
-    proc = subprocess.Popen(cmd, cwd=cwd, env=env, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True,
-                            start_new_session=True)
+    procs, seconds = [], {}
     try:
-        out, _ = proc.communicate(timeout=CHILD_SECONDS)
-    except subprocess.TimeoutExpired:
-        os.killpg(proc.pid, signal.SIGKILL)
-        proc.communicate()
-        raise SmokeFailure(f"{what}: no end within {CHILD_SECONDS} s, killed")
+        for cmd, cwd, what in launches:
+            log = tempfile.TemporaryFile(mode="w+")  # no pipe to fill
+            procs.append((subprocess.Popen(
+                cmd, cwd=cwd, env=env, stdout=log, stderr=subprocess.STDOUT,
+                text=True, start_new_session=True), log, what))
+        while len(seconds) < len(procs):
+            for i, (proc, log, what) in enumerate(procs):
+                if i in seconds or proc.poll() is None:
+                    continue
+                seconds[i] = time.perf_counter() - t0
+                if proc.returncode != 0:
+                    log.seek(0)
+                    print(log.read()[-6000:], file=sys.stderr)
+                require(proc.returncode == 0,
+                        f"{what}: exit code {proc.returncode}")
+            late = [what for i, (_, _, what) in enumerate(procs)
+                    if i not in seconds]
+            require(not late or time.perf_counter() - t0 < CHILD_SECONDS,
+                    f"{', '.join(late)}: no end within {CHILD_SECONDS} s, "
+                    f"killed")
+            time.sleep(0.1)
     finally:
-        if proc.poll() is None:
-            os.killpg(proc.pid, signal.SIGKILL)
-    if proc.returncode != 0:
-        print(out[-6000:], file=sys.stderr)
-    require(proc.returncode == 0, f"{what}: exit code {proc.returncode}")
-    return time.perf_counter() - t0
+        for proc, log, _ in procs:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+            log.close()
+    return [seconds[i] for i in range(len(procs))]
 
 
 def child_command(kind: str, out: str, *args) -> list:
@@ -2921,10 +3186,11 @@ def run_train_dist(yml: str, seed: int, width: int, height: int) -> dict:
         training state (masters, AdamW's moments) bit for bit, the exact
         launches; then the time of one all-reduce of the gradients over an
         NCCL group of one, in this process;
-    (b) two ranks over gloo on this card (a copy of the file with
-        dist_params.backend gloo and batch_size_per_gpu 1), TRAIN_DIST_ITERS
-        steps of ``make_train_step(group=...)``, each rank one of two
-        clips: the ranks' masters bit for bit, the group's step-1 loss
+    (b) two ranks over gloo on this card, launched beside (a)'s two
+        processes (a copy of the file with dist_params.backend gloo and
+        batch_size_per_gpu 1), TRAIN_DIST_ITERS steps of
+        ``make_train_step(group=...)``, each rank one of two clips: the
+        ranks' masters bit for bit, the group's step-1 loss
         against one process's step on both clips (TRAIN_DIST_LOSS_REL_TOL),
         the exact launches, the all-reduce's time, each rank's peak memory;
     (c) ``run_tiled_split``.
@@ -2956,17 +3222,35 @@ def run_train_dist(yml: str, seed: int, width: int, height: int) -> dict:
         one_yml = os.path.join(work, "one_worker.yml")
         with open(one_yml, "w") as f:
             yaml.safe_dump(one, f, sort_keys=False)
-        runs = {}
+        # (b)'s file: two ranks over gloo on the one card
+        gloo = copy.deepcopy(one)
+        gloo["dist_params"]["backend"] = "gloo"
+        gloo["datasets"]["train"]["batch_size_per_gpu"] = 1
+        gloo_yml = os.path.join(work, "gloo.yml")
+        with open(gloo_yml, "w") as f:
+            yaml.safe_dump(gloo, f, sort_keys=False)
+        gloo_out = os.path.join(work, "gloo_rank")
+        # the three launches side by side: each one's checks hold whatever
+        # the timing, and their times include the others' load on the card
+        # and the host
+        launches = []
         for launcher in ("pytorch", "none"):
             cwd = os.path.join(work, launcher)
             os.makedirs(cwd)
-            out = os.path.join(cwd, "result.json")
             cmd = ((torchrun(1) if launcher == "pytorch" else [sys.executable])
-                   + child_command("train-cli", out, "-opt", one_yml,
-                                   "--max_iters", str(TRAIN_DIST_ITERS),
-                                   "--launcher", launcher))
-            seconds = run_launch(cmd, cwd, f"train-dist --launcher {launcher}")
-            with open(out) as f:
+                   + child_command("train-cli",
+                                   os.path.join(cwd, "result.json"), "-opt",
+                                   one_yml, "--max_iters",
+                                   str(TRAIN_DIST_ITERS), "--launcher",
+                                   launcher))
+            launches.append((cmd, cwd, f"train-dist --launcher {launcher}"))
+        launches.append((torchrun(2) + child_command(
+            "train-step", gloo_out, gloo_yml, str(seed)), work,
+            "train-dist two gloo ranks"))
+        *a_seconds, gloo_seconds = run_launches(launches)
+        runs = {}
+        for launcher, seconds in zip(("pytorch", "none"), a_seconds):
+            with open(os.path.join(work, launcher, "result.json")) as f:
                 runs[launcher] = dict(json.load(f), launch_seconds=seconds)
         exp = os.path.join("experiments", opt["name"])
         files = {}
@@ -3018,19 +3302,9 @@ def run_train_dist(yml: str, seed: int, width: int, height: int) -> dict:
         paths["train_dist_nccl"] = nccl["launches"]
 
         # (b) two ranks over gloo on the one card
-        gloo = copy.deepcopy(one)
-        gloo["dist_params"]["backend"] = "gloo"
-        gloo["datasets"]["train"]["batch_size_per_gpu"] = 1
-        gloo_yml = os.path.join(work, "gloo.yml")
-        with open(gloo_yml, "w") as f:
-            yaml.safe_dump(gloo, f, sort_keys=False)
-        out = os.path.join(work, "gloo_rank")
-        seconds = run_launch(torchrun(2) + child_command(
-            "train-step", out, gloo_yml, str(seed)), work,
-            "train-dist two gloo ranks")
         ranks = []
         for r in range(2):
-            with open(f"{out}.{r}") as f:
+            with open(f"{gloo_out}.{r}") as f:
                 ranks.append(json.load(f))
         _, cfg, init, tx, lq, gt = dist_step_inputs(gloo_yml, seed)
         state = TrainState.create(init, tx)
@@ -3043,7 +3317,7 @@ def run_train_dist(yml: str, seed: int, width: int, height: int) -> dict:
         emit(dict(phase="train_dist", part="gloo_two_ranks",
                   launch="torch.distributed.run --nproc_per_node 2, "
                          "make_train_step(group=...)",
-                  launch_seconds=seconds, ranks=ranks,
+                  launch_seconds=gloo_seconds, ranks=ranks,
                   one_process_step1_loss_batch_2=one,
                   step1_loss_rel_err=rel,
                   loss_rel_tol=TRAIN_DIST_LOSS_REL_TOL))
@@ -3139,7 +3413,8 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--phase", default="all",
                     choices=("all", "build", "kernels", "slice", "tiled",
-                             "app", "train", "train-cli", "train-dist",
+                             "app", "bench", "train", "train-cli",
+                             "train-dist",
                              "level-phases",
                              "two-stage-phases"),
                     help="level-phases, two-stage-phases: row 14's or row "
@@ -3189,7 +3464,7 @@ def main(argv=None) -> int:
               "flags": list(build.NVCC_FLAGS)})
         hp, wp = turtle_mod.padded_hw(
             model_config_from_options(options_of("gopro")), height, width)
-        cases, by_path, step_ms = [], {}, None
+        cases, by_path, step_ms, slice_params = [], {}, None, {}
         if args.phase == "level-phases":
             level_phase_cases(args.seed, hp, wp)
             return 0
@@ -3211,9 +3486,10 @@ def main(argv=None) -> int:
                     ("derain", args.frames, ()), ("sr", args.frames, ()),
                     ("gopro", args.frames, TWO_STAGE)):
                 tag = config + ("_two_stage" if fuse else "")
-                by_path[tag] = run_slice(
-                    config, args.seed, n, width, height, fuse=fuse,
-                    trace=args.profile)["launches"]
+                res = run_slice(config, args.seed, n, width, height,
+                                fuse=fuse, trace=args.profile)
+                by_path[tag] = res["launches"]
+                slice_params[config] = res["params"]
         if args.phase in ("all", "tiled"):
             # the command line's tiled streams, each under its plans
             for config in TILED_PLANS:
@@ -3243,6 +3519,12 @@ def main(argv=None) -> int:
         if args.phase in ("all", "train-dist"):
             # data parallelism: a launcher, two ranks, the split tiled grid
             by_path.update(run_train_dist(yml, args.seed, width, height))
+        if args.phase in ("all", "bench"):
+            # the complexity and speed harness's modes
+            t0 = time.perf_counter()
+            by_path.update(run_bench(slice_params))
+            emit({"phase": "bench_done",
+                  "seconds": time.perf_counter() - t0})
         if args.phase == "all":
             # every path launched the kernels that lie on it (the exact
             # counts were held above); attn_v_slots is the second epilogue of
@@ -3279,6 +3561,13 @@ def main(argv=None) -> int:
                 "tiled_split": t1_chm,
                 # the app: restore_video whole-frame and tiled
                 "app_whole": t1_chm, "app_tiled": t1_chm,
+                # the harness: inference, a traced run, the train step, the
+                # numerics whole-frame and tiled
+                "bench_gopro": t1_chm, "bench_derain": t0_chm,
+                "bench_sr": t1_chm, "bench_gopro_two_stage": t1_chm + (
+                    "two_stage", "two_stage_wg"),
+                "bench_gopro_trace": t1_chm, "bench_train_gopro": t1_chm,
+                "bench_numerics": t1_chm, "bench_numerics_tiled": t1_chm,
                 "train_gopro_two_stage": t1_chm + ("two_stage",
                                                    "two_stage_wg"),
                 "train_gopro_fused": ("ffn", "ffn_wg", "ffn_c64", "qkv_wg",
@@ -3315,7 +3604,7 @@ def main(argv=None) -> int:
     if args.cases:  # a filtered run proves nothing about the whole
         return 0
     emit({"phase": "done", "script_seconds": time.perf_counter() - t_script})
-    if cases and len(by_path) == 24:  # launches are those of this run's paths
+    if cases and len(by_path) == 32:  # launches are those of this run's paths
         emit({"kernels": kernel_rows(cases, by_path)})
     print(smi_line, flush=True)
     emit({"ok": True,

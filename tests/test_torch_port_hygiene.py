@@ -40,6 +40,7 @@ def test_port_has_the_expected_modules():
                  "turtlevsr_tpu_torch/train/step.py",
                  "turtlevsr_tpu_torch/ops/resize.py",
                  "turtlevsr_tpu_torch/cli/infer.py",
+                 "turtlevsr_tpu_torch/cli/bench.py",
                  "turtlevsr_tpu_torch/metrics/psnr_ssim.py",
                  "turtlevsr_tpu_torch/utils/img.py",
                  "turtlevsr_tpu_torch/data/loader.py",

@@ -64,18 +64,36 @@ def _rt(v, dtype):
     return v.to(dtype).to(v.dtype)
 
 
+def records(*tensors) -> bool:
+    """Whether autograd records an operation on these tensors (None
+    entries are skipped)."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
 def _dw_acc(h, wd, bd):
     """Depthwise 3x3, zero padding of the hidden map, as nine shifted
-    multiply-adds in h's type (taps in row-major order, then the bias)."""
+    multiply-adds in h's type (taps in row-major order, then the bias),
+    accumulated in place; each product in one reused buffer when autograd
+    does not record. Adds its multiply-accumulates to ``_dw_acc.macs``,
+    which ``cli/bench.py``'s MAC count reads (FlopCounterMode sees no
+    elementwise product)."""
     b, hh, ww, ch = h.shape
+    _dw_acc.macs += 9 * h.numel()
     hp = F.pad(h, (0, 0, 1, 1, 1, 1))
     out = torch.zeros_like(h)
+    prod = None if records(h, wd) else torch.empty_like(h)
     for ty in range(3):
         for tx in range(3):
-            out = out + hp[:, ty:ty + hh, tx:tx + ww, :] * wd[ty, tx].to(h.dtype)
+            tap = hp[:, ty:ty + hh, tx:tx + ww, :]
+            w = wd[ty, tx].to(h.dtype)
+            out.add_(tap * w if prod is None else torch.mul(tap, w, out=prod))
     if bd is not None:
-        out = out + bd.to(h.dtype)
+        out.add_(bd.to(h.dtype))
     return out
+
+
+_dw_acc.macs = 0
 
 
 def _gelu(v):

@@ -25,6 +25,7 @@ from __future__ import annotations
 import torch
 
 from turtlevsr_tpu_torch.kernels import chain2, ffn, lattice, level, sab
+from turtlevsr_tpu_torch.kernels.ffn import records
 
 _LEAF = object()  # the place of a tensor in a flattened call
 
@@ -55,13 +56,6 @@ def _unflatten(spec, leaves):
         return node
 
     return build(spec)
-
-
-def records(*tensors) -> bool:
-    """Whether autograd records an operation on these tensors (None
-    entries are skipped)."""
-    return torch.is_grad_enabled() and any(
-        t is not None and t.requires_grad for t in tensors)
 
 
 def _kernel_function(name: str, module, wrapper: str, plain):
