@@ -40,7 +40,11 @@ Phases, one JSON object per line on standard output:
            wg_ms; the mma.sync bodies of rows 3, 4, 6 and 7, off the path
            now, at the latent's or dec3's shape); attention @ v also at
            the whole frame's dec3 shape, the 3x3 conv also on maps and Cout
-           that its tiles do not divide
+           that its tiles do not divide; then the float32 forms of rows 1,
+           3, 4, 5 (with LayerNorm) and 6 at C = 256 and 512, whole frames
+           and 15 tiles, on their mma.sync bodies (the LN halo in device
+           memory at C = 512), against the plain versions in float32 (TF32
+           off) at the card tests' float32 limit, bound by float32 FMA
   slice    five configurations at full width and depth, seeded random
            weights, frames streamed through InferenceEngine.step: `gopro`
            (options/Turtle_Deblur_Gopro.yml unchanged: CHM blocks end the
@@ -137,6 +141,17 @@ Phases, one JSON object per line on standard output:
            artifact in a scratch folder; the traced run's device busy a
            call and idle share
 
+  float32  float32 serving, each path against the same frames through the
+           plain versions in float32 on the card (TF32 off): `gopro`
+           whole-frame through InferenceEngine(dtype=torch.float32), 4
+           frames; `derain` tiled through `cli.infer.main --task derain
+           --dtype float32` (24 tiles, 3 frames); `cli.bench.main --dtype
+           float32` on `gopro` at 256 x 256 (5 timed calls, the first held
+           against the plain versions). Each: ms a frame (a call), PSNR to
+           plain (at least 40 dB), peak, the exact launches (every call on
+           the widened mma.sync bodies, none on a bf16-only body). Alone
+           (--phase float32) it also runs the float32 kernel cases
+
 and, run alone (not part of all; no result line, no ok line):
 
   level-phases  row 14's Hopper body (csrc/level_wg.cu) with each of its
@@ -147,7 +162,8 @@ and, run alone (not part of all; no result line, no ok line):
            route and chain2.cu on the same inputs, at 15 tiles
 
 then the script's seconds, then, when the kernels, the slice, the tiled,
-the app, the bench, the train, the train-cli and the train-dist phase ran,
+the app, the bench, the train, the train-cli, the train-dist and the
+float32 phase ran,
 the line {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
 Any failed check exits non-zero; without a CUDA device the script exits 2
 before it prints any result.
@@ -283,6 +299,22 @@ LAUNCHES_PER_CALL = {
     "sr": {**_GOPRO, **_NONE},
     "sr_two_stage": {**_GOPRO, **_NONE, **_TWO_STAGE},
 }
+# float32 serving (InferenceEngine(dtype=torch.float32), --dtype float32):
+# the same calls a model call, every one of rows 1, 3, 4 and 6 on its
+# mma.sync body (csrc/ffn.cu, qkv_stats.cu, split_proj.cu, chm_stats.cu,
+# widened to C = 256 and 512) and row 7 on sab.cu: the Hopper bodies take
+# bf16 only
+BF16_ONLY = ("ffn_wg", "ffn_c64", "ffn_pw", "qkv_wg", "chm_wg", "split_wg",
+             "split_c64", "sab_wg")
+LAUNCHES_PER_CALL_F32 = {
+    config: {**LAUNCHES_PER_CALL[config], **dict.fromkeys(BF16_ONLY, 0)}
+    for config in ("gopro", "derain")}
+# the float32 paths: `gopro` whole-frame (4 frames: the 3-frame rings
+# wrap), `derain` tiled through cli.infer.main at its preset (24 tiles, 3
+# frames), cli.bench.main --dtype float32 at 256 x 256
+F32_PATHS = ("gopro_f32", "derain_tiled_f32", "bench_gopro_f32")
+F32_FRAMES = {"gopro_f32": 4, "derain_tiled_f32": 3}
+BENCH_F32_ITERS = 5
 # tiled `gopro`: dec1's probabilities on 20 x 20 tokens stay on sab.cu
 # (kernels/sab.py _sab_plan), whole frames take the wgmma body
 TILED_LAUNCHES = {"gopro": {"sab_wg": 2}}
@@ -370,6 +402,7 @@ GRAD_REL_FACTOR, GRAD_REL_SLACK = 1.5, 1e-3
 # tensor-core rate of its type (bf16)
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
+FP32_FLOP_PER_S = 67e12  # float32 outside the tensor cores (FMA)
 
 # Tolerances, bf16. The plain versions round where the kernels round, so the
 # two differ by the order of fp32 sums and by erff against torch's erf: a
@@ -390,6 +423,11 @@ STATS_REL_TOL = 2.0 ** -9
 SAB_MAX_FLIP_SHARE = 0.25
 SAB_TOL = 2.0 ** -6
 SAB_EXACT_TOL = 2.0 ** -9
+# float32 (the kernels' FMA in full fp32, the plain versions' products
+# with TF32 off): fp32 sums in another order, values to ~10; the absolute
+# limit of tests/test_torch_port_cuda.py (KERNEL_TOL), the Grams and norms
+# divided by their pixels as there
+F32_KERNEL_TOL = 3e-5
 # the slice: 41 blocks deep, rounding flips feed forward through every later
 # block; PSNR of the kernel path against the plain path on the card, on
 # pictures in [0, 1]
@@ -495,6 +533,20 @@ KERNEL_INFO = {
                            "turtlevsr_tpu/kernels/sab.py:328"),
     "sparse_wg": ("turtlevsr_tpu_torch/kernels/csrc/sparse_wg.cu",
                   "turtlevsr_tpu/kernels/sab.py:328"),
+    # the float32 forms of rows 1, 3, 4, 5 and 6 on their mma.sync bodies
+    # (every float32 call: the Hopper bodies are bf16 only), widened to C =
+    # 256 and 512 for float32 serving; their launches are those of the
+    # float32 paths (F32_PATHS), which the rows above do not count
+    "ffn_f32": ("turtlevsr_tpu_torch/kernels/csrc/ffn.cu",
+                "turtlevsr_tpu/kernels/ffn.py:2024"),
+    "qkv_stats_f32": ("turtlevsr_tpu_torch/kernels/csrc/qkv_stats.cu",
+                      "turtlevsr_tpu/kernels/ffn.py:985"),
+    "split_proj_f32": ("turtlevsr_tpu_torch/kernels/csrc/split_proj.cu",
+                       "turtlevsr_tpu/kernels/ffn.py:1732"),
+    "conv3x3_f32": ("turtlevsr_tpu_torch/kernels/csrc/conv3x3.cu",
+                    "turtlevsr_tpu/kernels/ffn.py:1622"),
+    "chm_stats_f32": ("turtlevsr_tpu_torch/kernels/csrc/chm_stats.cu",
+                      "turtlevsr_tpu/kernels/ffn.py:1267"),
 }
 
 
@@ -540,22 +592,41 @@ def timed_in(body, fn, iters: int) -> float:
         return cuda_ms(fn, iters)
 
 
-def bound(n_bytes: float, flops: float) -> tuple[float, str]:
-    tb, tf = n_bytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOP_PER_S * 1e3
+def bound(n_bytes: float, flops: float, dtype=torch.bfloat16
+          ) -> tuple[float, str]:
+    """The least time: bytes over the memory rate against operations over
+    the rate of the type's units (bf16 tensor cores; float32 on the CUDA
+    cores, where the float32 bodies run their FMA)."""
+    rate = FP32_FLOP_PER_S if dtype == torch.float32 else BF16_FLOP_PER_S
+    tb, tf = n_bytes / HBM_BYTES_PER_S * 1e3, flops / rate * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+def f32_kernel(kernel: str, x: torch.Tensor) -> str:
+    """The kernels line's row of a case: the float32 calls of the widened
+    bodies have rows of their own."""
+    return kernel + "_f32" if x.dtype == torch.float32 else kernel
+
+
+def within(err: float, rel: float, x: torch.Tensor, tol_rel: float) -> bool:
+    """bf16: relative to the largest output; float32: the card tests'
+    absolute limit (sums normalised by the pixels, as they are there)."""
+    return err <= F32_KERNEL_TOL if x.dtype == torch.float32 else (
+        rel <= tol_rel)
 
 
 class Inputs:
     """Seeded normal inputs, drawn on the card (the cases at 15 tiles hold
-    some 10^10 values in all) and rounded to bf16."""
+    some 10^10 values in all) and rounded to bf16 (or kept in float32)."""
 
-    def __init__(self, seed: int):
+    def __init__(self, seed: int, dtype: torch.dtype = torch.bfloat16):
         self.rng = np.random.RandomState(seed)  # the integer inputs
         self.gen = torch.Generator("cuda").manual_seed(seed)
+        self.dtype = dtype
 
     def __call__(self, *shape, scale: float = 1.0) -> torch.Tensor:
         a = torch.randn(*shape, device="cuda", generator=self.gen)
-        return (a * scale).bfloat16()
+        return (a * scale).to(self.dtype)
 
 
 def rel_err(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
@@ -657,17 +728,19 @@ def ffn_case(inp: Inputs, name, h, w, c, e, mode, *, pair=False, po=False,
     if stacked:
         weights += kw["x2"] + kw["po_w"]
     n_bytes = numel_bytes(x, None if stacked else kw.get("x2"), got, *weights)
-    b_ms, b_by = bound(n_bytes, flops)
+    b_ms, b_by = bound(n_bytes, flops, x.dtype)
     with body():
         ms = cuda_ms(lambda: K.fused_block_ffn(x, **kw), iters)
-    return dict(kernel="ffn_wg" if on_wg else "ffn_c64" if on_c64
-                else "ffn_pw" if on_pw else "ffn" if dw else "ffn_no_dw",
+    kernel = ("ffn_wg" if on_wg else "ffn_c64" if on_c64 else "ffn_pw"
+              if on_pw else f32_kernel("ffn", x) if dw else "ffn_no_dw")
+    return dict(kernel=kernel,
                 case=name, shape=[batch, h, w, c], hidden=ch,
                 body="wg" if on_wg else "c64" if on_c64 else "pw" if on_pw
-                else "tile",
+                else "tile", dtype=str(x.dtype),
                 tile_ms=tile_ms, max_abs_err=err, rel_err=rel,
-                tol_rel=KERNEL_REL_TOL,
-                ok=rel <= KERNEL_REL_TOL and bool(torch.isfinite(got.float()).all()),
+                tol_rel=KERNEL_REL_TOL, tol_abs_f32=F32_KERNEL_TOL,
+                ok=(within(err, rel, x, KERNEL_REL_TOL)
+                    and bool(torch.isfinite(got.float()).all())),
                 ms=ms,
                 plain_ms=cuda_ms(lambda: K.ffn_plain(x, **kw), 2, 1),
                 library_ms=None, bound_ms=b_ms, bound_by=b_by)
@@ -706,7 +779,8 @@ def qkv_case(inp: Inputs, name, h, w, c, heads, iters=5, batch=1,
     """Row 3 on the body its plan gives the call (tile: on the mma.sync
     body): kernel "qkv_wg" for the wgmma body (timed also on the mma.sync
     body, tile_ms), else "qkv_stats"."""
-    kernel = "qkv_stats" if tile or c not in K._QKV_WG_WIDTHS else "qkv_wg"
+    kernel = ("qkv_stats_f32" if inp.dtype == torch.float32 else "qkv_stats"
+              if tile or c not in K._QKV_WG_WIDTHS else "qkv_wg")
     if skipped(kernel, name):
         return None
     x = inp(batch, h, w, c)
@@ -732,13 +806,17 @@ def qkv_case(inp: Inputs, name, h, w, c, heads, iters=5, batch=1,
     # blocks of the Gram (heads x ctok x ctok = C x ctok), the two norms
     px, ctok = h * w, c // heads
     flops = 2.0 * batch * px * (c * 3 * c + 9 * 3 * c + c * ctok + 2 * c)
-    b_ms, b_by = bound(numel_bytes(x, v, g, s, *kw.values()), flops)
+    b_ms, b_by = bound(numel_bytes(x, v, g, s, *kw.values()), flops,
+                       x.dtype)
     body = "wg" if on_wg else "tile"
+    err = max(err_v, err_g / px, err_s / px)
     return dict(kernel=kernel, case=name, shape=[batch, h, w, c],
-                heads=heads, max_abs_err=max(err_v, err_g / px, err_s / px),
+                heads=heads, max_abs_err=err, dtype=str(x.dtype),
                 rel_err=rel_v, rel_err_gram=rel_g, rel_err_norms=rel_s,
                 tol_rel=KERNEL_REL_TOL, tol_rel_stats=STATS_REL_TOL,
-                ok=(rel_v <= KERNEL_REL_TOL and rel_g <= STATS_REL_TOL
+                tol_abs_f32=F32_KERNEL_TOL,
+                ok=(err <= F32_KERNEL_TOL if x.dtype == torch.float32 else
+                    rel_v <= KERNEL_REL_TOL and rel_g <= STATS_REL_TOL
                     and rel_s <= STATS_REL_TOL),
                 body=body, tile_ms=tile_ms,
                 partial_row_bytes=partial_row_bytes(batch, h, w, c, heads, 0,
@@ -758,9 +836,11 @@ def split_case(inp: Inputs, name, h, w, c, n_out, iters=5, batch=1,
     body (both timed also on the mma.sync body, tile_ms), else
     "split_proj"."""
     body = "tile" if tile else K._split_plan(
-        batch, h, w, c, c, n_out, True, False, torch.bfloat16,
+        batch, h, w, c, c, n_out, True, False, inp.dtype,
         K._sm_count(torch.device("cuda", 0)))[0]
-    kernel = {"wg": "split_wg", "c64": "split_c64"}.get(body, "split_proj")
+    kernel = {"wg": "split_wg", "c64": "split_c64"}.get(
+        body, "split_proj_f32" if inp.dtype == torch.float32
+        else "split_proj")
     if skipped(kernel, name):
         return None
     x = inp(batch, h, w, c)
@@ -786,11 +866,12 @@ def split_case(inp: Inputs, name, h, w, c, n_out, iters=5, batch=1,
     errs = [rel_err(a, b) for a, b in zip(got, want)]
     err, rel = max(e[0] for e in errs), max(e[1] for e in errs)
     flops = 2.0 * batch * h * w * (c * n_out * c + 9 * n_out * c)
-    b_ms, b_by = bound(numel_bytes(x, *got, *kw.values()), flops)
+    b_ms, b_by = bound(numel_bytes(x, *got, *kw.values()), flops, x.dtype)
     return dict(kernel=kernel, case=name, shape=[batch, h, w, c],
                 n_out=n_out, max_abs_err=err, rel_err=rel,
-                body=body, tile_ms=tile_ms,
-                tol_rel=KERNEL_REL_TOL, ok=rel <= KERNEL_REL_TOL, ms=ms,
+                body=body, tile_ms=tile_ms, dtype=str(x.dtype),
+                tol_rel=KERNEL_REL_TOL, tol_abs_f32=F32_KERNEL_TOL,
+                ok=within(err, rel, x, KERNEL_REL_TOL), ms=ms,
                 plain_ms=cuda_ms(
                     lambda: K.split_proj_plain(x, n_out=n_out, **kw), 2, 1),
                 library_ms=None, bound_ms=b_ms, bound_by=b_by)
@@ -798,7 +879,8 @@ def split_case(inp: Inputs, name, h, w, c, n_out, iters=5, batch=1,
 
 def conv_case(inp: Inputs, name, h, w, cin, cout, bias, iters=5, ln=False,
               batch=1):
-    if skipped("conv3x3", name):
+    kernel = ("conv3x3_f32" if inp.dtype == torch.float32 else "conv3x3")
+    if skipped(kernel, name):
         return None
     x = inp(batch, h, w, cin)
     wt = inp(3, 3, cin, cout, scale=(9 * cin) ** -0.5)
@@ -810,21 +892,25 @@ def conv_case(inp: Inputs, name, h, w, cin, cout, bias, iters=5, ln=False,
     want = K.conv3x3_plain(x, wt, bb, **lnk)
     err, rel = rel_err(got, want)
     # the library's call for the same function: cuDNN through F.conv2d on
-    # the same NHWC memory (channels_last), bf16; timed here, used nowhere.
-    # With the LayerNorm in front no single call computes the function.
-    lib = None
-    if not ln:
-        x_nchw = x.permute(0, 3, 1, 2)
-        w_oihw = wt.permute(3, 2, 0, 1).contiguous(
-            memory_format=torch.channels_last)
-        lib = cuda_ms(lambda: F.conv2d(x_nchw, w_oihw, bb, padding=1), iters)
+    # the same NHWC memory (channels_last), in the map's type (float32: TF32
+    # off, as the script sets); timed here, used nowhere. With the LayerNorm
+    # in front no single call computes the function: F.conv2d of the conv
+    # alone is timed beside it (conv_only_library_ms)
+    x_nchw = x.permute(0, 3, 1, 2)
+    w_oihw = wt.permute(3, 2, 0, 1).contiguous(
+        memory_format=torch.channels_last)
+    conv_ms = cuda_ms(lambda: F.conv2d(x_nchw, w_oihw, bb, padding=1), iters)
+    lib = None if ln else conv_ms
     b_ms, b_by = bound(numel_bytes(x, wt, bb, got, *lnk.values()),
                        2.0 * batch * h * w * (9 * cin * cout
-                                              + (8 * cin if ln else 0)))
-    return dict(kernel="conv3x3", case=name, shape=[batch, h, w, cin],
-                cout=cout,
+                                              + (8 * cin if ln else 0)),
+                       x.dtype)
+    return dict(kernel=kernel, case=name, shape=[batch, h, w, cin],
+                cout=cout, dtype=str(x.dtype),
+                conv_only_library_ms=conv_ms if ln else None,
                 max_abs_err=err, rel_err=rel, tol_rel=KERNEL_REL_TOL,
-                ok=rel <= KERNEL_REL_TOL,
+                tol_abs_f32=F32_KERNEL_TOL,
+                ok=within(err, rel, x, KERNEL_REL_TOL),
                 ms=cuda_ms(lambda: K.fused_conv3x3(x, wt, bb, **lnk), iters),
                 plain_ms=cuda_ms(lambda: K.conv3x3_plain(x, wt, bb, **lnk),
                                  2, 1),
@@ -836,7 +922,8 @@ def chm_case(inp: Inputs, name, h, w, c, heads, nf, iters=3, batch=1,
     """Row 6 on the body its plan gives the call (tile: on the mma.sync
     body): kernel "chm_wg" for the wgmma body (timed also on the mma.sync
     body, tile_ms), else "chm_stats"."""
-    kernel = "chm_stats" if tile or c not in K._CHM_WG_WIDTHS else "chm_wg"
+    kernel = ("chm_stats_f32" if inp.dtype == torch.float32 else "chm_stats"
+              if tile or c not in K._CHM_WG_WIDTHS else "chm_wg")
     if skipped(kernel, name):
         return None
     x, x_sp = inp(batch, h, w, c), inp(batch, nf, h, w, c)
@@ -868,18 +955,21 @@ def chm_case(inp: Inputs, name, h, w, c, heads, nf, iters=3, batch=1,
     flops = 2.0 * batch * px * ((3 + 2 * nf) * (c * c + 9 * c)
                                 + (nf + 1) * c * ctok + (nf + 2) * c)
     tensors = [v for v in kw.values() if torch.is_tensor(v)]
-    b_ms, b_by = bound(numel_bytes(x, x_sp, *got, *tensors), flops)
+    b_ms, b_by = bound(numel_bytes(x, x_sp, *got, *tensors), flops, x.dtype)
     body = "wg" if on_wg else "tile"
+    err = max(err_v, err_vh, err_stats / px)
     return dict(kernel=kernel, case=name, shape=[batch, nf, h, w, c],
-                body=body, tile_ms=tile_ms,
+                body=body, tile_ms=tile_ms, dtype=str(x.dtype),
                 partial_row_bytes=partial_row_bytes(batch, h, w, c, heads, nf,
                                                     body),
                 tile_partial_row_bytes=partial_row_bytes(batch, h, w, c,
                                                          heads, nf, "tile"),
-                heads=heads, max_abs_err=max(err_v, err_vh, err_stats / px),
+                heads=heads, max_abs_err=err,
                 rel_err=max(rel_v, rel_vh), rel_err_stats=rel_stats,
                 tol_rel=KERNEL_REL_TOL, tol_rel_stats=STATS_REL_TOL,
-                ok=(max(rel_v, rel_vh) <= KERNEL_REL_TOL
+                tol_abs_f32=F32_KERNEL_TOL,
+                ok=(err <= F32_KERNEL_TOL if x.dtype == torch.float32 else
+                    max(rel_v, rel_vh) <= KERNEL_REL_TOL
                     and rel_stats <= STATS_REL_TOL),
                 ms=ms,
                 plain_ms=cuda_ms(lambda: K.chm_stats_plain(x, x_sp, **kw),
@@ -1716,6 +1806,60 @@ def kernel_cases(seed: int, h: int, w: int) -> list[dict]:
     cases.append(lambda: sparse_case(inp, "dec3 scores on sab.cu", 1, r3 + 1,
                                      h // s3 // ws3, w // s3 // ws3, 2 * c3,
                                      tile=True))
+    out = run_cases(cases + f32_cases(seed, h, w))
+    emit({"phase": "attention_at_v_matmul", "route": "torch.matmul",
+          **attn_v_times(inp, h, w)})
+    return out
+
+
+def f32_cases(seed: int, h: int, w: int) -> list:
+    """The float32 forms of rows 1, 3, 4, 5 (with LayerNorm) and 6 at the
+    widths above 128 channels that the float32 paths give them (csrc/ffn.cu,
+    qkv_stats.cu, split_proj.cu, conv3x3.cu, chm_stats.cu; the LN halo in
+    device memory at C = 512): whole padded frames of (h, w), then 15 tiles
+    of 320. The first case of each is the one its row reports."""
+    inp = Inputs(seed + 7, torch.float32)
+    cases = []
+    for b, hh, ww, tag in ((1, h, w, ""),
+                           (MAX_TILE_BATCH, TILE, TILE,
+                            f", {MAX_TILE_BATCH} tiles")):
+        h3, w3, h4, w4 = hh // 4, ww // 4, hh // 8, ww // 8
+        kw = dict(batch=b, iters=3)
+        cases += [
+            lambda h3=h3, w3=w3, tag=tag, kw=kw: ffn_case(
+                inp, "float32 gate+pair+po(B,C,C) dec3/enc3" + tag, h3, w3,
+                256, 640, "gate", pair=True, po=True, **kw),
+            lambda h4=h4, w4=w4, tag=tag, kw=kw: ffn_case(
+                inp, "float32 gate+pair+po(B,C,C) latent (halo in device "
+                "memory)" + tag, h4, w4, 512, 1280, "gate", pair=True,
+                po=True, **kw),
+            lambda h4=h4, w4=w4, tag=tag, kw=kw: ffn_case(
+                inp, "float32 gate+pair, no po (FHR) latent" + tag, h4, w4,
+                512, 1280, "gate", pair=True, **kw),
+            lambda h3=h3, w3=w3, tag=tag, kw=kw: ffn_case(
+                inp, "float32 gate + 4 stacked + 1 maps, po(B,C,C) each (CHM "
+                "dec3)" + tag, h3, w3, 256, 640, "gate", stacked=4, **kw),
+            lambda h3=h3, w3=w3, tag=tag, kw=kw: qkv_case(
+                inp, "float32 enc3/dec3" + tag, h3, w3, 256, 4, **kw),
+            lambda h4=h4, w4=w4, tag=tag, kw=kw: qkv_case(
+                inp, "float32 latent (halo in device memory)" + tag, h4, w4,
+                512, 8, **kw),
+            lambda h4=h4, w4=w4, tag=tag, kw=kw: split_case(
+                inp, "float32 latent FHR q,k,v (halo in device memory)" + tag,
+                h4, w4, 512, 3, **kw),
+            lambda h3=h3, w3=w3, tag=tag, kw=kw: split_case(
+                inp, "float32 SAB q,k dec3" + tag, h3, w3, 256, 2, **kw),
+            lambda h3=h3, w3=w3, tag=tag, kw=kw: conv_case(
+                inp, "float32 LN + composite v dec3 256->256" + tag, h3, w3,
+                256, 256, False, ln=True, **kw),
+            lambda h3=h3, w3=w3, tag=tag, b=b: chm_case(
+                inp, "float32 dec3" + tag, h3, w3, 256, 4, 4, batch=b,
+                iters=2),
+        ]
+    return cases
+
+
+def run_cases(cases: list) -> list[dict]:
     out = []
     for make in cases:
         t0 = time.perf_counter()
@@ -1726,8 +1870,6 @@ def kernel_cases(seed: int, h: int, w: int) -> list[dict]:
         emit({"phase": "kernel_case", **res})
         out.append(res)
         torch.cuda.empty_cache()
-    emit({"phase": "attention_at_v_matmul", "route": "torch.matmul",
-          **attn_v_times(inp, h, w)})
     return out
 
 
@@ -1848,15 +1990,21 @@ def profile_frames(engine: InferenceEngine, frames: list,
               for k, ms, n in rows[:24]]})
 
 
+def slice_tag(config: str, fuse: tuple, dtype: torch.dtype) -> str:
+    return (config + ("_two_stage" if fuse else "")
+            + ("_f32" if dtype == torch.float32 else ""))
+
+
 def run_slice(config: str, seed: int, n_frames: int, width: int,
-              height: int, trace: bool = False, fuse: tuple = ()) -> dict:
+              height: int, trace: bool = False, fuse: tuple = (),
+              dtype: torch.dtype = torch.bfloat16) -> dict:
     opt = options_of(config)
     model = build_model(opt, device="cuda", fuse=fuse,
                         generator=torch.Generator().manual_seed(seed))
     randomise_scales(model, seed + 1)
     cfg = model.cfg
     scale = cfg.sr_scale if cfg.variant == "sr" else 1  # HR frames in and out
-    engine = InferenceEngine(model, mode="whole", dtype=torch.bfloat16)
+    engine = InferenceEngine(model, mode="whole", dtype=dtype)
     frames = make_frames(seed + 2, n_frames, height, width)
     ring = max(lvl.num_frames_tocache for lvl in (cfg.latent, cfg.dec3,
                                                    cfg.dec2, cfg.dec1))
@@ -1890,8 +2038,10 @@ def run_slice(config: str, seed: int, n_frames: int, width: int,
         require(out.shape == (height, width, 3),
                 f"frame {i}: output shape {out.shape}")
         require(bool(np.isfinite(out).all()), f"frame {i}: non-finite output")
-    tag = config + ("_two_stage" if fuse else "")
-    for name, per_frame in LAUNCHES_PER_CALL[tag].items():
+    tag = slice_tag(config, fuse, dtype)
+    table = (LAUNCHES_PER_CALL_F32[config] if dtype == torch.float32
+             else LAUNCHES_PER_CALL[tag])
+    for name, per_frame in table.items():
         require(counts[name] == per_frame * n_frames,
                 f"{name}: {counts[name]} launches over {n_frames} frames, "
                 f"expected {per_frame} per frame")
@@ -1913,7 +2063,7 @@ def run_slice(config: str, seed: int, n_frames: int, width: int,
         option_file=os.path.relpath(CONFIGS[config][0], ROOT),
         frame=[height, width, 3],
         padded=list(turtle_mod.padded_hw(cfg, height // scale, width // scale)),
-        dtype="bfloat16",
+        dtype=str(dtype).replace("torch.", ""),
         frames=n_frames, ring_frames=ring, params=sum(
             p.numel() for p in model.parameters()),
         launches=counts, launches_per_frame={
@@ -1961,15 +2111,18 @@ def tiled_tag(config: str, plan: tuple) -> str:
 
 
 def run_tiled(config: str, seed: int, width: int, height: int,
-              trace: bool) -> dict:
+              trace: bool, plans: tuple = None, n: int = FRAMES_PER_RUN,
+              dtype: torch.dtype = torch.bfloat16) -> dict:
     """One configuration tiled at its task's preset through cli.infer.main,
-    under each of its plans, against the plain versions on the card. The
+    under each of its plans (TILED_PLANS by default), against the plain
+    versions on the card, in bf16 or (--dtype float32) float32. The
     weights are a state_dict file written from the seed (scales drawn), the
     frames a folder of PNGs (the high-resolution ones for SR); main builds
     the model, the tiled engine and the loop itself."""
     from PIL import Image
 
-    n = FRAMES_PER_RUN
+    plans = TILED_PLANS[config] if plans is None else plans
+    f32 = dtype == torch.float32
     task = TASKS[config]
     preset = infer_cli.TASK_PRESETS[task]
     work = tempfile.mkdtemp(prefix=f"chip_smoke_{config}_")
@@ -1996,6 +2149,8 @@ def run_tiled(config: str, seed: int, width: int, height: int,
                     str(n), "--save_path", os.path.join(work, tag)]
             if fuse:
                 argv += ["--fuse", *fuse]
+            if f32:
+                argv += ["--dtype", "float32"]
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             kernels_pkg.reset_launch_counts()
@@ -2018,8 +2173,8 @@ def run_tiled(config: str, seed: int, width: int, height: int,
         n_tiles = len(his) * len(wis)
         calls = -(-n_tiles // MAX_TILE_BATCH)  # model calls per frame
         scale = cfg.sr_scale if cfg.variant == "sr" else 1
-        for fuse in TILED_PLANS[config]:
-            tag = tiled_tag(config, fuse)
+        for fuse in plans:
+            tag = tiled_tag(config, fuse) + ("_f32" if f32 else "")
             res = cli(tag, fuse)
             require(res["frames"] == n, f"{tag}: {res['frames']} frames")
             # an output's copy to the host is queued behind the next frame's
@@ -2035,8 +2190,12 @@ def run_tiled(config: str, seed: int, width: int, height: int,
                 require(out.shape == (height, width, 3),
                         f"{tag} frame {i}: output shape {out.shape}")
             key = config + plan_suffix(fuse)
-            for name, per_call in LAUNCHES_PER_CALL[key].items():
-                per_call = TILED_LAUNCHES.get(config, {}).get(name, per_call)
+            table = LAUNCHES_PER_CALL_F32[config] if f32 else (
+                LAUNCHES_PER_CALL[key])
+            for name, per_call in table.items():
+                if not f32:  # the bf16 plan's sab.cu calls at 15 tiles
+                    per_call = TILED_LAUNCHES.get(config, {}).get(name,
+                                                                  per_call)
                 require(res["launches"][name] == per_call * calls * n,
                         f"{tag} {name}: {res['launches'][name]} launches "
                         f"over {n} frames of {calls} model calls, expected "
@@ -2048,7 +2207,8 @@ def run_tiled(config: str, seed: int, width: int, height: int,
                 frame=[height, width, 3], tile=t,
                 tile_overlap=preset["tile_overlap"], tiles=n_tiles,
                 model_tile=t // scale, max_tile_batch=MAX_TILE_BATCH,
-                model_calls_per_frame=calls, dtype="bfloat16", frames=n,
+                model_calls_per_frame=calls,
+                dtype="float32" if f32 else "bfloat16", frames=n,
                 launches=res["launches"], launches_per_frame={
                     k: v / n for k, v in res["launches"].items()},
                 ms_between_fetches=ms,
@@ -2068,15 +2228,15 @@ def run_tiled(config: str, seed: int, width: int, height: int,
                     f"{psnrs}")
             by_plan[tag] = out
         if trace:
-            for fuse in TILED_PLANS[config]:
-                tag = tiled_tag(config, fuse)
+            for fuse in plans:
+                tag = tiled_tag(config, fuse) + ("_f32" if f32 else "")
                 model = build_model(options_of(config), device="cuda",
                                     fuse=fuse)
                 model.load_state_dict(torch.load(weights, weights_only=True))
                 engine = InferenceEngine(
                     model, mode="tiled", tile=preset["tile"],
                     tile_overlap=preset["tile_overlap"],
-                    max_tile_batch=MAX_TILE_BATCH, dtype=torch.bfloat16)
+                    max_tile_batch=MAX_TILE_BATCH, dtype=dtype)
                 frames = make_frames(seed + 2, 4, height, width)
                 for fr in frames[:2]:
                     engine.step(fr)
@@ -2320,20 +2480,21 @@ def bench_main(argv: list) -> tuple[dict, dict, float]:
     return res, kernels_pkg.launch_counts(), seconds
 
 
-def bench_first_call_vs_plain(argv: list, fuse: tuple,
-                              first: np.ndarray) -> tuple[float, float]:
+def bench_first_call_vs_plain(argv: list, fuse: tuple, first: np.ndarray,
+                              dtype: torch.dtype = torch.bfloat16
+                              ) -> tuple[float, float]:
     """(PSNR, max |difference|) of the first model call of an inference
     run of cli.bench.main against the same call under plain_versions() on
-    the card: the harness's own model (its seed-0 weights, bf16, the plan),
-    input and fresh cache."""
+    the card: the harness's own model (its seed-0 weights, its type, the
+    plan), input and fresh cache."""
     args = bench_cli.parse_args(argv)
     h, w = args.size
     model = build_model(load_options(args.opt, is_train=False),
-                        device="cuda", dtype=torch.bfloat16, fuse=fuse)
+                        device="cuda", dtype=dtype, fuse=fuse)
     x = torch.from_numpy(np.random.RandomState(0).rand(1, 2, h, w, 3)).to(
-        "cuda", torch.bfloat16)
+        "cuda", dtype)
     with torch.inference_mode(), plain_versions():
-        out, _ = model(x, model.init_cache(1, h, w, torch.bfloat16))
+        out, _ = model(x, model.init_cache(1, h, w, dtype))
     plain = out.float().cpu().numpy()
     del model, out
     torch.cuda.empty_cache()
@@ -2481,6 +2642,66 @@ def run_bench(slice_params: dict) -> dict:
             out[tag] = counts
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
+def run_bench_f32() -> dict:
+    """cli.bench.main --dtype float32 on `gopro` at 256 x 256: the model's
+    calls in float32 on the widened mma.sync bodies, its launches a model
+    call, its first call against the same call under the plain versions in
+    float32 on the card (TF32 off), its result line."""
+    tag = "bench_gopro_f32"
+    argv = ["-opt", CONFIGS["gopro"][0], "--size", str(BENCH_SIZE),
+            str(BENCH_SIZE), "--iters", str(BENCH_F32_ITERS), "--dtype",
+            "float32"]
+    res, counts, seconds = bench_main(argv)
+    require(res["finite"] and res["out_shape"] == [1, BENCH_SIZE, BENCH_SIZE,
+                                                   3],
+            f"{tag}: output {res['out_shape']}, finite {res['finite']}")
+    require(res["macs"] == BENCH_MACS["gopro"], f"{tag}: MACs {res['macs']}")
+    require_launches(tag, counts, LAUNCHES_PER_CALL_F32["gopro"],
+                     res["model_calls"])
+    db, err = bench_first_call_vs_plain(argv, (), res["first_output"],
+                                        torch.float32)
+    require(kernels_pkg.launch_counts() == counts,
+            f"{tag}: the plain call must launch no kernel")
+    emit(dict(
+        phase="bench", run=tag, entry="turtlevsr_tpu_torch.cli.bench",
+        argv=argv, option_file=os.path.relpath(CONFIGS["gopro"][0], ROOT),
+        dtype="float32", input=[1, 2, BENCH_SIZE, BENCH_SIZE, 3],
+        output=res["out_shape"], params=res["params"], macs=res["macs"],
+        fps=res["fps"], ms_per_image=res["ms_per_image"], iters=res["iters"],
+        model_calls=res["model_calls"], warmup_seconds=res["warmup_seconds"],
+        model_tflop_per_s=2 * res["macs"] * res["fps"] / 1e12,
+        launches_per_call={k: v / res["model_calls"]
+                           for k, v in counts.items()},
+        first_call_psnr_vs_plain_db=db, min_psnr_db=SLICE_MIN_PSNR,
+        first_call_max_abs_err_vs_plain=err, seconds=seconds))
+    require(db >= SLICE_MIN_PSNR, f"{tag}: the first call's output and the "
+            f"plain versions' disagree: PSNR {db} dB")
+    return {tag: counts}
+
+
+def run_f32_paths(seed: int, width: int, height: int, trace: bool) -> dict:
+    """The three float32 paths: `gopro` whole-frame through
+    InferenceEngine(dtype=torch.float32), `derain` tiled through
+    cli.infer.main --dtype float32, cli.bench.main --dtype float32; each
+    against the plain versions in float32 on the card. Returns the launches
+    of each."""
+    out = {}
+    t0 = time.perf_counter()
+    res = run_slice("gopro", seed, F32_FRAMES["gopro_f32"], width, height,
+                    trace=trace, dtype=torch.float32)
+    out["gopro_f32"] = res["launches"]
+    t1 = time.perf_counter()
+    out.update({tag: r["launches"] for tag, r in run_tiled(
+        "derain", seed, width, height, trace, plans=((),),
+        n=F32_FRAMES["derain_tiled_f32"], dtype=torch.float32).items()})
+    t2 = time.perf_counter()
+    out.update(run_bench_f32())
+    emit({"phase": "f32_paths_done", "seconds": {
+        "gopro_f32": t1 - t0, "derain_tiled_f32": t2 - t1,
+        "bench_gopro_f32": time.perf_counter() - t2}})
     return out
 
 
@@ -3350,6 +3571,14 @@ def run_train_dist(yml: str, seed: int, width: int, height: int) -> dict:
 # ---------------------------------------------------------------------------
 
 
+# the kernels line's float32 rows: the wrapper whose launches on the float32
+# paths they count (every float32 launch of rows 1, 3, 4, 5, 6 is on the
+# mma.sync body; row 1's calls there all have a depthwise stage)
+F32_ROWS = {"ffn_f32": "ffn", "qkv_stats_f32": "qkv_stats",
+            "split_proj_f32": "split_proj", "conv3x3_f32": "conv3x3",
+            "chm_stats_f32": "chm_stats"}
+
+
 def kernel_rows(cases: list[dict], by_path: dict) -> list[dict]:
     rows = []
     for name, (source, replaces) in KERNEL_INFO.items():
@@ -3357,7 +3586,12 @@ def kernel_rows(cases: list[dict], by_path: dict) -> list[dict]:
         head = mine[0]
         counters = ("attn_v_merge", "attn_v_slots") if name == "attn_v" else (
             name,)
+        if name in F32_ROWS:  # the float32 paths' launches of the body
+            counters = (F32_ROWS[name],)
         per_path = {p: sum(c[k] for k in counters) for p, c in by_path.items()}
+        if name in F32_ROWS:
+            per_path = {p: n if p in F32_PATHS else 0
+                        for p, n in per_path.items()}
         if name == "ffn":  # ffn.cu's dw branch: not the wgmma or C = 64 body, dw
             per_path = {p: c["ffn"] - c["ffn_wg"] - c["ffn_c64"]
                         - c["ffn_no_dw"] for p, c in by_path.items()}
@@ -3375,6 +3609,9 @@ def kernel_rows(cases: list[dict], by_path: dict) -> list[dict]:
         if name in ("two_stage", "sab_sparse_softmax"):  # chain2.cu, sab.cu
             wg = "two_stage_wg" if name == "two_stage" else "sparse_wg"
             per_path = {p: c[name] - c[wg] for p, c in by_path.items()}
+        if name in F32_ROWS.values():  # the float32 paths count in *_f32
+            per_path = {p: 0 if p in F32_PATHS else n
+                        for p, n in per_path.items()}
         rows.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=sum(per_path.values()), launches_by_path=per_path,
@@ -3392,7 +3629,8 @@ def kernel_rows(cases: list[dict], by_path: dict) -> list[dict]:
                                       "bit_equal_to_model_split",
                                       "bit_equal_to_row_7",
                                       "bit_equal_to_sab_cu", "graph_ms",
-                                      "host_ms") if k in c}
+                                      "host_ms", "dtype",
+                                      "conv_only_library_ms") if k in c}
                    for c in mine]))
     return rows
 
@@ -3414,7 +3652,7 @@ def main(argv=None) -> int:
     ap.add_argument("--phase", default="all",
                     choices=("all", "build", "kernels", "slice", "tiled",
                              "app", "bench", "train", "train-cli",
-                             "train-dist",
+                             "train-dist", "float32",
                              "level-phases",
                              "two-stage-phases"),
                     help="level-phases, two-stage-phases: row 14's or row "
@@ -3525,6 +3763,16 @@ def main(argv=None) -> int:
             by_path.update(run_bench(slice_params))
             emit({"phase": "bench_done",
                   "seconds": time.perf_counter() - t0})
+        if args.phase == "float32":  # its kernel cases (part of kernels)
+            cases = run_cases(f32_cases(args.seed, hp, wp))
+            bad = [c["case"] for c in cases if not c["ok"]]
+            require(not bad, f"kernels disagree with their plain versions: "
+                             f"{bad}")
+        if args.phase in ("all", "float32"):
+            # float32 serving: whole-frame, tiled through the command line,
+            # the harness
+            by_path.update(run_f32_paths(args.seed, width, height,
+                                         args.profile))
         if args.phase == "all":
             # every path launched the kernels that lie on it (the exact
             # counts were held above); attn_v_slots is the second epilogue of
@@ -3533,6 +3781,9 @@ def main(argv=None) -> int:
             t0_chm = ("ffn", "ffn_wg", "ffn_c64", "qkv_wg", "split_wg",
                       "conv3x3", "chm_wg", "lattice_merge", "lattice_split")
             t1_chm = t0_chm + ("sab_wg", "split_c64")
+            f32_t0 = ("ffn", "qkv_stats", "split_proj", "conv3x3",
+                      "chm_stats", "lattice_merge", "lattice_split")
+            f32_t1 = f32_t0 + ("sab",)
             on_path = {
                 "gopro_t1_fhr": ("ffn", "ffn_wg", "ffn_c64", "qkv_wg",
                                  "split_wg", "conv3x3"),
@@ -3575,6 +3826,10 @@ def main(argv=None) -> int:
                                       "chm_wg", "sab_wg", "lattice_split",
                                       "lattice_merge", "attn_v_merge",
                                       "level_run", "level_wg"),
+                # float32 serving: the widened mma.sync bodies of rows 1, 3,
+                # 4, 5 and 6, sab.cu (`gopro`) and the lattice pair
+                **dict.fromkeys(("gopro_f32", "bench_gopro_f32"), f32_t1),
+                "derain_tiled_f32": f32_t0,
             }
             require(set(by_path) == set(on_path),
                     f"paths run: {sorted(by_path)}")
@@ -3586,11 +3841,21 @@ def main(argv=None) -> int:
                     "the fused plan still launched lattice_merge")
             # every launch of rows 1, 2, 4, 13 and 14 runs on a body designed
             # for the card: none on the mma.sync bodies of ffn.cu and
-            # split_proj.cu, none on level.cu or chain2.cu
+            # split_proj.cu, none on level.cu or chain2.cu. The float32
+            # paths are exempt from the first by name: the Hopper bodies
+            # take bf16 only, so every float32 call of rows 1, 3, 4, 6 and 7
+            # is on the mma.sync bodies widened for it, and none launches a
+            # bf16-only body
             for path, c in by_path.items():
-                require(c["ffn"] == c["ffn_wg"] + c["ffn_c64"] + c["ffn_pw"]
-                        and c["split_proj"] == c["split_wg"] + c["split_c64"],
-                        f"the {path} path launched ffn.cu or split_proj.cu")
+                if path in F32_PATHS:
+                    require(not any(c[k] for k in BF16_ONLY),
+                            f"the {path} path launched a bf16-only body")
+                else:
+                    require(c["ffn"] == c["ffn_wg"] + c["ffn_c64"]
+                            + c["ffn_pw"] and c["split_proj"]
+                            == c["split_wg"] + c["split_c64"],
+                            f"the {path} path launched ffn.cu or "
+                            "split_proj.cu")
                 require(c["level_run"] == c["level_wg"],
                         f"the {path} path launched level.cu")
                 require(c["two_stage"] == c["two_stage_wg"],
@@ -3604,7 +3869,7 @@ def main(argv=None) -> int:
     if args.cases:  # a filtered run proves nothing about the whole
         return 0
     emit({"phase": "done", "script_seconds": time.perf_counter() - t_script})
-    if cases and len(by_path) == 32:  # launches are those of this run's paths
+    if cases and len(by_path) == 35:  # launches are those of this run's paths
         emit({"kernels": kernel_rows(cases, by_path)})
     print(smi_line, flush=True)
     emit({"ok": True,

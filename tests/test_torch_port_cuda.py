@@ -47,6 +47,7 @@ from torch_port_util import (
 )
 from reference_oracle import tiny_opt
 from test_torch_port_pw_split_c64 import FFN_PW_CASES, SPLIT_C64_CASES
+from turtlevsr_tpu_torch import kernels as KP
 from turtlevsr_tpu_torch.kernels import chain2 as C2
 from turtlevsr_tpu_torch.kernels import ffn as K
 from turtlevsr_tpu_torch.kernels import lattice as L
@@ -89,8 +90,6 @@ def dev():
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
 @pytest.mark.parametrize("case", list(FFN_KERNEL_CASES))
 def test_ffn_kernel_matches_plain(dev, case, dtype):
-    if FFN_KERNEL_CASES[case][3] > 128 and dtype == torch.float32:
-        pytest.skip("the float32 kernels are built for C <= 128")
     x, kw = ffn_kernel_case(case, Maker(0, dtype, dev))
     before = K.fused_block_ffn.launches
     got = K.fused_block_ffn(x, **kw)
@@ -492,8 +491,6 @@ def test_conv3x3_kernel_matches_plain(dev, shape, dtype):
 def test_ffn_kernel_with_lists_matches_plain(dev, case, dtype, monkeypatch):
     """ffn.cu's list form, the calls the plan sends to the wgmma body
     (bf16 at C = 128, 256) forced onto it."""
-    if FFN_LIST_CASES[case][3] > 128 and dtype == torch.float32:
-        pytest.skip("the float32 kernels are built for C <= 128")
     x, kw = ffn_list_case(case, Maker(5, dtype, dev))
     monkeypatch.setattr(K, "_ffn_plan", lambda *a: ("tile", None))
     before, wg_before = K.fused_block_ffn.launches, K.fused_block_ffn.launches_wg
@@ -520,8 +517,6 @@ def test_split_proj_kernel_without_layernorm_matches_plain(dev, shape, dtype):
 @pytest.mark.parametrize("shape", CONV_LN_KERNEL_SHAPES + CONV_LN_RAGGED_SHAPES)
 def test_conv3x3_kernel_with_layernorm_matches_plain(dev, shape, dtype):
     b, h, w, cin, cout, bias, ln_bias = shape
-    if cin > 128 and dtype == torch.float32:
-        pytest.skip("the float32 kernels are built for C <= 128")
     m = Maker(7, dtype, dev)
     x = m(b, h, w, cin)
     wt = m(3, 3, cin, cout, scale=(9 * cin) ** -0.5)
@@ -536,8 +531,6 @@ def test_conv3x3_kernel_with_layernorm_matches_plain(dev, shape, dtype):
 @pytest.mark.parametrize("shape", CHM_KERNEL_SHAPES)
 def test_chm_stats_kernel_matches_plain(dev, shape, dtype):
     b, h, w, c, heads, nf, ln_bias = shape
-    if c > 128 and dtype == torch.float32:
-        pytest.skip("the float32 kernels are built for C <= 128")
     x, x_sp, kw = chm_kernel_case(Maker(8, dtype, dev), *shape)
     before = K.fused_chm_stats.launches
     got = K.fused_chm_stats(x, x_sp, **kw)
@@ -553,6 +546,156 @@ def test_chm_stats_kernel_matches_plain(dev, shape, dtype):
     again = K.fused_chm_stats(x, x_sp, **kw)
     torch.cuda.synchronize()  # fixed-order sums: bitwise repeatable
     assert all(torch.equal(g, a) for g, a in zip(got[2:], again[2:]))
+
+
+# float32 at the widths of the serving paths (C = 256 and 512) on the
+# mma.sync bodies of rows 1, 3, 4, 5 (with LayerNorm) and 6: every form the
+# models give them there, on ragged maps of one or two entries; at C = 512
+# the LN halo lives in device memory (csrc/common.cuh)
+F32_WIDE_FFN_CASES = {  # fields of FFN_KERNEL_CASES
+    "gate_pair_po_batched_c256": (2, 37, 53, 256, 640, "gate", True,
+                                  "batched", True, False, False, True),
+    "gate_pair_po_batched_c512": (2, 19, 27, 512, 1280, "gate", True,
+                                  "batched", False, False, False, True),
+    "gate_pair_no_po_c512": (1, 23, 40, 512, 1280, "gate", True, None, False,
+                             False, False, True),
+    "gate_no_pair_biasfree_ln_c512": (1, 9, 17, 512, 48, "gate", False, None,
+                                      True, False, False, False),
+    "gelu_scale_c256": (1, 21, 19, 256, 512, "gelu", False, None, True, True,
+                        False, True),
+}
+F32_WIDE_LIST_CASES = {  # fields of FFN_LIST_CASES: dec3's 4 stacked + 1
+    "stack4_single_c256_ragged": (1, 37, 53, 256, 640, 4, 1, True, False,
+                                  True),
+    "stack2_two_singles_shared_po_b_c256": (2, 19, 21, 256, 640, 2, 2, False,
+                                            True, False),
+}
+F32_WIDE_QKV_SHAPES = [(2, 37, 53, 256, 4, False), (1, 19, 27, 512, 8, False),
+                       (1, 11, 13, 512, 8, True), (1, 9, 17, 256, 8, True)]
+# (B, H, W, C, E, n_out, LayerNorm): the latent's q, k, v, the SAB q, k at
+# dec3, the CHM frames' kh, vh (no LayerNorm)
+F32_WIDE_SPLIT_SHAPES = [(1, 19, 27, 512, 512, 3, True),
+                         (2, 37, 53, 256, 256, 2, True),
+                         (3, 23, 29, 256, 256, 2, False),
+                         (1, 11, 13, 512, 512, 2, False)]
+F32_WIDE_CONV_LN_SHAPES = [(1, 37, 53, 256, 256, False, True),
+                           (2, 19, 27, 512, 512, True, True),
+                           (1, 23, 29, 256, 32, True, False)]
+F32_WIDE_CHM_SHAPES = [(1, 37, 53, 256, 4, 4, True), (2, 19, 27, 256, 4, 2, False),
+                       (1, 19, 27, 512, 8, 2, True)]
+
+
+def _one_launch_on_the_tile_body(fn, before):
+    """fn() launched its wrapper's mma.sync body once, no Hopper body."""
+    got = fn()
+    torch.cuda.synchronize()
+    after = KP.launch_counts()
+    moved = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    return got, moved
+
+
+@pytest.mark.parametrize("case", list(F32_WIDE_FFN_CASES)
+                         + list(F32_WIDE_LIST_CASES))
+def test_ffn_float32_wide_matches_plain(dev, case):
+    m = Maker(21, torch.float32, dev)
+    if case in F32_WIDE_LIST_CASES:
+        x, kw = ffn_list_case(case, m, F32_WIDE_LIST_CASES)
+    else:
+        x, kw = ffn_kernel_case(case, m, F32_WIDE_FFN_CASES)
+    got, moved = _one_launch_on_the_tile_body(
+        lambda: K.fused_block_ffn(x, **kw), KP.launch_counts())
+    assert moved == {"ffn": 1}
+    assert max_err(got, K.ffn_plain(x, **kw)) <= KERNEL_TOL[torch.float32]
+
+
+@pytest.mark.parametrize("shape", F32_WIDE_QKV_SHAPES, ids=str)
+def test_qkv_stats_float32_wide_matches_plain(dev, shape):
+    b, h, w, c, heads, biases = shape
+    x, kw = chain_kernel_case(Maker(22, torch.float32, dev), b, h, w, c,
+                              3 * c, biases)
+    got, moved = _one_launch_on_the_tile_body(
+        lambda: K.fused_qkv_stats(x, heads=heads, **kw), KP.launch_counts())
+    assert moved == {"qkv_stats": 1}
+    want = K.qkv_stats_plain(x, heads=heads, **kw)
+    tol = KERNEL_TOL[torch.float32]
+    assert max_err(got[0], want[0]) <= tol
+    assert max_err(got[1] / (h * w), want[1] / (h * w)) <= tol
+    assert max_err(got[2] / (h * w), want[2] / (h * w)) <= tol
+
+
+@pytest.mark.parametrize("shape", F32_WIDE_SPLIT_SHAPES, ids=str)
+def test_split_proj_float32_wide_matches_plain(dev, shape):
+    b, h, w, c, e, n, ln = shape
+    x, kw = chain_kernel_case(Maker(23, torch.float32, dev), b, h, w, c, n * e,
+                              False)
+    if not ln:
+        kw["ln_w"] = kw["ln_b"] = None
+    got, moved = _one_launch_on_the_tile_body(
+        lambda: K.fused_ln_split_proj(x, n_out=n, **kw), KP.launch_counts())
+    assert moved == {"split_proj": 1}
+    want = K.split_proj_plain(x, n_out=n, **kw)
+    assert max(max_err(g, w_) for g, w_ in zip(got, want)) <= KERNEL_TOL[
+        torch.float32]
+
+
+@pytest.mark.parametrize("shape", F32_WIDE_CONV_LN_SHAPES, ids=str)
+def test_conv3x3_float32_wide_with_layernorm_matches_plain(dev, shape):
+    b, h, w, cin, cout, bias, ln_bias = shape
+    m = Maker(24, torch.float32, dev)
+    x = m(b, h, w, cin)
+    wt = m(3, 3, cin, cout, scale=(9 * cin) ** -0.5)
+    kw = dict(ln_w=m(cin), ln_b=m(cin) if ln_bias else None)
+    bb = m(cout) if bias else None
+    got, moved = _one_launch_on_the_tile_body(
+        lambda: K.fused_conv3x3(x, wt, bb, **kw), KP.launch_counts())
+    assert moved == {"conv3x3": 1}
+    assert max_err(got, K.conv3x3_plain(x, wt, bb, **kw)) <= KERNEL_TOL[
+        torch.float32]
+
+
+@pytest.mark.parametrize("shape", F32_WIDE_CHM_SHAPES, ids=str)
+def test_chm_stats_float32_wide_matches_plain(dev, shape):
+    b, h, w, c, heads, nf, ln_bias = shape
+    x, x_sp, kw = chm_kernel_case(Maker(25, torch.float32, dev), *shape)
+    got, moved = _one_launch_on_the_tile_body(
+        lambda: K.fused_chm_stats(x, x_sp, **kw), KP.launch_counts())
+    assert moved == {"chm_stats": 1}
+    want = K.chm_stats_plain(x, x_sp, **kw)
+    tol = KERNEL_TOL[torch.float32]
+    assert max_err(got[0], want[0]) <= tol
+    assert max_err(got[1], want[1]) <= tol
+    for g, w_ in zip(got[2:], want[2:]):  # sums over h * w pixels
+        assert max_err(g / (h * w), w_ / (h * w)) <= tol
+
+
+def test_float32_plans_mirror_the_sources(dev):
+    """The float32 plans' shared memory is what each source's function
+    gives (the halo in device memory at C = 512 included)."""
+    from turtlevsr_tpu_torch.kernels import build
+
+    libs = {n: build.load(n) for n in ("ffn", "qkv_stats", "chm_stats",
+                                       "split_proj", "conv3x3", "chain2")}
+    for c in range(16, 513, 16):
+        assert libs["ffn"].turtle_ffn_smem(c, 0, 0, 0, 1) == K._ffn_f32_plan(
+            1, 8, 8, c, 1, 0)["smem"]
+        if c <= 256:
+            assert libs["ffn"].turtle_ffn_smem(c, 0, 0, 0, 5) == \
+                K._ffn_f32_plan(1, 8, 8, c, 5, 0)["smem"]
+        if c <= 128:
+            assert libs["ffn"].turtle_ffn_smem(c, 2 * c, 1, 0, 1) == \
+                K._ffn_f32_plan(1, 8, 8, c, 1, 2 * c)["smem"]
+            assert libs["chain2"].turtle_two_stage_smem(c, 0) == \
+                C2._two_stage_f32_plan(1, 8, 8, c)["smem"]
+        for heads in {max(1, c // 64), c // 16}:
+            if c % heads == 0 and c // heads <= 64:
+                assert libs["qkv_stats"].turtle_qkv_stats_smem(c, heads, 0) \
+                    == K._qkv_f32_plan(1, 8, 8, c, heads)["smem"]
+                assert libs["chm_stats"].turtle_chm_stats_smem(c, heads, 0) \
+                    == K._chm_f32_plan(1, 8, 8, c, heads, 2)["smem"]
+        assert libs["split_proj"].turtle_split_proj_smem(c, 0) == \
+            K._split_f32_plan(1, 8, 8, c)["smem"]
+        assert libs["conv3x3"].turtle_conv3x3_smem(c, 0) == \
+            K._conv_f32_plan(1, 8, 8, c, 128, True)["smem"]
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
@@ -681,7 +824,8 @@ def test_level_run_kernel_matches_plain_and_split(dev, shape, dtype):
     """The run kernel against its plain version and, with a tighter limit,
     against the split kernels it shares its device code with."""
     if shape[3] > 128 and dtype == torch.float32:
-        pytest.skip("the float32 kernels are built for C <= 128")
+        pytest.skip("channel_runs in float32 is taken only up to C = 128 "
+                    "(csrc/level.cu; ROADMAP.md F3)")
     x, blocks = level_kernel_case(Maker(13, dtype, dev), *shape)
     heads = shape[5]
     before = LV.fused_channel_gffw_run.launches

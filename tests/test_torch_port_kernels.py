@@ -474,7 +474,12 @@ def _refusals():
         "ffn_bd_without_wd": (ffn_with(wd=None, bd=m(32)), "bd needs wd"),
         "ffn_po_without_x2": (ffn_with(po_w=m(16, 16)), "po_w needs x2"),
         "ffn_width_not_16n": (ffn_with(m(1, 8, 8, 24)), "multiple of 16"),
-        "ffn_float32_wide": (ffn_with(m(1, 8, 8, 256)), "up to 128"),
+        # float32 takes every width up to 512 since its bodies keep the LN
+        # halo in device memory above 256; lists of maps only up to 256
+        "ffn_float32_wide": (
+            ffn_with(m(1, 8, 8, 512), x2=[m(1, 2, 8, 8, 512)],
+                     po_w=[m(512, 512), m(512, 512)]),
+            "lists of x2 maps up to C = 256"),
         "ffn_weight_of_other_type": (ffn_with(w2=m(32, 16).bfloat16()),
                                      "expected torch.float32"),
         "ffn_weight_shape": (ffn_with(wd=m(3, 3, 16)), "expected shape"),
@@ -483,8 +488,8 @@ def _refusals():
         "qkv_heads_do_not_divide": (
             lambda: K._qkv_stats_launch(x, heads=3, **chain), "C / heads"),
         "qkv_float32_wide": (
-            lambda: K._qkv_stats_launch(m(1, 8, 8, 256), heads=4, **chain),
-            "up to 128"),
+            lambda: K._qkv_stats_launch(m(1, 8, 8, 528), heads=11, **chain),
+            "up to 512"),
         "split_width_not_16n": (
             lambda: K._split_proj_launch(m(1, 8, 8, 24), n_out=1, **chain),
             "multiple of 16"),
@@ -523,8 +528,8 @@ def _refusals():
         "chm_frames_not_stacked": (
             lambda: K._chm_stats_launch(x, x, heads=2, **chm), "NF >= 1"),
         "chm_float32_wide": (
-            lambda: K._chm_stats_launch(m(1, 8, 8, 256), m(1, 1, 8, 8, 256),
-                                        heads=4, **chm), "up to 128"),
+            lambda: K._chm_stats_launch(m(1, 8, 8, 528), m(1, 1, 8, 8, 528),
+                                        heads=11, **chm), "up to 512"),
         "sab_width_not_16n": (
             lambda: S._launch(m(1, 8, 24), m(1, 1, 8, 24), m(1), None, 4, 5,
                               4), "multiple of 16"),

@@ -149,6 +149,28 @@ def _two_stage_plan(b, h, w, c, form1, form2, dtype, n_sm: int = 132):
     return "tile", None
 
 
+# csrc/chain2.cu's tile (two_stage_smem): stage 1's 12 x 12 input halo, its
+# fp32 hidden chunk (144 x 72), the activation chunk and the 10 x 10 ring of
+# stage 1's output
+_C2_N_IN1, _C2_N_RING, _C2_HS, _C2_AS, _C2_XPAD = 144, 100, 72, 72, 8
+
+
+def _two_stage_f32_plan(b, h, w, c):
+    """The geometry of one float32 fused_two_stage call, on csrc/chain2.cu,
+    mirrored from its launch and two_stage_smem: C a multiple of 16 up to
+    128, one 8 x 8 tile a block, 203,008 bytes of shared memory at C = 128.
+    Raises ValueError, naming the body and the limit, for a call it does
+    not take."""
+    if not two_stage_supported(c):
+        raise ValueError(f"fused_two_stage: csrc/chain2.cu takes float32 maps "
+                         f"of C a multiple of 16 up to {TWO_STAGE_MAX_C}, got "
+                         f"C={c}")
+    xs = c + _C2_XPAD
+    smem = 4 * (_C2_N_IN1 * xs + _C2_N_IN1 * _C2_HS + _C2_N_RING * _C2_AS
+                + _C2_N_RING * xs)
+    return dict(tile=(8, 8), blocks=b * -(-h // 8) * -(-w // 8), smem=smem)
+
+
 def _form(st, ffw, ints) -> tuple:
     """A stage's (mode, e, f) from its operands' ints [ch, e, gate, f]."""
     return (st["mode"], ints[1], ints[3] if ffw is not None else 0)
@@ -160,6 +182,8 @@ def _launch(x, st1, st2, ffw1, ffw2):
     if not two_stage_supported(c):
         raise ValueError(f"fused_two_stage: C must be a multiple of 16 up to "
                          f"{TWO_STAGE_MAX_C}, got {c}")
+    if x.dtype == torch.float32:  # raises before any launch if not taken
+        _two_stage_f32_plan(b, h, w, c)
     if b > 65535:
         raise ValueError(f"fused_two_stage: at most 65535 maps, got {b}")
     p1, i1 = _stage_operands(1, x, st1, ffw1)

@@ -46,7 +46,7 @@
 // and the current frame's values), one tensor map each; no stacked copy is
 // made. The validity of a frame is already in a. A tensor map's strides must
 // be multiples of 16 bytes, so bf16 maps whose HW is not a multiple of 8, and
-// T = float (the type of the tight on-card comparisons, not of serving), take
+// T = float (float32 serving and the tight on-card comparisons), take
 // a simpler body: mma.sync tiles of the same product (every warp all BM rows,
 // 32 or 16 columns of its own), a cp.async ring of 32-key chunks (4 stages of
 // 256 columns in bf16, 3 of 128 in float; fragments read element by element

@@ -23,7 +23,9 @@
 // the frames. On an H100 the chains are bound by operations
 // (2*C*(3 + 2 NF)*C flop per pixel against NF + 1 maps read and written);
 // they run as mma.sync warp tiles (common.cuh), the 64-pixel-deep Grams as
-// FMA on 4x4 register tiles.
+// FMA on 4x4 register tiles. float32 up to C = 512, the LN halo in device
+// memory at C = 512 (common.cuh; ffn.py's _chm_f32_plan mirrors the
+// dispatch below).
 #include "common.cuh"
 
 namespace turtle {
@@ -105,8 +107,10 @@ __device__ void tile_sumsq(const float* src, int stride, int n, float* out) {
   }
 }
 
-template <class T, int CR>
-__global__ void __launch_bounds__(NT) chm_stats_kernel(ChmArgs a) {
+// XN_DEV: the halo of x and of each frame in this block's slice of xn_dev
+// (common.cuh), the shared memory starts at hid
+template <class T, int CR, bool XN_DEV = false>
+__global__ void __launch_bounds__(NT) chm_stats_kernel(ChmArgs a, T* xn_dev) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int C = a.C, H = a.H, W = a.W, heads = a.heads, NF = a.NF;
   const int ctok = C / heads, g2 = ctok * ctok;
@@ -116,9 +120,16 @@ __global__ void __launch_bounds__(NT) chm_stats_kernel(ChmArgs a) {
   const int y0 = (blockIdx.x / tiles_x) * TS, x0 = (blockIdx.x % tiles_x) * TS;
 
   // shared memory: xn T[NPH*(C+XPAD)] | hid f32[NPH*HS] | qs f32[P*C] |
-  //                ks f32[P*ctok]
-  T* xn = reinterpret_cast<T*>(smem);
-  float* hid = reinterpret_cast<float*>(xn + NPH * (C + XPAD));
+  //                ks f32[P*ctok]; XN_DEV: xn in device memory
+  T* xn;
+  float* hid;
+  if constexpr (XN_DEV) {
+    xn = xn_dev + ((size_t)b * n_tiles + blockIdx.x) * NPH * (C + XPAD);
+    hid = reinterpret_cast<float*>(smem);
+  } else {
+    xn = reinterpret_cast<T*>(smem);
+    hid = reinterpret_cast<float*>(xn + NPH * (C + XPAD));
+  }
   float* qs = hid + NPH * HS;
   float* ks = qs + P * C;
 
@@ -173,25 +184,29 @@ __global__ void __launch_bounds__(NT) chm_stats_kernel(ChmArgs a) {
   }
 }
 
-template <class T, int CR>
-static int launch_chm(const ChmArgs& a, size_t smem, cudaStream_t stream) {
-  auto kern = chm_stats_kernel<T, CR>;
+template <class T, int CR, bool XN_DEV = false>
+static int launch_chm(const ChmArgs& a, size_t smem, cudaStream_t stream,
+                      void* xn_dev = nullptr) {
+  if (XN_DEV && xn_dev == nullptr) return -1;
+  auto kern = chm_stats_kernel<T, CR, XN_DEV>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(((a.H + TS - 1) / TS) * ((a.W + TS - 1) / TS), a.B);
-  kern<<<grid, dim3(NT), smem, stream>>>(a);
+  kern<<<grid, dim3(NT), smem, stream>>>(a, static_cast<T*>(xn_dev));
   return (int)cudaGetLastError();
 }
 
+// both types up to C = 512; float at C > 256 with the halo in device memory
 template <class T>
-static int dispatch_chm(const ChmArgs& a, size_t smem, cudaStream_t stream) {
+static int dispatch_chm(const ChmArgs& a, void* xn_dev, size_t smem, cudaStream_t stream) {
   if (a.C % 16 != 0) return -1;
   if (a.C <= 64) return launch_chm<T, 2>(a, smem, stream);
   if (a.C <= 128) return launch_chm<T, 4>(a, smem, stream);
-  if constexpr (sizeof(T) == 2) {  // float (the comparison type): C <= 128 only
-    if (a.C <= 256) return launch_chm<T, 8>(a, smem, stream);
-    if (a.C <= 512) return launch_chm<T, 16>(a, smem, stream);
+  if (a.C <= 256) return launch_chm<T, 8>(a, smem, stream);
+  if (a.C <= 512) {
+    if constexpr (sizeof(T) == 2) return launch_chm<T, 16>(a, smem, stream);
+    else return launch_chm<T, 16, true>(a, smem, stream, xn_dev);
   }
   return -1;
 }
@@ -200,12 +215,15 @@ static int dispatch_chm(const ChmArgs& a, size_t smem, cudaStream_t stream) {
 
 extern "C" size_t turtle_chm_stats_smem(int C, int heads, int is_bf16) {
   using namespace turtle;
-  return (size_t)NPH * (C + XPAD) * (is_bf16 ? 2 : 4) + (size_t)NPH * HS * 4 +
-         (size_t)P * (C + C / heads) * 4;
+  return (halo_in_device_memory(C, is_bf16) ? 0
+                                            : (size_t)NPH * (C + XPAD) * (is_bf16 ? 2 : 4)) +
+         (size_t)NPH * HS * 4 + (size_t)P * (C + C / heads) * 4;
 }
 
 // ptrs: x (B, H, W, C), x_sp (B, NF, H, W, C), ln_w, ln_b, w_qkv (C, 3C),
-//       wd_qkv (3, 3, 3C), w_kv (C, 2C), wd_kv (3, 3, 2C), v, vh, part
+//       wd_qkv (3, 3, 3C), w_kv (C, 2C), wd_kv (3, 3, 2C), v, vh, part, then
+//       (read only where the halo lives in device memory: float32 at C >
+//       256) xn_dev, B * n_tiles * 100 * (C + 8) floats
 // ints: B, H, W, C, heads, NF. part is fp32
 // (B, n_tiles, (NF + 1) * heads * ctok^2 + (NF + 2) * C).
 extern "C" int turtle_chm_stats_launch(void* const* ptrs, const int* ints, int is_bf16,
@@ -219,6 +237,8 @@ extern "C" int turtle_chm_stats_launch(void* const* ptrs, const int* ints, int i
   a.NF = ints[5];
   if (a.heads < 1 || a.C % a.heads != 0 || a.C / a.heads > 64 || a.NF < 1) return -1;
   const size_t smem = turtle_chm_stats_smem(a.C, a.heads, is_bf16);
+  void* xn_dev = halo_in_device_memory(a.C, is_bf16) ? ptrs[11] : nullptr;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? dispatch_chm<__nv_bfloat16>(a, smem, s) : dispatch_chm<float>(a, smem, s);
+  return is_bf16 ? dispatch_chm<__nv_bfloat16>(a, nullptr, smem, s)
+                 : dispatch_chm<float>(a, xn_dev, smem, s);
 }

@@ -5,10 +5,17 @@
 // maps, element type T = __nv_bfloat16 or float, fp32 accumulation. Matrix
 // products run as warp tiles D(16x8) += A(16x16) B(16x8) with A in shared
 // memory and B read from the weights in device memory: mma.sync (bf16
-// tensor cores) for T = __nv_bfloat16, the same tile by FMA and shuffles for
-// T = float (the type of the tight on-card comparisons, not of serving).
-// Operands are values of T (exact in fp32), sums are fp32. Offsets into the
-// maps are 64-bit.
+// tensor cores) for T = __nv_bfloat16, the same tile by FMA and shuffles on
+// the CUDA cores in full fp32 (no TF32) for T = float (float32 serving and
+// the tight on-card comparisons). Operands are values of T (exact in fp32),
+// sums are fp32. Offsets into the maps are 64-bit.
+//
+// float32 at C > F32_SHARED_HALO_MAX_C: the LN halo tile (100 rows of C + 8
+// floats, 208,000 bytes at C = 512) does not fit in a block's shared memory
+// beside the chunk buffers, so the bodies that hold it (ffn.cu, qkv_stats.cu,
+// chm_stats.cu, split_proj.cu) keep it in this block's slice of a scratch in
+// device memory that the wrapper allocates (one slice a tile; written and
+// read back by the same block, from L2); the rest stays in shared memory.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -35,6 +42,12 @@ constexpr int AS = HC + 8;         // row stride of the activation chunk (T)
 constexpr int XPAD = 8;            // row padding of T tiles: A loads hit 32 banks
 constexpr int KG = 4;              // k-steps whose weight loads are issued together
 constexpr float LN_EPS = 1e-5f;
+constexpr int F32_SHARED_HALO_MAX_C = 256;  // float32 wider: the halo in device memory
+
+// whether a tile body keeps its LN halo in device memory (see above)
+__host__ __device__ inline bool halo_in_device_memory(int C, int is_bf16) {
+  return !is_bf16 && C > F32_SHARED_HALO_MAX_C;
+}
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }

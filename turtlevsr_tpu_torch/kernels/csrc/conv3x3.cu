@@ -47,10 +47,13 @@
 //     a multiple of 32 (27 -> 32 at the input), and run through the same ring
 //     and tensor-core products. Cout not a multiple of 8 takes 8 x 16 pixels
 //     by 128 or 16 x 16 by 64; a halo that does not fit the 227 KB of a block
-//     takes 8 x 16 by 64, or the gather. T = float (the type of the tight
-//     on-card comparisons, not of serving) takes this body only, 8 x 8 pixels
-//     by 64 channels, fragments read element by element and the products by
-//     FMA (common.cuh's tile_mma), two stages.
+//     takes 8 x 16 by 64, or the gather. T = float (float32 serving and the
+//     tight on-card comparisons) takes this body only, 8 x 8 pixels by 64
+//     channels, fragments read element by element and the products by FMA
+//     in full fp32 (common.cuh's tile_mma), two stages; with the LayerNorm
+//     up to Cin = 512, whose halo (100 rows of Cin + 8 floats) and two
+//     weight stages take 226,432 bytes (ffn.py's _conv_f32_plan mirrors
+//     this).
 // Every body sums in fp32, adds the bias in fp32 and rounds once to T.
 #include <initializer_list>
 
@@ -740,10 +743,8 @@ static ConvPlan choose_plan(int Cin, int Cout, bool ln) {
     if (Cin % 16 != 0) return {nullptr, 0};
     if (Cin <= 64) return ln_plan<T, 2>(Cin, Cout);
     if (Cin <= 128) return ln_plan<T, 4>(Cin, Cout);
-    if constexpr (sizeof(T) == 2) {  // float (the comparison type): Cin <= 128 only
-      if (Cin <= 256) return ln_plan<T, 8>(Cin, Cout);
-      if (Cin <= 512) return ln_plan<T, 16>(Cin, Cout);
-    }
+    if (Cin <= 256) return ln_plan<T, 8>(Cin, Cout);
+    if (Cin <= 512) return ln_plan<T, 16>(Cin, Cout);
     return {nullptr, 0};
   }
   if constexpr (sizeof(T) == 2) {

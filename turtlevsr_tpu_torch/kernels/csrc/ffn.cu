@@ -20,7 +20,9 @@
 // or up to 4 maps with a po each in gate mode; the chained FFW in gelu
 // mode, F = 2 C); this body takes every other call (no dw, float32, other
 // widths and forms, lists at C = 512). ffn.py's _ffn_plan chooses by shape
-// before the launch.
+// before the launch. In float32 this body takes every form up to C = 256 and
+// the single maps at C = 512, whose LN halo lives in device memory
+// (common.cuh; ffn.py's _ffn_f32_plan mirrors the dispatch below).
 // On an H100 the chain is bound by operations at the levels with C >= 128
 // and by bytes at C = 64 (2*(C*CH + E*C) flop per pixel
 // against 2-3 map reads and one write), so the design keeps every
@@ -40,26 +42,31 @@ namespace turtle {
 // share an SM: they are bound by instruction issue and latency, and measured
 // faster so (enc2's block 3.15 -> 1.9 ms on an H100) in spite of a few
 // spilled registers.
-template <class T, int NTW, bool FFW2, int NX>
-__global__ void __launch_bounds__(NT, (NTW <= 2 ? 2 : 1)) ffn_kernel(FfnArgs a) {
+// XN_DEV: the LN halo in this block's slice of xn_dev (float32 at C = 512)
+template <class T, int NTW, bool FFW2, int NX, bool XN_DEV>
+__global__ void __launch_bounds__(NT, (NTW <= 2 ? 2 : 1)) ffn_kernel(FfnArgs a, T* xn_dev) {
   extern __shared__ __align__(16) unsigned char smem[];
-  ffn_tile<T, NTW, FFW2, NX>(a, blockIdx.y, blockIdx.x, smem);
+  ffn_tile<T, NTW, FFW2, NX, XN_DEV>(a, blockIdx.y, blockIdx.x, smem, xn_dev);
 }
 
-template <class T, int NTW, bool FFW2, int NX = 1>
-static int launch_ffn(const FfnArgs& a, size_t smem, cudaStream_t stream) {
-  auto kern = ffn_kernel<T, NTW, FFW2, NX>;
+template <class T, int NTW, bool FFW2, int NX = 1, bool XN_DEV = false>
+static int launch_ffn(const FfnArgs& a, size_t smem, cudaStream_t stream,
+                      void* xn_dev = nullptr) {
+  if (XN_DEV && xn_dev == nullptr) return -1;
+  auto kern = ffn_kernel<T, NTW, FFW2, NX, XN_DEV>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(((a.H + TS - 1) / TS) * ((a.W + TS - 1) / TS), a.B);
-  kern<<<grid, dim3(NT), smem, stream>>>(a);
+  kern<<<grid, dim3(NT), smem, stream>>>(a, static_cast<T*>(xn_dev));
   return (int)cudaGetLastError();
 }
 
-// float (the comparison type) is built for C <= 128 only
+// bf16: every form up to C = 512 (the lists at C = 512 exceed a block's
+// shared memory, and the wrapper refuses them); float: every form up to C =
+// 256, the single maps at C = 512 with the halo in device memory (xn_dev)
 template <class T>
-static int dispatch_ffn(const FfnArgs& a, size_t smem, cudaStream_t stream) {
+static int dispatch_ffn(const FfnArgs& a, void* xn_dev, size_t smem, cudaStream_t stream) {
   constexpr bool wide = sizeof(T) == 2;
   if (a.C % 16 != 0) return -1;
   if (a.f_w1 != nullptr) {  // the chained FFW is built for the narrow levels only
@@ -71,17 +78,18 @@ static int dispatch_ffn(const FfnArgs& a, size_t smem, cudaStream_t stream) {
   if (a.n_x2 > 1) {  // lists of maps: their own instantiations
     if (a.C <= 64) return launch_ffn<T, 1, false, MAX_X2>(a, smem, stream);
     if (a.C <= 128) return launch_ffn<T, 2, false, MAX_X2>(a, smem, stream);
+    if (a.C <= 256) return launch_ffn<T, 4, false, MAX_X2>(a, smem, stream);
     if constexpr (wide) {
-      if (a.C <= 256) return launch_ffn<T, 4, false, MAX_X2>(a, smem, stream);
       if (a.C <= 512) return launch_ffn<T, 8, false, MAX_X2>(a, smem, stream);
     }
     return -1;
   }
   if (a.C <= 64) return launch_ffn<T, 1, false>(a, smem, stream);
   if (a.C <= 128) return launch_ffn<T, 2, false>(a, smem, stream);
-  if constexpr (wide) {
-    if (a.C <= 256) return launch_ffn<T, 4, false>(a, smem, stream);
-    if (a.C <= 512) return launch_ffn<T, 8, false>(a, smem, stream);
+  if (a.C <= 256) return launch_ffn<T, 4, false>(a, smem, stream);
+  if (a.C <= 512) {
+    if constexpr (wide) return launch_ffn<T, 8, false>(a, smem, stream);
+    else return launch_ffn<T, 8, false, 1, true>(a, smem, stream, xn_dev);
   }
   return -1;
 }
@@ -89,13 +97,15 @@ static int dispatch_ffn(const FfnArgs& a, size_t smem, cudaStream_t stream) {
 }  // namespace turtle
 
 // ptrs: x, po_w, po_b, ln_w, ln_b, w1, b1, wd, bd, w2, b2, scale,
-//       f_ln_w, f_ln_b, f_w1, f_b1, f_w2, f_b2, f_scale, out, x2_0 .. x2_4
-//       (null = absent)
+//       f_ln_w, f_ln_b, f_w1, f_b1, f_w2, f_b2, f_scale, out, x2_0 .. x2_4,
+//       then (read only where the halo lives in device memory: float32 at
+//       C > 256) xn_dev, B * tiles * 100 * (C + 8) floats (null = absent)
 // ints: B, H, W, C, CH, E, F, gate, po_batched, n_x2, x2_bs_0 .. x2_bs_4
 // is_bf16: element type of every tensor. Returns the CUDA error code
 // (0 = launched), -1 for a width the kernel does not take.
 extern "C" size_t turtle_ffn_smem(int C, int F, int has_ffw2, int is_bf16, int n_x2) {
-  return turtle::ffn_tile_smem(C, F, has_ffw2, is_bf16, n_x2);
+  return turtle::ffn_tile_smem(C, F, has_ffw2, is_bf16, n_x2,
+                               turtle::halo_in_device_memory(C, is_bf16));
 }
 
 extern "C" int turtle_ffn_launch(void* const* ptrs, const int* ints, int is_bf16,
@@ -116,6 +126,8 @@ extern "C" int turtle_ffn_launch(void* const* ptrs, const int* ints, int is_bf16
     a.x2_bs[j] = ints[10 + j];
   }
   const size_t smem = turtle_ffn_smem(a.C, a.F, a.f_w1 != nullptr, is_bf16, a.n_x2);
+  void* xn_dev = halo_in_device_memory(a.C, is_bf16) ? ptrs[20 + MAX_X2] : nullptr;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? dispatch_ffn<__nv_bfloat16>(a, smem, s) : dispatch_ffn<float>(a, smem, s);
+  return is_bf16 ? dispatch_ffn<__nv_bfloat16>(a, nullptr, smem, s)
+                 : dispatch_ffn<float>(a, xn_dev, smem, s);
 }

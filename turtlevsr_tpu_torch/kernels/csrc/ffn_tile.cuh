@@ -23,9 +23,12 @@ struct FfnArgs {
 // puts a barrier in between.
 // NTW: 8-column output tiles per warp (C <= 64 NTW).
 // NX: the most x2 maps the instantiation takes (1, or MAX_X2 for the lists).
-template <class T, int NTW, bool FFW2, int NX>
+// XN_DEV: the LN halo lives in device memory (common.cuh), this tile's slice
+// of xn_dev (one slice of NPH * (C + XPAD) elements a tile, batch-major);
+// the shared memory then starts at xres.
+template <class T, int NTW, bool FFW2, int NX, bool XN_DEV = false>
 __device__ __forceinline__ void ffn_tile(const FfnArgs& a, int b, int tile,
-                                         unsigned char* smem) {
+                                         unsigned char* smem, T* xn_dev = nullptr) {
   constexpr int CR = 2 * NTW;
   const int C = a.C, CH = a.CH, E = a.E, H = a.H, W = a.W;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -35,9 +38,17 @@ __device__ __forceinline__ void ffn_tile(const FfnArgs& a, int b, int tile,
   const int y0 = (tile / tiles_x) * TS, x0 = (tile % tiles_x) * TS;
 
   // shared memory: xn T[NPH*XS] | xres T[P*C] | hid f32[NPH*HS] | act T[P*AS]
-  //                | (ffw2) gs T[P*(F+XPAD)]
-  T* xn = reinterpret_cast<T*>(smem);
-  T* xres = xn + NPH * XS;
+  //                | (ffw2) gs T[P*(F+XPAD)]; XN_DEV: xn in device memory
+  T* xn;
+  T* xres;
+  if constexpr (XN_DEV) {
+    const int n_tiles = ((H + TS - 1) / TS) * tiles_x;
+    xn = xn_dev + ((size_t)b * n_tiles + tile) * NPH * XS;
+    xres = reinterpret_cast<T*>(smem);
+  } else {
+    xn = reinterpret_cast<T*>(smem);
+    xres = xn + NPH * XS;
+  }
   float* hid = reinterpret_cast<float*>(xres + P * C);
   T* act = reinterpret_cast<T*>(hid + NPH * HS);
   T* gs = act + P * AS;
@@ -220,11 +231,11 @@ __device__ __forceinline__ void ffn_tile(const FfnArgs& a, int b, int tile,
   }
 }
 
-// shared memory of one ffn_tile, in bytes
+// shared memory of one ffn_tile, in bytes (xn_dev: the halo in device memory)
 __host__ __device__ inline size_t ffn_tile_smem(int C, int F, int has_ffw2, int is_bf16,
-                                                int n_x2) {
+                                                int n_x2, int xn_dev = 0) {
   const size_t ts = is_bf16 ? 2 : 4;
-  const size_t xn = (size_t)NPH * (C + XPAD) * ts;
+  const size_t xn = xn_dev ? 0 : (size_t)NPH * (C + XPAD) * ts;
   const size_t rest = ((size_t)P * C + (size_t)P * AS) * ts + (size_t)NPH * HS * 4 +
                       (has_ffw2 ? (size_t)P * (F + XPAD) * ts : 0);
   const size_t acc = n_x2 > 1 ? (size_t)NPH * C * 4 : 0;  // borrows `rest`

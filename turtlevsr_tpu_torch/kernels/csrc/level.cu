@@ -203,7 +203,9 @@ static int launch_level(const LevelArgs& a, size_t smem, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// float (the comparison type) is built for C <= 128 only
+// float is built for C <= 128 only: channel_runs in float32 is taken up to
+// C = 128 (kernels/level.py _level_f32_plan; at C >= 256 this body would need
+// the device-memory halo of common.cuh in both of its tile phases)
 template <class T>
 static int dispatch_level(const LevelArgs& a, size_t smem, cudaStream_t stream) {
   if (a.C % 16 != 0) return -1;

@@ -3,7 +3,7 @@
 // helpers of the 3x3 conv (conv3x3.cu) and of attention @ values
 // (attn_v.cu). Fragment layouts are those of common.cuh (mma.sync
 // m16n8k16); the float versions read the same fragments element by element
-// (float is the type of the tight on-card comparisons, not of serving).
+// (float32 serving and the tight on-card comparisons).
 #pragma once
 
 #include <cuda.h>

@@ -13,7 +13,9 @@
 // of the Gram are computed (the attention reads nothing else). The chain is
 // bound by operations (2*C*3C flop per pixel against one map read and one
 // third of a map written); the chains run as mma.sync warp tiles as in ffn.cu,
-// the tile's small Gram (64 pixels deep) as FMA.
+// the tile's small Gram (64 pixels deep) as FMA. float32 up to C = 512, the
+// LN halo in device memory at C = 512 (common.cuh; ffn.py's _qkv_f32_plan
+// mirrors the dispatch below).
 #include "qkv_tile.cuh"
 
 namespace turtle {
@@ -21,10 +23,12 @@ namespace turtle {
 // __grid_constant__: the tile code takes the arguments by reference; without
 // it the compiler copies them to local memory first, which cost the wide
 // levels 8-22 % of their time on an H100.
-template <class T, int CR>
-__global__ void __launch_bounds__(NT) qkv_stats_kernel(const __grid_constant__ QkvArgs a) {
+// XN_DEV: the LN halo in this block's slice of xn_dev (float32 at C = 512)
+template <class T, int CR, bool XN_DEV>
+__global__ void __launch_bounds__(NT) qkv_stats_kernel(const __grid_constant__ QkvArgs a,
+                                                       T* xn_dev) {
   extern __shared__ __align__(16) unsigned char smem[];
-  qkv_tile<T, CR>(a, blockIdx.y, blockIdx.x, gridDim.x, smem);
+  qkv_tile<T, CR, XN_DEV>(a, blockIdx.y, blockIdx.x, gridDim.x, smem, xn_dev);
 }
 
 // dst[b][g][i] = sum over rows r in group g of src[b][r][i], rows taken in
@@ -41,25 +45,29 @@ __global__ void reduce_rows_kernel(const float* __restrict__ src, float* __restr
   dst[((size_t)b * n_groups + g) * width + i] = acc;
 }
 
-template <class T, int CR>
-static int launch_qkv(const QkvArgs& a, size_t smem, cudaStream_t stream) {
-  auto kern = qkv_stats_kernel<T, CR>;
+template <class T, int CR, bool XN_DEV = false>
+static int launch_qkv(const QkvArgs& a, size_t smem, cudaStream_t stream,
+                      void* xn_dev = nullptr) {
+  if (XN_DEV && xn_dev == nullptr) return -1;
+  auto kern = qkv_stats_kernel<T, CR, XN_DEV>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(((a.H + TS - 1) / TS) * ((a.W + TS - 1) / TS), a.B);
-  kern<<<grid, dim3(NT), smem, stream>>>(a);
+  kern<<<grid, dim3(NT), smem, stream>>>(a, static_cast<T*>(xn_dev));
   return (int)cudaGetLastError();
 }
 
+// both types up to C = 512; float at C > 256 with the halo in device memory
 template <class T>
-static int dispatch_qkv(const QkvArgs& a, size_t smem, cudaStream_t stream) {
+static int dispatch_qkv(const QkvArgs& a, void* xn_dev, size_t smem, cudaStream_t stream) {
   if (a.C % 16 != 0) return -1;
   if (a.C <= 64) return launch_qkv<T, 2>(a, smem, stream);
   if (a.C <= 128) return launch_qkv<T, 4>(a, smem, stream);
-  if constexpr (sizeof(T) == 2) {  // float (the comparison type): C <= 128 only
-    if (a.C <= 256) return launch_qkv<T, 8>(a, smem, stream);
-    if (a.C <= 512) return launch_qkv<T, 16>(a, smem, stream);
+  if (a.C <= 256) return launch_qkv<T, 8>(a, smem, stream);
+  if (a.C <= 512) {
+    if constexpr (sizeof(T) == 2) return launch_qkv<T, 16>(a, smem, stream);
+    else return launch_qkv<T, 16, true>(a, smem, stream, xn_dev);
   }
   return -1;
 }
@@ -67,10 +75,12 @@ static int dispatch_qkv(const QkvArgs& a, size_t smem, cudaStream_t stream) {
 }  // namespace turtle
 
 extern "C" size_t turtle_qkv_stats_smem(int C, int heads, int is_bf16) {
-  return turtle::qkv_tile_smem(C, heads, is_bf16);
+  return turtle::qkv_tile_smem(C, heads, is_bf16, turtle::halo_in_device_memory(C, is_bf16));
 }
 
-// ptrs: x, ln_w, ln_b, w1 (C, 3C), b1, wd (3, 3, 3C), bd, v, part
+// ptrs: x, ln_w, ln_b, w1 (C, 3C), b1, wd (3, 3, 3C), bd, v, part, then
+//       (read only where the halo lives in device memory: float32 at C > 256)
+//       xn_dev, B * n_tiles * 100 * (C + 8) floats
 // ints: B, H, W, C, heads. part is fp32 (B, n_tiles, heads*ctok^2 + 2C).
 extern "C" int turtle_qkv_stats_launch(void* const* ptrs, const int* ints, int is_bf16,
                                        void* stream) {
@@ -81,8 +91,10 @@ extern "C" int turtle_qkv_stats_launch(void* const* ptrs, const int* ints, int i
   a.B = ints[0]; a.H = ints[1]; a.W = ints[2]; a.C = ints[3]; a.heads = ints[4];
   if (a.C % a.heads != 0 || a.C / a.heads > 64) return -1;
   const size_t smem = turtle_qkv_stats_smem(a.C, a.heads, is_bf16);
+  void* xn_dev = halo_in_device_memory(a.C, is_bf16) ? ptrs[9] : nullptr;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? dispatch_qkv<__nv_bfloat16>(a, smem, s) : dispatch_qkv<float>(a, smem, s);
+  return is_bf16 ? dispatch_qkv<__nv_bfloat16>(a, nullptr, smem, s)
+                 : dispatch_qkv<float>(a, xn_dev, smem, s);
 }
 
 // one pass of the fixed-order sum: src (B, n_rows, width) -> dst (B, n_groups, width)

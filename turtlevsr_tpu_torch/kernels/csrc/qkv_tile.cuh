@@ -17,19 +17,29 @@ struct QkvArgs {
 // One 8x8 tile: tile `tile` of the n_tiles of batch entry b; smem is the
 // block's dynamic shared memory (qkv_tile_smem bytes). Every thread of the
 // block takes part; it ends in a barrier (linear_chunk_to_global), so the
-// same block may go on with another tile.
-template <class T, int CR>
+// same block may go on with another tile. XN_DEV: the LN halo lives in
+// device memory (common.cuh), this tile's slice of xn_dev (NPH * (C + XPAD)
+// elements a tile, batch-major); the shared memory then starts at hid.
+template <class T, int CR, bool XN_DEV = false>
 __device__ __forceinline__ void qkv_tile(const QkvArgs& a, int b, int tile, int n_tiles,
-                                         unsigned char* smem) {
+                                         unsigned char* smem, T* xn_dev = nullptr) {
   const int C = a.C, CH = 3 * a.C, H = a.H, W = a.W, heads = a.heads;
   const int ctok = C / heads;
   const int tid = threadIdx.x;
   const int tiles_x = (W + TS - 1) / TS;
   const int y0 = (tile / tiles_x) * TS, x0 = (tile % tiles_x) * TS;
 
-  // shared memory: xn T[NPH*(C+XPAD)] | hid f32[NPH*HS] | qs, ks f32[P*ctok]
-  T* xn = reinterpret_cast<T*>(smem);
-  float* hid = reinterpret_cast<float*>(xn + NPH * (C + XPAD));
+  // shared memory: xn T[NPH*(C+XPAD)] | hid f32[NPH*HS] | qs, ks f32[P*ctok];
+  // XN_DEV: xn in device memory
+  T* xn;
+  float* hid;
+  if constexpr (XN_DEV) {
+    xn = xn_dev + ((size_t)b * n_tiles + tile) * NPH * (C + XPAD);
+    hid = reinterpret_cast<float*>(smem);
+  } else {
+    xn = reinterpret_cast<T*>(smem);
+    hid = reinterpret_cast<float*>(xn + NPH * (C + XPAD));
+  }
   float* qs = hid + NPH * HS;
   float* ks = qs + P * ctok;
 
@@ -88,10 +98,11 @@ __device__ __forceinline__ void qkv_tile(const QkvArgs& a, int b, int tile, int 
                               min(HC, C - cb), hid, v, C, cb);
 }
 
-// shared memory of one qkv_tile, in bytes
-__host__ __device__ inline size_t qkv_tile_smem(int C, int heads, int is_bf16) {
-  return (size_t)NPH * (C + XPAD) * (is_bf16 ? 2 : 4) + (size_t)NPH * HS * 4 +
-         (size_t)2 * P * (C / heads) * 4;
+// shared memory of one qkv_tile, in bytes (xn_dev: the halo in device memory)
+__host__ __device__ inline size_t qkv_tile_smem(int C, int heads, int is_bf16,
+                                                int xn_dev = 0) {
+  return (xn_dev ? 0 : (size_t)NPH * (C + XPAD) * (is_bf16 ? 2 : 4)) +
+         (size_t)NPH * HS * 4 + (size_t)2 * P * (C / heads) * 4;
 }
 
 }  // namespace turtle

@@ -39,6 +39,7 @@ from turtlevsr_tpu_torch.ops.norm import LN_EPS
 _KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 _SMEM_LIMIT = 232448  # dynamic shared memory a block can have on sm_90
 _TILE = 8
+_MAX_C = 512  # the widest map the chain kernels take
 
 
 # ---------------------------------------------------------------------------
@@ -291,13 +292,13 @@ def _check_map(name: str, x: torch.Tensor):
 
 
 def _check_width(name: str, x: torch.Tensor):
-    """The chain kernels take C % 16 == 0 up to 512 in bfloat16 and up to
-    128 in float32 (the type of the tight comparisons, not of serving)."""
+    """The chain kernels take C % 16 == 0 up to 512, in bfloat16 and in
+    float32 (each float32 body's own limits are its plan's:
+    :func:`_ffn_f32_plan` and the others below it)."""
     c = x.shape[-1]
-    top = 512 if x.dtype == torch.bfloat16 else 128
-    if c % 16 or c > top:
-        raise ValueError(f"{name}: C must be a multiple of 16 up to {top} "
-                         f"for {x.dtype}, got {c}")
+    if c % 16 or c > _MAX_C:
+        raise ValueError(f"{name}: C must be a multiple of 16 up to {_MAX_C}"
+                         f", got {c}")
 
 
 def _need_cuda(name: str, x: torch.Tensor):
@@ -324,6 +325,141 @@ def _check_smem(what: str, need: int):
     if need > _SMEM_LIMIT:
         raise ValueError(f"{what}: needs {need} bytes of shared memory, the "
                          f"card gives a block {_SMEM_LIMIT}")
+
+
+# ---------------------------------------------------------------------------
+# float32: the mma.sync bodies of rows 1, 3, 4, 5 (with LayerNorm) and 6
+# ---------------------------------------------------------------------------
+
+# csrc/common.cuh's tile: the 10 x 10 halo of an 8 x 8 tile, the row pad of
+# its maps, the strides of the fp32 hidden chunk and of the activation chunk
+_NPH, _P, _XPAD, _HS, _AS = 100, 64, 8, 72, 72
+# F32_SHARED_HALO_MAX_C of csrc/common.cuh: in float32 at wider maps the LN
+# halo (100 rows of C + 8 floats, 208,000 bytes at C = 512) does not fit in
+# shared memory beside the chunk buffers and lives in a device-memory scratch
+# of one slice a tile, which the wrapper allocates
+_F32_SHARED_HALO_MAX_C = 256
+_F32 = 4  # bytes of a float32 element
+
+
+def _f32_plan_error(name: str, body: str, what: str, got: str):
+    return ValueError(f"{name}: {body} takes float32 {what}, got {got}")
+
+
+def _f32_geometry(name, body, b, h, w, c, halo_free_smem):
+    """The common part of the float32 plans: one 8 x 8 tile a block; the LN
+    halo in shared memory up to C = 256 (its bytes added to the rest's),
+    else in a device-memory scratch of ``scratch`` float32 elements."""
+    if c % 16 or not 16 <= c <= _MAX_C:
+        raise _f32_plan_error(name, body, f"maps of C a multiple of 16 up "
+                              f"to {_MAX_C}", f"C={c}")
+    dev = c > _F32_SHARED_HALO_MAX_C
+    n_tiles = b * _tiles(h, w)
+    halo = _NPH * (c + _XPAD)
+    smem = halo_free_smem + (0 if dev else halo * _F32)
+    if smem > _SMEM_LIMIT:
+        raise _f32_plan_error(name, body, f"calls whose shared memory fits "
+                              f"{_SMEM_LIMIT} bytes", f"{smem}")
+    return dict(tile=_TILE, blocks=n_tiles, halo="device" if dev else "shared",
+                scratch=n_tiles * halo if dev else 0, smem=smem)
+
+
+def _ffn_f32_plan(b, h, w, c, n_x2, f):
+    """The geometry of one float32 fused_block_ffn call, on csrc/ffn.cu,
+    mirrored from its dispatch (dispatch_ffn<float>) and ffn_tile_smem:
+    every form up to C = 256 (the chained FFW up to C = 128, F <= 2C a
+    multiple of 16, at most one x2 map; lists of up to 5 x2 maps), single
+    maps at C = 512 with the LN halo in device memory. f: the chained FFW's
+    hidden width (0: none). Raises ValueError, naming the body and the
+    limit, for a call it does not take."""
+    name, body = "fused_block_ffn", "csrc/ffn.cu"
+    if f and (c > 128 or f > 2 * c or f % 16 or n_x2 > 1):
+        raise _f32_plan_error(name, body, "the chained FFW at C <= 128, F <= "
+                              "2C a multiple of 16, at most one x2 map",
+                              f"C={c}, F={f}, {n_x2} maps")
+    if n_x2 > 1 and c > _F32_SHARED_HALO_MAX_C:
+        raise _f32_plan_error(name, body, "lists of x2 maps up to C = "
+                              f"{_F32_SHARED_HALO_MAX_C}", f"C={c}")
+    rest = ((_P * c + _P * _AS) * _F32 + _NPH * _HS * 4
+            + (_P * (f + _XPAD) * _F32 if f else 0))
+    acc = _NPH * c * 4 if n_x2 > 1 else 0  # the lists' sum borrows `rest`
+    return _f32_geometry(name, body, b, h, w, c, max(rest, acc))
+
+
+def _qkv_f32_plan(b, h, w, c, heads):
+    """The geometry of one float32 fused_qkv_stats call, on
+    csrc/qkv_stats.cu (qkv_tile_smem): C up to 512, the LN halo in device
+    memory at C = 512, C / heads <= 64. Raises ValueError, naming the body
+    and the limit, for a call it does not take."""
+    name, body = "fused_qkv_stats", "csrc/qkv_stats.cu"
+    if c % heads or c // heads > 64:
+        raise _f32_plan_error(name, body, "C / heads <= 64",
+                              f"C={c}, heads={heads}")
+    return _f32_geometry(name, body, b, h, w, c,
+                         _NPH * _HS * 4 + 2 * _P * (c // heads) * 4)
+
+
+def _chm_f32_plan(b, h, w, c, heads, nf):
+    """The geometry of one float32 fused_chm_stats call, on
+    csrc/chm_stats.cu (turtle_chm_stats_smem): C up to 512, the LN halo in
+    device memory at C = 512, C / heads <= 64, at least one aligned frame.
+    Raises ValueError, naming the body and the limit, for a call it does not
+    take."""
+    name, body = "fused_chm_stats", "csrc/chm_stats.cu"
+    if c % heads or c // heads > 64 or nf < 1:
+        raise _f32_plan_error(name, body, "C / heads <= 64 and NF >= 1",
+                              f"C={c}, heads={heads}, NF={nf}")
+    return _f32_geometry(name, body, b, h, w, c,
+                         _NPH * _HS * 4 + _P * (c + c // heads) * 4)
+
+
+def _split_f32_plan(b, h, w, c):
+    """The geometry of one float32 fused_ln_split_proj call, on
+    csrc/split_proj.cu (turtle_split_proj_smem): C up to 512, the LN halo in
+    device memory at C = 512. Raises ValueError, naming the body and the
+    limit, for a call it does not take."""
+    return _f32_geometry("fused_ln_split_proj", "csrc/split_proj.cu", b, h,
+                         w, c, _NPH * _HS * 4)
+
+
+# csrc/conv3x3.cu's float32 tile (GeoF32: 8 x 8 pixels by 64 channels, two
+# stages of 32 rows of K; a gathered A stage has rows of 32 + 8)
+_CV_BN, _CV_KC, _CV_STAGES_F32 = 64, 32, 2
+
+
+def _conv_f32_plan(b, h, w, cin, cout, ln: bool):
+    """The geometry of one float32 fused_conv3x3 call, on csrc/conv3x3.cu's
+    mma.sync body (choose_plan<float>, conv_smem of GeoF32): the halo tile
+    (100 rows of Cin + 8) beside two weight stages (32 x 72 each) where it
+    fits, else (no LayerNorm, or Cin not a multiple of 16) the gathered A
+    stages; with the LayerNorm Cin a multiple of 16 up to 512, 226,432 bytes
+    at Cin = 512. Raises ValueError, naming the body and the limit, for a
+    call it does not take."""
+    name, body = "fused_conv3x3", "csrc/conv3x3.cu"
+    if ln and (cin % 16 or not 16 <= cin <= _MAX_C):
+        raise _f32_plan_error(name + " with LayerNorm", body, "Cin a multiple"
+                              f" of 16 up to {_MAX_C}", f"Cin={cin}")
+    bs = _CV_BN + _XPAD
+    weights, out = _CV_STAGES_F32 * _CV_KC * bs, _P * bs
+    halo = max((_NPH * (cin + _XPAD) + weights) * _F32, out * _F32)
+    gather = max((_CV_STAGES_F32 * _P * (_CV_KC + _XPAD) + weights) * _F32,
+                 out * _F32)
+    tiled = cin % 16 == 0 and halo <= _SMEM_LIMIT
+    if ln and not tiled:
+        raise _f32_plan_error(name + " with LayerNorm", body, "calls whose "
+                              f"shared memory fits {_SMEM_LIMIT} bytes",
+                              f"{halo}")
+    return dict(tile=(_TILE, _TILE), blocks=b * _tiles(h, w)
+                * -(-cout // _CV_BN), smem=halo if tiled else gather)
+
+
+def _halo_scratch(geo, x: torch.Tensor):
+    """The device-memory LN halo of a float32 plan, None where the halo lives
+    in shared memory (the caller holds it until the launch is queued; the
+    allocator orders its reuse on the stream)."""
+    if not geo["scratch"]:
+        return None
+    return torch.empty(geo["scratch"], dtype=torch.float32, device=x.device)
 
 
 # ---------------------------------------------------------------------------
@@ -492,8 +628,9 @@ def _ffn_plan(b, h, w, c, ch, e, mode, n_x2, has_po, po_batched, f, has_dw,
     PERF.md row 1). The body of
     csrc/ffn_pw.cu takes the bf16 calls without a depthwise stage in its
     form (:func:`_pw_form`: gopro_enc3_ffw's FFW passes at enc3). Everything
-    else (float32, other widths and forms) goes to csrc/ffn.cu, whose shared
-    memory refuses lists at C = 512 (no path has them). The geometry: the
+    else goes to csrc/ffn.cu: every float32 call (float32 serving; its
+    limits are :func:`_ffn_f32_plan`'s), other widths and forms; its shared
+    memory refuses bf16 lists at C = 512 (no path has them). The geometry: the
     output tiles, their count, the activation columns of a chunk, the ring
     stages and the shared memory; for the persistent bodies (C = 64, no
     depthwise stage) also the grid's blocks (one an SM, n_sm of them at
@@ -561,6 +698,9 @@ def _ffn_launch(x, x2, po_w, po_b, ln_w, ln_b, w1, b1, wd, bd, w2, b2, scale,
               _check("ffw2.w2", ffw2["w2"], x, (f, c)),
               _check("ffw2.b2", ffw2["b2"], x, (c,)),
               _check("ffw2.scale", ffw2["scale"], x, (c,))]
+    halo = None  # float32's LN halo in device memory
+    if x.dtype == torch.float32:  # raises before any launch if not taken
+        halo = _halo_scratch(_ffn_f32_plan(b, h, w, c, n_x2, f), x)
     out = torch.empty_like(x)
     ptrs = [
         _check("x", x, x), _check("po_w", po, x),
@@ -591,7 +731,8 @@ def _ffn_launch(x, x2, po_w, po_b, ln_w, ln_b, w1, b1, wd, bd, w2, b2, scale,
         lib = build.load("ffn")
         _check_smem("fused_block_ffn", lib.turtle_ffn_smem(
             c, f, int(ffw2 is not None), int(x.dtype == torch.bfloat16), n_x2))
-        _call(lib.turtle_ffn_launch, ptrs, ints, x, "fused_block_ffn")
+        _call(lib.turtle_ffn_launch, ptrs + [_check("halo", halo, x)], ints,
+              x, "fused_block_ffn")
     fused_block_ffn.launches += 1
     fused_block_ffn.launches_no_dw += wd is None
     return out
@@ -621,8 +762,8 @@ def fused_block_ffn(x, *, x2=None, po_w=None, po_b=None, ln_w, ln_b=None,
     through a TMA ring, wgmma, no halo) for bf16 calls without a depthwise
     stage in gelu mode, C = 128 or 256, F = 2C, no x2 map or one with its
     po (``fused_block_ffn.launches_pw`` counts them); the mma.sync body of
-    csrc/ffn.cu for every other call (float32, other forms). A call is one
-    launch either way.
+    csrc/ffn.cu for every other call (float32 serving up to C = 512, other
+    forms). A call is one launch either way.
     x2: optional second addend map (the attention branch); po_w (C, C) or
     per batch (B, C, C) and po_b: optional projection applied to x2 in the
     kernel. x2 may also be a list of up to 5 maps, an entry being a map or
@@ -767,6 +908,9 @@ def _qkv_stats_launch(x, ln_w, ln_b, w1, b1, wd, bd, heads):
             _check("bd", bd, x, (3 * c,)), v.data_ptr()]
     body, geo = _qkv_plan(b, h, w, c, heads, b1 is not None or bd is not None,
                           x.dtype, _sm_count(x.device))
+    halo = None  # float32's LN halo in device memory
+    if x.dtype == torch.float32:  # raises before any launch if not taken
+        halo = _halo_scratch(_qkv_f32_plan(b, h, w, c, heads), x)
     if body == "wg":  # its shared memory fits by construction (_sw_smem)
         part = torch.zeros((b, geo["rows"], width), dtype=torch.float32,
                            device=x.device)
@@ -781,7 +925,8 @@ def _qkv_stats_launch(x, ln_w, ln_b, w1, b1, wd, bd, heads):
         lib = build.load("qkv_stats")
         _check_smem("fused_qkv_stats", lib.turtle_qkv_stats_smem(
             c, heads, int(x.dtype == torch.bfloat16)))
-        _call(lib.turtle_qkv_stats_launch, ptrs + [part.data_ptr()],
+        _call(lib.turtle_qkv_stats_launch,
+              ptrs + [part.data_ptr(), _check("halo", halo, x)],
               [b, h, w, c, heads], x, "fused_qkv_stats")
     tot = _reduce_rows(part, "fused_qkv_stats")
     fused_qkv_stats.launches += 1
@@ -907,6 +1052,9 @@ def _split_proj_launch(x, ln_w, ln_b, w1, b1, wd, bd, n_out):
     body, geo = _split_plan(b, h, w, c, e, n_out, ln_w is not None,
                             b1 is not None or bd is not None, x.dtype,
                             _sm_count(x.device))
+    halo = None  # float32's LN halo in device memory
+    if x.dtype == torch.float32:  # raises before any launch if not taken
+        halo = _halo_scratch(_split_f32_plan(b, h, w, c), x)
     if body == "wg":  # its shared memory fits by construction (_spw_smem)
         _call(build.load("split_wg").turtle_split_wg_launch,
               ptrs[:4] + ptrs[5:6] + ptrs[7:],
@@ -921,8 +1069,8 @@ def _split_proj_launch(x, ln_w, ln_b, w1, b1, wd, bd, n_out):
         lib = build.load("split_proj")
         _check_smem("fused_ln_split_proj", lib.turtle_split_proj_smem(
             c, int(x.dtype == torch.bfloat16)))
-        _call(lib.turtle_split_proj_launch, ptrs, [b, h, w, c, e, n_out], x,
-              "fused_ln_split_proj")
+        _call(lib.turtle_split_proj_launch, ptrs + [_check("halo", halo, x)],
+              [b, h, w, c, e, n_out], x, "fused_ln_split_proj")
     fused_ln_split_proj.launches += 1
     return tuple(outs)
 
@@ -969,6 +1117,8 @@ def _conv3x3_launch(x, weight, bias, ln_w, ln_b):
         raise ValueError("ln_b needs ln_w")
     if ln_w is not None:
         _check_width("fused_conv3x3 with LayerNorm", x)
+    if x.dtype == torch.float32:  # raises before any launch if not taken
+        _conv_f32_plan(b, h, w, cin, cout, ln_w is not None)
     out = torch.empty((b, h, w, cout), dtype=x.dtype, device=x.device)
     ptrs = [_check("x", x, x), _check("weight", weight, x),
             _check("bias", bias, x, (cout,)), out.data_ptr(),
@@ -1027,6 +1177,9 @@ def _chm_stats_launch(x, x_sp, ln_w, ln_b, w_qkv, wd_qkv, w_kv, wd_kv, heads):
             _check("wd_kv", wd_kv, x, (3, 3, 2 * c)),
             v.data_ptr(), vh.data_ptr()]
     body, geo = _chm_plan(b, h, w, c, heads, x.dtype, _sm_count(x.device))
+    halo = None  # float32's LN halo in device memory
+    if x.dtype == torch.float32:  # raises before any launch if not taken
+        halo = _halo_scratch(_chm_f32_plan(b, h, w, c, heads, nf), x)
     if body == "wg":  # its shared memory fits by construction (_sw_smem)
         part = torch.zeros((b, geo["rows"], width), dtype=torch.float32,
                            device=x.device)
@@ -1041,7 +1194,8 @@ def _chm_stats_launch(x, x_sp, ln_w, ln_b, w_qkv, wd_qkv, w_kv, wd_kv, heads):
         lib = build.load("chm_stats")
         _check_smem("fused_chm_stats", lib.turtle_chm_stats_smem(
             c, heads, int(x.dtype == torch.bfloat16)))
-        _call(lib.turtle_chm_stats_launch, ptrs + [part.data_ptr()],
+        _call(lib.turtle_chm_stats_launch,
+              ptrs + [part.data_ptr(), _check("halo", halo, x)],
               [b, h, w, c, heads, nf], x, "fused_chm_stats")
     tot = _reduce_rows(part, "fused_chm_stats")
     fused_chm_stats.launches += 1

@@ -79,6 +79,21 @@ def _lv_smem(c: int) -> tuple[int, int, int]:
     return smem, s_stats, s_ffn
 
 
+LEVEL_F32_MAX_C = 128  # the widest float32 map csrc/level.cu takes
+
+
+def _level_f32_plan(c: int) -> None:
+    """The float32 limit of csrc/level.cu, mirrored from its dispatch
+    (dispatch_level<float>): channel_runs in float32 is taken only up to C =
+    128 (its two tile phases keep the LN halo in shared memory; the
+    device-memory halo of the split bodies is not built into it). Raises
+    ValueError above it, before any launch."""
+    if c > LEVEL_F32_MAX_C:
+        raise ValueError(
+            "fused_channel_gffw_run: channel_runs in float32 is taken only up "
+            f"to C = {LEVEL_F32_MAX_C} (csrc/level.cu), got C={c}")
+
+
 def _level_plan(b, h, w, c, heads, e, ch, dtype, ln_b, n_sm: int = 132):
     """The body of one fused_channel_gffw_run launch, chosen by its shape:
     ("wg", geometry) for csrc/level_wg.cu (bf16, C = 128, 256 or 512, 64
@@ -164,6 +179,8 @@ def _launch(x, blocks, heads):
     _check_map("x", x)
     _check_width("fused_channel_gffw_run", x)
     b, h, w, c = x.shape
+    if x.dtype == torch.float32:
+        _level_f32_plan(c)
     if c % heads or c // heads > 64:
         raise ValueError("fused_channel_gffw_run takes C / heads <= 64, got "
                          f"C={c}, heads={heads}")
