@@ -674,7 +674,8 @@ def test_float32_plans_mirror_the_sources(dev):
     from turtlevsr_tpu_torch.kernels import build
 
     libs = {n: build.load(n) for n in ("ffn", "qkv_stats", "chm_stats",
-                                       "split_proj", "conv3x3", "chain2")}
+                                       "split_proj", "conv3x3", "chain2",
+                                       "level")}
     for c in range(16, 513, 16):
         assert libs["ffn"].turtle_ffn_smem(c, 0, 0, 0, 1) == K._ffn_f32_plan(
             1, 8, 8, c, 1, 0)["smem"]
@@ -692,6 +693,8 @@ def test_float32_plans_mirror_the_sources(dev):
                     == K._qkv_f32_plan(1, 8, 8, c, heads)["smem"]
                 assert libs["chm_stats"].turtle_chm_stats_smem(c, heads, 0) \
                     == K._chm_f32_plan(1, 8, 8, c, heads, 2)["smem"]
+                assert libs["level"].turtle_level_smem(c, heads, 0) == \
+                    LV._level_f32_plan(1, 8, 8, c, heads)["smem"]
         assert libs["split_proj"].turtle_split_proj_smem(c, 0) == \
             K._split_f32_plan(1, 8, 8, c)["smem"]
         assert libs["conv3x3"].turtle_conv3x3_smem(c, 0) == \
@@ -823,9 +826,6 @@ def test_attn_v_kernel_matches_plain(dev, shape, dtype):
 def test_level_run_kernel_matches_plain_and_split(dev, shape, dtype):
     """The run kernel against its plain version and, with a tighter limit,
     against the split kernels it shares its device code with."""
-    if shape[3] > 128 and dtype == torch.float32:
-        pytest.skip("channel_runs in float32 is taken only up to C = 128 "
-                    "(csrc/level.cu; ROADMAP.md F3)")
     x, blocks = level_kernel_case(Maker(13, dtype, dev), *shape)
     heads = shape[5]
     before = LV.fused_channel_gffw_run.launches
@@ -844,6 +844,43 @@ def test_level_run_kernel_matches_plain_and_split(dev, shape, dtype):
                                    else KERNEL_TOL[dtype] / 4) * n
     again = LV.fused_channel_gffw_run(x, blocks, heads)
     torch.cuda.synchronize()  # fixed-order sums: bitwise repeatable
+    assert torch.equal(got, again)
+
+
+# row 14 in float32 at the paths' widths on csrc/level.cu: (B, H, W, C, E,
+# heads, blocks, ln_bias); at C = 256 the LN halo of both tile phases in
+# shared memory, at C = 512 in the device-memory scratch (one slice a tile
+# of the batch), ragged maps, a batch of two
+LEVEL_F32_WIDE_SHAPES = [(1, 19, 27, 256, 640, 4, 2, True),
+                         (2, 11, 13, 256, 96, 4, 3, False),
+                         (1, 19, 27, 512, 1280, 8, 2, True),
+                         (2, 11, 13, 512, 256, 8, 3, False)]
+
+
+@pytest.mark.parametrize("shape", LEVEL_F32_WIDE_SHAPES, ids=str)
+def test_level_run_float32_wide_matches_plain_and_split(dev, shape):
+    """The run kernel in float32 at C = 256 and 512 (fault F3 closed): one
+    launch of csrc/level.cu, none of the Hopper body, against its plain
+    version and, with the tighter limit, against the split kernels whose
+    float32 tile code it runs (qkv_stats.cu and ffn.cu with the same halo
+    placement); bitwise repeatable."""
+    x, blocks = level_kernel_case(Maker(26, torch.float32, dev), *shape)
+    heads, n = shape[5], shape[6]
+    assert LV._level_f32_plan(*shape[:4], heads)["halo"] == (
+        "device" if shape[3] > 256 else "shared")
+    before = LV.fused_channel_gffw_run.launches
+    wg_before = LV.fused_channel_gffw_run.launches_wg
+    got = LV.fused_channel_gffw_run(x, blocks, heads)
+    torch.cuda.synchronize()
+    assert LV.fused_channel_gffw_run.launches == before + 1
+    assert LV.fused_channel_gffw_run.launches_wg == wg_before
+    assert got.shape == x.shape and bool(torch.isfinite(got).all())
+    want = LV.channel_gffw_run_plain(x, blocks, heads)
+    assert max_err(got, want) <= KERNEL_TOL[torch.float32] * n
+    split = LV.channel_gffw_run_split(x, blocks, heads)
+    assert max_err(got, split) <= 1e-5 * n
+    again = LV.fused_channel_gffw_run(x, blocks, heads)
+    torch.cuda.synchronize()
     assert torch.equal(got, again)
 
 
@@ -1016,6 +1053,53 @@ def test_wgmma_bodies_bits_unchanged_by_the_factoring(dev, case):
         h.update(t.view(torch.int16 if t.element_size() == 2 else torch.int32)
                  .cpu().numpy().tobytes())
     assert h.hexdigest() == WG_BITS[case]
+
+
+def test_attn_v_float32_at_the_whole_frame_scores(dev):
+    """Row 11 in float32 (the mma.sync body's float tile: 128 columns of D,
+    3 stages) at dec3's whole-frame shape of a padded 720p frame: 4 entries
+    of 3680 window tokens (46 x 80) against 4096 columns, the ring positions
+    as views of one buffer; the merge against its plain version."""
+    a, vs = attn_v_kernel_case(Maker(27, torch.float32, dev), 1, 4, 46, 80,
+                               4, 256, True)
+    before = S.sab_attn_v_merge.launches
+    got = S.sab_attn_v_merge(a, vs, 4, 184, 320)
+    torch.cuda.synchronize()
+    assert S.sab_attn_v_merge.launches == before + 1
+    assert got.shape == (4, 184, 320, 256)
+    assert max_err(got, S.attn_v_merge_plain(a, vs, 4, 184, 320)) <= 1e-5
+
+
+# row 13 in float32 on csrc/chain2.cu at the conv-only levels' forms: enc1's
+# pair at C = 64, enc2's at C = 128 and the refinement's ReducedAttn+GFFW
+# block, maps of several rows of tiles whose sides the 8 x 8 tiles do not
+# divide (fields of TWO_STAGE_KERNEL_CASES)
+TWO_STAGE_F32_CASES = {
+    "enc1_pair_c64": (1, 45, 83, 64, 128, 128, "pair", False, True),
+    "enc2_pair_c128": (2, 23, 41, 128, 256, 256, "pair", False, True),
+    "refinement_ra_gffw_c64": (1, 45, 83, 64, 128, 160, "ra_gffw", False,
+                               True),
+}
+
+
+@pytest.mark.parametrize("case", list(TWO_STAGE_F32_CASES))
+def test_two_stage_float32_at_the_paths_widths(dev, case):
+    """Row 13 in float32 at C = 64 and 128: one launch of chain2.cu, none of
+    the Hopper bodies (bf16 only), against its plain version and the split
+    route it replaces."""
+    x, st1, st2, ffw1, ffw2 = two_stage_kernel_case(
+        case, Maker(28, torch.float32, dev), TWO_STAGE_F32_CASES)
+    before = C2.fused_two_stage.launches
+    wg_before = C2.fused_two_stage.launches_wg
+    got = C2.fused_two_stage(x, st1, st2, ffw1=ffw1, ffw2=ffw2)
+    torch.cuda.synchronize()
+    assert C2.fused_two_stage.launches == before + 1
+    assert C2.fused_two_stage.launches_wg == wg_before
+    want = C2.two_stage_plain(x, st1, st2, ffw1=ffw1, ffw2=ffw2)
+    assert max_err(got, want) <= 2 * KERNEL_TOL[torch.float32]
+    y = K.fused_block_ffn(x, ffw2=ffw1, **st1)
+    split = K.fused_block_ffn(y, ffw2=ffw2, **st2)
+    assert max_err(got, split) <= KERNEL_TOL[torch.float32]
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])

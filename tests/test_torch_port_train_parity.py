@@ -6,7 +6,9 @@ The loss and every parameter's gradient of ``clip_loss_fn`` against
 ``jax.value_and_grad`` of the JAX package's ``clip_loss_fn`` (kernels='xla')
 for the t1 family with CHM blocks, the t0 family and the SR family, over
 clips long enough that the 2-frame rings of the tiny model wrap; then two
-``make_train_step`` steps against the JAX package's.
+``make_train_step`` steps against the JAX package's; then one float32 step
+(``compute_dtype=torch.float32``) against the JAX package's float32 loss and
+gradient (relative, 1e-5 on the loss and 1e-4 L2 on the gradient).
 
 Tolerances: gradients atol 1e-9 and rtol 1e-7 (the loss is float32 in both
 packages: its cotangent 1/N enters in float32, alike on both sides); the
@@ -141,3 +143,50 @@ def test_two_train_steps_match_jax():
     for k in want:
         np.testing.assert_allclose(got[k], want[k], atol=1e-5 * 2.0 ** -11,
                                    rtol=0, err_msg=k)
+
+
+def test_float32_train_step_matches_jax():
+    """One make_train_step step with compute_dtype=torch.float32 (the compute
+    in float32 from float32 masters, as cli/bench.py --train_step --dtype
+    float32 runs it) against the JAX package's float32 step, from the same
+    parameters: its loss and the gradient into its masters are
+    jax.value_and_grad of clip_loss_fn with the step's arguments
+    (turtlevsr_tpu/train/step.py, step_fn's first statement), evaluated here
+    without the optimizer update, whose first step would hide the
+    gradient's magnitude. The port's step's logged loss within 1e-5
+    relative; its gradient, read from the masters' .grad, within 1e-4
+    relative, L2 over every parameter (the limit the card holds the float32
+    step to). Float32 sums in another order apart, the same function."""
+    train_opt = {"optim_g": {"type": "Adam", "lr": 2.0 ** -11,
+                             "weight_decay": 2.0 ** -6, "betas": [0.9, 0.99]},
+                 "scheduler": {"type": "MultiStepLR", "milestones": [1],
+                               "gamma": 0.5},
+                 "total_iter": 4, "warmup_iter": -1}
+    opt = tiny_opt(model=MODELS["t1"])
+    jcfg = j_config({**opt, "kernels": "xla"})
+    tree = numpy_tree_like(JT.init_params(jax.random.PRNGKey(0), jcfg),
+                           np.random.RandomState(5))
+    model = build_model(opt, device="cpu", dtype=torch.float32)
+    load_jax_params(model, tree)
+    rng = np.random.RandomState(6)
+    # three frames: the third append wraps the tiny model's 2-frame rings
+    lq, gt = (rng.rand(1, 3, 32, 32, 3).astype(np.float32) for _ in range(2))
+    jloss, jgrads = jax.value_and_grad(JS.clip_loss_fn)(
+        to_jnp(tree, jnp.float32), jcfg, jnp.asarray(lq), jnp.asarray(gt),
+        compute_dtype=jnp.float32, remat=True, remat_policy="nothing")
+    tx = TS.make_optimizer(train_opt, TLR.build_schedule(train_opt))
+    step = TS.make_train_step(model.cfg, tx, compute_dtype=torch.float32,
+                              device="cpu")
+    state = TS.TrainState.create(dict(model.named_parameters()), tx,
+                                 device="cpu", dtype=torch.float32)
+    state, logs = step(state, torch.from_numpy(lq), torch.from_numpy(gt))
+    assert state.step == 1
+    loss, jloss = float(logs["l_pix"]), float(jloss)
+    assert abs(loss - jloss) <= 1e-5 * abs(jloss)
+    got = _as_tree(model, {n: p.grad for n, p in state.params.items()})
+    want = _flat(jgrads)
+    assert set(got) == set(want)
+    num = sum(float(np.sum((got[k].astype(np.float64) - want[k]) ** 2))
+              for k in want)
+    den = sum(float(np.sum(want[k].astype(np.float64) ** 2)) for k in want)
+    assert den > 0 and (num / den) ** 0.5 <= 1e-4

@@ -31,6 +31,11 @@
 // exp/divide of the softmax. At the sizes of tiled inference the maps stay in
 // the 50 MB L2 between the phases; device memory sees the weights and the
 // partial rows. Bound by operations like the kernels it is made of.
+//
+// float32 at C = 512: the LN halo of both tile phases lives in a
+// device-memory scratch of one slice a tile (common.cuh
+// halo_in_device_memory), indexed by (b * n_tiles + tile) in both; phase (a)
+// and phase (c) are apart by grid.sync(), so one scratch serves both.
 #include <cooperative_groups.h>
 
 #include <cfloat>
@@ -56,6 +61,7 @@ struct LevelArgs {
   float* part;  // (B, n_tiles, width) partial rows
   float* tot;   // (B, width) their sums
   void* po;     // (B, C, C) po' of the current block
+  void* xn_dev; // (B * n_tiles, 100, C + 8) the LN halo where it lives in device memory
   const void* temp[MAX_RUN];  // (heads) temperatures, of T
   const void* wpo[MAX_RUN];   // (C, C) project_out matrices, of T
   int B, H, W, C, heads, n_blocks;
@@ -69,7 +75,8 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-template <class T, int NTW>
+// XN_DEV: both tile phases keep the LN halo in a.xn_dev (float32 at C = 512)
+template <class T, int NTW, bool XN_DEV>
 __global__ void __launch_bounds__(NT, (NTW <= 2 ? 2 : 1))
 level_kernel(const __grid_constant__ LevelArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -82,11 +89,13 @@ level_kernel(const __grid_constant__ LevelArgs a) {
   const int per = n_tiles > REDUCE_GROUPS ? (n_tiles + REDUCE_GROUPS - 1) / REDUCE_GROUPS
                                           : n_tiles;
   const int n_zc = (C + 63) / 64;  // po' is formed in chunks of 64 columns
+  T* xn_dev = static_cast<T*>(a.xn_dev);
 
   for (int bi = 0; bi < a.n_blocks; ++bi) {
     // (a) chains and partial statistics
     for (int it = blockIdx.x; it < n_items; it += gridDim.x)
-      qkv_tile<T, 2 * NTW>(a.qkv[bi], it / n_tiles, it % n_tiles, n_tiles, smem);
+      qkv_tile<T, 2 * NTW, XN_DEV>(a.qkv[bi], it / n_tiles, it % n_tiles, n_tiles, smem,
+                                   xn_dev);
     grid.sync();
 
     // (b1) fixed-order sums of the partial rows
@@ -162,17 +171,18 @@ level_kernel(const __grid_constant__ LevelArgs a) {
 
     // (c) the gate FFN with pair and po'
     for (int it = blockIdx.x; it < n_items; it += gridDim.x) {
-      ffn_tile<T, NTW, false, 1>(a.ffn[bi], it / n_tiles, it % n_tiles, smem);
+      ffn_tile<T, NTW, false, 1, XN_DEV>(a.ffn[bi], it / n_tiles, it % n_tiles, smem, xn_dev);
       __syncthreads();  // the tile's output left shared memory
     }
     if (bi + 1 < a.n_blocks) grid.sync();  // the next block reads its input with halos
   }
 }
 
-__host__ __device__ inline size_t level_smem(int C, int heads, int is_bf16) {
+// shared memory of a launch (xn_dev: the LN halo in device memory)
+__host__ __device__ inline size_t level_smem(int C, int heads, int is_bf16, int xn_dev = 0) {
   const int ctok = C / heads;
-  size_t s = qkv_tile_smem(C, heads, is_bf16);
-  const size_t f = ffn_tile_smem(C, 0, 0, is_bf16, 1);
+  size_t s = qkv_tile_smem(C, heads, is_bf16, xn_dev);
+  const size_t f = ffn_tile_smem(C, 0, 0, is_bf16, 1, xn_dev);
   const size_t b2 = (size_t)(ctok * ctok + 2 * ctok) * 4;
   if (f > s) s = f;
   return b2 > s ? b2 : s;
@@ -180,9 +190,10 @@ __host__ __device__ inline size_t level_smem(int C, int heads, int is_bf16) {
 
 // The grid is sized by the occupancy, so that it is co-resident; a launch the
 // runtime refuses all the same comes back as its error code.
-template <class T, int NTW>
+template <class T, int NTW, bool XN_DEV = false>
 static int launch_level(const LevelArgs& a, size_t smem, cudaStream_t stream) {
-  auto kern = level_kernel<T, NTW>;
+  if (XN_DEV && a.xn_dev == nullptr) return -1;
+  auto kern = level_kernel<T, NTW, XN_DEV>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -203,17 +214,17 @@ static int launch_level(const LevelArgs& a, size_t smem, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// float is built for C <= 128 only: channel_runs in float32 is taken up to
-// C = 128 (kernels/level.py _level_f32_plan; at C >= 256 this body would need
-// the device-memory halo of common.cuh in both of its tile phases)
+// both types up to C = 512; float at C > 256 with the LN halo of both tile
+// phases in device memory (kernels/level.py _level_f32_plan mirrors it)
 template <class T>
 static int dispatch_level(const LevelArgs& a, size_t smem, cudaStream_t stream) {
   if (a.C % 16 != 0) return -1;
   if (a.C <= 64) return launch_level<T, 1>(a, smem, stream);
   if (a.C <= 128) return launch_level<T, 2>(a, smem, stream);
-  if constexpr (sizeof(T) == 2) {
-    if (a.C <= 256) return launch_level<T, 4>(a, smem, stream);
-    if (a.C <= 512) return launch_level<T, 8>(a, smem, stream);
+  if (a.C <= 256) return launch_level<T, 4>(a, smem, stream);
+  if (a.C <= 512) {
+    if constexpr (sizeof(T) == 2) return launch_level<T, 8>(a, smem, stream);
+    else return launch_level<T, 8, true>(a, smem, stream);
   }
   return -1;
 }
@@ -221,12 +232,15 @@ static int dispatch_level(const LevelArgs& a, size_t smem, cudaStream_t stream) 
 }  // namespace turtle
 
 extern "C" size_t turtle_level_smem(int C, int heads, int is_bf16) {
-  return turtle::level_smem(C, heads, is_bf16);
+  return turtle::level_smem(C, heads, is_bf16, turtle::halo_in_device_memory(C, is_bf16));
 }
 
-// ptrs: x, out, tmp, v, part, tot, po, then 11 per block of the run:
+// ptrs: x, out, tmp, v, part, tot, po, then 11 per block of the run (MAX_RUN
+//       blocks, null past the run):
 //       ln1_w, ln1_b, w_qkv (C, 3C), wd_qkv (3, 3, 3C), temp (heads), wpo (C, C),
-//       ln2_w, ln2_b, w1 (C, CH), wd (3, 3, CH), w2 (E, C)   (ln*_b may be null)
+//       ln2_w, ln2_b, w1 (C, CH), wd (3, 3, CH), w2 (E, C)   (ln*_b may be null),
+//       then (read only where the halo lives in device memory: float32 at
+//       C > 256) xn_dev, B * n_tiles * 100 * (C + 8) floats
 // ints: B, H, W, C, CH, E, heads, n_blocks
 // Returns the CUDA error code (0 = launched), -1 for a shape the kernel does
 // not take, -2 for a device without cooperative launch, -3 when not even one
@@ -239,6 +253,7 @@ extern "C" int turtle_level_launch(void* const* ptrs, const int* ints, int is_bf
   void *out = ptrs[1], *tmp = ptrs[2], *v = ptrs[3];
   LevelArgs a = {};
   a.part = static_cast<float*>(ptrs[4]); a.tot = static_cast<float*>(ptrs[5]); a.po = ptrs[6];
+  a.xn_dev = halo_in_device_memory(ints[3], is_bf16) ? ptrs[7 + 11 * MAX_RUN] : nullptr;
   a.B = ints[0]; a.H = ints[1]; a.W = ints[2]; a.C = ints[3];
   const int CH = ints[4], E = ints[5];
   a.heads = ints[6]; a.n_blocks = ints[7];
@@ -262,7 +277,7 @@ extern "C" int turtle_level_launch(void* const* ptrs, const int* ints, int is_bf
     f.B = a.B; f.H = a.H; f.W = a.W; f.C = a.C; f.CH = CH; f.E = E;
     f.gate = 1; f.po_batched = 1; f.n_x2 = 1;
   }
-  const size_t smem = level_smem(a.C, a.heads, is_bf16);
+  const size_t smem = turtle_level_smem(a.C, a.heads, is_bf16);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return is_bf16 ? dispatch_level<__nv_bfloat16>(a, smem, s)
                  : dispatch_level<float>(a, smem, s);

@@ -27,11 +27,22 @@ import torch
 
 from turtlevsr_tpu_torch.kernels import build
 from turtlevsr_tpu_torch.kernels.ffn import (
+    _AS,
+    _F32,
+    _F32_SHARED_HALO_MAX_C,
+    _HS,
+    _NPH,
+    _P,
+    _SMEM_LIMIT,
+    _TILE,
+    _XPAD,
     _call,
     _check,
     _check_map,
     _check_smem,
     _check_width,
+    _f32_plan_error,
+    _halo_scratch,
     _need_cuda,
     _sm_count,
     _SW_STAGE,
@@ -79,19 +90,47 @@ def _lv_smem(c: int) -> tuple[int, int, int]:
     return smem, s_stats, s_ffn
 
 
-LEVEL_F32_MAX_C = 128  # the widest float32 map csrc/level.cu takes
+LEVEL_F32_MAX_C = 512  # the widest float32 map csrc/level.cu takes
+_SM_SMEM = 233472  # shared memory of one SM of an H100 (228 KB)
+_BLOCK_RESERVED = 1024  # of it, reserved by the runtime for each block
 
 
-def _level_f32_plan(c: int) -> None:
-    """The float32 limit of csrc/level.cu, mirrored from its dispatch
-    (dispatch_level<float>): channel_runs in float32 is taken only up to C =
-    128 (its two tile phases keep the LN halo in shared memory; the
-    device-memory halo of the split bodies is not built into it). Raises
-    ValueError above it, before any launch."""
-    if c > LEVEL_F32_MAX_C:
-        raise ValueError(
-            "fused_channel_gffw_run: channel_runs in float32 is taken only up "
-            f"to C = {LEVEL_F32_MAX_C} (csrc/level.cu), got C={c}")
+def _level_f32_plan(b, h, w, c, heads, n_sm: int = 132):
+    """The geometry of one float32 fused_channel_gffw_run launch, on
+    csrc/level.cu, mirrored from its dispatch (dispatch_level<float>) and
+    level_smem: C a multiple of 16 up to 512, C / heads <= 64; 8 x 8 tiles
+    (``items``: B x tiles) walked by a cooperative grid of ``blocks``, the
+    blocks that shared memory lets an SM hold (at most 2 up to C = 128, the
+    launch bounds' count, else 1) on ``n_sm`` SMs, fewer if the registers
+    bind; the LN halo of both tile phases in shared memory up to C = 256,
+    else in a device-memory scratch of ``scratch`` float32 elements (one
+    slice of 100 x (C + 8) a tile). ``smem``: the larger of the statistics
+    tile's, the FFN tile's and the softmax's scratch (``level_smem``).
+    Raises ValueError, naming the body and the limit, for a call it does not
+    take."""
+    name, body = "fused_channel_gffw_run", "csrc/level.cu"
+    if c % 16 or not 16 <= c <= LEVEL_F32_MAX_C:
+        raise _f32_plan_error(name, body, "maps of C a multiple of 16 up to "
+                              f"{LEVEL_F32_MAX_C}", f"C={c}")
+    if c % heads or c // heads > 64:
+        raise _f32_plan_error(name, body, "C / heads <= 64",
+                              f"C={c}, heads={heads}")
+    dev = c > _F32_SHARED_HALO_MAX_C
+    ctok = c // heads
+    halo = _NPH * (c + _XPAD)
+    shared_halo = 0 if dev else halo * _F32
+    qkv = shared_halo + _NPH * _HS * 4 + 2 * _P * ctok * 4
+    ffn = shared_halo + (_P * c + _P * _AS) * _F32 + _NPH * _HS * 4
+    smem = max(qkv, ffn, (ctok * ctok + 2 * ctok) * 4)
+    if smem > _SMEM_LIMIT:
+        raise _f32_plan_error(name, body, f"calls whose shared memory fits "
+                              f"{_SMEM_LIMIT} bytes", f"{smem}")
+    items = b * _tiles(h, w)
+    per_sm = max(1, min(2 if c <= 128 else 1,
+                        _SM_SMEM // (smem + _BLOCK_RESERVED)))
+    return dict(tile=_TILE, items=items, blocks=min(items, n_sm * per_sm),
+                halo="device" if dev else "shared",
+                scratch=items * halo if dev else 0, smem=smem)
 
 
 def _level_plan(b, h, w, c, heads, e, ch, dtype, ln_b, n_sm: int = 132):
@@ -177,10 +216,12 @@ def channel_gffw_run_split(x, blocks, heads: int):
 
 def _launch(x, blocks, heads):
     _check_map("x", x)
-    _check_width("fused_channel_gffw_run", x)
     b, h, w, c = x.shape
-    if x.dtype == torch.float32:
-        _level_f32_plan(c)
+    halo = None  # float32's LN halo in device memory
+    if x.dtype == torch.float32:  # raises before any launch if not taken
+        halo = _halo_scratch(_level_f32_plan(b, h, w, c, heads,
+                                             _sm_count(x.device)), x)
+    _check_width("fused_channel_gffw_run", x)
     if c % heads or c // heads > 64:
         raise ValueError("fused_channel_gffw_run takes C / heads <= 64, got "
                          f"C={c}, heads={heads}")
@@ -234,6 +275,7 @@ def _launch(x, blocks, heads):
                 for p in ptrs_of[i0:i0 + MAX_RUN]:
                     ptrs += p
                 ptrs += [None] * (len(_BLOCK_KEYS) * (MAX_RUN - len(run)))
+                ptrs.append(None if halo is None else halo.data_ptr())
                 _call(lib.turtle_level_launch, ptrs,
                       [b, h, w, c, ch, e, heads, len(run)], x,
                       "fused_channel_gffw_run")
@@ -255,8 +297,10 @@ def fused_channel_gffw_run(x, blocks, heads: int):
     512 and E a multiple of 32 (the statistics and FFN wgmma bodies as
     phases of one persistent grid of one block an SM, the weights stacked
     once a call; ``fused_channel_gffw_run.launches_wg`` counts them),
-    csrc/level.cu for every other run (the grid sized by the occupancy).
-    Either way a cooperative launch, every thread block resident at once.
+    csrc/level.cu for every other run (the grid sized by the occupancy;
+    float32 up to C = 512, the LN halo in a device-memory scratch at C =
+    512: :func:`_level_f32_plan`). Either way a cooperative launch, every
+    thread block resident at once.
 
     Replaces ``fused_channel_gffw_run`` in turtlevsr_tpu/kernels/level.py
     (bound by operations like the statistics and FFN kernels whose device
