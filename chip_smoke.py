@@ -15,7 +15,7 @@ tiled stream under each plan, with torch.profiler.)
 Phases, one JSON object per line on standard output:
 
   device   the card's name and power limit as nvidia-smi gives them
-  build    nvcc builds the twenty-one sources of turtlevsr_tpu_torch/kernels/csrc
+  build    nvcc builds the twenty-two sources of turtlevsr_tpu_torch/kernels/csrc
   kernels  each kernel's wrapper against its plain PyTorch version on the
            card at the shapes the 720p serving paths give it (bf16), whole
            padded frames and chunks of 15 tiles alike: errors beside the
@@ -24,16 +24,15 @@ Phases, one JSON object per line on standard output:
            function, and the least time the card could take (bound); the
            two-stage kernel also against the split launches it replaces, the
            sparse softmax also against the probabilities kernel; rows 12 and
-           13 on the bodies their plans give each call (sparse_wg.cu and
-           chain2_wg.cu, also timed on sab.cu and chain2.cu, tile_ms; those
-           two, off the paths now, at dec3's and enc1's shape); rows 1, 2,
-           3, 4, 6 and 7 on the body their plans give each call (the wgmma
-           bodies of ffn_wg.cu (one map, the CHM lists, the chained FFW),
-           ffn_c64.cu (row 1 at C = 64), ffn_pw.cu (row 2), qkv_wg.cu,
-           split_wg.cu, split_c64.cu (row 4 at C = 64), chm_wg.cu and
-           sab_wg.cu also timed on the mma.sync bodies, tile_ms, and on
-           ragged maps; row 14's runs on level_wg.cu also timed on level.cu,
-           tile_ms, and against the model's split route, split_ms; row 1's
+           13 on the bodies their plans give each call (sparse_wg.cu, bit
+           for bit sab.cu, and chain2_wg.cu; those two, off the paths now,
+           at dec3's and enc1's shape); rows 1, 2, 3, 4, 6 and 7 on the body
+           their plans give each call (the wgmma bodies of ffn_wg.cu (one
+           map, the CHM lists, the chained FFW), ffn_c64.cu (row 1 at C =
+           64), ffn_pw.cu (row 2), qkv_wg.cu, split_wg.cu, split_c64.cu (row
+           4 at C = 64), chm_wg.cu and sab_wg.cu, also on ragged maps; row
+           14's runs on level_wg.cu also against the model's split route,
+           split_ms; row 1's
            mma.sync body and level.cu, off the paths now, at dec1's and the
            latent's shape; row 7's
            calls that its plan keeps on sab.cu also on the wgmma body,
@@ -47,7 +46,15 @@ Phases, one JSON object per line on standard output:
            also against its split route), 11 (dec3's whole frame) and 13
            (the enc1 and enc2 pairs' whole frame, also against its split
            route), against the plain versions in float32 (TF32 off) at the
-           card tests' float32 limits, bound by float32 FMA
+           card tests' float32 limits, bound by float32 FMA; row 7 in
+           float32 at the CHM levels of the padded 720p frame (3680 keys),
+           of 15 tiles of 320, of 256 x 256, of 2 x 192 x 192 and of a
+           padded 1920x1080 frame (8160 keys) on the body its plan gives
+           (csrc/sab_f32.cu from a grid of one block an SM, else sab.cu),
+           each also on the other body where sab.cu's block holds the rows
+           (its time, bit for bit the same), row 7 in bf16 (sab_wg.cu) and
+           rows 8 and 9 (bf16 and float32) at the 1080p frame's three CHM
+           levels
   slice    five configurations at full width and depth, seeded random
            weights, frames streamed through InferenceEngine.step: `gopro`
            (options/Turtle_Deblur_Gopro.yml unchanged: CHM blocks end the
@@ -72,7 +79,7 @@ Phases, one JSON object per line on standard output:
            "attn_v_merge") too; each against the same frames through the
            plain versions on the card
   app      `turtlevsr_tpu_torch.app.restore_video` for "Video Deblurring
-           (GoPro)" as the web app calls it: an mp4 of 6 synthetic 1280x720
+           (GoPro)" as the web app calls it: an mp4 of 4 synthetic 1280x720
            frames (cv2), the shipped option file, reference-format weights
            from the seed as custom_model_path; whole frames (tile 0) and
            tiled (tile 320, the engine's overlap 128: 24 tiles), then
@@ -161,6 +168,17 @@ Phases, one JSON object per line on standard output:
            the widened mma.sync bodies, none on a bf16-only body). Alone
            (--phase float32) it also runs the float32 kernel cases
 
+  frame-sizes  frames other than 1280x720: `gopro` whole-frame at
+           1920x1080 (padded to 1088 x 1920: 8160 keys at every CHM level)
+           in bf16 and in float32 (row 7 on csrc/sab_f32.cu), the deblur
+           preset through `cli.infer.main --task deblur` at 1920x1080 (98
+           tiles: chunks of 15 and a last one of 8) and the denoise preset
+           (`--task denoise`: Turtle_Denoise_Davis.yml, sigma-50 noise) at
+           DAVIS's 854x480 (8 tiles, one chunk), 4 frames each: PSNR to the
+           plain versions on the card (40 dB in bf16, 80 in float32), the
+           exact launches a model call, ms a frame and peak memory, beside
+           the card's name and power limit
+
 and, run alone (not part of all; no result line, no ok line):
 
   level-phases  row 14's Hopper body (csrc/level_wg.cu) with each of its
@@ -172,8 +190,8 @@ and, run alone (not part of all; no result line, no ok line):
 
 then each phase's seconds and the script's, then, when the kernels, the
 slice, the tiled,
-the app, the bench, the train, the train-cli, the train-dist and the
-float32 phase ran,
+the app, the bench, the train, the train-cli, the train-dist, the
+float32 and the frame-sizes phase ran,
 the line {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
 Any failed check exits non-zero; without a CUDA device the script exits 2
 before it prints any result.
@@ -250,9 +268,14 @@ CONFIGS = {
     "gopro_enc3_ffw": (OPTION_FILE, GOPRO_ENC3_FFW),
     "derain": (os.path.join(ROOT, "options", "Turtle_Derain.yml"), {}),
     "sr": (os.path.join(ROOT, "options", "Turtle_SR_MVSR.yml"), {}),
+    # the denoise preset's model (Turtle_t1_arch; MEST and CTS are CHM and
+    # FHR), unchanged: the frame-sizes phase streams it at DAVIS's frames
+    "denoise": (os.path.join(ROOT, "options", "Turtle_Denoise_Davis.yml"),
+                {}),
 }
 # the command line's task of each configuration streamed tiled
-TASKS = {"gopro": "deblur", "derain": "derain", "sr": "sr"}
+TASKS = {"gopro": "deblur", "derain": "derain", "sr": "sr",
+         "denoise": "denoise"}
 # exact launches per model call: a CHM block launches each of its kernels
 # once (t1: q, k split projection, composite v conv, lattice split,
 # probabilities, lattice merge, statistics, FFN; t0: composite v conv,
@@ -277,7 +300,7 @@ TASKS = {"gopro": "deblur", "derain": "derain", "sr": "sr"}
 # split_c64.cu's (_split_plan; tests/test_torch_port_split_sab_plan.py);
 # split_proj.cu has none.
 _NONE = {"attn_v_slots": 0, "attn_v_merge": 0, "level_run": 0, "level_wg": 0,
-         "ffn_no_dw": 0,
+         "ffn_no_dw": 0, "sab_f32": 0,
          "ffn_pw": 0, "two_stage": 0, "two_stage_wg": 0,
          "sab_sparse_softmax": 0, "sparse_wg": 0}
 _GOPRO = {"ffn": 51, "ffn_wg": 43, "ffn_c64": 8, "qkv_stats": 34,
@@ -312,9 +335,12 @@ LAUNCHES_PER_CALL = {
 # float32 serving (InferenceEngine(dtype=torch.float32), --dtype float32):
 # the same calls a model call, every one of rows 1, 3, 4 and 6 on its
 # mma.sync body (csrc/ffn.cu, qkv_stats.cu, split_proj.cu, chm_stats.cu,
-# widened to C = 256 and 512), row 7 on sab.cu, and under the fused plans
-# row 14 on level.cu (widened to C = 256 and 512) and row 13 on chain2.cu:
-# the Hopper bodies take bf16 only
+# widened to C = 256 and 512), row 7 on csrc/sab_f32.cu at a whole frame
+# (its grid of at least one block an SM; kernels/sab.py _sab_plan) and on
+# sab.cu at the harness's 256 x 256 and the train step's 192 x 192 (`_small`:
+# at most 24 blocks), and under the fused plans row 14 on level.cu (widened
+# to C = 256 and 512) and row 13 on chain2.cu: the Hopper bodies take bf16
+# only
 BF16_ONLY = ("ffn_wg", "ffn_c64", "ffn_pw", "qkv_wg", "chm_wg", "split_wg",
              "split_c64", "sab_wg", "level_wg", "two_stage_wg")
 # every fused plan at once: the runs (row 14), attention @ v with the merge
@@ -326,6 +352,8 @@ FULL_PLAN = ("channel_runs", "attn_v_merge", "two_stage")
 LAUNCHES_PER_CALL_F32 = {
     config: {**LAUNCHES_PER_CALL[config], **dict.fromkeys(BF16_ONLY, 0)}
     for config in ("gopro", "derain")}
+LAUNCHES_PER_CALL_F32["gopro_small"] = dict(LAUNCHES_PER_CALL_F32["gopro"])
+LAUNCHES_PER_CALL_F32["gopro"]["sab_f32"] = 3
 LAUNCHES_PER_CALL_F32["gopro_fused"] = {
     **LAUNCHES_PER_CALL_F32["gopro"], "ffn": 6, "qkv_stats": 1,
     "level_run": 4, "attn_v_merge": 3, "lattice_merge": 0, "two_stage": 6}
@@ -334,14 +362,40 @@ LAUNCHES_PER_CALL_F32["gopro_fused"] = {
 # at its preset (24 tiles, 3 frames), cli.bench.main --dtype float32 at 256
 # x 256, the train step in float32 at the GoPro recipe (2 steps)
 F32_PATHS = ("gopro_f32", "gopro_f32_fused", "derain_tiled_f32",
-             "bench_gopro_f32", "train_gopro_f32")
+             "bench_gopro_f32", "train_gopro_f32", "gopro_f32_1080")
 F32_FRAMES = {"gopro_f32": 4, "gopro_f32_fused": 4, "derain_tiled_f32": 3}
 TRAIN_F32_STEPS = 2
 BENCH_F32_ITERS = 5
 # tiled `gopro`: dec1's probabilities on 20 x 20 tokens stay on sab.cu
 # (kernels/sab.py _sab_plan), whole frames take the wgmma body
 TILED_LAUNCHES = {"gopro": {"sab_wg": 2}}
-FRAMES_PER_RUN = 5  # whole-frame and tiled streams: the 3-frame rings wrap
+# the frame-sizes phase: frames other than 1280x720, each path (config,
+# mode, type, (width, height), frames; 4 frames wrap the 3-frame rings):
+# GoPro's full 1920x1080 frames (the model pads them to 1088 x 1920: 68 x
+# 120 window tokens, 8160 keys, at every CHM level) whole-frame in bf16
+# (row 7 on sab_wg.cu) and in float32 (row 7 on csrc/sab_f32.cu), tiled at
+# the deblur preset (98 tiles of 320 / 192: six chunks of 15 and one of 8),
+# and the denoise preset (Turtle_Denoise_Davis.yml, sigma-50 noise from the
+# preset) at DAVIS's 854x480 frames (reflect-padded to 856: 8 tiles of 320
+# / 128, one chunk)
+SIZE_1080, SIZE_DAVIS = (1920, 1080), (854, 480)
+FRAME_SIZE_PATHS = {
+    "gopro_1080": ("gopro", "whole", torch.bfloat16, SIZE_1080, 4),
+    "gopro_f32_1080": ("gopro", "whole", torch.float32, SIZE_1080, 4),
+    "deblur_tiled_1080": ("gopro", "tiled", torch.bfloat16, SIZE_1080, 4),
+    "denoise_tiled_480": ("denoise", "tiled", torch.bfloat16, SIZE_DAVIS, 4),
+}
+# their exact launches a model call, which tests/test_torch_port_frame_sizes.py
+# derives from the plans: whole frames as at 720p (float32: row 7 on
+# sab_f32.cu at every CHM level, where sab.cu's block cannot hold the rows),
+# the tiles of 320 as at 720p (dec1's row 7 on sab.cu) whatever the chunk
+LAUNCHES_FRAME_SIZES = {
+    "gopro_1080": LAUNCHES_PER_CALL["gopro"],
+    "gopro_f32_1080": LAUNCHES_PER_CALL_F32["gopro"],
+    "deblur_tiled_1080": {**LAUNCHES_PER_CALL["gopro"], "sab_wg": 2},
+    "denoise_tiled_480": {**LAUNCHES_PER_CALL["gopro"], "sab_wg": 2},
+}
+FRAMES_PER_RUN = 4  # whole-frame and tiled streams: the 3-frame rings wrap
 MAX_TILE_BATCH = 15  # the engine's default chunk
 FUSED_PLAN = ("channel_runs", "attn_v_merge")
 TWO_STAGE = ("two_stage",)
@@ -388,7 +442,7 @@ SPLIT_SHARDS = 3
 CHILD_SECONDS = 420
 # the app phase: frames of the synthetic mp4; the tile of its tiled run (the
 # engine's overlap 128: 24 tiles of a 1280x720 frame, two model calls)
-APP_FRAMES = 6
+APP_FRAMES = 4
 APP_TILE = 320
 # the bench phase: turtlevsr_tpu_torch.cli.bench.main as its users call it,
 # at the reference harness's input of 256 x 256 (the SR model's
@@ -453,6 +507,10 @@ STATS_REL_TOL = 2.0 ** -9
 SAB_MAX_FLIP_SHARE = 0.25
 SAB_TOL = 2.0 ** -6
 SAB_EXACT_TOL = 2.0 ** -9
+# float32 unit vectors: a support flips only where two scores of a row's
+# fifth and sixth place lie within a float32 rounding of each other (the
+# card tests' limit)
+SAB_F32_FLIP_SHARE = 0.02
 # float32 (the kernels' FMA in full fp32, the plain versions' products
 # with TF32 off): fp32 sums in another order, values to ~10; the absolute
 # limit of tests/test_torch_port_cuda.py (KERNEL_TOL), the Grams and norms
@@ -468,6 +526,10 @@ F32_ATTN_V_TOL = 1e-5
 # block; PSNR of the kernel path against the plain path on the card, on
 # pictures in [0, 1]
 SLICE_MIN_PSNR = 40.0
+# float32 paths of the frame-sizes phase: the float32 kernels against the
+# float32 plain versions (TF32 off), sums in another order (the 720p
+# float32 paths read 95.8-144.1 dB)
+F32_MIN_PSNR = 80.0
 # attention @ v: fp32 sums of exact products in another order, one rounding
 ATTN_V_REL_TOL = 2.0 ** -7
 # a run of N blocks against its plain version: a flip of one block feeds the
@@ -535,6 +597,11 @@ KERNEL_INFO = {
             "turtlevsr_tpu/kernels/sab.py:138"),
     "sab_wg": ("turtlevsr_tpu_torch/kernels/csrc/sab_wg.cu",
                "turtlevsr_tpu/kernels/sab.py:138"),
+    # row 7 in float32 on its body of csrc/sab_f32.cu (the float32 calls
+    # whose row buffer sab.cu's block cannot hold: every CHM level of a
+    # padded 1920x1080 frame); its launches are those of the float32 paths
+    "sab_f32": ("turtlevsr_tpu_torch/kernels/csrc/sab_f32.cu",
+                "turtlevsr_tpu/kernels/sab.py:138"),
     "lattice_merge": ("turtlevsr_tpu_torch/kernels/csrc/lattice.cu",
                       "turtlevsr_tpu/kernels/lattice.py:59"),
     "lattice_split": ("turtlevsr_tpu_torch/kernels/csrc/lattice.cu",
@@ -709,8 +776,8 @@ def ffn_case(inp: Inputs, name, h, w, c, e, mode, *, pair=False, po=False,
              stacked=0, batch=1, shared_po=False, tile=False):
     """Row 1 (or 2, without dw) on the body its plan gives the call (tile: on
     the mma.sync body): kernel "ffn_wg" for the wgmma body, "ffn_c64" for
-    the C = 64 body, "ffn_pw" for row 2's body (each timed also on the
-    mma.sync body, tile_ms), else "ffn" / "ffn_no_dw"."""
+    the C = 64 body, "ffn_pw" for row 2's body, else "ffn" /
+    "ffn_no_dw"."""
     if skipped("ffn", name):
         return None
     ch = 2 * e if mode == "gate" else e
@@ -759,10 +826,6 @@ def ffn_case(inp: Inputs, name, h, w, c, e, mode, *, pair=False, po=False,
     want = K.ffn_plain(x, **kw)
     err, rel = rel_err(got, want)
     del want
-    tile_ms = None
-    if on_wg or on_c64 or on_pw:
-        with forced_body(K, "_ffn_plan", OLD_PLAN):
-            tile_ms = cuda_ms(lambda: K.fused_block_ffn(x, **kw), iters)
     px = batch * h * w
     flops = 2.0 * px * (c * ch + (9 * ch if dw else 0) + e * c
                         + (n_maps * c * c if po or stacked else 0)
@@ -780,8 +843,7 @@ def ffn_case(inp: Inputs, name, h, w, c, e, mode, *, pair=False, po=False,
     return dict(kernel=kernel,
                 case=name, shape=[batch, h, w, c], hidden=ch,
                 body="wg" if on_wg else "c64" if on_c64 else "pw" if on_pw
-                else "tile", dtype=str(x.dtype),
-                tile_ms=tile_ms, max_abs_err=err, rel_err=rel,
+                else "tile", dtype=str(x.dtype), max_abs_err=err, rel_err=rel,
                 tol_rel=KERNEL_REL_TOL, tol_abs_f32=F32_KERNEL_TOL,
                 ok=(within(err, rel, x, KERNEL_REL_TOL)
                     and bool(torch.isfinite(got.float()).all())),
@@ -821,8 +883,7 @@ def partial_row_bytes(batch, h, w, c, heads, nf, body):
 def qkv_case(inp: Inputs, name, h, w, c, heads, iters=5, batch=1,
              tile=False):
     """Row 3 on the body its plan gives the call (tile: on the mma.sync
-    body): kernel "qkv_wg" for the wgmma body (timed also on the mma.sync
-    body, tile_ms), else "qkv_stats"."""
+    body): kernel "qkv_wg" for the wgmma body, else "qkv_stats"."""
     kernel = ("qkv_stats_f32" if inp.dtype == torch.float32 else "qkv_stats"
               if tile or c not in K._QKV_WG_WIDTHS else "qkv_wg")
     if skipped(kernel, name):
@@ -837,11 +898,6 @@ def qkv_case(inp: Inputs, name, h, w, c, heads, iters=5, batch=1,
         on_wg = K.fused_qkv_stats.launches_wg > wg_before
         ms = cuda_ms(lambda: K.fused_qkv_stats(x, heads=heads, **kw), iters)
     require(on_wg == (kernel == "qkv_wg"), f"qkv_stats {name}: body")
-    tile_ms = None
-    if on_wg:
-        with stats_widths((), ()):
-            tile_ms = cuda_ms(lambda: K.fused_qkv_stats(x, heads=heads, **kw),
-                              iters)
     wv, wg, ws = K.qkv_stats_plain(x, heads=heads, **kw)
     err_v, rel_v = rel_err(v, wv)
     err_g, rel_g = rel_err(g, wg)
@@ -862,7 +918,7 @@ def qkv_case(inp: Inputs, name, h, w, c, heads, iters=5, batch=1,
                 ok=(err <= F32_KERNEL_TOL if x.dtype == torch.float32 else
                     rel_v <= KERNEL_REL_TOL and rel_g <= STATS_REL_TOL
                     and rel_s <= STATS_REL_TOL),
-                body=body, tile_ms=tile_ms,
+                body=body,
                 partial_row_bytes=partial_row_bytes(batch, h, w, c, heads, 0,
                                                     body),
                 tile_partial_row_bytes=partial_row_bytes(batch, h, w, c,
@@ -877,8 +933,7 @@ def split_case(inp: Inputs, name, h, w, c, n_out, iters=5, batch=1,
                tile=False):
     """Row 4 on the body its plan gives the call (tile: on the mma.sync
     body): kernel "split_wg" for the wgmma body, "split_c64" for the C = 64
-    body (both timed also on the mma.sync body, tile_ms), else
-    "split_proj"."""
+    body, else "split_proj"."""
     body = "tile" if tile else K._split_plan(
         batch, h, w, c, c, n_out, True, False, inp.dtype,
         K._sm_count(torch.device("cuda", 0)))[0]
@@ -901,11 +956,6 @@ def split_case(inp: Inputs, name, h, w, c, n_out, iters=5, batch=1,
     require(((body == "wg", body == "c64")
              == (after[0] > before[0], after[1] > before[1])),
             f"split_proj {name}: body")
-    tile_ms = None
-    if body != "tile":
-        with forced_body(K, "_split_plan", OLD_PLAN):
-            tile_ms = cuda_ms(
-                lambda: K.fused_ln_split_proj(x, n_out=n_out, **kw), iters)
     want = K.split_proj_plain(x, n_out=n_out, **kw)
     errs = [rel_err(a, b) for a, b in zip(got, want)]
     err, rel = max(e[0] for e in errs), max(e[1] for e in errs)
@@ -913,7 +963,7 @@ def split_case(inp: Inputs, name, h, w, c, n_out, iters=5, batch=1,
     b_ms, b_by = bound(numel_bytes(x, *got, *kw.values()), flops, x.dtype)
     return dict(kernel=kernel, case=name, shape=[batch, h, w, c],
                 n_out=n_out, max_abs_err=err, rel_err=rel,
-                body=body, tile_ms=tile_ms, dtype=str(x.dtype),
+                body=body, dtype=str(x.dtype),
                 tol_rel=KERNEL_REL_TOL, tol_abs_f32=F32_KERNEL_TOL,
                 ok=within(err, rel, x, KERNEL_REL_TOL), ms=ms,
                 plain_ms=cuda_ms(
@@ -964,8 +1014,7 @@ def conv_case(inp: Inputs, name, h, w, cin, cout, bias, iters=5, ln=False,
 def chm_case(inp: Inputs, name, h, w, c, heads, nf, iters=3, batch=1,
              tile=False):
     """Row 6 on the body its plan gives the call (tile: on the mma.sync
-    body): kernel "chm_wg" for the wgmma body (timed also on the mma.sync
-    body, tile_ms), else "chm_stats"."""
+    body): kernel "chm_wg" for the wgmma body, else "chm_stats"."""
     kernel = ("chm_stats_f32" if inp.dtype == torch.float32 else "chm_stats"
               if tile or c not in K._CHM_WG_WIDTHS else "chm_wg")
     if skipped(kernel, name):
@@ -983,10 +1032,6 @@ def chm_case(inp: Inputs, name, h, w, c, heads, nf, iters=3, batch=1,
         on_wg = K.fused_chm_stats.launches_wg > wg_before
         ms = cuda_ms(lambda: K.fused_chm_stats(x, x_sp, **kw), iters)
     require(on_wg == (kernel == "chm_wg"), f"chm_stats {name}: body")
-    tile_ms = None
-    if on_wg:
-        with stats_widths(K._QKV_WG_WIDTHS, ()):
-            tile_ms = cuda_ms(lambda: K.fused_chm_stats(x, x_sp, **kw), iters)
     want = K.chm_stats_plain(x, x_sp, **kw)
     (err_v, rel_v), (err_vh, rel_vh) = (rel_err(got[i], want[i])
                                         for i in (0, 1))
@@ -1003,7 +1048,7 @@ def chm_case(inp: Inputs, name, h, w, c, heads, nf, iters=3, batch=1,
     body = "wg" if on_wg else "tile"
     err = max(err_v, err_vh, err_stats / px)
     return dict(kernel=kernel, case=name, shape=[batch, nf, h, w, c],
-                body=body, tile_ms=tile_ms, dtype=str(x.dtype),
+                body=body, dtype=str(x.dtype),
                 partial_row_bytes=partial_row_bytes(batch, h, w, c, heads, nf,
                                                     body),
                 tile_partial_row_bytes=partial_row_bytes(batch, h, w, c,
@@ -1021,7 +1066,8 @@ def chm_case(inp: Inputs, name, h, w, c, heads, nf, iters=3, batch=1,
                 library_ms=None, bound_ms=b_ms, bound_by=b_by)
 
 
-def sab_inputs(inp: Inputs, nf, hw, d, exact: bool, batch: int = 1):
+def sab_inputs(inp: Inputs, nf, hw, d, exact: bool, batch: int = 1,
+               dtype: torch.dtype = torch.bfloat16):
     """Unit vectors, or (exact) small integers over 8 with a temperature of
     one half: every score is then exact in fp32 whatever the order of the
     sum, and rows tie many times."""
@@ -1029,11 +1075,10 @@ def sab_inputs(inp: Inputs, nf, hw, d, exact: bool, batch: int = 1):
         q = torch.from_numpy(inp.rng.randint(-2, 3, (batch, hw, d)) / 8.0)
         k = torch.from_numpy(inp.rng.randint(-2, 3, (batch, nf, hw, d)) / 8.0)
         temp = torch.tensor([0.5], device="cuda")
-        return (q.to("cuda", torch.bfloat16), k.to("cuda", torch.bfloat16),
-                temp)
+        return q.to("cuda", dtype), k.to("cuda", dtype), temp
     q, k = inp(batch, hw, d).float(), inp(batch, nf, hw, d).float()
-    q = (q / q.norm(dim=-1, keepdim=True)).bfloat16()
-    k = (k / k.norm(dim=-1, keepdim=True)).bfloat16()
+    q = (q / q.norm(dim=-1, keepdim=True)).to(dtype)
+    k = (k / k.norm(dim=-1, keepdim=True)).to(dtype)
     return q, k, torch.tensor([1.7], device="cuda")
 
 
@@ -1047,9 +1092,8 @@ def sab_compare(got, want):
 def sab_case(inp: Inputs, name, hq, wq, d, nf, iters=10, batch=1,
              tile=False):
     """Row 7 on the body its plan gives the call (tile: on the mma.sync
-    body): kernel "sab_wg" for the wgmma body (timed also on the mma.sync
-    body, tile_ms), else "sab" (where the plan chose it, timed also on the
-    wgmma body, wg_ms)."""
+    body): kernel "sab_wg" for the wgmma body, else "sab" (where the plan
+    chose it, timed also on the wgmma body, wg_ms)."""
     hw = hq * wq
     on_wg = not tile and S._sab_plan(batch, nf, hw, d, torch.bfloat16, 4,
                                      wq) == "wg"
@@ -1089,16 +1133,12 @@ def _sab_case(inp, name, hq, wq, d, nf, iters, batch, on_wg, kernel,
     b_ms, b_by = bound(numel_bytes(q, k, got),
                        2.0 * batch * nf * hw * hw * d)
     timed = lambda: S.sab_attn_probs(q, k, temp, fv, grid_wq=wq)  # noqa: E731
-    tile_ms = wg_ms = None
-    if on_wg:
-        with forced_body(S, "_sab_plan", "tile"):
-            tile_ms = cuda_ms(timed, iters)
+    wg_ms = None
     if time_wg:
         with forced_body(S, "_sab_plan", "wg"):
             wg_ms = cuda_ms(timed, iters)
     return dict(kernel=kernel, case=name, shape=[batch, nf, hw, d],
-                grid=[hq, wq], body="wg" if on_wg else "tile",
-                tile_ms=tile_ms, wg_ms=wg_ms,
+                grid=[hq, wq], body="wg" if on_wg else "tile", wg_ms=wg_ms,
                 max_abs_err=max(err, exact_err), rel_err=err,
                 exact_inputs_same_support=exact_same,
                 exact_inputs_max_abs_err=exact_err, tol_exact=SAB_EXACT_TOL,
@@ -1106,6 +1146,73 @@ def _sab_case(inp, name, hq, wq, d, nf, iters, batch, on_wg, kernel,
                 max_flip_share=SAB_MAX_FLIP_SHARE, tol=SAB_TOL,
                 ok=(exact_same and exact_err <= SAB_EXACT_TOL and rows_ok
                     and share <= SAB_MAX_FLIP_SHARE and err <= SAB_TOL),
+                ms=cuda_ms(timed, iters),
+                plain_ms=cuda_ms(lambda: S.sab_attn_probs_plain(
+                    q, k, temp, fv, grid_wq=wq), 1, 0),
+                library_ms=None, bound_ms=b_ms, bound_by=b_by)
+
+
+def sab_f32_case(inp: Inputs, name, hq, wq, d, nf, iters=3, batch=1):
+    """Row 7 in float32 on the body its plan gives the call: kernel
+    "sab_f32" for csrc/sab_f32.cu, else "sab". Exact inputs (the support
+    bit for bit), then unit vectors with the second frame invalid (the rows
+    whose support agrees within the float32 limit, at most SAB_F32_FLIP_SHARE
+    of them flipped), both against the plain version in float32 (TF32 off);
+    where sab.cu's block holds the rows the other body on the same inputs
+    too: its time (tile_ms or f32_ms) and whether the two agree bit for
+    bit."""
+    hw = hq * wq
+    body = S._sab_plan(batch, nf, hw, d, torch.float32, 4, wq)
+    kernel = "sab_f32" if body == "f32" else "sab"
+    if skipped(kernel, name):
+        return None
+    fits = S._tile_smem(hw, d, 8, False) <= K._SMEM_LIMIT
+    fv = torch.ones(nf, device="cuda")
+    q, k, temp = sab_inputs(inp, nf, hw, d, exact=True, batch=batch,
+                            dtype=torch.float32)
+    before = S.sab_attn_probs.launches_f32
+    got = S.sab_attn_probs(q, k, temp, fv, grid_wq=wq)
+    torch.cuda.synchronize()
+    require((S.sab_attn_probs.launches_f32 > before) == (body == "f32"),
+            f"sab float32 {name}: body")
+    want = S.sab_attn_probs_plain(q, k, temp, fv, grid_wq=wq)
+    exact_same = bool(torch.equal(got != 0, want != 0))
+    exact_err = (got - want).abs().max().item()
+    del got, want
+    q, k, temp = sab_inputs(inp, nf, hw, d, exact=False, batch=batch,
+                            dtype=torch.float32)
+    if nf > 1:
+        fv[1] = 0.0
+    got = S.sab_attn_probs(q, k, temp, fv, grid_wq=wq)
+    torch.cuda.synchronize()
+    want = S.sab_attn_probs_plain(q, k, temp, fv, grid_wq=wq)
+    share, err = sab_compare(got, want)
+    rows_ok = bool(((got.sum(-1) - fv[None, :, None]).abs() <= 1e-4).all())
+    del want
+    timed = lambda: S.sab_attn_probs(q, k, temp, fv, grid_wq=wq)  # noqa: E731
+    other_ms = bit_equal = None
+    if fits:  # the other body on the same inputs
+        with forced_body(S, "_sab_plan", "tile" if body == "f32" else "f32"):
+            other = timed()
+            torch.cuda.synchronize()
+            bit_equal = bool(torch.equal(got, other))
+            del other
+            other_ms = cuda_ms(timed, iters)
+    b_ms, b_by = bound(numel_bytes(q, k, got),
+                       2.0 * batch * nf * hw * hw * d, torch.float32)
+    return dict(kernel=kernel, case=name, shape=[batch, nf, hw, d],
+                grid=[hq, wq], body=body, dtype="float32",
+                tile_ms=other_ms if body == "f32" else None,
+                f32_ms=other_ms if body == "tile" else None,
+                bit_equal_to_sab_cu=bit_equal if body == "f32" else None,
+                max_abs_err=max(err, exact_err), rel_err=err,
+                exact_inputs_same_support=exact_same,
+                exact_inputs_max_abs_err=exact_err,
+                rows_support_differs_share=share,
+                max_flip_share=SAB_F32_FLIP_SHARE, tol=F32_KERNEL_TOL,
+                ok=(exact_same and exact_err <= F32_KERNEL_TOL and rows_ok
+                    and share <= SAB_F32_FLIP_SHARE and err <= F32_KERNEL_TOL
+                    and bit_equal is not False),
                 ms=cuda_ms(timed, iters),
                 plain_ms=cuda_ms(lambda: S.sab_attn_probs_plain(
                     q, k, temp, fv, grid_wq=wq), 1, 0),
@@ -1247,11 +1354,10 @@ def run_inputs(inp: Inputs, b, h, w, c, heads, n_blocks):
 def run_case(inp: Inputs, name, b, h, w, c, heads, n_blocks, iters=3,
              tile=False):
     """A run of Channel+GFFW blocks on the body its plan gives it (tile: on
-    level.cu): kernel "level_wg" for csrc/level_wg.cu (timed also on
-    level.cu on the same inputs, tile_ms), else "level_run"; against its
-    plain version, against the 2 N split launches it replaces (the model's
-    split route, row 3 on qkv_wg.cu: their time is split_ms, no library call
-    computes the run) and against the same launches with row 3 on
+    level.cu): kernel "level_wg" for csrc/level_wg.cu, else "level_run";
+    against its plain version, against the 2 N split launches it replaces
+    (the model's split route, row 3 on qkv_wg.cu: their time is split_ms, no
+    library call computes the run) and against the same launches with row 3 on
     qkv_stats.cu, the tile code level.cu shares. float32 (kernel
     "level_run_f32"): on level.cu, whose float32 tile code the split route
     runs too (one split route), at the card tests' float32 limits."""
@@ -1319,7 +1425,6 @@ def run_case(inp: Inputs, name, b, h, w, c, heads, n_blocks, iters=3,
                 split_ms=cuda_ms(
                     lambda: LV.channel_gffw_run_split(x, blocks, heads),
                     iters, 1),
-                tile_ms=None if tile else cuda_ms(on_level_cu, iters, 1),
                 plain_ms=cuda_ms(
                     lambda: LV.channel_gffw_run_plain(x, blocks, heads), 1, 0),
                 library_ms=None, bound_ms=b_ms, bound_by=b_by)
@@ -1464,8 +1569,8 @@ def two_stage_case(inp: Inputs, name, kind, b, h, w, c, e1, e2, iters=3,
     """Row 13 at the shape a conv-only level gives it: a pair of
     ReducedAttn+FFW blocks (kind "pair") or a ReducedAttn+GFFW block
     ("ra_gffw"), on the body its plan gives it (kernel "two_stage_wg" for
-    the Hopper bodies of chain2_wg.cu, timed also on chain2.cu, tile_ms;
-    else "two_stage"; tile: on chain2.cu), against its plain version and
+    the Hopper bodies of chain2_wg.cu, else "two_stage"; tile: on
+    chain2.cu), against its plain version and
     against the split route it replaces (two FFN launches; their time is
     split_ms, no library call computes the chain)."""
     if skipped("two_stage", name):
@@ -1505,16 +1610,11 @@ def two_stage_case(inp: Inputs, name, kind, b, h, w, c, e1, e2, iters=3,
         ok = err <= 2 * F32_KERNEL_TOL and err_s <= F32_KERNEL_TOL
     else:
         ok = rel <= TWO_STAGE_REL_TOL and rel_s <= TWO_STAGE_REL_TOL
-    tile_ms = None
-    if on_wg:
-        with forced_body(C2, "_two_stage_plan", OLD_PLAN):
-            tile_ms = cuda_ms(lambda: C2.fused_two_stage(x, st1, st2, **kw),
-                              iters)
     return dict(kernel=f32_kernel("two_stage_wg" if on_wg else "two_stage",
                                   x),
                 case=name, shape=[b, h, w, c], body="wg" if on_wg else "tile",
                 dtype=str(inp.dtype).replace("torch.", ""),
-                tile_ms=tile_ms, hidden=[e1, e2], max_abs_err=err, rel_err=rel,
+                hidden=[e1, e2], max_abs_err=err, rel_err=rel,
                 tol_rel=TWO_STAGE_REL_TOL, bit_equal_to_split=bit_equal,
                 max_abs_err_vs_split=err_s, rel_err_vs_split=rel_s,
                 ok=ok and bool(torch.isfinite(got.float()).all()),
@@ -1530,8 +1630,8 @@ def sparse_case(inp: Inputs, name, b, nf, hq, wq, d, iters=3, tile=False):
     """Row 12 on the scores of an alignment attention (B * NF entries of
     HW x HW on an (hq, wq) window grid) and the grid's local mask, on the
     body its plan gives it (kernel "sparse_wg" for the streaming body of
-    sparse_wg.cu, timed also on sab.cu's, tile_ms, and held to its bits;
-    else "sab_sparse_softmax"; tile: on sab.cu), against its plain version
+    sparse_wg.cu, held to sab.cu's bits; else "sab_sparse_softmax"; tile:
+    on sab.cu), against its plain version
     and against row 7 on the same q, k: exact inputs make every score exact
     whatever the order of its sum, and the scores are rounded to bf16 as row
     7 rounds them, so the two agree bit for bit."""
@@ -1549,13 +1649,11 @@ def sparse_case(inp: Inputs, name, b, nf, hq, wq, d, iters=3, tile=False):
         got = S.sab_sparse_softmax(scores, mask)
     torch.cuda.synchronize()
     on_wg = S.sab_sparse_softmax.launches_wg > wg_before
-    tile_ms, equal_tile = None, True
+    equal_tile = True
     if on_wg:
         with forced_body(S, "_sparse_plan", OLD_PLAN):
             equal_tile = bool(torch.equal(got, S.sab_sparse_softmax(scores,
                                                                      mask)))
-            tile_ms = cuda_ms(lambda: S.sab_sparse_softmax(scores, mask),
-                              iters)
     row7 = S.sab_attn_probs(q, k, temp, None, grid_wq=wq)
     equal_row7 = bool(torch.equal(got, row7.reshape(got.shape)))
     del row7
@@ -1566,7 +1664,7 @@ def sparse_case(inp: Inputs, name, b, nf, hq, wq, d, iters=3, tile=False):
     b_ms, b_by = bound(numel_bytes(scores, mask, got), 0.0)
     return dict(kernel="sparse_wg" if on_wg else "sab_sparse_softmax",
                 case=name, shape=[b * nf, hw, hw], body="wg" if on_wg
-                else "tile", tile_ms=tile_ms, bit_equal_to_sab_cu=equal_tile,
+                else "tile", bit_equal_to_sab_cu=equal_tile,
                 grid=[hq, wq], max_abs_err=err, rel_err=err, tol=SPARSE_TOL,
                 same_support_as_plain=same_support,
                 bit_equal_to_row_7=equal_row7,
@@ -1869,10 +1967,56 @@ def kernel_cases(seed: int, h: int, w: int) -> list[dict]:
     cases.append(lambda: sparse_case(inp, "dec3 scores on sab.cu", 1, r3 + 1,
                                      h // s3 // ws3, w // s3 // ws3, 2 * c3,
                                      tile=True))
-    out = run_cases(cases + f32_cases(seed, h, w))
+    out = run_cases(cases + frame_size_cases(seed, h, w) + f32_cases(seed, h, w))
     emit({"phase": "attention_at_v_matmul", "route": "torch.matmul",
           **attn_v_times(inp, h, w)})
     return out
+
+
+def frame_size_cases(seed: int, h: int, w: int) -> list:
+    """Row 7 in float32 at the CHM levels of a padded frame of (h, w) (3680
+    keys at 720p: on the body its plan gives, the other one timed beside
+    it), then at those of a padded 1920x1080 frame (68 x 120 window tokens,
+    8160 keys, at every level): row 7 in float32 on csrc/sab_f32.cu and in
+    bf16 on sab_wg.cu, rows 8 and 9 at the levels' maps in bf16 and
+    float32."""
+    inp, inp32 = Inputs(seed + 11), Inputs(seed + 13, torch.float32)
+    h8, w8 = turtle_mod.padded_hw(
+        model_config_from_options(options_of("gopro")), *SIZE_1080[::-1])
+    cases = []
+    # the float32 paths' other shapes too: 15 tiles of 320 (20 x 20 tokens
+    # at every level), the harness's 256 x 256 (16 x 16), the train step's
+    # 192 x 192 at batch 2 (12 x 12)
+    for b, hh, ww, tag in ((1, h, w, ""),
+                           (MAX_TILE_BATCH, TILE, TILE,
+                            f", {MAX_TILE_BATCH} tiles"),
+                           (1, BENCH_SIZE, BENCH_SIZE, ", 256 x 256"),
+                           (2, 192, 192, ", 2 x 192 x 192")):
+        for lvl, (s_, c, _, ws, ring) in CHM_LEVELS.items():
+            cases.append(lambda lvl=lvl, s_=s_, c=c, ws=ws, nf=ring + 1,
+                         b=b, hh=hh, ww=ww, tag=tag: sab_f32_case(
+                             inp32, f"float32 {lvl}{tag}", hh // s_ // ws,
+                             ww // s_ // ws, 2 * c, nf, batch=b))
+    for lvl, (s_, c, _, ws, ring) in CHM_LEVELS.items():
+        hl, wl, tag = h8 // s_, w8 // s_, f"{lvl}, 1920x1080 whole frame"
+        cases += [
+            lambda hl=hl, wl=wl, c=c, ws=ws, nf=ring + 1, tag=tag:
+                sab_f32_case(inp32, "float32 " + tag, hl // ws, wl // ws,
+                             2 * c, nf),
+            lambda hl=hl, wl=wl, c=c, ws=ws, nf=ring + 1, tag=tag: sab_case(
+                inp, tag, hl // ws, wl // ws, 2 * c, nf, iters=3),
+            lambda hl=hl, wl=wl, c=c, ws=ws, nf=ring + 1, tag=tag:
+                lattice_case(inp, tag, hl, wl, c, ws, nf, True, 3),
+            lambda hl=hl, wl=wl, c=c, ws=ws, tag=tag: lattice_case(
+                inp, tag, hl, wl, c, ws, 1, False, 3),
+            # the float32 forms (gopro_f32_1080)
+            lambda hl=hl, wl=wl, c=c, ws=ws, nf=ring + 1, tag=tag:
+                lattice_case(inp32, "float32 " + tag, hl, wl, c, ws, nf,
+                             True, 3),
+            lambda hl=hl, wl=wl, c=c, ws=ws, tag=tag: lattice_case(
+                inp32, "float32 " + tag, hl, wl, c, ws, 1, False, 3),
+        ]
+    return cases
 
 
 def f32_cases(seed: int, h: int, w: int) -> list:
@@ -2086,11 +2230,14 @@ def slice_tag(config: str, fuse: tuple, dtype: torch.dtype) -> str:
 def run_slice(config: str, seed: int, n_frames: int, width: int,
               height: int, trace: bool = False, fuse: tuple = (),
               dtype: torch.dtype = torch.bfloat16, keep: list | None = None,
-              against: list | None = None) -> dict:
+              against: list | None = None, table: dict | None = None,
+              tag: str | None = None) -> dict:
     """Stream the frames through InferenceEngine.step; ``keep``: a list the
     outputs are appended to; ``against``: the outputs of the same seed,
     frames and type under another fused plan, which computes the same
-    function (PSNR at least SLICE_MIN_PSNR a frame)."""
+    function (PSNR at least SLICE_MIN_PSNR a frame); ``table``, ``tag``: the
+    launches a frame and the path's name where they are not those of the
+    720p paths."""
     opt = options_of(config)
     model = build_model(opt, device="cuda", fuse=fuse,
                         generator=torch.Generator().manual_seed(seed))
@@ -2131,9 +2278,11 @@ def run_slice(config: str, seed: int, n_frames: int, width: int,
         require(out.shape == (height, width, 3),
                 f"frame {i}: output shape {out.shape}")
         require(bool(np.isfinite(out).all()), f"frame {i}: non-finite output")
-    tag = slice_tag(config, fuse, dtype)
-    table = (LAUNCHES_PER_CALL_F32[config + ("_fused" if fuse else "")]
-             if dtype == torch.float32 else LAUNCHES_PER_CALL[tag])
+    if table is None:
+        table = (LAUNCHES_PER_CALL_F32[config + ("_fused" if fuse else "")]
+                 if dtype == torch.float32
+                 else LAUNCHES_PER_CALL[slice_tag(config, fuse, dtype)])
+    tag = tag or slice_tag(config, fuse, dtype)
     for name, per_frame in table.items():
         require(counts[name] == per_frame * n_frames,
                 f"{name}: {counts[name]} launches over {n_frames} frames, "
@@ -2161,7 +2310,8 @@ def run_slice(config: str, seed: int, n_frames: int, width: int,
     if keep is not None:
         keep.extend(outs)
     res = dict(
-        phase="slice", config=config, plan=list(fuse), variant=cfg.variant,
+        phase="slice", path=tag, config=config, plan=list(fuse),
+        variant=cfg.variant,
         option_file=os.path.relpath(CONFIGS[config][0], ROOT),
         frame=[height, width, 3],
         padded=list(turtle_mod.padded_hw(cfg, height // scale, width // scale)),
@@ -2218,13 +2368,16 @@ def tiled_tag(config: str, plan: tuple) -> str:
 
 def run_tiled(config: str, seed: int, width: int, height: int,
               trace: bool, plans: tuple = None, n: int = FRAMES_PER_RUN,
-              dtype: torch.dtype = torch.bfloat16) -> dict:
+              dtype: torch.dtype = torch.bfloat16, table: dict | None = None,
+              name: str | None = None) -> dict:
     """One configuration tiled at its task's preset through cli.infer.main,
     under each of its plans (TILED_PLANS by default), against the plain
     versions on the card, in bf16 or (--dtype float32) float32. The
     weights are a state_dict file written from the seed (scales drawn), the
     frames a folder of PNGs (the high-resolution ones for SR); main builds
-    the model, the tiled engine and the loop itself."""
+    the model, the tiled engine and the loop itself. ``table``, ``name``:
+    the launches a model call and the path's name (one plan) where they are
+    not those of the 720p paths."""
     from PIL import Image
 
     plans = TILED_PLANS[config] if plans is None else plans
@@ -2280,7 +2433,8 @@ def run_tiled(config: str, seed: int, width: int, height: int,
         calls = -(-n_tiles // MAX_TILE_BATCH)  # model calls per frame
         scale = cfg.sr_scale if cfg.variant == "sr" else 1
         for fuse in plans:
-            tag = tiled_tag(config, fuse) + ("_f32" if f32 else "")
+            tag = name or tiled_tag(config, fuse) + (
+                "_f32" if f32 else "")
             res = cli(tag, fuse)
             require(res["frames"] == n, f"{tag}: {res['frames']} frames")
             # an output's copy to the host is queued behind the next frame's
@@ -2295,19 +2449,18 @@ def run_tiled(config: str, seed: int, width: int, height: int,
             for i, out in enumerate(res["outs"]):
                 require(out.shape == (height, width, 3),
                         f"{tag} frame {i}: output shape {out.shape}")
-            key = config + plan_suffix(fuse)
-            table = LAUNCHES_PER_CALL_F32[config] if f32 else (
-                LAUNCHES_PER_CALL[key])
-            for name, per_call in table.items():
-                if not f32:  # the bf16 plan's sab.cu calls at 15 tiles
-                    per_call = TILED_LAUNCHES.get(config, {}).get(name,
-                                                                  per_call)
-                require(res["launches"][name] == per_call * calls * n,
-                        f"{tag} {name}: {res['launches'][name]} launches "
+            per_calls = table or {
+                k: v if f32 else TILED_LAUNCHES.get(config, {}).get(k, v)
+                for k, v in (LAUNCHES_PER_CALL_F32[config] if f32 else
+                             LAUNCHES_PER_CALL[config + plan_suffix(fuse)]
+                             ).items()}  # the bf16 sab.cu calls at 15 tiles
+            for kernel, per_call in per_calls.items():
+                require(res["launches"][kernel] == per_call * calls * n,
+                        f"{tag} {kernel}: {res['launches'][kernel]} launches "
                         f"over {n} frames of {calls} model calls, expected "
                         f"{per_call} per call")
             out = dict(
-                phase="tiled", config=config, variant=cfg.variant,
+                phase="tiled", path=tag, config=config, variant=cfg.variant,
                 task=task, plan=list(fuse),
                 entry="turtlevsr_tpu_torch.cli.infer.main",
                 frame=[height, width, 3], tile=t,
@@ -2335,7 +2488,8 @@ def run_tiled(config: str, seed: int, width: int, height: int,
             by_plan[tag] = out
         if trace:
             for fuse in plans:
-                tag = tiled_tag(config, fuse) + ("_f32" if f32 else "")
+                tag = name or tiled_tag(config, fuse) + (
+                    "_f32" if f32 else "")
                 model = build_model(options_of(config), device="cuda",
                                     fuse=fuse)
                 model.load_state_dict(torch.load(weights, weights_only=True))
@@ -2768,7 +2922,7 @@ def run_bench_f32() -> dict:
                                                    3],
             f"{tag}: output {res['out_shape']}, finite {res['finite']}")
     require(res["macs"] == BENCH_MACS["gopro"], f"{tag}: MACs {res['macs']}")
-    require_launches(tag, counts, LAUNCHES_PER_CALL_F32["gopro"],
+    require_launches(tag, counts, LAUNCHES_PER_CALL_F32["gopro_small"],
                      res["model_calls"])
     db, err = bench_first_call_vs_plain(argv, (), res["first_output"],
                                         torch.float32)
@@ -2823,6 +2977,42 @@ def run_f32_paths(seed: int, width: int, height: int, trace: bool) -> dict:
     return out
 
 
+def run_frame_sizes(seed: int, smi_line: str) -> dict:
+    """The frame-sizes phase (FRAME_SIZE_PATHS): 1920x1080 whole-frame in
+    bf16 and float32 through InferenceEngine, the deblur preset tiled at
+    1920x1080 and the denoise preset at 854x480 through cli.infer.main;
+    each against the same frames through the plain versions on the card
+    (40 dB in bf16, 80 in float32), its exact launches a model call
+    (LAUNCHES_FRAME_SIZES), ms a frame and peak memory, beside the card's
+    name and power limit. Returns the launches of each."""
+    out, summary = {}, {}
+    for tag, (config, mode, dtype, (width, height), n) in (
+            FRAME_SIZE_PATHS.items()):
+        t0 = time.perf_counter()
+        if mode == "whole":
+            res = run_slice(config, seed, n, width, height, dtype=dtype,
+                            table=LAUNCHES_FRAME_SIZES[tag], tag=tag)
+        else:
+            res = run_tiled(config, seed, width, height, False, plans=((),),
+                            n=n, dtype=dtype, table=LAUNCHES_FRAME_SIZES[tag],
+                            name=tag)[tag]
+        min_db = SLICE_MIN_PSNR if dtype == torch.bfloat16 else F32_MIN_PSNR
+        require(min(res["psnr_vs_plain_db"]) >= min_db,
+                f"{tag}: PSNR to the plain path {res['psnr_vs_plain_db']} "
+                f"below {min_db} dB")
+        out[tag] = res["launches"]
+        summary[tag] = dict(
+            frame=res["frame"], dtype=str(dtype).replace("torch.", ""),
+            mode=mode, ms_per_frame=res["ms_per_frame_after_warmup"],
+            min_psnr_vs_plain_db=min(res["psnr_vs_plain_db"]),
+            min_psnr_db=min_db, peak_memory_gib=res["peak_memory_gib"],
+            launches_per_frame=res["launches_per_frame"],
+            seconds=time.perf_counter() - t0)
+    emit({"phase": "frame_sizes", "nvidia_smi_name_power_limit": smi_line,
+          "paths": summary})
+    return out
+
+
 # ---------------------------------------------------------------------------
 # training: the BPTT train step over a clip
 # ---------------------------------------------------------------------------
@@ -2838,9 +3028,10 @@ def train_launches(config: str, fuse: tuple, frames: int,
     backward adds one launch of the other lattice kernel per lattice call
     (each permutation is the other's gradient) and no other kernel (the
     other Functions' backward is autograd through the plain versions).
-    float32: the float32 paths' launches a model call (none on a bf16-only
-    body)."""
-    per = (LAUNCHES_PER_CALL_F32[config] if dtype == torch.float32 and not fuse
+    float32: the float32 paths' launches a model call at the step's small
+    maps (none on a bf16-only body)."""
+    per = (LAUNCHES_PER_CALL_F32[config + "_small" * (config == "gopro")]
+           if dtype == torch.float32 and not fuse
            else LAUNCHES_PER_CALL[config + plan_suffix(fuse)])
     out = {k: 2 * frames * v for k, v in per.items()}
     out["lattice_split"] += frames * per["lattice_merge"]
@@ -3763,8 +3954,8 @@ def kernel_rows(cases: list[dict], by_path: dict) -> list[dict]:
                         - c["ffn_no_dw"] for p, c in by_path.items()}
         if name in ("qkv_stats", "chm_stats", "split_proj", "sab"):
             wg = name.split("_")[0] + "_wg"  # the mma.sync bodies
-            c64 = "split_c64" if name == "split_proj" else None
-            per_path = {p: c[name] - c[wg] - c.get(c64, 0)
+            other = {"split_proj": "split_c64", "sab": "sab_f32"}.get(name)
+            per_path = {p: c[name] - c[wg] - c.get(other, 0)
                         for p, c in by_path.items()}
         if name == "level_run":  # level.cu: not the Hopper body
             per_path = {p: c["level_run"] - c["level_wg"]
@@ -3795,6 +3986,7 @@ def kernel_rows(cases: list[dict], by_path: dict) -> list[dict]:
                                       "bit_equal_to_model_split",
                                       "bit_equal_to_row_7",
                                       "bit_equal_to_sab_cu", "graph_ms",
+                                      "f32_ms",
                                       "host_ms", "dtype",
                                       "conv_only_library_ms") if k in c}
                    for c in mine]))
@@ -3818,7 +4010,7 @@ def main(argv=None) -> int:
     ap.add_argument("--phase", default="all",
                     choices=("all", "build", "kernels", "slice", "tiled",
                              "app", "bench", "train", "train-cli",
-                             "train-dist", "float32",
+                             "train-dist", "float32", "frame-sizes",
                              "level-phases",
                              "two-stage-phases"),
                     help="level-phases, two-stage-phases: row 14's or row "
@@ -3963,6 +4155,12 @@ def main(argv=None) -> int:
             by_path.update(run_f32_paths(args.seed, width, height,
                                          args.profile))
             done("float32")
+        if args.phase in ("all", "frame-sizes"):
+            # frames other than 1280x720: 1080p whole-frame in bf16 and
+            # float32, the deblur preset tiled at 1080p, the denoise preset
+            # at DAVIS's 854x480
+            by_path.update(run_frame_sizes(args.seed, smi_line))
+            done("frame-sizes")
         if args.phase == "all":
             # every path launched the kernels that lie on it (the exact
             # counts were held above); attn_v_slots is the second epilogue of
@@ -3973,7 +4171,7 @@ def main(argv=None) -> int:
             t1_chm = t0_chm + ("sab_wg", "split_c64")
             f32_t0 = ("ffn", "qkv_stats", "split_proj", "conv3x3",
                       "chm_stats", "lattice_merge", "lattice_split")
-            f32_t1 = f32_t0 + ("sab",)
+            f32_t1 = f32_t0 + ("sab",)  # sab.cu at 256 x 256 and 192 x 192
             on_path = {
                 "gopro_t1_fhr": ("ffn", "ffn_wg", "ffn_c64", "qkv_wg",
                                  "split_wg", "conv3x3"),
@@ -4017,16 +4215,23 @@ def main(argv=None) -> int:
                                       "lattice_merge", "attn_v_merge",
                                       "level_run", "level_wg"),
                 # float32 serving: the widened mma.sync bodies of rows 1, 3,
-                # 4, 5 and 6, sab.cu (`gopro`) and the lattice pair; under
-                # the full plan also level.cu, attn_v.cu and chain2.cu (and
-                # no lattice merge); the float32 train step, its forward
-                **dict.fromkeys(("gopro_f32", "bench_gopro_f32",
-                                 "train_gopro_f32"), f32_t1),
+                # 4, 5 and 6, row 7 (`gopro`: sab_f32.cu at whole frames,
+                # sab.cu at 256 x 256 and 192 x 192) and the lattice pair;
+                # under the full plan also level.cu, attn_v.cu and chain2.cu
+                # (and no lattice merge); the float32 train step, its forward
+                **dict.fromkeys(("bench_gopro_f32", "train_gopro_f32"),
+                                f32_t1),
+                "gopro_f32": f32_t1 + ("sab_f32",),
                 "gopro_f32_fused": ("ffn", "qkv_stats", "split_proj",
                                     "conv3x3", "chm_stats", "lattice_split",
-                                    "sab", "attn_v_merge", "level_run",
-                                    "two_stage"),
+                                    "sab", "sab_f32", "attn_v_merge",
+                                    "level_run", "two_stage"),
                 "derain_tiled_f32": f32_t0,
+                # frames other than 1280x720: as `gopro` and the tiled
+                # deblur stream; float32 with row 7 on sab_f32.cu
+                "gopro_1080": t1_chm, "deblur_tiled_1080": t1_chm,
+                "denoise_tiled_480": t1_chm,
+                "gopro_f32_1080": f32_t0 + ("sab", "sab_f32"),
             }
             require(set(by_path) == set(on_path),
                     f"paths run: {sorted(by_path)}")
@@ -4068,7 +4273,7 @@ def main(argv=None) -> int:
         return 0
     emit({"phase": "phase_seconds", "seconds": phase_s})
     emit({"phase": "done", "script_seconds": time.perf_counter() - t_script})
-    if cases and len(by_path) == 37:  # launches are those of this run's paths
+    if cases and len(by_path) == 41:  # launches are those of this run's paths
         emit({"kernels": kernel_rows(cases, by_path)})
     print(smi_line, flush=True)
     emit({"ok": True,

@@ -458,6 +458,125 @@ def test_sab_wg_smem_mirror_matches_the_source(dev):
         assert build.load("sab_wg").turtle_sab_wg_smem(d) == S._sb_smem(d)[0]
 
 
+# row 7's float32 body (csrc/sab_f32.cu) at the token grids of a padded
+# 1920x1080 frame (68 x 120: 8160 keys) and of a padded 1280x720 one (46 x
+# 80: 3680 keys), at the CHM levels' widths and frames, then on grids its
+# blocks of 64 rows and 128 keys do not divide whose rows are off the
+# 16-byte grid (13 x 17: 221 keys; 3 x 5), D a multiple of 16 but not of
+# 32: (B, NF, hq, wq, D)
+SAB_F32_CASES = [(1, 4, 68, 120, 512), (1, 4, 68, 120, 256),
+                 (1, 3, 68, 120, 128), (1, 4, 46, 80, 512),
+                 (1, 4, 46, 80, 256), (1, 3, 46, 80, 128),
+                 (2, 3, 13, 17, 144), (1, 2, 3, 5, 16)]
+# keys that straddle the body's key blocks of 128 (and end in the last one)
+SAB_F32_TIED = [127, 128, 255, 256, 1023, 1024, 2047, 2048, 3583]
+
+
+def _sab_f32_inputs(b, nf, hw, d, exact, seed):
+    """q (B, HW, D), k (B, NF, HW, D), temp, fvalid (frame 1 invalid), on
+    the card in float32. exact: small integers over 8 (every score exact in
+    fp32 in any order), and on grids of more than 3584 keys queries 0 and
+    HW - 1 score highest at the nine keys SAB_F32_TIED, all equal: the
+    first five of them are kept."""
+    g = torch.Generator().manual_seed(seed)
+    if exact:
+        q = torch.randint(-2, 3, (b, hw, d), generator=g) / 8.0
+        k = torch.randint(-2, 3, (b, nf, hw, d), generator=g) / 8.0
+        if hw > SAB_F32_TIED[-1]:
+            q[:, [0, hw - 1]] = 0.25
+            k[:, :, SAB_F32_TIED] = 0.25
+        temp = torch.tensor([0.5])
+    else:
+        q = torch.randn(b, hw, d, generator=g)
+        k = torch.randn(b, nf, hw, d, generator=g)
+        q, k = (a / a.norm(dim=-1, keepdim=True) for a in (q, k))
+        temp = torch.tensor([1.7])
+    fv = torch.ones(nf)
+    fv[1] = 0.0
+    return tuple(a.to("cuda", torch.float32) for a in (q, k, temp, fv))
+
+
+@pytest.mark.parametrize("n_local", [0, 4])
+@pytest.mark.parametrize("case", SAB_F32_CASES, ids=lambda c: "x".join(
+    map(str, c)))
+def test_sab_f32_body_matches_plain(dev, case, n_local, monkeypatch):
+    """The float32 body against the plain version in float32: on exact
+    inputs the support bit for bit (the tied keys across the key blocks:
+    the first five kept), the values within the float32 limit, the invalid
+    frame zero; on unit vectors (n_local 4) at most 2 % of the rows flip
+    their support and the others agree within the limit. Where sab.cu's
+    block holds the rows (3680 keys) the two bodies agree bit for bit; two
+    launches agree."""
+    b, nf, hq, wq, d = case
+    hw = hq * wq
+    kinds = (True, False) if n_local == 4 else (True,)
+    for exact in kinds:
+        q, k, temp, fv = _sab_f32_inputs(b, nf, hw, d, exact, 53)
+        monkeypatch.setattr(S, "_sab_plan", lambda *a, **kw: "f32")
+        before = S.sab_attn_probs.launches_f32
+        got = S.sab_attn_probs(q, k, temp, fv, grid_wq=wq, n_local=n_local)
+        torch.cuda.synchronize()
+        assert S.sab_attn_probs.launches_f32 == before + 1
+        want = S.sab_attn_probs_plain(q, k, temp, fv, grid_wq=wq,
+                                      n_local=n_local)
+        assert got[:, 1].abs().max() == 0  # the invalid frame
+        if exact:
+            assert torch.equal(got != 0, want != 0)
+            assert max_err(got, want) <= KERNEL_TOL[torch.float32]
+            for r in (0, hw - 1) if hw > SAB_F32_TIED[-1] else ():
+                keys = set(torch.nonzero(got[0, 0, r]).flatten().tolist())
+                assert set(SAB_F32_TIED[:5]) <= keys
+                assert not set(SAB_F32_TIED[5:]) & keys
+        else:
+            share, err = sab_compare(got, want)
+            assert share <= 0.02 and err <= KERNEL_TOL[torch.float32]
+            sums = got.sum(dim=-1)
+            assert torch.all((sums - fv[None, :, None]).abs() <= 1e-4)
+        del want
+        if S._tile_smem(hw, d, 8, False) <= K._SMEM_LIMIT:
+            monkeypatch.setattr(S, "_sab_plan", lambda *a, **kw: "tile")
+            old = S.sab_attn_probs(q, k, temp, fv, grid_wq=wq,
+                                   n_local=n_local)
+            torch.cuda.synchronize()
+            assert torch.equal(got, old)
+            del old
+        monkeypatch.setattr(S, "_sab_plan", lambda *a, **kw: "f32")
+        again = S.sab_attn_probs(q, k, temp, fv, grid_wq=wq, n_local=n_local)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again)
+        del got, again
+
+
+def test_sab_f32_plan_takes_the_1080p_rows(dev):
+    """The plan, unforced, sends the float32 rows of a padded 1080p frame
+    to the float32 body (one launch, counted) and they agree with the plain
+    version."""
+    q, k, temp, fv = _sab_f32_inputs(1, 3, 8160, 128, True, 59)
+    before = S.sab_attn_probs.launches_f32
+    got = S.sab_attn_probs(q, k, temp, fv, grid_wq=120)
+    torch.cuda.synchronize()
+    assert S.sab_attn_probs.launches_f32 == before + 1
+    want = S.sab_attn_probs_plain(q, k, temp, fv, grid_wq=120)
+    assert torch.equal(got != 0, want != 0)
+    assert max_err(got, want) <= KERNEL_TOL[torch.float32]
+
+
+def test_sab_smem_mirrors_match_the_sources(dev):
+    """kernels/sab.py's mirrors of the float32 body's shared memory (one
+    figure at every key count) and of sab.cu's block, against the
+    sources."""
+    from turtlevsr_tpu_torch.kernels import build
+
+    assert build.load("sab_f32").turtle_sab_f32_smem() == S._sf_smem()
+    lib = build.load("sab")
+    for hw in (6, 400, 3680, 8160, 20000):
+        for d in (16, 128, 144, 512):
+            for rows in (8, 16):
+                for bf16 in (0, 1):
+                    assert lib.turtle_sab_smem(hw, d, rows, bf16) == \
+                        S._tile_smem(hw, d, rows, bool(bf16))
+
+
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
 @pytest.mark.parametrize("shape", SPLIT_KERNEL_SHAPES)
 def test_split_proj_kernel_matches_plain(dev, shape, dtype):

@@ -68,7 +68,7 @@ def test_port_has_the_expected_modules():
         assert want in rel, want
     from turtlevsr_tpu_torch.kernels import build
 
-    assert len(build.KERNEL_SOURCES) == 21
+    assert len(build.KERNEL_SOURCES) == 22
     # the framepack reader's own copy of its C++ source (built by g++)
     assert os.path.isfile(os.path.join(PORT, "data", "framepack.cc"))
     headers = ("common.cuh", "ffn_tile.cuh", "qkv_tile.cuh", "pipe.cuh",
@@ -336,7 +336,8 @@ def test_launch_counters_cover_every_wrapper():
                            "level_run", "ffn_no_dw", "ffn_wg", "ffn_c64",
                            "ffn_pw", "qkv_wg", "split_wg", "split_c64",
                            "chm_wg", "sab_wg", "level_wg", "two_stage",
-                           "two_stage_wg", "sab_sparse_softmax", "sparse_wg"}
+                           "two_stage_wg", "sab_sparse_softmax", "sparse_wg",
+                           "sab_f32"}
     kernels.reset_launch_counts()
     assert set(kernels.launch_counts().values()) == {0}
 

@@ -148,6 +148,10 @@ def test_split_plan_keeps_the_other_calls_on_the_tile_body(change):
                                     "radius5", "keys_2e20_plus",
                                     "d128_20x20_grid"])
 def test_sab_plan_keeps_the_other_calls_on_the_tile_body(change):
+    """The bf16 calls the wgmma body does not take go to sab.cu; float32
+    calls have a body of their own (csrc/sab_f32.cu), which takes this
+    grid of 420 blocks (tests/test_torch_port_frame_sizes.py holds its
+    rule)."""
     args = dict(b=15, nf=4, hw=400, d=512, dtype=torch.bfloat16)
     assert S._sab_plan(**args) == "wg"
     args.update({"float32": dict(dtype=torch.float32),
@@ -155,7 +159,7 @@ def test_sab_plan_keeps_the_other_calls_on_the_tile_body(change):
                  "d1024": dict(d=1024), "radius5": dict(n_local=5),
                  "keys_2e20_plus": dict(b=1, hw=2 ** 20 + 8),
                  "d128_20x20_grid": dict(nf=3, d=128)}[change])
-    assert S._sab_plan(**args) == "tile"
+    assert S._sab_plan(**args) == ("f32" if change == "float32" else "tile")
 
 
 # (B, NF, hq, wq, D) the plan sends to the wgmma body whatever the count of

@@ -33,7 +33,8 @@ def launch_counts() -> dict:
     ``split_proj`` on their C = 64 bodies, ``ffn_pw`` those of ``ffn_no_dw``
     on the body of csrc/ffn_pw.cu, ``two_stage_wg`` and ``sparse_wg`` those
     of ``two_stage`` and ``sab_sparse_softmax`` on csrc/chain2_wg.cu and
-    csrc/sparse_wg.cu."""
+    csrc/sparse_wg.cu, ``sab_f32`` those of ``sab`` on the float32 body of
+    csrc/sab_f32.cu."""
     fns = _counted()
     counts = {name: fn.launches for name, fn in fns.items()}
     counts["ffn_no_dw"] = fns["ffn"].launches_no_dw
@@ -42,6 +43,7 @@ def launch_counts() -> dict:
     counts["split_c64"] = fns["split_proj"].launches_c64
     counts["two_stage_wg"] = fns["two_stage"].launches_wg
     counts["sparse_wg"] = fns["sab_sparse_softmax"].launches_wg
+    counts["sab_f32"] = fns["sab"].launches_f32
     for name in _WG_BODIES:
         counts[name.split("_")[0] + "_wg"] = fns[name].launches_wg
     return counts
@@ -62,5 +64,6 @@ def reset_launch_counts() -> None:
     fns["split_proj"].launches_c64 = 0
     fns["two_stage"].launches_wg = 0
     fns["sab_sparse_softmax"].launches_wg = 0
+    fns["sab"].launches_f32 = 0
     for name in _WG_BODIES:
         fns[name].launches_wg = 0

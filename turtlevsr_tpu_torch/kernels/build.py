@@ -21,7 +21,7 @@ CSRC_DIR = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
 KERNEL_SOURCES = ("ffn", "ffn_wg", "ffn_c64", "ffn_pw", "qkv_stats", "qkv_wg",
                   "split_proj", "split_wg", "split_c64", "conv3x3", "chm_stats", "chm_wg",
-                  "sab", "sab_wg", "sparse_wg", "lattice", "level", "level_wg",
+                  "sab", "sab_wg", "sab_f32", "sparse_wg", "lattice", "level", "level_wg",
                   "attn_v", "chain2", "chain2_wg")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
@@ -70,6 +70,8 @@ _SIGNATURES = {
                                            ctypes.c_size_t)},
     "sab_wg": {"turtle_sab_wg_launch": (_LAUNCH_ARGS, ctypes.c_int),
                "turtle_sab_wg_smem": ([ctypes.c_int], ctypes.c_size_t)},
+    "sab_f32": {"turtle_sab_f32_launch": (_LAUNCH_ARGS, ctypes.c_int),
+                "turtle_sab_f32_smem": ([], ctypes.c_size_t)},
     "sparse_wg": {"turtle_sparse_wg_launch": (_LAUNCH_ARGS, ctypes.c_int),
                   "turtle_sparse_wg_smem": ([ctypes.c_int], ctypes.c_size_t)},
     "lattice": {"turtle_lattice_launch": (

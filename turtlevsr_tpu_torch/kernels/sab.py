@@ -3,9 +3,9 @@ top-5, local mask, clipped softmax, frame validity), the same probabilities
 on given scores and a given mask, and their product with the window values,
 stored slot by slot or straight as merged maps.
 
-``sab_attn_probs`` launches the kernels of ``csrc/sab_wg.cu`` (bf16) or
-``csrc/sab.cu``, ``sab_sparse_softmax`` that of ``csrc/sparse_wg.cu`` (bf16)
-or ``csrc/sab.cu``,
+``sab_attn_probs`` launches the kernels of ``csrc/sab_wg.cu`` (bf16),
+``csrc/sab_f32.cu`` (float32) or ``csrc/sab.cu``, ``sab_sparse_softmax``
+that of ``csrc/sparse_wg.cu`` (bf16) or ``csrc/sab.cu``,
 ``sab_attn_v_slots`` and ``sab_attn_v_merge`` that of ``csrc/attn_v.cu``, on
 CUDA tensors (or they raise); on CPU tensors, and only there, each runs the
 plain version beside it. The plain versions round where the kernels round
@@ -61,12 +61,26 @@ def sab_attn_probs_plain(q, k, temp, fvalid=None, *, grid_wq: int,
     return out
 
 
-def _pick_rows(hw: int, d: int, is_bf16: bool, lib) -> int:
-    """Query rows per block: 16, or 8 where the row buffer of 16 does not
-    fit the block's shared memory."""
+# sab.cu's block (sab_probs_kernel): the q tile (16 rows of D + 8) and a
+# row buffer of HW scores (rounded up to 64, plus 8) for each of its query
+# rows, mirrored from the source (a card test holds the two equal)
+_TILE_QROWS, _TILE_XPAD = 16, 8
+
+
+def _tile_smem(hw: int, d: int, rows: int, is_bf16: bool) -> int:
+    """Bytes of shared memory of a sab.cu block that owns ``rows`` query
+    rows of hw keys at width d."""
+    stride = (hw + 63) // 64 * 64 + 8
+    return (_TILE_QROWS * (d + _TILE_XPAD) + rows * stride) * (
+        2 if is_bf16 else 4)
+
+
+def _pick_rows(hw: int, d: int, is_bf16: bool) -> int:
+    """Query rows per block of sab.cu: 16, or 8 where the row buffer of 16
+    does not fit the block's shared memory."""
     need = 0
     for r in (16, 8):
-        need = lib.turtle_sab_smem(hw, d, r, int(is_bf16))
+        need = _tile_smem(hw, d, r, is_bf16)
         if need <= _SMEM_LIMIT:
             return r
     raise ValueError(
@@ -99,11 +113,47 @@ def _sb_smem(d: int) -> tuple[int, int]:
     return _SB_ALIGN + stages * _SB_BOX + rest + 8 * (2 * stages + 1), stages
 
 
+# the float32 body (csrc/sab_f32.cu): query rows of a block, keys of a key
+# block, d of a chunk, the largest local radius it takes, the most keys; its
+# shared memory (the d-major q and key chunks with rows padded by 4 floats,
+# the score tile, the window slots), the same at every key count, mirrored
+# from the source (a card test holds the two equal)
+_SF_ROWS, _SF_KEYS, _SF_DC, _SF_NL = 64, 128, 16, 4
+_SF_MAX_KEYS = 1 << 24
+# the float32 body's grid (blocks of 64 query rows of one map and frame) from
+# which it is the faster body where sab.cu's block holds the rows: an H100's
+# SMs (PERF.md, row 7, float32; _sab_plan)
+_SF_MIN_BLOCKS = 132
+
+
+def _sf_smem() -> int:
+    """Bytes of shared memory of the float32 body, whatever HW and D."""
+    slots = (2 * _SF_NL + 1) ** 2
+    return (_SF_DC * (_SF_ROWS + 4) + _SF_DC * (_SF_KEYS + 4)
+            + _SF_ROWS * (_SF_KEYS + 4) + _SF_ROWS * slots) * 4
+
+
 def _sab_plan(b, nf, hw, d, dtype, n_local: int = 4,
               grid_wq: int = 1) -> str:
     """The body of one sab_attn_probs call, chosen by its shape: "wg" for
     the wgmma body of csrc/sab_wg.cu (bf16, D a multiple of 64 up to 512, a
-    local radius of at most 4), "tile" for sab.cu's sab_probs_kernel.
+    local radius of at most 4), "f32" for csrc/sab_f32.cu (float32, D a
+    multiple of 16, a local radius of at most 4, up to 2^24 keys: its
+    shared memory does not grow with the keys), "tile" for sab.cu's
+    sab_probs_kernel.
+
+    float32 goes to sab_f32.cu where sab.cu's block of 8 query rows does not
+    fit (every CHM level of a padded 1920x1080 frame: 8160 keys), and where
+    its grid has at least one block of 64 rows an SM, _SF_MIN_BLOCKS: there
+    it measured faster than sab.cu on an H100 (PERF.md, row 7; ms, sab_f32.cu
+    against sab.cu, D = 512 / 256 / 128): a padded 720p frame's 3680 keys
+    (232 / 232 / 174 blocks) 1.91 / 1.02 / 0.59 against 15.53 / 8.03 /
+    3.38, 15 tiles of 320 (420 / 420 / 315) 0.56 / 0.34 / 0.20 against 1.26
+    / 0.66 / 0.29. With fewer blocks sab.cu's blocks of 16 rows spread over
+    more SMs and it stays: the harness's 256 x 256 (16 / 16 / 12 blocks)
+    0.121 / 0.079 / 0.073 against 0.106 / 0.069 / 0.066, the train step's
+    192 x 192 at batch 2 (24 / 24 / 18) 0.109 / 0.072 / 0.063 against 0.089
+    / 0.068 / 0.045.
 
     One shape the wgmma body takes stays on sab.cu: D = 128 on the 20 x 20
     token grid of a 320 tile (dec1 of the tiled deblur path), where sab.cu
@@ -111,6 +161,13 @@ def _sab_plan(b, nf, hw, d, dtype, n_local: int = 4,
     body's 4 blocks of 128 rows and 4 key tiles, and at D = 128 the
     products no longer hide that). It is kept so that the wgmma body is the
     faster one at every shape of the paths that it takes."""
+    if dtype == torch.float32:
+        if (d % _SF_DC or not 0 <= n_local <= _SF_NL or hw > _SF_MAX_KEYS
+                or grid_wq < 1 or hw % grid_wq):
+            return "tile"
+        blocks = -(-hw // _SF_ROWS) * nf * b
+        return "f32" if (_tile_smem(hw, d, 8, False) > _SMEM_LIMIT
+                         or blocks >= _SF_MIN_BLOCKS) else "tile"
     if (dtype != torch.bfloat16 or d % 64 or not 64 <= d <= 512
             or not 0 <= n_local <= _SB_NL or hw > _SB_MAX_KEYS
             or b * nf * hw >= 2 ** 31 or grid_wq < 1 or hw % grid_wq
@@ -131,10 +188,11 @@ def _launch(q, k, temp, fvalid, grid_wq, k_top, n_local):
     if not 1 <= k_top <= K_TOP_MAX:
         raise ValueError(f"sab_attn_probs: k_top must be 1..{K_TOP_MAX}")
     body = _sab_plan(b, nf, hw, d, q.dtype, n_local, grid_wq)
-    lib = build.load("sab_wg" if body == "wg" else "sab")
-    # the wgmma body's shared memory fits by construction (_sb_smem)
-    rows = 0 if body == "wg" else _pick_rows(hw, d,
-                                             q.dtype == torch.bfloat16, lib)
+    lib = build.load({"wg": "sab_wg", "f32": "sab_f32"}.get(body, "sab"))
+    # the wgmma and float32 bodies' shared memory fits by construction
+    # (_sb_smem, _sf_smem)
+    rows = 0 if body != "tile" else _pick_rows(hw, d,
+                                               q.dtype == torch.bfloat16)
     out = torch.empty((b, nf, hw, hw), dtype=q.dtype, device=q.device)
     temp32 = temp.detach().to(device=q.device,
                               dtype=torch.float32).reshape(1).contiguous()
@@ -147,6 +205,10 @@ def _launch(q, k, temp, fvalid, grid_wq, k_top, n_local):
         _call(lib.turtle_sab_wg_launch, ptrs,
               [b, nf, hw, d, grid_wq, k_top, n_local], q, "sab_attn_probs")
         sab_attn_probs.launches_wg += 1
+    elif body == "f32":
+        _call(lib.turtle_sab_f32_launch, ptrs,
+              [b, nf, hw, d, grid_wq, k_top, n_local], q, "sab_attn_probs")
+        sab_attn_probs.launches_f32 += 1
     else:
         _call(lib.turtle_sab_launch, ptrs,
               [b, nf, hw, d, grid_wq, k_top, n_local, rows], q,
@@ -171,12 +233,16 @@ def sab_attn_probs(q, k, temp, fvalid=None, *, grid_wq: int, k_top: int = 5,
              with nothing left gives zeros) * fvalid[frame]
 
     Replaces ``sab_fused_attn_probs`` in turtlevsr_tpu/kernels/sab.py;
-    bound by operations at D >= 256, by bytes at D = 128. Two kernels,
-    chosen by shape before the launch (:func:`_sab_plan`): the wgmma body of
+    bound by operations at D >= 256, by bytes at D = 128 (bf16; float32 by
+    operations at every width of the paths). Three kernels, chosen by shape
+    before the launch (:func:`_sab_plan`): the wgmma body of
     csrc/sab_wg.cu for bf16 calls with D a multiple of 64 up to 512, a local
     radius of at most 4, but D = 128 on a 20 x 20 token grid
-    (``sab_attn_probs.launches_wg`` counts them), csrc/sab.cu's
-    sab_probs_kernel for every other call; one launch either way."""
+    (``sab_attn_probs.launches_wg`` counts them), the float32 body of
+    csrc/sab_f32.cu, whose shared memory does not grow with HW, for the
+    float32 calls of the plan's rule (``sab_attn_probs.launches_f32``),
+    csrc/sab.cu's sab_probs_kernel for every other call; one launch either
+    way."""
     if q.dim() != 3 or k.dim() != 4:
         raise ValueError("sab_attn_probs takes q (B, HW, D), k (B, NF, HW, D)")
     if grid_wq <= 0 or q.shape[1] % grid_wq:
@@ -195,6 +261,7 @@ def sab_attn_probs(q, k, temp, fvalid=None, *, grid_wq: int, k_top: int = 5,
 
 sab_attn_probs.launches = 0
 sab_attn_probs.launches_wg = 0  # those of them on the wgmma body (sab_wg.cu)
+sab_attn_probs.launches_f32 = 0  # those on the float32 body (sab_f32.cu)
 
 
 # ---------------------------------------------------------------------------
