@@ -6,8 +6,9 @@
 
 (--cases TEXT, with --phase kernels: only the kernel cases whose
 "<kernel>: <case>" holds TEXT, e.g. "ffn: gate+pair+po(B,C,C) latent"; given
-more than once, those that hold any of them; such a run prints no result
-line and no ok line.)
+more than once, those that hold any of them; with --phase float32 its
+kernel cases alone, e.g. "ffn_f32:" for row 1's float32 body; such a run
+prints no result line and no ok line.)
 
 (--profile traces a few more frames of each whole-frame stream and of each
 tiled stream under each plan, with torch.profiler.)
@@ -15,7 +16,7 @@ tiled stream under each plan, with torch.profiler.)
 Phases, one JSON object per line on standard output:
 
   device   the card's name and power limit as nvidia-smi gives them
-  build    nvcc builds the twenty-two sources of turtlevsr_tpu_torch/kernels/csrc
+  build    nvcc builds the twenty-four sources of turtlevsr_tpu_torch/kernels/csrc
   kernels  each kernel's wrapper against its plain PyTorch version on the
            card at the shapes the 720p serving paths give it (bf16), whole
            padded frames and chunks of 15 tiles alike: errors beside the
@@ -39,10 +40,16 @@ Phases, one JSON object per line on standard output:
            wg_ms; the mma.sync bodies of rows 3, 4, 6 and 7, off the path
            now, at the latent's or dec3's shape); attention @ v also at
            the whole frame's dec3 shape, the 3x3 conv also on maps and Cout
-           that its tiles do not divide; then the float32 forms of rows 1,
-           3, 4, 5 (with LayerNorm) and 6 at C = 256 and 512, whole frames
-           and 15 tiles, on their mma.sync bodies (the LN halo in device
-           memory at C = 512), and of rows 14 (level.cu at C = 256 and 512,
+           that its tiles do not divide; then the float32 forms of rows 1
+           and 3 at every width of the float32 paths (C = 64-512) on their
+           float32 bodies (csrc/ffn_f32.cu, qkv_f32.cu: the old bodies' time
+           on the same inputs beside each, tile_ms, and each CUDA launch's
+           device time at the whole frame, launch_ms), of rows 4, 5 (with
+           LayerNorm) and 6 at C = 256 and 512, whole frames and 15 tiles,
+           on their mma.sync bodies (the LN halo in device memory at C =
+           512), csrc/ffn.cu and qkv_stats.cu in float32 (forced), row 5's
+           eight convs without LayerNorm at the frame (beside F.conv2d, TF32
+           off), and of rows 14 (level.cu at C = 256 and 512,
            also against its split route), 11 (dec3's whole frame) and 13
            (the enc1 and enc2 pairs' whole frame, also against its split
            route), against the plain versions in float32 (TF32 off) at the
@@ -164,9 +171,10 @@ Phases, one JSON object per line on standard output:
            --dtype float32` (24 tiles, 3 frames); `cli.bench.main --dtype
            float32` on `gopro` at 256 x 256 (5 timed calls, the first held
            against the plain versions). Each: ms a frame (a call), PSNR to
-           plain (at least 40 dB), peak, the exact launches (every call on
-           the widened mma.sync bodies, none on a bf16-only body). Alone
-           (--phase float32) it also runs the float32 kernel cases
+           plain (at least 40 dB), peak, the exact launches (rows 1 and 3 on
+           their float32 bodies, the others on the widened mma.sync bodies,
+           none on a bf16-only body). Alone (--phase float32) it also runs
+           the float32 kernel cases
 
   frame-sizes  frames other than 1280x720: `gopro` whole-frame at
            1920x1080 (padded to 1088 x 1920: 8160 keys at every CHM level)
@@ -300,7 +308,7 @@ TASKS = {"gopro": "deblur", "derain": "derain", "sr": "sr",
 # split_c64.cu's (_split_plan; tests/test_torch_port_split_sab_plan.py);
 # split_proj.cu has none.
 _NONE = {"attn_v_slots": 0, "attn_v_merge": 0, "level_run": 0, "level_wg": 0,
-         "ffn_no_dw": 0, "sab_f32": 0,
+         "ffn_no_dw": 0, "sab_f32": 0, "ffn_f32": 0, "qkv_f32": 0,
          "ffn_pw": 0, "two_stage": 0, "two_stage_wg": 0,
          "sab_sparse_softmax": 0, "sparse_wg": 0}
 _GOPRO = {"ffn": 51, "ffn_wg": 43, "ffn_c64": 8, "qkv_stats": 34,
@@ -333,9 +341,10 @@ LAUNCHES_PER_CALL = {
     "sr_two_stage": {**_GOPRO, **_NONE, **_TWO_STAGE},
 }
 # float32 serving (InferenceEngine(dtype=torch.float32), --dtype float32):
-# the same calls a model call, every one of rows 1, 3, 4 and 6 on its
-# mma.sync body (csrc/ffn.cu, qkv_stats.cu, split_proj.cu, chm_stats.cu,
-# widened to C = 256 and 512), row 7 on csrc/sab_f32.cu at a whole frame
+# the same calls a model call, every one of rows 1 and 3 on its float32 body
+# (csrc/ffn_f32.cu, qkv_f32.cu: kernels/ffn.py _ffn_plan, _qkv_plan), rows 4
+# and 6 on their mma.sync bodies (split_proj.cu, chm_stats.cu, widened to C
+# = 256 and 512), row 7 on csrc/sab_f32.cu at a whole frame
 # (its grid of at least one block an SM; kernels/sab.py _sab_plan) and on
 # sab.cu at the harness's 256 x 256 and the train step's 192 x 192 (`_small`:
 # at most 24 blocks), and under the fused plans row 14 on level.cu (widened
@@ -350,12 +359,15 @@ BF16_ONLY = ("ffn_wg", "ffn_c64", "ffn_pw", "qkv_wg", "chm_wg", "split_wg",
 # attention @ v
 FULL_PLAN = ("channel_runs", "attn_v_merge", "two_stage")
 LAUNCHES_PER_CALL_F32 = {
-    config: {**LAUNCHES_PER_CALL[config], **dict.fromkeys(BF16_ONLY, 0)}
+    config: {**LAUNCHES_PER_CALL[config], **dict.fromkeys(BF16_ONLY, 0),
+             "ffn_f32": LAUNCHES_PER_CALL[config]["ffn"],
+             "qkv_f32": LAUNCHES_PER_CALL[config]["qkv_stats"]}
     for config in ("gopro", "derain")}
 LAUNCHES_PER_CALL_F32["gopro_small"] = dict(LAUNCHES_PER_CALL_F32["gopro"])
 LAUNCHES_PER_CALL_F32["gopro"]["sab_f32"] = 3
 LAUNCHES_PER_CALL_F32["gopro_fused"] = {
-    **LAUNCHES_PER_CALL_F32["gopro"], "ffn": 6, "qkv_stats": 1,
+    **LAUNCHES_PER_CALL_F32["gopro"], "ffn": 6, "qkv_stats": 1, "ffn_f32": 6,
+    "qkv_f32": 1,
     "level_run": 4, "attn_v_merge": 3, "lattice_merge": 0, "two_stage": 6}
 # the float32 paths: `gopro` whole-frame (4 frames: the 3-frame rings
 # wrap), the same under the full plan, `derain` tiled through cli.infer.main
@@ -636,12 +648,19 @@ KERNEL_INFO = {
                            "turtlevsr_tpu/kernels/sab.py:328"),
     "sparse_wg": ("turtlevsr_tpu_torch/kernels/csrc/sparse_wg.cu",
                   "turtlevsr_tpu/kernels/sab.py:328"),
-    # the float32 forms of rows 1, 3, 4, 5 and 6 on their mma.sync bodies
-    # (every float32 call: the Hopper bodies are bf16 only), widened to C =
-    # 256 and 512 for float32 serving; their launches are those of the
-    # float32 paths (F32_PATHS), which the rows above do not count
-    "ffn_f32": ("turtlevsr_tpu_torch/kernels/csrc/ffn.cu",
+    # rows 1 and 3 in float32 on their float32 bodies (register-blocked
+    # products on the CUDA cores, csrc/f32_tile.cuh): every float32 call of
+    # the paths (kernels/ffn.py _ffn_plan, _qkv_plan)
+    "ffn_f32": ("turtlevsr_tpu_torch/kernels/csrc/ffn_f32.cu",
                 "turtlevsr_tpu/kernels/ffn.py:2024"),
+    "qkv_f32": ("turtlevsr_tpu_torch/kernels/csrc/qkv_f32.cu",
+                "turtlevsr_tpu/kernels/ffn.py:985"),
+    # the float32 forms of rows 1, 3, 4, 5 and 6 on their mma.sync bodies,
+    # widened to C = 256 and 512 for float32 serving (rows 1 and 3 off the
+    # paths now: their cases force the old body); their launches are those
+    # of the float32 paths (F32_PATHS), which the rows above do not count
+    "ffn_tile_f32": ("turtlevsr_tpu_torch/kernels/csrc/ffn.cu",
+                     "turtlevsr_tpu/kernels/ffn.py:2024"),
     "qkv_stats_f32": ("turtlevsr_tpu_torch/kernels/csrc/qkv_stats.cu",
                       "turtlevsr_tpu/kernels/ffn.py:985"),
     "split_proj_f32": ("turtlevsr_tpu_torch/kernels/csrc/split_proj.cu",
@@ -701,6 +720,26 @@ def timed_in(body, fn, iters: int) -> float:
     """cuda_ms of fn inside the context `body()` makes (a forced body)."""
     with body():
         return cuda_ms(fn, iters)
+
+
+def launch_ms(fn, calls: int = 2) -> dict:
+    """Device ms a call of each CUDA kernel that fn launches (torch.profiler,
+    CUDA activity; the name up to its arguments): where a float32 body's
+    time goes."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_time_total > 0:
+            name = e.key.split("(")[0].replace("void ", "").replace(
+                "turtle::", "")
+            out[name] = out.get(name, 0.0) + e.device_time_total / calls / 1e3
+    return out
 
 
 def bound(n_bytes: float, flops: float, dtype=torch.bfloat16
@@ -776,9 +815,12 @@ def ffn_case(inp: Inputs, name, h, w, c, e, mode, *, pair=False, po=False,
              stacked=0, batch=1, shared_po=False, tile=False):
     """Row 1 (or 2, without dw) on the body its plan gives the call (tile: on
     the mma.sync body): kernel "ffn_wg" for the wgmma body, "ffn_c64" for
-    the C = 64 body, "ffn_pw" for row 2's body, else "ffn" /
-    "ffn_no_dw"."""
-    if skipped("ffn", name):
+    the C = 64 body, "ffn_pw" for row 2's body, "ffn_f32" for the float32
+    body of csrc/ffn_f32.cu (csrc/ffn.cu's time on the same inputs beside it,
+    tile_ms), else "ffn" / "ffn_no_dw" ("ffn_tile_f32": csrc/ffn.cu in
+    float32)."""
+    if skipped(("ffn_tile_f32" if tile else "ffn_f32")
+               if inp.dtype == torch.float32 else "ffn", name):
         return None
     ch = 2 * e if mode == "gate" else e
     x = inp(batch, h, w, c)
@@ -817,12 +859,14 @@ def ffn_case(inp: Inputs, name, h, w, c, e, mode, *, pair=False, po=False,
     wg_before = K.fused_block_ffn.launches_wg
     c64_before = K.fused_block_ffn.launches_c64
     pw_before = K.fused_block_ffn.launches_pw
+    f32_before = K.fused_block_ffn.launches_f32
     with body():
         got = K.fused_block_ffn(x, **kw)
     torch.cuda.synchronize()
     on_wg = K.fused_block_ffn.launches_wg > wg_before
     on_c64 = K.fused_block_ffn.launches_c64 > c64_before
     on_pw = K.fused_block_ffn.launches_pw > pw_before
+    on_f32 = K.fused_block_ffn.launches_f32 > f32_before
     want = K.ffn_plain(x, **kw)
     err, rel = rel_err(got, want)
     del want
@@ -838,12 +882,24 @@ def ffn_case(inp: Inputs, name, h, w, c, e, mode, *, pair=False, po=False,
     b_ms, b_by = bound(n_bytes, flops, x.dtype)
     with body():
         ms = cuda_ms(lambda: K.fused_block_ffn(x, **kw), iters)
+    tile_ms = None  # the float32 body's case: csrc/ffn.cu once beside it
+    if on_f32 and (c <= 256 or n_maps <= 1):
+        tile_ms = timed_in(lambda: forced_body(K, "_ffn_plan", OLD_PLAN),
+                           lambda: K.fused_block_ffn(x, **kw), 2)
+    launches = matmul_ms = None
+    if on_f32 and batch == 1:  # where the time goes; pw1's shape on cuBLAS
+        launches = launch_ms(lambda: K.fused_block_ffn(x, **kw))
+        a2, w1 = x.reshape(-1, c), kw["w1"]
+        matmul_ms = cuda_ms(lambda: torch.matmul(a2, w1), iters)
     kernel = ("ffn_wg" if on_wg else "ffn_c64" if on_c64 else "ffn_pw"
-              if on_pw else f32_kernel("ffn", x) if dw else "ffn_no_dw")
+              if on_pw else "ffn_f32" if on_f32 else "ffn_tile_f32"
+              if x.dtype == torch.float32 else "ffn" if dw else "ffn_no_dw")
     return dict(kernel=kernel,
                 case=name, shape=[batch, h, w, c], hidden=ch,
                 body="wg" if on_wg else "c64" if on_c64 else "pw" if on_pw
-                else "tile", dtype=str(x.dtype), max_abs_err=err, rel_err=rel,
+                else "f32" if on_f32 else "tile", tile_ms=tile_ms,
+                launch_ms=launches, pw1_matmul_ms=matmul_ms,
+                dtype=str(x.dtype), max_abs_err=err, rel_err=rel,
                 tol_rel=KERNEL_REL_TOL, tol_abs_f32=F32_KERNEL_TOL,
                 ok=(within(err, rel, x, KERNEL_REL_TOL)
                     and bool(torch.isfinite(got.float()).all())),
@@ -871,9 +927,13 @@ def stats_widths(qkv: tuple, chm: tuple):
 
 def partial_row_bytes(batch, h, w, c, heads, nf, body):
     """Bytes of the fp32 partial rows a call writes: one a tile (mma.sync
-    bodies), or the persistent grid's rows (wgmma bodies)."""
+    bodies), the persistent grid's rows (wgmma bodies), or the float32
+    body's G rows a batch entry."""
     ctok = c // heads
     width = (nf + 1) * heads * ctok * ctok + (nf + 2) * c
+    if body == "f32":
+        return batch * K._qkv_f32_grid(batch, h, w, heads, K._sm_count(
+            torch.device("cuda", 0))) * width * 4
     rows = K._tiles(h, w) if body == "tile" else K._sw_rows(
         batch, K._tiles(h, w), min(batch * K._tiles(h, w),
                                    K._sm_count(torch.device("cuda", 0))))
@@ -883,21 +943,40 @@ def partial_row_bytes(batch, h, w, c, heads, nf, body):
 def qkv_case(inp: Inputs, name, h, w, c, heads, iters=5, batch=1,
              tile=False):
     """Row 3 on the body its plan gives the call (tile: on the mma.sync
-    body): kernel "qkv_wg" for the wgmma body, else "qkv_stats"."""
-    kernel = ("qkv_stats_f32" if inp.dtype == torch.float32 else "qkv_stats"
+    body): kernel "qkv_wg" for the wgmma body, "qkv_f32" for the float32
+    body of csrc/qkv_f32.cu (csrc/qkv_stats.cu's time on the same inputs
+    beside it, tile_ms), else "qkv_stats" ("qkv_stats_f32": csrc/qkv_stats.cu
+    in float32)."""
+    f32 = inp.dtype == torch.float32
+    kernel = (("qkv_stats_f32" if tile or not K._qkv_f32_form(c, heads)
+               else "qkv_f32") if f32 else "qkv_stats"
               if tile or c not in K._QKV_WG_WIDTHS else "qkv_wg")
     if skipped(kernel, name):
         return None
     x = inp(batch, h, w, c)
     kw = chain_weights(inp, c, 3 * c)
     widths = () if tile else K._QKV_WG_WIDTHS
+    body = ((lambda: forced_body(K, "_qkv_plan", OLD_PLAN)) if tile and f32
+            else contextlib.nullcontext)
     wg_before = K.fused_qkv_stats.launches_wg
-    with stats_widths(widths, K._CHM_WG_WIDTHS):
+    f32_before = K.fused_qkv_stats.launches_f32
+    with stats_widths(widths, K._CHM_WG_WIDTHS), body():
         v, g, s = K.fused_qkv_stats(x, heads=heads, **kw)
         torch.cuda.synchronize()
         on_wg = K.fused_qkv_stats.launches_wg > wg_before
+        on_f32 = K.fused_qkv_stats.launches_f32 > f32_before
         ms = cuda_ms(lambda: K.fused_qkv_stats(x, heads=heads, **kw), iters)
-    require(on_wg == (kernel == "qkv_wg"), f"qkv_stats {name}: body")
+    require(on_wg == (kernel == "qkv_wg") and on_f32 == (kernel == "qkv_f32"),
+            f"qkv_stats {name}: body")
+    tile_ms = None  # the float32 body's case: qkv_stats.cu once beside it
+    if on_f32:
+        tile_ms = timed_in(lambda: forced_body(K, "_qkv_plan", OLD_PLAN),
+                           lambda: K.fused_qkv_stats(x, heads=heads, **kw), 2)
+    launches = matmul_ms = None
+    if on_f32 and batch == 1:  # where the time goes; pw1's shape on cuBLAS
+        launches = launch_ms(lambda: K.fused_qkv_stats(x, heads=heads, **kw))
+        a2, w1 = x.reshape(-1, c), kw["w1"]
+        matmul_ms = cuda_ms(lambda: torch.matmul(a2, w1), iters)
     wv, wg, ws = K.qkv_stats_plain(x, heads=heads, **kw)
     err_v, rel_v = rel_err(v, wv)
     err_g, rel_g = rel_err(g, wg)
@@ -908,10 +987,12 @@ def qkv_case(inp: Inputs, name, h, w, c, heads, iters=5, batch=1,
     flops = 2.0 * batch * px * (c * 3 * c + 9 * 3 * c + c * ctok + 2 * c)
     b_ms, b_by = bound(numel_bytes(x, v, g, s, *kw.values()), flops,
                        x.dtype)
-    body = "wg" if on_wg else "tile"
+    body = "wg" if on_wg else "f32" if on_f32 else "tile"
     err = max(err_v, err_g / px, err_s / px)
     return dict(kernel=kernel, case=name, shape=[batch, h, w, c],
                 heads=heads, max_abs_err=err, dtype=str(x.dtype),
+                tile_ms=tile_ms, launch_ms=launches,
+                pw1_matmul_ms=matmul_ms,
                 rel_err=rel_v, rel_err_gram=rel_g, rel_err_norms=rel_s,
                 tol_rel=KERNEL_REL_TOL, tol_rel_stats=STATS_REL_TOL,
                 tol_abs_f32=F32_KERNEL_TOL,
@@ -2020,18 +2101,54 @@ def frame_size_cases(seed: int, h: int, w: int) -> list:
 
 
 def f32_cases(seed: int, h: int, w: int) -> list:
-    """The float32 forms of rows 1, 3, 4, 5 (with LayerNorm) and 6 at the
-    widths above 128 channels that the float32 paths give them (csrc/ffn.cu,
-    qkv_stats.cu, split_proj.cu, conv3x3.cu, chm_stats.cu; the LN halo in
-    device memory at C = 512): whole padded frames of (h, w), then 15 tiles
-    of 320. The first case of each is the one its row reports."""
+    """The float32 forms of rows 1 and 3 on their float32 bodies
+    (csrc/ffn_f32.cu, qkv_f32.cu; the old bodies' time beside each) at every
+    width the float32 paths give them, rows 4, 5 (with LayerNorm) and 6 at
+    the widths above 128 channels (split_proj.cu, conv3x3.cu, chm_stats.cu;
+    the LN halo in device memory at C = 512): whole padded frames of (h, w),
+    then 15 tiles of 320; then csrc/ffn.cu and csrc/qkv_stats.cu in float32,
+    forced, and row 5's convs without LayerNorm at the frame. The first case
+    of each row is the one the row reports."""
     inp = Inputs(seed + 7, torch.float32)
     cases = []
     for b, hh, ww, tag in ((1, h, w, ""),
                            (MAX_TILE_BATCH, TILE, TILE,
                             f", {MAX_TILE_BATCH} tiles")):
+        h2, w2 = hh // 2, ww // 2
         h3, w3, h4, w4 = hh // 4, ww // 4, hh // 8, ww // 8
         kw = dict(batch=b, iters=3)
+        # rows 1 and 3 at C = 128 and 64 (dec2, enc2; dec1, enc1, the
+        # refinement): their forms on the float32 bodies
+        narrow = [
+            lambda h2=h2, w2=w2, tag=tag, kw=kw: ffn_case(
+                inp, "float32 gate+pair+po(B,C,C) dec2" + tag, h2, w2, 128,
+                320, "gate", pair=True, po=True, **kw),
+            lambda h2=h2, w2=w2, tag=tag, kw=kw: ffn_case(
+                inp, "float32 gate + 4 stacked + 1 maps, po(B,C,C) each (CHM "
+                "dec2)" + tag, h2, w2, 128, 320, "gate", stacked=4, **kw),
+            lambda h2=h2, w2=w2, tag=tag, kw=kw: ffn_case(
+                inp, "float32 gelu+scale+ffw2 (enc2 RA+FFW)" + tag, h2, w2,
+                128, 256, "gelu", biases=True, scale=True, ffw2=True, **kw),
+            lambda hh=hh, ww=ww, tag=tag, kw=kw: ffn_case(
+                inp, "float32 gate+pair+po(B,C,C) dec1" + tag, hh, ww, 64, 160,
+                "gate", pair=True, po=True, **kw),
+            lambda hh=hh, ww=ww, tag=tag, kw=kw: ffn_case(
+                inp, "float32 gate + 3 stacked + 1 maps, po(B,C,C) each (CHM "
+                "dec1)" + tag, hh, ww, 64, 160, "gate", stacked=3, **kw),
+            lambda hh=hh, ww=ww, tag=tag, kw=kw: ffn_case(
+                inp, "float32 gate, no pair (refinement)" + tag, hh, ww, 64,
+                160, "gate", **kw),
+            lambda hh=hh, ww=ww, tag=tag, kw=kw: ffn_case(
+                inp, "float32 gelu+scale (refinement RA)" + tag, hh, ww, 64,
+                128, "gelu", biases=True, scale=True, **kw),
+            lambda hh=hh, ww=ww, tag=tag, kw=kw: ffn_case(
+                inp, "float32 gelu+scale+ffw2 (enc1 RA+FFW)" + tag, hh, ww, 64,
+                128, "gelu", biases=True, scale=True, ffw2=True, **kw),
+            lambda h2=h2, w2=w2, tag=tag, kw=kw: qkv_case(
+                inp, "float32 dec2" + tag, h2, w2, 128, 2, **kw),
+            lambda hh=hh, ww=ww, tag=tag, kw=kw: qkv_case(
+                inp, "float32 dec1" + tag, hh, ww, 64, 1, **kw),
+        ]
         cases += [
             lambda h3=h3, w3=w3, tag=tag, kw=kw: ffn_case(
                 inp, "float32 gate+pair+po(B,C,C) dec3/enc3" + tag, h3, w3,
@@ -2062,7 +2179,26 @@ def f32_cases(seed: int, h: int, w: int) -> list:
             lambda h3=h3, w3=w3, tag=tag, b=b: chm_case(
                 inp, "float32 dec3" + tag, h3, w3, 256, 4, 4, batch=b,
                 iters=2),
-        ]
+        ] + narrow
+    # csrc/ffn.cu and csrc/qkv_stats.cu in float32, forced (off the paths
+    # now; their checks against the plain versions stay), and row 5's convs
+    # without LayerNorm at the padded frame (8 of its 11 launches a frame)
+    h2, w2, h3, w3, h4, w4 = h // 2, w // 2, h // 4, w // 4, h // 8, w // 8
+    cases += [
+        lambda: ffn_case(inp, "float32 gate+pair+po(B,C,C) dec3/enc3 on "
+                         "ffn.cu", h3, w3, 256, 640, "gate", pair=True,
+                         po=True, iters=2, tile=True),
+        lambda: qkv_case(inp, "float32 enc3/dec3 on qkv_stats.cu", h3, w3,
+                         256, 4, iters=2, tile=True),
+    ] + [lambda a=a: conv_case(inp, "float32 " + a[0], *a[1:], iters=3)
+         for a in (("up4_3 512->1024", h4, w4, 512, 1024, False),
+                   ("up3_2 256->512", h3, w3, 256, 512, False),
+                   ("up2_1 128->256", h2, w2, 128, 256, False),
+                   ("down3_4 256->128", h3, w3, 256, 128, False),
+                   ("down2_3 128->64", h2, w2, 128, 64, False),
+                   ("down1_2 64->32", h, w, 64, 32, False),
+                   ("input 3->64", h, w, 3, 64, False),
+                   ("ending 64->3 +bias", h, w, 64, 3, True))]
     # under the fused plans: row 14 on level.cu at C = 256 and 512 (a
     # whole-frame run of each width, the latent's also at 15 tiles: the
     # halo's scratch of 49.9 and 78.0 MB), also against its split route;
@@ -3927,11 +4063,13 @@ def run_train_dist(yml: str, seed: int, width: int, height: int) -> dict:
 # ---------------------------------------------------------------------------
 
 
-# the kernels line's float32 rows: the row whose counters they read on the
-# float32 paths (every float32 launch of rows 1, 3, 4, 5, 6, 11, 13, 14 is
-# on the body widened for float32; row 1's calls there all have a depthwise
-# stage)
-F32_ROWS = {"ffn_f32": "ffn", "qkv_stats_f32": "qkv_stats",
+# the kernels line's float32 rows of the widened bodies: the row whose
+# counters they read on the float32 paths (every float32 launch of rows 4, 5,
+# 6, 11, 13, 14 is on the body widened for float32; rows 1 and 3 on
+# csrc/ffn.cu and csrc/qkv_stats.cu are those not on their float32 bodies,
+# none on the paths; row 1's calls there all have a depthwise stage)
+F32_NEW_BODY = {"ffn": "ffn_f32", "qkv_stats": "qkv_f32"}
+F32_ROWS = {"ffn_tile_f32": "ffn", "qkv_stats_f32": "qkv_stats",
             "split_proj_f32": "split_proj", "conv3x3_f32": "conv3x3",
             "chm_stats_f32": "chm_stats", "level_run_f32": "level_run",
             "attn_v_f32": "attn_v", "two_stage_f32": "two_stage"}
@@ -3947,7 +4085,8 @@ def kernel_rows(cases: list[dict], by_path: dict) -> list[dict]:
             base,)
         per_path = {p: sum(c[k] for k in counters) for p, c in by_path.items()}
         if name in F32_ROWS:
-            per_path = {p: n if p in F32_PATHS else 0
+            per_path = {p: (n - by_path[p].get(F32_NEW_BODY.get(base), 0)
+                            if p in F32_PATHS else 0)
                         for p, n in per_path.items()}
         if name == "ffn":  # ffn.cu's dw branch: not the wgmma or C = 64 body, dw
             per_path = {p: c["ffn"] - c["ffn_wg"] - c["ffn_c64"]
@@ -3986,7 +4125,7 @@ def kernel_rows(cases: list[dict], by_path: dict) -> list[dict]:
                                       "bit_equal_to_model_split",
                                       "bit_equal_to_row_7",
                                       "bit_equal_to_sab_cu", "graph_ms",
-                                      "f32_ms",
+                                      "f32_ms", "launch_ms", "pw1_matmul_ms",
                                       "host_ms", "dtype",
                                       "conv_only_library_ms") if k in c}
                    for c in mine]))
@@ -4023,7 +4162,8 @@ def main(argv=None) -> int:
                          "with torch.profiler: device time by kernel, idle "
                          "share")
     ap.add_argument("--cases", action="append", default=[],
-                    help="--phase kernels: only the cases whose "
+                    help="--phase kernels (or float32: its kernel cases "
+                         "alone, no paths): only the cases whose "
                          "'<kernel>: <case>' holds this text (no result "
                          "lines, no ok line)")
     ap.add_argument("--ptxas", action="store_true",
@@ -4031,8 +4171,8 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     global CASE_FILTER
     CASE_FILTER = tuple(args.cases) or ("",)
-    if args.cases and args.phase != "kernels":
-        ap.error("--cases takes --phase kernels")
+    if args.cases and args.phase not in ("kernels", "float32"):
+        ap.error("--cases takes --phase kernels or float32")
     width, height = (int(v) for v in args.size.lower().split("x"))
     t_script = time.perf_counter()
 
@@ -4149,7 +4289,7 @@ def main(argv=None) -> int:
             require(not bad, f"kernels disagree with their plain versions: "
                              f"{bad}")
             done("float32 kernel cases")
-        if args.phase in ("all", "float32"):
+        if args.phase in ("all", "float32") and not args.cases:
             # float32 serving: whole-frame (under fuse=() and the full
             # plan), tiled through the command line, the harness
             by_path.update(run_f32_paths(args.seed, width, height,
@@ -4169,8 +4309,8 @@ def main(argv=None) -> int:
             t0_chm = ("ffn", "ffn_wg", "ffn_c64", "qkv_wg", "split_wg",
                       "conv3x3", "chm_wg", "lattice_merge", "lattice_split")
             t1_chm = t0_chm + ("sab_wg", "split_c64")
-            f32_t0 = ("ffn", "qkv_stats", "split_proj", "conv3x3",
-                      "chm_stats", "lattice_merge", "lattice_split")
+            f32_t0 = ("ffn", "ffn_f32", "qkv_stats", "qkv_f32", "split_proj",
+                      "conv3x3", "chm_stats", "lattice_merge", "lattice_split")
             f32_t1 = f32_t0 + ("sab",)  # sab.cu at 256 x 256 and 192 x 192
             on_path = {
                 "gopro_t1_fhr": ("ffn", "ffn_wg", "ffn_c64", "qkv_wg",
@@ -4222,8 +4362,9 @@ def main(argv=None) -> int:
                 **dict.fromkeys(("bench_gopro_f32", "train_gopro_f32"),
                                 f32_t1),
                 "gopro_f32": f32_t1 + ("sab_f32",),
-                "gopro_f32_fused": ("ffn", "qkv_stats", "split_proj",
-                                    "conv3x3", "chm_stats", "lattice_split",
+                "gopro_f32_fused": ("ffn", "ffn_f32", "qkv_stats", "qkv_f32",
+                                    "split_proj", "conv3x3", "chm_stats",
+                                    "lattice_split",
                                     "sab", "sab_f32", "attn_v_merge",
                                     "level_run", "two_stage"),
                 "derain_tiled_f32": f32_t0,
@@ -4254,7 +4395,13 @@ def main(argv=None) -> int:
                 if path in F32_PATHS:
                     require(not any(c[k] for k in BF16_ONLY),
                             f"the {path} path launched a bf16-only body")
+                    require(c["ffn"] == c["ffn_f32"]
+                            and c["qkv_stats"] == c["qkv_f32"],
+                            f"the {path} path launched ffn.cu or qkv_stats.cu "
+                            "in float32")
                     continue
+                require(not c["ffn_f32"] and not c["qkv_f32"],
+                        f"the {path} path launched a float32 body")
                 require(c["ffn"] == c["ffn_wg"] + c["ffn_c64"]
                         + c["ffn_pw"] and c["split_proj"]
                         == c["split_wg"] + c["split_c64"],

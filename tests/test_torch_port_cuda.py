@@ -715,12 +715,15 @@ def _one_launch_on_the_tile_body(fn, before):
 
 @pytest.mark.parametrize("case", list(F32_WIDE_FFN_CASES)
                          + list(F32_WIDE_LIST_CASES))
-def test_ffn_float32_wide_matches_plain(dev, case):
+def test_ffn_float32_wide_matches_plain(dev, case, monkeypatch):
+    """csrc/ffn.cu's float32 forms up to C = 512, forced onto it (the plan
+    sends these calls to csrc/ffn_f32.cu: test_ffn_f32_body_matches_plain)."""
     m = Maker(21, torch.float32, dev)
     if case in F32_WIDE_LIST_CASES:
         x, kw = ffn_list_case(case, m, F32_WIDE_LIST_CASES)
     else:
         x, kw = ffn_kernel_case(case, m, F32_WIDE_FFN_CASES)
+    monkeypatch.setattr(K, "_ffn_plan", lambda *a: ("tile", None))
     got, moved = _one_launch_on_the_tile_body(
         lambda: K.fused_block_ffn(x, **kw), KP.launch_counts())
     assert moved == {"ffn": 1}
@@ -728,10 +731,14 @@ def test_ffn_float32_wide_matches_plain(dev, case):
 
 
 @pytest.mark.parametrize("shape", F32_WIDE_QKV_SHAPES, ids=str)
-def test_qkv_stats_float32_wide_matches_plain(dev, shape):
+def test_qkv_stats_float32_wide_matches_plain(dev, shape, monkeypatch):
+    """csrc/qkv_stats.cu's float32 form up to C = 512, forced onto it (the
+    plan sends 64 channels a head to csrc/qkv_f32.cu:
+    test_qkv_f32_body_matches_plain)."""
     b, h, w, c, heads, biases = shape
     x, kw = chain_kernel_case(Maker(22, torch.float32, dev), b, h, w, c,
                               3 * c, biases)
+    monkeypatch.setattr(K, "_qkv_plan", lambda *a: ("tile", None))
     got, moved = _one_launch_on_the_tile_body(
         lambda: K.fused_qkv_stats(x, heads=heads, **kw), KP.launch_counts())
     assert moved == {"qkv_stats": 1}
@@ -818,6 +825,123 @@ def test_float32_plans_mirror_the_sources(dev):
             K._split_f32_plan(1, 8, 8, c)["smem"]
         assert libs["conv3x3"].turtle_conv3x3_smem(c, 0) == \
             K._conv_f32_plan(1, 8, 8, c, 128, True)["smem"]
+
+
+# the float32 body of row 1 (csrc/ffn_f32.cu) in every form the float32
+# paths give it, on ragged maps and tile batches: (B, H, W, C, E, mode, pair,
+# po, biases, scale, ffw2, ln_bias) as FFN_KERNEL_CASES
+F32_BODY_FFN_CASES = {
+    "gate_pair_po_batched_c64_ragged": (2, 37, 53, 64, 160, "gate", True,
+                                        "batched", False, False, False, True),
+    "gate_pair_po_batched_c128_15_tiles": (15, 40, 40, 128, 320, "gate", True,
+                                           "batched", False, False, False,
+                                           True),
+    "gate_pair_po_batched_c256_8_tiles": (8, 20, 20, 256, 640, "gate", True,
+                                          "batched", False, False, False,
+                                          True),
+    "gate_pair_po_shared_po_b_c512": (2, 19, 27, 512, 1280, "gate", True,
+                                      "shared", True, False, False, True),
+    "gate_pair_no_po_fhr_c512": (1, 23, 40, 512, 1280, "gate", True, None,
+                                 False, False, False, True),
+    "gate_no_pair_c64_refinement": (1, 45, 37, 64, 160, "gate", False, None,
+                                    False, False, False, True),
+    "gelu_scale_biases_c64": (2, 37, 53, 64, 64, "gelu", False, None, True,
+                              True, False, True),
+    "gelu_scale_ffw2_c64": (2, 37, 53, 64, 64, "gelu", False, None, True,
+                            True, True, True),
+    "gelu_scale_ffw2_biasfree_ln_c128": (1, 19, 21, 128, 128, "gelu", False,
+                                         None, True, True, True, False),
+    "gate_no_pair_biasfree_ln_c512_e48": (1, 9, 17, 512, 48, "gate", False,
+                                          None, True, False, False, False),
+    "gelu_pair_po_c16_e20": (2, 11, 13, 16, 20, "gelu", True, "batched",
+                             True, True, False, True),
+}
+# lists (fields of FFN_LIST_CASES): the CHM calls at dec1, dec2, dec3 (a
+# stacked entry of 3 or 4 history maps and the current one), five single maps
+F32_BODY_LIST_CASES = {
+    "stack3_single_c64_ragged": (2, 37, 53, 64, 160, 3, 1, True, False, True),
+    "stack4_single_c128_15_tiles": (15, 40, 40, 128, 320, 4, 1, True, False,
+                                    True),
+    "stack4_single_c256_ragged": (1, 37, 53, 256, 640, 4, 1, True, False,
+                                  True),
+    "five_singles_po_b_shared_c256": (2, 19, 21, 256, 640, 0, 5, False, True,
+                                      False),
+}
+
+
+@pytest.mark.parametrize("case", list(F32_BODY_FFN_CASES)
+                         + list(F32_BODY_LIST_CASES))
+def test_ffn_f32_body_matches_plain(dev, case, monkeypatch):
+    """Row 1's float32 body against the plain version in float32 and
+    against csrc/ffn.cu's float32 form (forced) on the same inputs, both
+    within the float32 limit; its plan takes the call, one launch of the
+    wrapper, counted; two launches agree bit for bit."""
+    m = Maker(23, torch.float32, dev)
+    if case in F32_BODY_LIST_CASES:
+        x, kw = ffn_list_case(case, m, F32_BODY_LIST_CASES)
+    else:
+        x, kw = ffn_kernel_case(case, m, F32_BODY_FFN_CASES)
+    got, moved = _one_launch_on_the_tile_body(
+        lambda: K.fused_block_ffn(x, **kw), KP.launch_counts())
+    assert moved == {"ffn": 1, "ffn_f32": 1}
+    tol = KERNEL_TOL[torch.float32]
+    assert max_err(got, K.ffn_plain(x, **kw)) <= tol
+    again = K.fused_block_ffn(x, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    if len(K._x2_maps(kw.get("x2"))) <= 1 or x.shape[-1] <= 256:
+        monkeypatch.setattr(K, "_ffn_plan", lambda *a: ("tile", None))
+        old = K.fused_block_ffn(x, **kw)
+        torch.cuda.synchronize()
+        assert max_err(got, old) <= 2 * tol
+
+
+# (B, H, W, C, heads, biases): every width of the paths with 64 channels a
+# head, ragged maps, biases, tile batches of 15 and of a last 8
+F32_BODY_QKV_SHAPES = [(2, 37, 53, 64, 1, False), (1, 45, 83, 128, 2, True),
+                       (15, 20, 20, 256, 4, False), (8, 40, 40, 128, 2, False),
+                       (1, 19, 27, 512, 8, True), (2, 23, 40, 256, 4, True),
+                       (1, 3, 5, 512, 8, False)]
+
+
+@pytest.mark.parametrize("shape", F32_BODY_QKV_SHAPES, ids=str)
+def test_qkv_f32_body_matches_plain(dev, shape, monkeypatch):
+    """Row 3's float32 body against the plain version (the Grams and norms
+    over the pixels, as above) and against csrc/qkv_stats.cu's float32 form
+    (forced) on the same inputs; its plan takes the call; the fixed-order
+    sums repeat bit for bit."""
+    b, h, w, c, heads, biases = shape
+    x, kw = chain_kernel_case(Maker(24, torch.float32, dev), b, h, w, c,
+                              3 * c, biases)
+    got, moved = _one_launch_on_the_tile_body(
+        lambda: K.fused_qkv_stats(x, heads=heads, **kw), KP.launch_counts())
+    assert moved == {"qkv_stats": 1, "qkv_f32": 1}
+    want = K.qkv_stats_plain(x, heads=heads, **kw)
+    tol = KERNEL_TOL[torch.float32]
+    assert max_err(got[0], want[0]) <= tol
+    assert max_err(got[1] / (h * w), want[1] / (h * w)) <= tol
+    assert max_err(got[2] / (h * w), want[2] / (h * w)) <= tol
+    again = K.fused_qkv_stats(x, heads=heads, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b_) for a, b_ in zip(got, again))
+    monkeypatch.setattr(K, "_qkv_plan", lambda *a: ("tile", None))
+    old = K.fused_qkv_stats(x, heads=heads, **kw)
+    torch.cuda.synchronize()
+    assert max_err(got[0], old[0]) <= 2 * tol
+    assert max_err(got[1] / (h * w), old[1] / (h * w)) <= 2 * tol
+
+
+def test_f32_bodies_smem_mirror_the_sources(dev):
+    """The float32 bodies' plans give each source's static shared memory,
+    and the plans' launch geometry matches the products' tiles."""
+    from turtlevsr_tpu_torch.kernels import build
+
+    ffn, qkv = build.load("ffn_f32"), build.load("qkv_f32")
+    for c in (64, 128, 256, 512):
+        for n in (c, 2 * c, 5 * c // 2 * 2, 16, 48, 64, 80):
+            assert ffn.turtle_ffn_f32_smem(n) == K._fg_smem(n)
+        assert qkv.turtle_qkv_f32_smem(c) == K._qkv_f32_geometry(
+            1, 8, 8, c, c // 64)["smem"]
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])

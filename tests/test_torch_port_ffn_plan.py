@@ -187,7 +187,8 @@ def test_plan_keeps_the_other_calls_on_the_tile_body(change):
                 dtype=torch.bfloat16)
     assert K._ffn_plan(**args)[0] == "wg"
     c64 = dict(c=64, ch=320, e=160)
-    args.update({"float32": dict(dtype=torch.float32),
+    args.update({  # float32 outside csrc/ffn_f32.cu's forms: no dw
+                 "float32": dict(dtype=torch.float32, has_dw=False),
                  "no_dw": dict(has_dw=False),
                  # just outside the C = 64 body's forms (the serving forms:
                  # test_plan_sends_the_c64_forms_to_the_c64_body): the

@@ -6,10 +6,14 @@ width and runs one frame of a small map in float32 (the calls' widths and
 forms do not depend on H and W); every call of the five wrappers whose
 float32 bodies widen to C = 256 and 512 (rows 1, 3, 4, 5 and 6), and of row
 13 under ``two_stage``, is recorded and handed to its float32 plan
-(kernels/ffn.py ``_ffn_f32_plan`` and the others, kernels/chain2.py
+(rows 1 and 3: kernels/ffn.py ``_ffn_plan`` and ``_qkv_plan``, which send
+every float32 call of the paths to the float32 bodies of csrc/ffn_f32.cu
+and csrc/qkv_f32.cu, ``_ffn_f32_geometry`` and ``_qkv_f32_geometry``; the
+others ``_split_f32_plan`` and its neighbours, kernels/chain2.py
 ``_two_stage_f32_plan``, kernels/level.py ``_level_f32_plan``), mirrored
 from each source's dispatch: every call is taken, in at most the shared
-memory a block can have, with the LN halo in device memory at C = 512. The
+memory a block can have, with the LN halo in device memory at C = 512
+where a body keeps one. The
 frame runs under ``fuse=()``, ``two_stage`` and the full plan
 (``channel_runs``, ``attn_v_merge``, ``two_stage``: rows 14, 11 and 13 in
 float32). Row 14 takes float32 up to C = 512 and refuses wider maps with its
@@ -80,10 +84,14 @@ def _chip_smoke():
     spec.loader.exec_module(mod)
     return mod
 # the bodies whose LN halo lives in device memory above C = 256 in float32
-# (row 5's halo and two weight stages fit in shared memory at 512)
-HALO_IN_DEVICE_MEMORY_AT_512 = ("fused_block_ffn", "fused_qkv_stats",
-                                "fused_ln_split_proj", "fused_chm_stats",
+# (row 5's halo and two weight stages fit in shared memory at 512; rows 1
+# and 3's float32 bodies keep no halo: their LayerNorm is a product's
+# prologue)
+HALO_IN_DEVICE_MEMORY_AT_512 = ("fused_ln_split_proj", "fused_chm_stats",
                                 "fused_channel_gffw_run")
+# the wrappers whose every float32 call of the paths goes to a float32 body
+# of its own (csrc/ffn_f32.cu, csrc/qkv_f32.cu)
+ON_FLOAT32_BODIES = ("fused_block_ffn", "fused_qkv_stats")
 # the port's float32 engine against the JAX package's, whole frames through
 # the tiny model's blocks and convs in float32 (the tolerance of
 # tests/test_torch_port_slice.py's float32 engines)
@@ -130,9 +138,19 @@ def _f32_plan(name, args, kw):
     b, h, w, c = x.shape
     if name == "fused_block_ffn":
         f = kw["ffw2"]["w1"].shape[1] if kw.get("ffw2") is not None else 0
-        return K._ffn_f32_plan(b, h, w, c, len(K._x2_maps(kw.get("x2"))), f)
+        ch = kw["w1"].shape[1]
+        n_x2 = len(K._x2_maps(kw.get("x2")))
+        body, geo = K._ffn_plan(b, h, w, c, ch, ch // 2 if kw["mode"] == "gate"
+                                else ch, kw["mode"], n_x2,
+                                kw.get("po_w") is not None, False, f,
+                                kw.get("wd") is not None, torch.float32)
+        return (dict(geo, body=body) if body == "f32"
+                else dict(K._ffn_f32_plan(b, h, w, c, n_x2, f), body=body))
     if name == "fused_qkv_stats":
-        return K._qkv_f32_plan(b, h, w, c, kw["heads"])
+        body, geo = K._qkv_plan(b, h, w, c, kw["heads"],
+                                kw.get("b1") is not None, torch.float32)
+        return (dict(geo, body=body) if body == "f32"
+                else dict(K._qkv_f32_plan(b, h, w, c, kw["heads"]), body=body))
     if name == "fused_ln_split_proj":
         return K._split_f32_plan(b, h, w, c)
     if name == "fused_conv3x3":
@@ -192,6 +210,11 @@ def test_every_float32_call_is_taken_by_a_card_body(family, fuse):
         geo = _f32_plan(name, args, kw)
         c = args[0].shape[-1]
         assert geo["smem"] <= SMEM_LIMIT, (name, c)
+        if name in ON_FLOAT32_BODIES:
+            # no halo, no scratch of one slice a tile: the body's maps
+            # between its launches (h, a, x', the LN statistics)
+            assert geo["body"] == "f32", (name, c)
+            assert "halo" not in geo and geo["scratch"] > 0
         if name in HALO_IN_DEVICE_MEMORY_AT_512:
             # one slice a tile of the batch (row 14's persistent blocks walk
             # its `items` tiles; the others launch one block a tile)
@@ -310,8 +333,10 @@ def test_float32_wide_calls_pass_the_wrapper_checks(row, c, monkeypatch):
     """The launch code of each widened wrapper, on a float32 map at C = 256
     and 512, reaches its kernel's launch (stubbed here: one launch recorded)
     with the LN halo's scratch address last where the halo lives in device
-    memory, and null at C = 256. Before the bodies widened these calls were
-    refused with "up to 128"."""
+    memory, and null at C = 256; rows 1 and 3 reach their float32 bodies
+    (csrc/ffn_f32.cu, qkv_f32.cu) with the maps between their launches
+    last. Before the bodies widened these calls were refused with "up to
+    128"."""
     fake = _FakeLib()
     monkeypatch.setattr(K.build, "load", lambda name: fake)
     monkeypatch.setattr(K, "_stream", lambda x: 0)
@@ -346,10 +371,20 @@ def test_float32_wide_calls_pass_the_wrapper_checks(row, c, monkeypatch):
     assert len(fake.launches) == 1
     ptrs, _, is_bf16 = fake.launches[0]
     assert is_bf16 == 0
+    counts = KP.launch_counts()
+    if row == "1":  # x', h, a; no chained FFW (y, g); the LN statistics
+        assert len(ptrs) == 31
+        assert [p is not None for p in ptrs[25:]] == [True, True, True,
+                                                      False, False, True]
+        assert sum(counts.values()) == 2 and counts["ffn_f32"] == 1
+        return
+    if row == "3":  # the partial rows, h, the LN statistics
+        assert len(ptrs) == 11 and None not in ptrs[8:]
+        assert sum(counts.values()) == 2 and counts["qkv_f32"] == 1
+        return
     if tail is not None:  # the halo's scratch: the last address passed
         assert len(ptrs) == tail + 1
         assert (ptrs[tail] is not None) == (c > 256)
-    counts = KP.launch_counts()
     assert sum(counts.values()) == 1  # the wrapper's own count, no Hopper body
 
 

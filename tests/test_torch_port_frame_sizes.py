@@ -148,14 +148,16 @@ def _taken(name, args, kw, dtype) -> list:
         assert geo["smem"] <= SMEM_LIMIT, (name, x.shape)
     if name == "fused_block_ffn":
         body, geo = _ffn_body(x, kw, dtype)
-        extra = {"wg": ["ffn_wg"], "c64": ["ffn_c64"], "pw": ["ffn_pw"]}
+        extra = {"wg": ["ffn_wg"], "c64": ["ffn_c64"], "pw": ["ffn_pw"],
+                 "f32": ["ffn_f32"]}
         no_dw = ["ffn_no_dw"] if kw.get("wd") is None else []
         counters = ["ffn", *no_dw, *extra.get(body, [])]
     elif name == "fused_qkv_stats":
         body, geo = K._qkv_plan(*x.shape, kw["heads"],
                                 kw.get("b1") is not None
                                 or kw.get("bd") is not None, dtype)
-        counters = ["qkv_stats"] + (["qkv_wg"] if body == "wg" else [])
+        counters = ["qkv_stats"] + {"wg": ["qkv_wg"], "f32": ["qkv_f32"]}.get(
+            body, [])
     elif name == "fused_ln_split_proj":
         b, h, w, c = x.shape
         n_out = kw["n_out"]
@@ -199,6 +201,9 @@ def _taken(name, args, kw, dtype) -> list:
         body, geo, counters = "tile", None, [name]
     if geo is not None:
         assert geo["smem"] <= SMEM_LIMIT, (name, x.shape, body)
+    if f32 and name in ("fused_block_ffn", "fused_qkv_stats"):
+        # every float32 call of rows 1 and 3 on its float32 body
+        assert body == "f32", (name, x.shape)
     if not f32 and name not in ("fused_conv3x3", "lattice_split",
                                 "lattice_merge"):
         # every bf16 call of rows 1-4, 6 and 7 on a body designed for the

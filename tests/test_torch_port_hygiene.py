@@ -68,11 +68,11 @@ def test_port_has_the_expected_modules():
         assert want in rel, want
     from turtlevsr_tpu_torch.kernels import build
 
-    assert len(build.KERNEL_SOURCES) == 22
+    assert len(build.KERNEL_SOURCES) == 24
     # the framepack reader's own copy of its C++ source (built by g++)
     assert os.path.isfile(os.path.join(PORT, "data", "framepack.cc"))
     headers = ("common.cuh", "ffn_tile.cuh", "qkv_tile.cuh", "pipe.cuh",
-               "stats_wg.cuh", "c64_tile.cuh", "ffn_wg.cuh")
+               "stats_wg.cuh", "c64_tile.cuh", "ffn_wg.cuh", "f32_tile.cuh")
     for cu in (*headers, *(n + ".cu" for n in build.KERNEL_SOURCES)):
         assert os.path.isfile(os.path.join(PORT, "kernels", "csrc", cu)), cu
         assert cu in headers or cu[:-3] in build._SIGNATURES
@@ -337,7 +337,7 @@ def test_launch_counters_cover_every_wrapper():
                            "ffn_pw", "qkv_wg", "split_wg", "split_c64",
                            "chm_wg", "sab_wg", "level_wg", "two_stage",
                            "two_stage_wg", "sab_sparse_softmax", "sparse_wg",
-                           "sab_f32"}
+                           "sab_f32", "ffn_f32", "qkv_f32"}
     kernels.reset_launch_counts()
     assert set(kernels.launch_counts().values()) == {0}
 

@@ -309,7 +309,7 @@ def test_launch_counters_do_not_count_plain_runs():
         "ffn_wg": 0, "ffn_c64": 0, "ffn_pw": 0, "qkv_wg": 0, "split_wg": 0,
         "split_c64": 0, "chm_wg": 0, "sab_wg": 0, "level_wg": 0,
         "two_stage": 0, "two_stage_wg": 0, "sab_sparse_softmax": 0,
-        "sparse_wg": 0, "sab_f32": 0}
+        "sparse_wg": 0, "sab_f32": 0, "ffn_f32": 0, "qkv_f32": 0}
 
 
 def _no_dw(p):
@@ -475,9 +475,11 @@ def _refusals():
         "ffn_po_without_x2": (ffn_with(po_w=m(16, 16)), "po_w needs x2"),
         "ffn_width_not_16n": (ffn_with(m(1, 8, 8, 24)), "multiple of 16"),
         # float32 takes every width up to 512 since its bodies keep the LN
-        # halo in device memory above 256; lists of maps only up to 256
+        # halo in device memory above 256; lists of maps only up to 256 on
+        # csrc/ffn.cu (csrc/ffn_f32.cu takes the depthwise lists at 512:
+        # this one has no depthwise stage)
         "ffn_float32_wide": (
-            ffn_with(m(1, 8, 8, 512), x2=[m(1, 2, 8, 8, 512)],
+            ffn_with(m(1, 8, 8, 512), x2=[m(1, 2, 8, 8, 512)], wd=None,
                      po_w=[m(512, 512), m(512, 512)]),
             "lists of x2 maps up to C = 256"),
         "ffn_weight_of_other_type": (ffn_with(w2=m(32, 16).bfloat16()),

@@ -34,7 +34,9 @@ def launch_counts() -> dict:
     on the body of csrc/ffn_pw.cu, ``two_stage_wg`` and ``sparse_wg`` those
     of ``two_stage`` and ``sab_sparse_softmax`` on csrc/chain2_wg.cu and
     csrc/sparse_wg.cu, ``sab_f32`` those of ``sab`` on the float32 body of
-    csrc/sab_f32.cu."""
+    csrc/sab_f32.cu, ``ffn_f32`` and ``qkv_f32`` those of ``ffn`` and
+    ``qkv_stats`` on the float32 bodies of csrc/ffn_f32.cu and
+    csrc/qkv_f32.cu."""
     fns = _counted()
     counts = {name: fn.launches for name, fn in fns.items()}
     counts["ffn_no_dw"] = fns["ffn"].launches_no_dw
@@ -44,6 +46,8 @@ def launch_counts() -> dict:
     counts["two_stage_wg"] = fns["two_stage"].launches_wg
     counts["sparse_wg"] = fns["sab_sparse_softmax"].launches_wg
     counts["sab_f32"] = fns["sab"].launches_f32
+    counts["ffn_f32"] = fns["ffn"].launches_f32
+    counts["qkv_f32"] = fns["qkv_stats"].launches_f32
     for name in _WG_BODIES:
         counts[name.split("_")[0] + "_wg"] = fns[name].launches_wg
     return counts
@@ -65,5 +69,7 @@ def reset_launch_counts() -> None:
     fns["two_stage"].launches_wg = 0
     fns["sab_sparse_softmax"].launches_wg = 0
     fns["sab"].launches_f32 = 0
+    fns["ffn"].launches_f32 = 0
+    fns["qkv_stats"].launches_f32 = 0
     for name in _WG_BODIES:
         fns[name].launches_wg = 0

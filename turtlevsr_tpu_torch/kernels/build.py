@@ -19,7 +19,8 @@ import threading
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
-KERNEL_SOURCES = ("ffn", "ffn_wg", "ffn_c64", "ffn_pw", "qkv_stats", "qkv_wg",
+KERNEL_SOURCES = ("ffn", "ffn_wg", "ffn_c64", "ffn_pw", "ffn_f32", "qkv_stats",
+                  "qkv_wg", "qkv_f32",
                   "split_proj", "split_wg", "split_c64", "conv3x3", "chm_stats", "chm_wg",
                   "sab", "sab_wg", "sab_f32", "sparse_wg", "lattice", "level", "level_wg",
                   "attn_v", "chain2", "chain2_wg")
@@ -40,6 +41,10 @@ _SIGNATURES = {
                 "turtle_ffn_c64_smem": ([ctypes.c_int] * 5, ctypes.c_size_t)},
     "ffn_pw": {"turtle_ffn_pw_launch": (_LAUNCH_ARGS, ctypes.c_int),
                "turtle_ffn_pw_smem": ([ctypes.c_int], ctypes.c_size_t)},
+    "ffn_f32": {"turtle_ffn_f32_launch": (_LAUNCH_ARGS, ctypes.c_int),
+                "turtle_ffn_f32_smem": ([ctypes.c_int], ctypes.c_size_t)},
+    "qkv_f32": {"turtle_qkv_f32_launch": (_LAUNCH_ARGS, ctypes.c_int),
+                "turtle_qkv_f32_smem": ([ctypes.c_int], ctypes.c_size_t)},
     "qkv_stats": {"turtle_qkv_stats_launch": (_LAUNCH_ARGS, ctypes.c_int),
                   "turtle_qkv_stats_smem": ([ctypes.c_int] * 3,
                                             ctypes.c_size_t),

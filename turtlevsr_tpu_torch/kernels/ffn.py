@@ -17,7 +17,9 @@ Every wrapper counts its kernel launches in ``<wrapper>.launches``
 without a depthwise stage (``fused_block_ffn.launches_pw`` those of these on
 the body of csrc/ffn_pw.cu), ``fused_block_ffn.launches_wg`` those on the
 wgmma body of csrc/ffn_wg.cu, ``fused_block_ffn.launches_c64`` those on the
-C = 64 body of csrc/ffn_c64.cu; ``fused_qkv_stats.launches_wg`` and
+C = 64 body of csrc/ffn_c64.cu; ``fused_block_ffn.launches_f32`` and
+``fused_qkv_stats.launches_f32`` those on the float32 bodies of
+csrc/ffn_f32.cu and csrc/qkv_f32.cu; ``fused_qkv_stats.launches_wg`` and
 ``fused_chm_stats.launches_wg`` those of the statistics on the wgmma body of
 csrc/stats_wg.cuh (qkv_wg.cu, chm_wg.cu); ``fused_ln_split_proj.launches_wg``
 and ``.launches_c64`` those of the split projection on the wgmma body of
@@ -453,6 +455,104 @@ def _conv_f32_plan(b, h, w, cin, cout, ln: bool):
                 * -(-cout // _CV_BN), smem=halo if tiled else gather)
 
 
+# the float32 bodies of rows 1 and 3 (csrc/ffn_f32.cu, csrc/qkv_f32.cu on
+# csrc/f32_tile.cuh): the product tile (128 rows a block, 128 columns, or 64
+# for outputs of at most 64 channels; two stages of 8 rows of K, the A stage
+# k-major in rows of 132 floats, the rows' LayerNorm statistics), the taps'
+# blocks of row 1 (16 pixels x 64 channels, 4 rows a thread) and row 3's Gram
+# tile (4 x 16 pixels, 64 channels a head), mirrored from the sources (a
+# card test holds the shared memory equal)
+_FG_NT, _FG_BM, _FG_BK, _FG_AS, _FG_LN_MAX_K = 256, 128, 8, 132, 512
+_DW_TX, _DW_RT, _QG_TH, _QG_TW, _QG_CT = 16, 4, 4, 16, 64
+
+
+def _fg_bn(n: int) -> int:
+    return 64 if n <= 64 else 128
+
+
+def _fg_smem(n: int) -> int:
+    """Static shared memory of a product block with n output columns."""
+    return (2 * _FG_BK * _FG_AS + 2 * _FG_BK * _fg_bn(n)) * _F32
+
+
+def _fg_blocks(b: int, m: int, n: int) -> int:
+    return b * -(-m // _FG_BM) * -(-n // _fg_bn(n))
+
+
+def _ffn_f32_form(c, ch, e, mode, n_x2, has_po, f, has_dw) -> bool:
+    """Whether a float32 call has the form of csrc/ffn_f32.cu: a depthwise
+    stage, C a multiple of 16 up to 512, E a multiple of 4, up to 5 x2 maps
+    (several only with their po), the chained FFW's F a multiple of 16."""
+    return (has_dw and mode in ("gate", "gelu") and c % 16 == 0
+            and 16 <= c <= _FG_LN_MAX_K and e % 4 == 0 and e >= 4
+            and ch == (2 * e if mode == "gate" else e)
+            and 0 <= n_x2 <= _MAX_X2 and (n_x2 <= 1 or has_po)
+            and (not f or f % 16 == 0))
+
+
+def _ffn_f32_geometry(b, h, w, c, ch, e, mode, n_x2, has_po, f, has_dw):
+    """The launches of one float32 fused_block_ffn call on csrc/ffn_f32.cu,
+    mirrored from turtle_ffn_f32_launch: (the x' product with po,) pw1 with
+    the LayerNorm, the taps, pw2 (, the chained FFW's two products); each
+    launch's blocks, the largest static shared memory, and the scratch the
+    wrapper allocates (floats: x' with po, h, a, and y, g with the chained
+    FFW). Raises ValueError, naming the body and its forms, for a call it
+    does not take."""
+    if not _ffn_f32_form(c, ch, e, mode, n_x2, has_po, f, has_dw):
+        raise _f32_plan_error(
+            "fused_block_ffn", "csrc/ffn_f32.cu", "calls with a depthwise "
+            "stage, C a multiple of 16 up to 512, E a multiple of 4, up to 5 "
+            "x2 maps (several with their po), F a multiple of 16",
+            f"C={c}, E={e}, {n_x2} maps, po={has_po}, F={f}, dw={has_dw}")
+    m = h * w
+    gemms = ([("x'", c, n_x2 * c)] if has_po else []) + [
+        ("pw1", ch, c), ("pw2", c, e)] + (
+        [("ffw1", f, c), ("ffw2", c, f)] if f else [])
+    launches = {name: _fg_blocks(b, m, n) for name, n, _ in gemms}
+    for name in ("pw1", "ffw1") if f else ("pw1",):  # the rows' statistics
+        launches[name + " LN"] = b * -(-m // (_FG_NT // 32))
+    launches["taps"] = (-(-w // _DW_TX) * -(-h // _DW_RT) * b
+                        * -(-e // 64))
+    px = b * m
+    scratch = px * ((c if has_po else 0) + ch + e + (c + f if f else 0) + 2)
+    return dict(launches=launches, blocks=sum(launches.values()),
+                smem=max(_fg_smem(n) for _, n, _ in gemms), scratch=scratch)
+
+
+def _qkv_f32_form(c, heads) -> bool:
+    """Whether a float32 fused_qkv_stats call has the form of
+    csrc/qkv_f32.cu: 64 channels a head, C up to 512."""
+    return c == _QG_CT * heads and 64 <= c <= _FG_LN_MAX_K
+
+
+def _qkv_f32_grid(b, h, w, heads, n_sm):
+    """Blocks a head and batch entry of row 3's Gram kernel: about two
+    blocks an SM in all, at most one a tile of 4 x 16 pixels."""
+    tiles = -(-h // _QG_TH) * -(-w // _QG_TW)
+    return max(1, min(tiles, -(-2 * n_sm // (heads * b))))
+
+
+def _qkv_f32_geometry(b, h, w, c, heads, n_sm: int = 132):
+    """The launches of one float32 fused_qkv_stats call on csrc/qkv_f32.cu,
+    mirrored from turtle_qkv_f32_launch: pw1 with the LayerNorm into h (B,
+    H, W, 3C), then the Gram kernel's grid of G x heads x B blocks, each
+    writing its head's part of one partial row (G rows a batch entry); the
+    largest static shared memory and the scratch h (floats). Raises
+    ValueError, naming the body and its forms, for a call it does not
+    take."""
+    if not _qkv_f32_form(c, heads):
+        raise _f32_plan_error("fused_qkv_stats", "csrc/qkv_f32.cu",
+                              "maps of 64 channels a head, C up to 512",
+                              f"C={c}, heads={heads}")
+    g = _qkv_f32_grid(b, h, w, heads, n_sm)
+    launches = {"pw1 LN": b * -(-h * w // (_FG_NT // 32)),
+                "pw1": _fg_blocks(b, h * w, 3 * c), "gram": g * heads * b}
+    return dict(launches=launches, blocks=sum(launches.values()), rows=g,
+                smem=max(_fg_smem(3 * c),
+                         (2 * _QG_TH * _QG_TW + 30) * _QG_CT * _F32),
+                scratch=b * h * w * (3 * c + 2))
+
+
 def _halo_scratch(geo, x: torch.Tensor):
     """The device-memory LN halo of a float32 plan, None where the halo lives
     in shared memory (the caller holds it until the launch is queued; the
@@ -627,15 +727,22 @@ def _ffn_plan(b, h, w, c, ch, e, mode, n_x2, has_po, po_batched, f, has_dw,
     ReducedAttn+FFW blocks; each measured faster there than on csrc/ffn.cu,
     PERF.md row 1). The body of
     csrc/ffn_pw.cu takes the bf16 calls without a depthwise stage in its
-    form (:func:`_pw_form`: gopro_enc3_ffw's FFW passes at enc3). Everything
-    else goes to csrc/ffn.cu: every float32 call (float32 serving; its
+    form (:func:`_pw_form`: gopro_enc3_ffw's FFW passes at enc3). The
+    float32 body of csrc/ffn_f32.cu, ("f32", geometry), takes the float32
+    calls in its forms (:func:`_ffn_f32_form`: every float32 call of the
+    paths; :func:`_ffn_f32_geometry`). Everything else goes to csrc/ffn.cu:
+    the other float32 calls (no depthwise stage, E not a multiple of 4; its
     limits are :func:`_ffn_f32_plan`'s), other widths and forms; its shared
-    memory refuses bf16 lists at C = 512 (no path has them). The geometry: the
-    output tiles, their count, the activation columns of a chunk, the ring
-    stages and the shared memory; for the persistent bodies (C = 64, no
+    memory refuses bf16 lists at C = 512 (no path has them). The geometry:
+    the output tiles, their count, the activation columns of a chunk, the
+    ring stages and the shared memory; for the persistent bodies (C = 64, no
     depthwise stage) also the grid's blocks (one an SM, n_sm of them at
     most)."""
     del po_batched  # every body takes a shared or a per-batch matrix
+    if dtype == torch.float32 and _ffn_f32_form(c, ch, e, mode, n_x2, has_po,
+                                                f, has_dw):
+        return "f32", _ffn_f32_geometry(b, h, w, c, ch, e, mode, n_x2,
+                                        has_po, f, has_dw)
     if dtype != torch.bfloat16:
         return "tile", None
     if not has_dw:
@@ -698,9 +805,9 @@ def _ffn_launch(x, x2, po_w, po_b, ln_w, ln_b, w1, b1, wd, bd, w2, b2, scale,
               _check("ffw2.w2", ffw2["w2"], x, (f, c)),
               _check("ffw2.b2", ffw2["b2"], x, (c,)),
               _check("ffw2.scale", ffw2["scale"], x, (c,))]
-    halo = None  # float32's LN halo in device memory
-    if x.dtype == torch.float32:  # raises before any launch if not taken
-        halo = _halo_scratch(_ffn_f32_plan(b, h, w, c, n_x2, f), x)
+    if x.dtype == torch.float32 and not _ffn_f32_form(
+            c, ch, e, mode, n_x2, po is not None, f, wd is not None):
+        _ffn_f32_plan(b, h, w, c, n_x2, f)  # csrc/ffn.cu's limits: raises
     out = torch.empty_like(x)
     ptrs = [
         _check("x", x, x), _check("po_w", po, x),
@@ -713,9 +820,22 @@ def _ffn_launch(x, x2, po_w, po_b, ln_w, ln_b, w1, b1, wd, bd, w2, b2, scale,
     body, geo = _ffn_plan(b, h, w, c, ch, e, mode, n_x2, po is not None,
                           po_batched, f, wd is not None, x.dtype,
                           _sm_count(x.device))
+    halo = None  # float32's LN halo in device memory (csrc/ffn.cu)
+    if x.dtype == torch.float32 and body == "tile":
+        halo = _halo_scratch(_ffn_f32_plan(b, h, w, c, n_x2, f), x)
     ints = [b, h, w, c, ch, e, f, int(mode == "gate"), int(po_batched), n_x2,
             *x2_strides]
-    if body == "wg":  # its shared memory fits by construction (_wg_smem)
+    if body == "f32":  # x', h, a (and y, g): the body's maps between launches
+        def scratch(width, on=True):
+            return (torch.empty((b, h, w, width), dtype=x.dtype,
+                                device=x.device) if on else None)
+        maps = [scratch(c, po is not None), scratch(ch), scratch(e),
+                scratch(c, f > 0), scratch(f, f > 0), scratch(2)]
+        _call(build.load("ffn_f32").turtle_ffn_f32_launch,
+              ptrs + [None if m is None else m.data_ptr() for m in maps],
+              ints, x, "fused_block_ffn")
+        fused_block_ffn.launches_f32 += 1
+    elif body == "wg":  # its shared memory fits by construction (_wg_smem)
         _call(build.load("ffn_wg").turtle_ffn_wg_launch, ptrs, ints, x,
               "fused_block_ffn")
         fused_block_ffn.launches_wg += 1
@@ -746,8 +866,8 @@ def fused_block_ffn(x, *, x2=None, po_w=None, po_b=None, ln_w, ln_b=None,
 
     Replaces ``fused_block_ffn`` of turtlevsr_tpu/kernels/ffn.py, both its
     dw branch and (``wd=None``: no depthwise stage) its no-dw branch; on an
-    H100 bound by operations at C >= 128 and by bytes at C = 64. Four
-    kernels, chosen by shape before the launch (:func:`_ffn_plan`): the
+    H100 bound by operations at C >= 128 and by bytes at C = 64. Five
+    bodies, chosen by shape before the launch (:func:`_ffn_plan`): the
     wgmma body of csrc/ffn_wg.cu for bf16 calls with a depthwise stage,
     C = 128, 256 or 512 and a hidden width E that is a multiple of 32 (at
     most one x2 map; or a list of maps in gate mode at C = 128, 256; or
@@ -761,9 +881,14 @@ def fused_block_ffn(x, *, x2=None, po_w=None, po_b=None, ln_w, ln_b=None,
     csrc/ffn_pw.cu (a persistent grid over tiles of 128 pixels, the weights
     through a TMA ring, wgmma, no halo) for bf16 calls without a depthwise
     stage in gelu mode, C = 128 or 256, F = 2C, no x2 map or one with its
-    po (``fused_block_ffn.launches_pw`` counts them); the mma.sync body of
-    csrc/ffn.cu for every other call (float32 serving up to C = 512, other
-    forms). A call is one launch either way.
+    po (``fused_block_ffn.launches_pw`` counts them); the float32 body of
+    csrc/ffn_f32.cu (f32_tile.cuh's register-blocked products on the CUDA
+    cores, the LayerNorm as pw1's prologue, the hidden map through device
+    memory once) for float32 calls with a depthwise stage, C a multiple of
+    16 up to 512 and E a multiple of 4 (``fused_block_ffn.launches_f32``);
+    the mma.sync body of csrc/ffn.cu for every other call (other float32
+    and bf16 forms). A call is one launch of the wrapper either way (the
+    float32 body's are 3-6 CUDA launches).
     x2: optional second addend map (the attention branch); po_w (C, C) or
     per batch (B, C, C) and po_b: optional projection applied to x2 in the
     kernel. x2 may also be a list of up to 5 maps, an entry being a map or
@@ -789,6 +914,7 @@ fused_block_ffn.launches_no_dw = 0  # those of them without a depthwise stage
 fused_block_ffn.launches_wg = 0  # those of them on the wgmma body (ffn_wg.cu)
 fused_block_ffn.launches_c64 = 0  # those of them on the C = 64 body (ffn_c64.cu)
 fused_block_ffn.launches_pw = 0  # those without dw on the body of ffn_pw.cu
+fused_block_ffn.launches_f32 = 0  # those on the float32 body, ffn_f32.cu
 
 
 # ---------------------------------------------------------------------------
@@ -867,11 +993,16 @@ def _sw_geometry(b, h, w, c, chm, n_sm):
 def _qkv_plan(b, h, w, c, heads, has_bias, dtype, n_sm: int = 132):
     """The body of one fused_qkv_stats call, chosen by its shape: ("wg",
     geometry) for the wgmma body of csrc/qkv_wg.cu (bf16, C in 64 / 128 /
-    256 / 512, 64 channels a head, no b1 or bd: the shipped form),
-    else ("tile", None) for the mma.sync body of csrc/qkv_stats.cu. The
-    geometry: 8 x 8 tiles, the persistent grid (one block an SM, n_sm of
-    them at most), the partial rows of a batch entry, the ring stages and
-    the shared memory."""
+    256 / 512, 64 channels a head, no b1 or bd: the shipped form), ("f32",
+    geometry) for the float32 body of csrc/qkv_f32.cu (float32, 64 channels
+    a head, C up to 512, biases or not: every float32 call of the paths;
+    :func:`_qkv_f32_geometry`), else ("tile", None) for the mma.sync body of
+    csrc/qkv_stats.cu (its float32 limits are :func:`_qkv_f32_plan`'s). The
+    wgmma body's geometry: 8 x 8 tiles, the persistent grid (one block an
+    SM, n_sm of them at most), the partial rows of a batch entry, the ring
+    stages and the shared memory."""
+    if dtype == torch.float32 and _qkv_f32_form(c, heads):
+        return "f32", _qkv_f32_geometry(b, h, w, c, heads, n_sm)
     if (dtype != torch.bfloat16 or has_bias or c not in _QKV_WG_WIDTHS
             or c != 64 * heads):
         return "tile", None
@@ -908,10 +1039,19 @@ def _qkv_stats_launch(x, ln_w, ln_b, w1, b1, wd, bd, heads):
             _check("bd", bd, x, (3 * c,)), v.data_ptr()]
     body, geo = _qkv_plan(b, h, w, c, heads, b1 is not None or bd is not None,
                           x.dtype, _sm_count(x.device))
-    halo = None  # float32's LN halo in device memory
-    if x.dtype == torch.float32:  # raises before any launch if not taken
+    halo = None  # float32's LN halo in device memory (csrc/qkv_stats.cu)
+    if x.dtype == torch.float32 and body == "tile":  # raises if not taken
         halo = _halo_scratch(_qkv_f32_plan(b, h, w, c, heads), x)
-    if body == "wg":  # its shared memory fits by construction (_sw_smem)
+    if body == "f32":  # G partial rows a batch entry, h between the launches
+        part = torch.empty((b, geo["rows"], width), dtype=torch.float32,
+                           device=x.device)
+        hid = torch.empty((b, h, w, 3 * c), dtype=x.dtype, device=x.device)
+        stats = torch.empty((b, h, w, 2), dtype=x.dtype, device=x.device)
+        _call(build.load("qkv_f32").turtle_qkv_f32_launch,
+              ptrs + [part.data_ptr(), hid.data_ptr(), stats.data_ptr()],
+              [b, h, w, c, heads, geo["rows"]], x, "fused_qkv_stats")
+        fused_qkv_stats.launches_f32 += 1
+    elif body == "wg":  # its shared memory fits by construction (_sw_smem)
         part = torch.zeros((b, geo["rows"], width), dtype=torch.float32,
                            device=x.device)
         _call(build.load("qkv_wg").turtle_qkv_wg_launch,
@@ -944,12 +1084,14 @@ def fused_qkv_stats(x, *, ln_w, ln_b=None, w1, b1=None, wd, bd=None,
     side by side.
 
     Replaces ``fused_qkv_stats`` in turtlevsr_tpu/kernels/ffn.py; bound by
-    operations on an H100. Two kernels, chosen by shape before the launch
+    operations on an H100. Three bodies, chosen by shape before the launch
     (:func:`_qkv_plan`): the wgmma body of csrc/qkv_wg.cu for bf16 calls with
     64 channels a head, C = 64, 128, 256 or 512 and no b1 or bd
-    (``fused_qkv_stats.launches_wg`` counts them), csrc/qkv_stats.cu for
-    every other call; either way one launch and a fixed-order sum of partial
-    rows, bitwise repeatable. Only the per-head diagonal blocks of that
+    (``fused_qkv_stats.launches_wg`` counts them), the float32 body of
+    csrc/qkv_f32.cu for float32 calls with 64 channels a head, C up to 512
+    (``fused_qkv_stats.launches_f32``), csrc/qkv_stats.cu for every other
+    call; either way one launch of the wrapper and a fixed-order sum of
+    partial rows, bitwise repeatable. Only the per-head diagonal blocks of that
     kernel's (C, C) Gram are computed: the attention reads nothing else."""
     if x.device.type == "cpu":
         return qkv_stats_plain(x, ln_w=ln_w, ln_b=ln_b, w1=w1, b1=b1, wd=wd,
@@ -960,6 +1102,7 @@ def fused_qkv_stats(x, *, ln_w, ln_b=None, w1, b1=None, wd, bd=None,
 
 fused_qkv_stats.launches = 0
 fused_qkv_stats.launches_wg = 0  # those of them on the wgmma body (qkv_wg.cu)
+fused_qkv_stats.launches_f32 = 0  # those on the float32 body (qkv_f32.cu)
 
 
 # ---------------------------------------------------------------------------
