@@ -16,7 +16,7 @@ tiled stream under each plan, with torch.profiler.)
 Phases, one JSON object per line on standard output:
 
   device   the card's name and power limit as nvidia-smi gives them
-  build    nvcc builds the twenty-four sources of turtlevsr_tpu_torch/kernels/csrc
+  build    nvcc builds the twenty-six sources of turtlevsr_tpu_torch/kernels/csrc
   kernels  each kernel's wrapper against its plain PyTorch version on the
            card at the shapes the 720p serving paths give it (bf16), whole
            padded frames and chunks of 15 tiles alike: errors beside the
@@ -47,11 +47,15 @@ Phases, one JSON object per line on standard output:
            device time at the whole frame, launch_ms), of rows 4, 5 (with
            LayerNorm) and 6 at C = 256 and 512, whole frames and 15 tiles,
            on their mma.sync bodies (the LN halo in device memory at C =
-           512), csrc/ffn.cu and qkv_stats.cu in float32 (forced), row 5's
-           eight convs without LayerNorm at the frame (beside F.conv2d, TF32
-           off), and of rows 14 (level.cu at C = 256 and 512,
-           also against its split route), 11 (dec3's whole frame) and 13
-           (the enc1 and enc2 pairs' whole frame, also against its split
+           512), csrc/ffn.cu and qkv_stats.cu in float32 (forced), rows 5
+           and 11 on their float32 bodies (csrc/conv_f32.cu: the eight convs
+           without LayerNorm at the frame beside F.conv2d, TF32 off, and the
+           LayerNorm forms of dec3, dec2, dec1; csrc/attn_v_f32.cu at dec3's,
+           dec2's and dec1's whole frame beside torch.matmul; each beside the
+           old body's time on the same inputs, tile_ms), conv3x3.cu's and
+           attn_v.cu's float tiles (forced), and of rows 14 (level.cu at C =
+           256 and 512, also against its split route), 13 (the enc1 and
+           enc2 pairs' whole frame, also against its split
            route), against the plain versions in float32 (TF32 off) at the
            card tests' float32 limits, bound by float32 FMA; row 7 in
            float32 at the CHM levels of the padded 720p frame (3680 keys),
@@ -309,6 +313,7 @@ TASKS = {"gopro": "deblur", "derain": "derain", "sr": "sr",
 # split_proj.cu has none.
 _NONE = {"attn_v_slots": 0, "attn_v_merge": 0, "level_run": 0, "level_wg": 0,
          "ffn_no_dw": 0, "sab_f32": 0, "ffn_f32": 0, "qkv_f32": 0,
+         "conv3x3_f32": 0, "attn_v_f32": 0,
          "ffn_pw": 0, "two_stage": 0, "two_stage_wg": 0,
          "sab_sparse_softmax": 0, "sparse_wg": 0}
 _GOPRO = {"ffn": 51, "ffn_wg": 43, "ffn_c64": 8, "qkv_stats": 34,
@@ -341,8 +346,10 @@ LAUNCHES_PER_CALL = {
     "sr_two_stage": {**_GOPRO, **_NONE, **_TWO_STAGE},
 }
 # float32 serving (InferenceEngine(dtype=torch.float32), --dtype float32):
-# the same calls a model call, every one of rows 1 and 3 on its float32 body
-# (csrc/ffn_f32.cu, qkv_f32.cu: kernels/ffn.py _ffn_plan, _qkv_plan), rows 4
+# the same calls a model call, every one of rows 1, 3 and 5 on its float32
+# body (csrc/ffn_f32.cu, qkv_f32.cu, conv_f32.cu: kernels/ffn.py _ffn_plan,
+# _qkv_plan, _conv_plan), under the full plan row 11 on csrc/attn_v_f32.cu
+# (kernels/sab.py _attn_v_plan), rows 4
 # and 6 on their mma.sync bodies (split_proj.cu, chm_stats.cu, widened to C
 # = 256 and 512), row 7 on csrc/sab_f32.cu at a whole frame
 # (its grid of at least one block an SM; kernels/sab.py _sab_plan) and on
@@ -361,14 +368,16 @@ FULL_PLAN = ("channel_runs", "attn_v_merge", "two_stage")
 LAUNCHES_PER_CALL_F32 = {
     config: {**LAUNCHES_PER_CALL[config], **dict.fromkeys(BF16_ONLY, 0),
              "ffn_f32": LAUNCHES_PER_CALL[config]["ffn"],
-             "qkv_f32": LAUNCHES_PER_CALL[config]["qkv_stats"]}
+             "qkv_f32": LAUNCHES_PER_CALL[config]["qkv_stats"],
+             "conv3x3_f32": LAUNCHES_PER_CALL[config]["conv3x3"]}
     for config in ("gopro", "derain")}
 LAUNCHES_PER_CALL_F32["gopro_small"] = dict(LAUNCHES_PER_CALL_F32["gopro"])
 LAUNCHES_PER_CALL_F32["gopro"]["sab_f32"] = 3
 LAUNCHES_PER_CALL_F32["gopro_fused"] = {
     **LAUNCHES_PER_CALL_F32["gopro"], "ffn": 6, "qkv_stats": 1, "ffn_f32": 6,
     "qkv_f32": 1,
-    "level_run": 4, "attn_v_merge": 3, "lattice_merge": 0, "two_stage": 6}
+    "level_run": 4, "attn_v_merge": 3, "attn_v_f32": 3, "lattice_merge": 0,
+    "two_stage": 6}
 # the float32 paths: `gopro` whole-frame (4 frames: the 3-frame rings
 # wrap), the same under the full plan, `derain` tiled through cli.infer.main
 # at its preset (24 tiles, 3 frames), cli.bench.main --dtype float32 at 256
@@ -655,8 +664,16 @@ KERNEL_INFO = {
                 "turtlevsr_tpu/kernels/ffn.py:2024"),
     "qkv_f32": ("turtlevsr_tpu_torch/kernels/csrc/qkv_f32.cu",
                 "turtlevsr_tpu/kernels/ffn.py:985"),
+    # rows 5 and 11 in float32 on their float32 bodies (csrc/f32_tile.cuh's
+    # hooked product: the conv as an implicit GEMM, attention @ v with the
+    # merge as its store): every float32 call of the paths (kernels/ffn.py
+    # _conv_plan, kernels/sab.py _attn_v_plan)
+    "conv3x3_f32": ("turtlevsr_tpu_torch/kernels/csrc/conv_f32.cu",
+                    "turtlevsr_tpu/kernels/ffn.py:1622"),
+    "attn_v_f32": ("turtlevsr_tpu_torch/kernels/csrc/attn_v_f32.cu",
+                   "turtlevsr_tpu/kernels/sab.py:223"),
     # the float32 forms of rows 1, 3, 4, 5 and 6 on their mma.sync bodies,
-    # widened to C = 256 and 512 for float32 serving (rows 1 and 3 off the
+    # widened to C = 256 and 512 for float32 serving (rows 1, 3 and 5 off the
     # paths now: their cases force the old body); their launches are those
     # of the float32 paths (F32_PATHS), which the rows above do not count
     "ffn_tile_f32": ("turtlevsr_tpu_torch/kernels/csrc/ffn.cu",
@@ -665,16 +682,17 @@ KERNEL_INFO = {
                       "turtlevsr_tpu/kernels/ffn.py:985"),
     "split_proj_f32": ("turtlevsr_tpu_torch/kernels/csrc/split_proj.cu",
                        "turtlevsr_tpu/kernels/ffn.py:1732"),
-    "conv3x3_f32": ("turtlevsr_tpu_torch/kernels/csrc/conv3x3.cu",
-                    "turtlevsr_tpu/kernels/ffn.py:1622"),
+    "conv3x3_tile_f32": ("turtlevsr_tpu_torch/kernels/csrc/conv3x3.cu",
+                         "turtlevsr_tpu/kernels/ffn.py:1622"),
     "chm_stats_f32": ("turtlevsr_tpu_torch/kernels/csrc/chm_stats.cu",
                       "turtlevsr_tpu/kernels/ffn.py:1267"),
     # rows 14, 11 and 13 in float32 (under the fused plans), on level.cu
-    # (widened to C = 256 and 512), attn_v.cu's float tile and chain2.cu
+    # (widened to C = 256 and 512), attn_v.cu's float tile (off the paths
+    # now: its case forces it) and chain2.cu
     "level_run_f32": ("turtlevsr_tpu_torch/kernels/csrc/level.cu",
                       "turtlevsr_tpu/kernels/level.py:315"),
-    "attn_v_f32": ("turtlevsr_tpu_torch/kernels/csrc/attn_v.cu",
-                   "turtlevsr_tpu/kernels/sab.py:223"),
+    "attn_v_tile_f32": ("turtlevsr_tpu_torch/kernels/csrc/attn_v.cu",
+                        "turtlevsr_tpu/kernels/sab.py:223"),
     "two_stage_f32": ("turtlevsr_tpu_torch/kernels/csrc/chain2.cu",
                       "turtlevsr_tpu/kernels/chain2.py:308"),
 }
@@ -1053,8 +1071,14 @@ def split_case(inp: Inputs, name, h, w, c, n_out, iters=5, batch=1,
 
 
 def conv_case(inp: Inputs, name, h, w, cin, cout, bias, iters=5, ln=False,
-              batch=1):
-    kernel = ("conv3x3_f32" if inp.dtype == torch.float32 else "conv3x3")
+              batch=1, tile=False):
+    """Row 5 at one shape: in float32 on the body its plan gives
+    (csrc/conv_f32.cu, kernel "conv3x3_f32", conv3x3.cu's float tile's time
+    on the same inputs beside it, tile_ms) or forced onto conv3x3.cu's
+    float tile (tile: kernel "conv3x3_tile_f32"); in bf16 on conv3x3.cu."""
+    f32 = inp.dtype == torch.float32
+    kernel = ("conv3x3_tile_f32" if tile else "conv3x3_f32") if f32 \
+        else "conv3x3"
     if skipped(kernel, name):
         return None
     x = inp(batch, h, w, cin)
@@ -1062,10 +1086,22 @@ def conv_case(inp: Inputs, name, h, w, cin, cout, bias, iters=5, ln=False,
     bb = inp(cout, scale=0.2) if bias else None
     lnk = dict(ln_w=1.0 + inp(cin, scale=0.2),
                ln_b=inp(cin, scale=0.2)) if ln else {}
-    got = K.fused_conv3x3(x, wt, bb, **lnk)
+    old = (lambda: forced_body(K, "_conv_plan", OLD_PLAN)) if tile else (
+        contextlib.nullcontext)
+    f32_before = K.fused_conv3x3.launches_f32
+    with old():
+        got = K.fused_conv3x3(x, wt, bb, **lnk)
     torch.cuda.synchronize()
+    require((K.fused_conv3x3.launches_f32 > f32_before) == (
+        f32 and not tile), f"{kernel}: {name} ran on another body")
     want = K.conv3x3_plain(x, wt, bb, **lnk)
     err, rel = rel_err(got, want)
+    del want
+    fn = lambda: K.fused_conv3x3(x, wt, bb, **lnk)  # noqa: E731
+    extra = {}
+    if f32 and not tile:  # the old body on the same inputs
+        extra = dict(tile_ms=timed_in(
+            lambda: forced_body(K, "_conv_plan", OLD_PLAN), fn, 2))
     # the library's call for the same function: cuDNN through F.conv2d on
     # the same NHWC memory (channels_last), in the map's type (float32: TF32
     # off, as the script sets); timed here, used nowhere. With the LayerNorm
@@ -1086,10 +1122,10 @@ def conv_case(inp: Inputs, name, h, w, cin, cout, bias, iters=5, ln=False,
                 max_abs_err=err, rel_err=rel, tol_rel=KERNEL_REL_TOL,
                 tol_abs_f32=F32_KERNEL_TOL,
                 ok=within(err, rel, x, KERNEL_REL_TOL),
-                ms=cuda_ms(lambda: K.fused_conv3x3(x, wt, bb, **lnk), iters),
+                ms=timed_in(old, fn, iters),
                 plain_ms=cuda_ms(lambda: K.conv3x3_plain(x, wt, bb, **lnk),
                                  2, 1),
-                library_ms=lib, bound_ms=b_ms, bound_by=b_by)
+                library_ms=lib, bound_ms=b_ms, bound_by=b_by, **extra)
 
 
 def chm_case(inp: Inputs, name, h, w, c, heads, nf, iters=3, batch=1,
@@ -1362,12 +1398,17 @@ def lattice_case(inp: Inputs, name, h, w, c, ws, n, merge: bool, iters=5):
                 graph_ms=graph_ms(fn), host_ms=host_ms(fn))
 
 
-def attn_v_case(inp: Inputs, name, b, nf, hq, wq, ws, c, merge=True, iters=5):
+def attn_v_case(inp: Inputs, name, b, nf, hq, wq, ws, c, merge=True, iters=5,
+                tile=False):
     """Attention @ v at the shape a CHM block gives it: nf - 1 ring positions
     (views of one buffer, as the cache stores them) and the current frame's
     values. library: torch.matmul per position and, for the merge, the
-    library's permuted copy."""
-    kernel = "attn_v_f32" if inp.dtype == torch.float32 else "attn_v"
+    library's permuted copy. float32: on csrc/attn_v_f32.cu (attn_v.cu's
+    float tile's time on the same inputs beside it, tile_ms), or forced onto
+    attn_v.cu (tile: kernel "attn_v_tile_f32")."""
+    f32 = inp.dtype == torch.float32
+    kernel = ("attn_v_tile_f32" if tile else "attn_v_f32") if f32 \
+        else "attn_v"
     if skipped(kernel, name):
         return None
     hw, d, h, w = hq * wq, ws * ws * c, hq * ws, wq * ws
@@ -1383,11 +1424,23 @@ def attn_v_case(inp: Inputs, name, b, nf, hq, wq, ws, c, merge=True, iters=5):
     else:
         fn = lambda: S.sab_attn_v_slots(a, vs, c)  # noqa: E731
         plain = lambda: S.attn_v_slots_plain(a, vs, c)  # noqa: E731
-    got = fn()
+    old = (lambda: forced_body(S, "_attn_v_plan", OLD_PLAN)) if tile else (
+        contextlib.nullcontext)
+    f32_before = S.sab_attn_v_merge.launches_f32 + \
+        S.sab_attn_v_slots.launches_f32
+    with old():
+        got = fn()
     torch.cuda.synchronize()
+    require((S.sab_attn_v_merge.launches_f32 + S.sab_attn_v_slots.launches_f32
+             > f32_before) == (f32 and not tile),
+            f"{kernel}: {name} ran on another body")
     want = plain()
     err, rel = rel_err(got, want)
     del want
+    extra = {}
+    if f32 and not tile:  # the old body on the same inputs
+        extra = dict(tile_ms=timed_in(
+            lambda: forced_body(S, "_attn_v_plan", OLD_PLAN), fn, 1))
     a4 = a.reshape(b, nf, hw, hw)
     tok = torch.empty(b, nf, hw, d, device="cuda", dtype=inp.dtype)
 
@@ -1410,9 +1463,9 @@ def attn_v_case(inp: Inputs, name, b, nf, hq, wq, ws, c, merge=True, iters=5):
                 max_abs_err=err,
                 rel_err=rel, tol_rel=ATTN_V_REL_TOL,
                 ok=ok and bool(torch.isfinite(got.float()).all()),
-                ms=cuda_ms(fn, iters), plain_ms=cuda_ms(plain, 1, 0),
+                ms=timed_in(old, fn, iters), plain_ms=cuda_ms(plain, 1, 0),
                 library_ms=cuda_ms(library, iters), bound_ms=b_ms,
-                bound_by=b_by)
+                bound_by=b_by, **extra)
 
 
 def run_inputs(inp: Inputs, b, h, w, c, heads, n_blocks):
@@ -2100,17 +2153,40 @@ def frame_size_cases(seed: int, h: int, w: int) -> list:
     return cases
 
 
+def row5_shapes(h: int, w: int) -> list:
+    """Row 5's 11 calls of a model call on a padded (h, w) map: (name, h, w,
+    Cin, Cout, bias, LayerNorm) of the eight convs without LayerNorm and the
+    three LayerNorm forms of the CHM blocks' v chain."""
+    h2, w2, h3, w3, h4, w4 = h // 2, w // 2, h // 4, w // 4, h // 8, w // 8
+    return [("up4_3 512->1024", h4, w4, 512, 1024, False, False),
+            ("up3_2 256->512", h3, w3, 256, 512, False, False),
+            ("up2_1 128->256", h2, w2, 128, 256, False, False),
+            ("down3_4 256->128", h3, w3, 256, 128, False, False),
+            ("down2_3 128->64", h2, w2, 128, 64, False, False),
+            ("down1_2 64->32", h, w, 64, 32, False, False),
+            ("input 3->64", h, w, 3, 64, False, False),
+            ("ending 64->3 +bias", h, w, 64, 3, True, False),
+            ("LN + composite v dec3 256->256", h3, w3, 256, 256, False, True),
+            ("LN + composite v dec2 128->128", h2, w2, 128, 128, False, True),
+            ("LN + composite v dec1 64->64", h, w, 64, 64, False, True)]
+
+
 def f32_cases(seed: int, h: int, w: int) -> list:
-    """The float32 forms of rows 1 and 3 on their float32 bodies
-    (csrc/ffn_f32.cu, qkv_f32.cu; the old bodies' time beside each) at every
-    width the float32 paths give them, rows 4, 5 (with LayerNorm) and 6 at
-    the widths above 128 channels (split_proj.cu, conv3x3.cu, chm_stats.cu;
-    the LN halo in device memory at C = 512): whole padded frames of (h, w),
-    then 15 tiles of 320; then csrc/ffn.cu and csrc/qkv_stats.cu in float32,
-    forced, and row 5's convs without LayerNorm at the frame. The first case
-    of each row is the one the row reports."""
+    """The float32 forms of rows 1, 3 and 5 on their float32 bodies
+    (csrc/ffn_f32.cu, qkv_f32.cu, conv_f32.cu; the old bodies' time beside
+    each) at every width the float32 paths give them (row 5 with LayerNorm
+    at dec3, dec2, dec1), rows 4 and 6 at the widths above 128 channels
+    (split_proj.cu, chm_stats.cu; the LN halo in device memory at C = 512):
+    whole padded frames of (h, w), then 15 tiles of 320, row 5's convs
+    without LayerNorm first; then csrc/ffn.cu, csrc/qkv_stats.cu and
+    conv3x3.cu's float tile in float32, forced, and the fused plans' rows
+    14, 11 (csrc/attn_v_f32.cu, attn_v.cu's float tile forced) and 13. The
+    first case of each row is the one the row reports."""
     inp = Inputs(seed + 7, torch.float32)
-    cases = []
+    # row 5's convs without LayerNorm at the padded frame (8 of its 11
+    # launches a frame) on csrc/conv_f32.cu, first: the row reports up4_3
+    cases = [lambda a=a: conv_case(inp, "float32 " + a[0], *a[1:-1], iters=3)
+             for a in row5_shapes(h, w) if not a[-1]]
     for b, hh, ww, tag in ((1, h, w, ""),
                            (MAX_TILE_BATCH, TILE, TILE,
                             f", {MAX_TILE_BATCH} tiles")):
@@ -2176,13 +2252,34 @@ def f32_cases(seed: int, h: int, w: int) -> list:
             lambda h3=h3, w3=w3, tag=tag, kw=kw: conv_case(
                 inp, "float32 LN + composite v dec3 256->256" + tag, h3, w3,
                 256, 256, False, ln=True, **kw),
+            lambda h2=h2, w2=w2, tag=tag, kw=kw: conv_case(
+                inp, "float32 LN + composite v dec2 128->128" + tag, h2, w2,
+                128, 128, False, ln=True, **kw),
+            lambda hh=hh, ww=ww, tag=tag, kw=kw: conv_case(
+                inp, "float32 LN + composite v dec1 64->64" + tag, hh, ww, 64,
+                64, False, ln=True, **kw),
             lambda h3=h3, w3=w3, tag=tag, b=b: chm_case(
                 inp, "float32 dec3" + tag, h3, w3, 256, 4, 4, batch=b,
                 iters=2),
         ] + narrow
-    # csrc/ffn.cu and csrc/qkv_stats.cu in float32, forced (off the paths
-    # now; their checks against the plain versions stay), and row 5's convs
-    # without LayerNorm at the padded frame (8 of its 11 launches a frame)
+    # row 5 at the other shapes the float32 paths give it, each beside the
+    # old tile on the same inputs (tile_ms): the derain preset's 15 tiles of
+    # 320 (the LayerNorm forms are above), the harness's 256 x 256, the
+    # train step's 2 x 192 x 192 and the padded 1920x1080 frame
+    for b, hh, ww, tag in ((MAX_TILE_BATCH, TILE, TILE,
+                            f", {MAX_TILE_BATCH} tiles"),
+                           (1, 256, 256, ", 256 x 256"),
+                           (2, 192, 192, ", 2 x 192 x 192"),
+                           (1, 1088, 1920, ", 1080p")):
+        shapes = row5_shapes(hh, ww)
+        if b == MAX_TILE_BATCH:
+            shapes = [a for a in shapes if not a[-1]]
+        cases += [lambda a=a, b=b, tag=tag: conv_case(
+            inp, "float32 " + a[0] + tag, *a[1:-1], ln=a[-1], batch=b,
+            iters=2) for a in shapes]
+    # csrc/ffn.cu, csrc/qkv_stats.cu and conv3x3.cu's float tile in float32,
+    # forced (off the paths now; their checks against the plain versions
+    # stay), at the padded frame
     h2, w2, h3, w3, h4, w4 = h // 2, w // 2, h // 4, w // 4, h // 8, w // 8
     cases += [
         lambda: ffn_case(inp, "float32 gate+pair+po(B,C,C) dec3/enc3 on "
@@ -2190,20 +2287,16 @@ def f32_cases(seed: int, h: int, w: int) -> list:
                          po=True, iters=2, tile=True),
         lambda: qkv_case(inp, "float32 enc3/dec3 on qkv_stats.cu", h3, w3,
                          256, 4, iters=2, tile=True),
-    ] + [lambda a=a: conv_case(inp, "float32 " + a[0], *a[1:], iters=3)
-         for a in (("up4_3 512->1024", h4, w4, 512, 1024, False),
-                   ("up3_2 256->512", h3, w3, 256, 512, False),
-                   ("up2_1 128->256", h2, w2, 128, 256, False),
-                   ("down3_4 256->128", h3, w3, 256, 128, False),
-                   ("down2_3 128->64", h2, w2, 128, 64, False),
-                   ("down1_2 64->32", h, w, 64, 32, False),
-                   ("input 3->64", h, w, 3, 64, False),
-                   ("ending 64->3 +bias", h, w, 64, 3, True))]
+        lambda: conv_case(inp, "float32 LN + composite v dec3 256->256 on "
+                          "conv3x3.cu", h3, w3, 256, 256, False, ln=True,
+                          iters=2, tile=True),
+    ]
     # under the fused plans: row 14 on level.cu at C = 256 and 512 (a
     # whole-frame run of each width, the latent's also at 15 tiles: the
     # halo's scratch of 49.9 and 78.0 MB), also against its split route;
-    # row 11 at dec3's whole frame; row 13 at the enc1 and enc2 pairs' whole
-    # frame, also against its split route
+    # row 11 at dec3's, dec2's and dec1's whole frame on csrc/attn_v_f32.cu
+    # and at dec3's on attn_v.cu's float tile (forced); row 13 at the enc1
+    # and enc2 pairs' whole frame, also against its split route
     tb, tl = MAX_TILE_BATCH, TILE
     (s3, c3, heads3, n3), (s4, c4, heads4, n4) = (RUN_LEVELS["enc3"],
                                                   RUN_LEVELS["latent"])
@@ -2218,6 +2311,13 @@ def f32_cases(seed: int, h: int, w: int) -> list:
                          n4, iters=1),
         lambda: attn_v_case(inp, "float32 merge dec3, whole frame", 1, 4,
                             h // 16, w // 16, 4, 256, iters=3),
+        lambda: attn_v_case(inp, "float32 merge dec2, whole frame", 1, 4,
+                            h // 16, w // 16, 8, 128, iters=2),
+        lambda: attn_v_case(inp, "float32 merge dec1, whole frame", 1, 3,
+                            h // 16, w // 16, 16, 64, iters=2),
+        lambda: attn_v_case(inp, "float32 merge dec3, whole frame on "
+                            "attn_v.cu", 1, 4, h // 16, w // 16, 4, 256,
+                            iters=2, tile=True),
         lambda: two_stage_case(inp, "float32 enc1 pair", "pair", 1, h, w, 64,
                                128, 128, iters=2),
         lambda: two_stage_case(inp, "float32 enc2 pair", "pair", 1, h // 2,
@@ -4064,15 +4164,17 @@ def run_train_dist(yml: str, seed: int, width: int, height: int) -> dict:
 
 
 # the kernels line's float32 rows of the widened bodies: the row whose
-# counters they read on the float32 paths (every float32 launch of rows 4, 5,
-# 6, 11, 13, 14 is on the body widened for float32; rows 1 and 3 on
-# csrc/ffn.cu and csrc/qkv_stats.cu are those not on their float32 bodies,
-# none on the paths; row 1's calls there all have a depthwise stage)
-F32_NEW_BODY = {"ffn": "ffn_f32", "qkv_stats": "qkv_f32"}
+# counters they read on the float32 paths (every float32 launch of rows 4,
+# 6, 13, 14 is on the body widened for float32; rows 1, 3, 5 and 11 on
+# csrc/ffn.cu, qkv_stats.cu, conv3x3.cu and attn_v.cu are those not on their
+# float32 bodies, none on the paths; row 1's calls there all have a
+# depthwise stage)
+F32_NEW_BODY = {"ffn": "ffn_f32", "qkv_stats": "qkv_f32",
+                "conv3x3": "conv3x3_f32", "attn_v": "attn_v_f32"}
 F32_ROWS = {"ffn_tile_f32": "ffn", "qkv_stats_f32": "qkv_stats",
-            "split_proj_f32": "split_proj", "conv3x3_f32": "conv3x3",
+            "split_proj_f32": "split_proj", "conv3x3_tile_f32": "conv3x3",
             "chm_stats_f32": "chm_stats", "level_run_f32": "level_run",
-            "attn_v_f32": "attn_v", "two_stage_f32": "two_stage"}
+            "attn_v_tile_f32": "attn_v", "two_stage_f32": "two_stage"}
 
 
 def kernel_rows(cases: list[dict], by_path: dict) -> list[dict]:
@@ -4310,7 +4412,8 @@ def main(argv=None) -> int:
                       "conv3x3", "chm_wg", "lattice_merge", "lattice_split")
             t1_chm = t0_chm + ("sab_wg", "split_c64")
             f32_t0 = ("ffn", "ffn_f32", "qkv_stats", "qkv_f32", "split_proj",
-                      "conv3x3", "chm_stats", "lattice_merge", "lattice_split")
+                      "conv3x3", "conv3x3_f32", "chm_stats", "lattice_merge",
+                      "lattice_split")
             f32_t1 = f32_t0 + ("sab",)  # sab.cu at 256 x 256 and 192 x 192
             on_path = {
                 "gopro_t1_fhr": ("ffn", "ffn_wg", "ffn_c64", "qkv_wg",
@@ -4354,19 +4457,20 @@ def main(argv=None) -> int:
                                       "chm_wg", "sab_wg", "lattice_split",
                                       "lattice_merge", "attn_v_merge",
                                       "level_run", "level_wg"),
-                # float32 serving: the widened mma.sync bodies of rows 1, 3,
-                # 4, 5 and 6, row 7 (`gopro`: sab_f32.cu at whole frames,
-                # sab.cu at 256 x 256 and 192 x 192) and the lattice pair;
-                # under the full plan also level.cu, attn_v.cu and chain2.cu
+                # float32 serving: the float32 bodies of rows 1, 3 and 5,
+                # the widened mma.sync bodies of rows 4 and 6, row 7
+                # (`gopro`: sab_f32.cu at whole frames, sab.cu at 256 x 256
+                # and 192 x 192) and the lattice pair; under the full plan
+                # also level.cu, attn_v_f32.cu and chain2.cu
                 # (and no lattice merge); the float32 train step, its forward
                 **dict.fromkeys(("bench_gopro_f32", "train_gopro_f32"),
                                 f32_t1),
                 "gopro_f32": f32_t1 + ("sab_f32",),
                 "gopro_f32_fused": ("ffn", "ffn_f32", "qkv_stats", "qkv_f32",
-                                    "split_proj", "conv3x3", "chm_stats",
-                                    "lattice_split",
+                                    "split_proj", "conv3x3", "conv3x3_f32",
+                                    "chm_stats", "lattice_split",
                                     "sab", "sab_f32", "attn_v_merge",
-                                    "level_run", "two_stage"),
+                                    "attn_v_f32", "level_run", "two_stage"),
                 "derain_tiled_f32": f32_t0,
                 # frames other than 1280x720: as `gopro` and the tiled
                 # deblur stream; float32 with row 7 on sab_f32.cu
@@ -4396,11 +4500,15 @@ def main(argv=None) -> int:
                     require(not any(c[k] for k in BF16_ONLY),
                             f"the {path} path launched a bf16-only body")
                     require(c["ffn"] == c["ffn_f32"]
-                            and c["qkv_stats"] == c["qkv_f32"],
-                            f"the {path} path launched ffn.cu or qkv_stats.cu "
-                            "in float32")
+                            and c["qkv_stats"] == c["qkv_f32"]
+                            and c["conv3x3"] == c["conv3x3_f32"]
+                            and c["attn_v_merge"] + c["attn_v_slots"]
+                            == c["attn_v_f32"],
+                            f"the {path} path launched ffn.cu, qkv_stats.cu, "
+                            "conv3x3.cu or attn_v.cu in float32")
                     continue
-                require(not c["ffn_f32"] and not c["qkv_f32"],
+                require(not any(c[k] for k in ("ffn_f32", "qkv_f32",
+                                               "conv3x3_f32", "attn_v_f32")),
                         f"the {path} path launched a float32 body")
                 require(c["ffn"] == c["ffn_wg"] + c["ffn_c64"]
                         + c["ffn_pw"] and c["split_proj"]

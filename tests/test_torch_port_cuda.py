@@ -765,8 +765,13 @@ def test_split_proj_float32_wide_matches_plain(dev, shape):
 
 
 @pytest.mark.parametrize("shape", F32_WIDE_CONV_LN_SHAPES, ids=str)
-def test_conv3x3_float32_wide_with_layernorm_matches_plain(dev, shape):
+def test_conv3x3_float32_wide_with_layernorm_matches_plain(dev, shape,
+                                                          monkeypatch):
+    """csrc/conv3x3.cu's float32 LayerNorm form up to Cin = 512, forced onto
+    it (the plan sends float32 calls to csrc/conv_f32.cu:
+    test_conv_f32_body_matches_plain)."""
     b, h, w, cin, cout, bias, ln_bias = shape
+    monkeypatch.setattr(K, "_conv_plan", lambda *a: ("tile", None))
     m = Maker(24, torch.float32, dev)
     x = m(b, h, w, cin)
     wt = m(3, 3, cin, cout, scale=(9 * cin) ** -0.5)
@@ -942,6 +947,145 @@ def test_f32_bodies_smem_mirror_the_sources(dev):
             assert ffn.turtle_ffn_f32_smem(n) == K._fg_smem(n)
         assert qkv.turtle_qkv_f32_smem(c) == K._qkv_f32_geometry(
             1, 8, 8, c, c // 64)["smem"]
+
+
+# the float32 body of row 5 (csrc/conv_f32.cu): (B, H, W, Cin, Cout, bias, LN
+# (None: none; True / False: with / without ln_b)). The paths' shapes at a
+# padded 720p frame (the wide convs, the LayerNorm forms of dec3, dec2 and
+# dec1, the narrow ends), then the edges: Cin = 3 and 16, Cout = 3, 5, 24,
+# 40, the LayerNorm with and without its bias at Cin = 64-512, a ragged
+# 731x1273 frame, batches of 15 and 8 tiles
+F32_BODY_CONV_CASES = {
+    "up4_3_512_1024": (1, 92, 160, 512, 1024, False, None),
+    "up3_2_256_512": (1, 184, 320, 256, 512, False, None),
+    "up2_1_128_256": (1, 368, 640, 128, 256, False, None),
+    "down3_4_256_128": (1, 184, 320, 256, 128, False, None),
+    "down2_3_128_64": (1, 368, 640, 128, 64, False, None),
+    "down1_2_64_32": (1, 736, 1280, 64, 32, False, None),
+    "input_3_64": (1, 736, 1280, 3, 64, False, None),
+    "ending_64_3_bias": (1, 736, 1280, 64, 3, True, None),
+    "ln_v_dec3_256": (1, 184, 320, 256, 256, False, True),
+    "ln_v_dec2_128": (1, 368, 640, 128, 128, False, True),
+    "ln_v_dec1_64": (1, 736, 1280, 64, 64, False, True),
+    "cin3_cout40_bias": (2, 37, 53, 3, 40, True, None),
+    "cin16_cout5_bias": (2, 37, 53, 16, 5, True, None),
+    "cin16_cout24": (1, 45, 37, 16, 24, False, None),
+    "cin3_cout3": (1, 19, 27, 3, 3, False, None),
+    "ln_no_bias_512_200": (2, 19, 27, 512, 200, True, False),
+    "ln_bias_64_5": (1, 23, 29, 64, 5, True, True),
+    "ln_no_bias_128_40": (2, 23, 29, 128, 40, False, False),
+    "ragged_731x1273_64_24": (1, 731, 1273, 64, 24, False, None),
+    "ragged_731x1273_64_5_bias": (1, 731, 1273, 64, 5, True, None),
+    "ragged_91x157_512_1000_bias": (1, 91, 157, 512, 1000, True, None),
+    "tiles_15_of_80_256_512": (15, 80, 80, 256, 512, False, None),
+    "tiles_8_of_40_512_1024": (8, 40, 40, 512, 1024, False, None),
+    "tiles_15_ln_v_80_256": (15, 80, 80, 256, 256, False, True),
+    "tiles_8_of_320_64_3_bias": (8, 320, 320, 64, 3, True, None),
+}
+
+
+def _conv_f32_inputs(m, b, h, w, cin, cout, bias, ln):
+    x = m(b, h, w, cin)
+    wt = m(3, 3, cin, cout, scale=(9 * cin) ** -0.5)
+    bb = m(cout) if bias else None
+    kw = {} if ln is None else dict(ln_w=1.0 + 0.2 * m(cin),
+                                    ln_b=m(cin) if ln else None)
+    return x, wt, bb, kw
+
+
+@pytest.mark.parametrize("case", list(F32_BODY_CONV_CASES))
+def test_conv_f32_body_matches_plain(dev, case, monkeypatch):
+    """Row 5's float32 body against the plain version in float32: its plan
+    takes the call, one launch of the wrapper, counted; two launches agree
+    bit for bit; where csrc/conv3x3.cu's float tile takes the call (forced)
+    the two agree within twice the limit. The cases take every tile kind
+    of the product that row 5's plan gives (the ring, 128 x 128, 128 x 64,
+    256 x 32, 64 x 64) and the narrow body."""
+    b, h, w, cin, cout, bias, ln = F32_BODY_CONV_CASES[case]
+    x, wt, bb, kw = _conv_f32_inputs(Maker(31, torch.float32, dev), b, h, w,
+                                     cin, cout, bias, ln)
+    got, moved = _one_launch_on_the_tile_body(
+        lambda: K.fused_conv3x3(x, wt, bb, **kw), KP.launch_counts())
+    assert moved == {"conv3x3": 1, "conv3x3_f32": 1}
+    assert got.shape == (b, h, w, cout)
+    tol = KERNEL_TOL[torch.float32]
+    want = K.conv3x3_plain(x, wt, bb, **kw)
+    assert max_err(got, want) <= tol
+    again = K.fused_conv3x3(x, wt, bb, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    del want
+    monkeypatch.setattr(K, "_conv_plan", lambda *a: ("tile", None))
+    if b * h * w <= 400_000:
+        old = K.fused_conv3x3(x, wt, bb, **kw)
+        torch.cuda.synchronize()
+        assert max_err(got, old) <= 2 * tol
+
+
+# row 11's float32 body (csrc/attn_v_f32.cu): fields of ATTN_V_KERNEL_SHAPES
+# (B, NF, hh, ww, ws, C, ring). One to five value tensors, as ring views with
+# their own batch strides or tensors of their own; HW not a multiple of the
+# block's rows (221, 47) and off the 16-byte grid; slot width c = 8; the
+# paths' whole-frame shapes at dec3, dec2, dec1 (D = 4096, 8192, 16384) and a
+# 15-tile batch at dec3
+F32_BODY_AV_CASES = {
+    "nf1_hw221_c8": (1, 1, 13, 17, 2, 8, False),
+    "nf2_ring_hw47_c8": (2, 2, 1, 47, 1, 8, True),
+    "nf3_ring_hw400_c16": (1, 3, 20, 20, 4, 16, True),
+    "nf4_own_hw221_c40": (2, 4, 13, 17, 2, 40, False),
+    "nf5_ring_hw160_c64": (1, 5, 10, 16, 2, 64, True),
+    "dec3_whole_frame": (1, 4, 46, 80, 4, 256, True),
+    "dec2_whole_frame": (1, 4, 46, 80, 8, 128, True),
+    "dec1_whole_frame_d16384": (1, 3, 46, 80, 16, 64, True),
+    "dec3_15_tiles": (15, 4, 20, 20, 4, 256, True),
+}
+
+
+@pytest.mark.parametrize("case", list(F32_BODY_AV_CASES))
+def test_attn_v_f32_body_matches_plain(dev, case, monkeypatch):
+    """Row 11's float32 body (and row 10's epilogue on it) against the plain
+    versions in float32: its plan takes both wrappers' calls, counted; the
+    merge is the lattice merge of the slots bit for bit; two launches agree
+    bit for bit; csrc/attn_v.cu's float tile (forced) agrees within twice
+    the limit."""
+    b, nf, hh, ww, ws, c, ring = F32_BODY_AV_CASES[case]
+    a, vs = attn_v_kernel_case(Maker(32, torch.float32, dev), *(
+        F32_BODY_AV_CASES[case]))
+    h, w = hh * ws, ww * ws
+    before = KP.launch_counts()
+    maps = S.sab_attn_v_merge(a, vs, ws, h, w)
+    torch.cuda.synchronize()
+    after = KP.launch_counts()
+    assert {k: after[k] - before[k] for k in after if after[k] != before[k]
+            } == {"attn_v_merge": 1, "attn_v_f32": 1}
+    tol = KERNEL_TOL[torch.float32]
+    want = S.attn_v_merge_plain(a, vs, ws, h, w)
+    assert max_err(maps, want) <= tol
+    assert torch.equal(maps, S.sab_attn_v_merge(a, vs, ws, h, w))
+    if hh * ww * ws * ws * c <= 2 ** 24:
+        slots = S.sab_attn_v_slots(a, vs, c)
+        tok = slots.permute(0, 2, 1, 3).reshape(b * nf, hh * ww, -1)
+        assert torch.equal(maps, L.lattice_merge_plain(tok, ws, h, w))
+        del slots, tok
+    monkeypatch.setattr(S, "_attn_v_plan", lambda *a: ("tile", None))
+    old = S.sab_attn_v_merge(a, vs, ws, h, w)
+    torch.cuda.synchronize()
+    assert max_err(maps, old) <= 2 * tol
+
+
+def test_conv_av_f32_smem_mirror_the_sources(dev):
+    """The plans of rows 5 and 11's float32 bodies give each source's
+    dynamic shared memory: the narrow body and every tile kind of the
+    product (kernels/ffn.py _FP_KINDS)."""
+    from turtlevsr_tpu_torch.kernels import build
+
+    conv, av = build.load("conv_f32"), build.load("attn_v_f32")
+    assert conv.turtle_conv_f32_smem(0, 0) == K._conv_f32_geometry(
+        1, 8, 8, 64, 3, False)["smem"]
+    for kind, (kid, *_) in K._FP_KINDS.items():
+        assert conv.turtle_conv_f32_smem(1, kid) == K._fp_smem(kind), kind
+    assert av.turtle_attn_v_f32_smem() == S._attn_v_f32_geometry(
+        4, 400, 4096)["smem"]
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
@@ -1298,11 +1442,14 @@ def test_wgmma_bodies_bits_unchanged_by_the_factoring(dev, case):
     assert h.hexdigest() == WG_BITS[case]
 
 
-def test_attn_v_float32_at_the_whole_frame_scores(dev):
-    """Row 11 in float32 (the mma.sync body's float tile: 128 columns of D,
-    3 stages) at dec3's whole-frame shape of a padded 720p frame: 4 entries
-    of 3680 window tokens (46 x 80) against 4096 columns, the ring positions
-    as views of one buffer; the merge against its plain version."""
+def test_attn_v_float32_at_the_whole_frame_scores(dev, monkeypatch):
+    """Row 11 in float32 on the mma.sync body's float tile (128 columns of
+    D, 3 stages), forced onto it (the plan sends float32 calls to
+    csrc/attn_v_f32.cu: test_attn_v_f32_body_matches_plain), at dec3's
+    whole-frame shape of a padded 720p frame: 4 entries of 3680 window
+    tokens (46 x 80) against 4096 columns, the ring positions as views of
+    one buffer; the merge against its plain version."""
+    monkeypatch.setattr(S, "_attn_v_plan", lambda *a: ("tile", None))
     a, vs = attn_v_kernel_case(Maker(27, torch.float32, dev), 1, 4, 46, 80,
                                4, 256, True)
     before = S.sab_attn_v_merge.launches

@@ -53,6 +53,7 @@ from turtlevsr_tpu_torch.io.torch_convert import load_jax_params
 from turtlevsr_tpu_torch.kernels import chain2 as C2
 from turtlevsr_tpu_torch.kernels import ffn as K
 from turtlevsr_tpu_torch.kernels import level as LV
+from turtlevsr_tpu_torch.kernels import sab as S
 from turtlevsr_tpu_torch.models import blocks as blocks_mod
 from turtlevsr_tpu_torch.models import build_model
 from turtlevsr_tpu_torch.models import turtle as turtle_mod
@@ -92,6 +93,9 @@ HALO_IN_DEVICE_MEMORY_AT_512 = ("fused_ln_split_proj", "fused_chm_stats",
 # the wrappers whose every float32 call of the paths goes to a float32 body
 # of its own (csrc/ffn_f32.cu, csrc/qkv_f32.cu)
 ON_FLOAT32_BODIES = ("fused_block_ffn", "fused_qkv_stats")
+# rows 5 and 11 on their float32 bodies (csrc/conv_f32.cu, attn_v_f32.cu):
+# every float32 call, no halo
+ON_PRODUCT_BODIES = ("fused_conv3x3", "sab_attn_v_merge")
 # the port's float32 engine against the JAX package's, whole frames through
 # the tiny model's blocks and convs in float32 (the tolerance of
 # tests/test_torch_port_slice.py's float32 engines)
@@ -134,7 +138,8 @@ def _f32_plan(name, args, kw):
     x = args[0]
     if name == "sab_attn_v_merge":
         v = args[1][0] if isinstance(args[1], (list, tuple)) else args[1]
-        return _attn_v_f32_geometry(*x.shape[:2], v.shape[-1])
+        body, geo = S._attn_v_plan(*x.shape[:2], v.shape[-1], torch.float32)
+        return dict(geo, body=body)
     b, h, w, c = x.shape
     if name == "fused_block_ffn":
         f = kw["ffw2"]["w1"].shape[1] if kw.get("ffw2") is not None else 0
@@ -154,8 +159,10 @@ def _f32_plan(name, args, kw):
     if name == "fused_ln_split_proj":
         return K._split_f32_plan(b, h, w, c)
     if name == "fused_conv3x3":
-        return K._conv_f32_plan(b, h, w, c, args[1].shape[3],
-                                kw.get("ln_w") is not None)
+        cout, ln = args[1].shape[3], kw.get("ln_w") is not None
+        body, geo = K._conv_plan(b, h, w, c, cout, ln, torch.float32)
+        return (dict(geo, body=body) if body == "f32"
+                else dict(K._conv_f32_plan(b, h, w, c, cout, ln), body=body))
     if name == "fused_chm_stats":
         return K._chm_f32_plan(b, h, w, c, kw["heads"], args[1].shape[1])
     if name == "fused_two_stage":
@@ -164,19 +171,6 @@ def _f32_plan(name, args, kw):
         return LV._level_f32_plan(b, h, w, c,
                                   args[2] if len(args) > 2 else kw["heads"])
     raise AssertionError(f"{name} is not on a path")
-
-
-def _attn_v_f32_geometry(bn, hw, d):
-    """csrc/attn_v.cu in float32 (dispatch_attn_v<float>, av_smem): the
-    query tile of 80, 64 or 48 rows that leaves the fewest empty rows, 128
-    columns of D a block, a ring of 3 stages of (BM x 40) a and (32 x 136) v
-    floats; grid (HW / BM, D / 128, BN), its second side at most 65535."""
-    pads = {bm: -hw % bm for bm in (80, 64, 48)}
-    bm = min(pads, key=lambda k: (pads[k], -k))
-    smem = max(3 * (bm * 40 + 32 * 136), bm * 136) * 4
-    grid = (-(-hw // bm), -(-d // 128), bn)
-    assert grid[1] <= 65535 and bn <= 65535
-    return dict(tile=bm, blocks=grid[0] * grid[1] * grid[2], smem=smem)
 
 
 def _row(name, args, kw):
@@ -203,7 +197,8 @@ def test_every_float32_call_is_taken_by_a_card_body(family, fuse):
     row 6 at 256. Under the full plan the Channel blocks' rows 1 and 3 run
     inside row 14's runs, at C = 128, 256 and 512 (the scratch at 512 one
     slice a tile of the batch), and row 11 takes every CHM block of the
-    files that have the alignment attention."""
+    files that have the alignment attention. Rows 1, 3, 5 and 11 are on
+    their float32 bodies (no halo)."""
     calls = _record(*FILES[family], fuse=fuse)
     wide = set()
     for name, args, kw in calls:
@@ -215,6 +210,8 @@ def test_every_float32_call_is_taken_by_a_card_body(family, fuse):
             # between its launches (h, a, x', the LN statistics)
             assert geo["body"] == "f32", (name, c)
             assert "halo" not in geo and geo["scratch"] > 0
+        if name in ON_PRODUCT_BODIES:
+            assert geo["body"] == "f32" and "halo" not in geo, (name, c)
         if name in HALO_IN_DEVICE_MEMORY_AT_512:
             # one slice a tile of the batch (row 14's persistent blocks walk
             # its `items` tiles; the others launch one block a tile)
@@ -335,8 +332,9 @@ def test_float32_wide_calls_pass_the_wrapper_checks(row, c, monkeypatch):
     with the LN halo's scratch address last where the halo lives in device
     memory, and null at C = 256; rows 1 and 3 reach their float32 bodies
     (csrc/ffn_f32.cu, qkv_f32.cu) with the maps between their launches
-    last. Before the bodies widened these calls were refused with "up to
-    128"."""
+    last; rows 1, 3 and 5 reach their float32 bodies (csrc/ffn_f32.cu,
+    qkv_f32.cu, conv_f32.cu) with the maps between their launches last.
+    Before the bodies widened these calls were refused with "up to 128"."""
     fake = _FakeLib()
     monkeypatch.setattr(K.build, "load", lambda name: fake)
     monkeypatch.setattr(K, "_stream", lambda x: 0)
@@ -362,7 +360,7 @@ def test_float32_wide_calls_pass_the_wrapper_checks(row, c, monkeypatch):
         tail = 11
     elif row == "5":
         K._conv3x3_launch(x, m(3, 3, c, c), None, ln["ln_w"], ln["ln_b"])
-        tail = None
+        tail = 6
     else:
         K._chm_stats_launch(x, m(b, 2, h, w, c), ln["ln_w"], ln["ln_b"],
                             m(c, 3 * c), m(3, 3, 3 * c), m(c, 2 * c),
@@ -382,9 +380,12 @@ def test_float32_wide_calls_pass_the_wrapper_checks(row, c, monkeypatch):
         assert len(ptrs) == 11 and None not in ptrs[8:]
         assert sum(counts.values()) == 2 and counts["qkv_f32"] == 1
         return
-    if tail is not None:  # the halo's scratch: the last address passed
-        assert len(ptrs) == tail + 1
-        assert (ptrs[tail] is not None) == (c > 256)
+    if row == "5":  # the LN statistics
+        assert len(ptrs) == tail + 1 and ptrs[tail] is not None
+        assert sum(counts.values()) == 2 and counts["conv3x3_f32"] == 1
+        return
+    assert len(ptrs) == tail + 1  # the halo's scratch: the last address
+    assert (ptrs[tail] is not None) == (c > 256)
     assert sum(counts.values()) == 1  # the wrapper's own count, no Hopper body
 
 

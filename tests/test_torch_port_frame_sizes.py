@@ -172,7 +172,9 @@ def _taken(name, args, kw, dtype) -> list:
         body, geo = K._chm_plan(*x.shape, kw["heads"], dtype)
         counters = ["chm_stats"] + (["chm_wg"] if body == "wg" else [])
     elif name == "fused_conv3x3":
-        body, geo, counters = "tile", None, ["conv3x3"]
+        body, geo = K._conv_plan(*x.shape, args[1].shape[3],
+                                 kw.get("ln_w") is not None, dtype)
+        counters = ["conv3x3"] + (["conv3x3_f32"] if body == "f32" else [])
     elif name == "sab_attn_probs":
         q, k = args[0], args[1]
         b, hw, d = q.shape

@@ -68,7 +68,8 @@ def test_port_has_the_expected_modules():
         assert want in rel, want
     from turtlevsr_tpu_torch.kernels import build
 
-    assert len(build.KERNEL_SOURCES) == 24
+    assert len(build.KERNEL_SOURCES) == 26
+    assert {"conv_f32", "attn_v_f32"} <= set(build.KERNEL_SOURCES)
     # the framepack reader's own copy of its C++ source (built by g++)
     assert os.path.isfile(os.path.join(PORT, "data", "framepack.cc"))
     headers = ("common.cuh", "ffn_tile.cuh", "qkv_tile.cuh", "pipe.cuh",
@@ -337,7 +338,8 @@ def test_launch_counters_cover_every_wrapper():
                            "ffn_pw", "qkv_wg", "split_wg", "split_c64",
                            "chm_wg", "sab_wg", "level_wg", "two_stage",
                            "two_stage_wg", "sab_sparse_softmax", "sparse_wg",
-                           "sab_f32", "ffn_f32", "qkv_f32"}
+                           "sab_f32", "ffn_f32", "qkv_f32", "conv3x3_f32",
+                           "attn_v_f32"}
     kernels.reset_launch_counts()
     assert set(kernels.launch_counts().values()) == {0}
 

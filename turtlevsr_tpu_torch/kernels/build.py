@@ -21,9 +21,9 @@ CSRC_DIR = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
 KERNEL_SOURCES = ("ffn", "ffn_wg", "ffn_c64", "ffn_pw", "ffn_f32", "qkv_stats",
                   "qkv_wg", "qkv_f32",
-                  "split_proj", "split_wg", "split_c64", "conv3x3", "chm_stats", "chm_wg",
-                  "sab", "sab_wg", "sab_f32", "sparse_wg", "lattice", "level", "level_wg",
-                  "attn_v", "chain2", "chain2_wg")
+                  "split_proj", "split_wg", "split_c64", "conv3x3", "conv_f32", "chm_stats",
+                  "chm_wg", "sab", "sab_wg", "sab_f32", "sparse_wg", "lattice", "level",
+                  "level_wg", "attn_v", "attn_v_f32", "chain2", "chain2_wg")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -65,6 +65,10 @@ _SIGNATURES = {
     "conv3x3": {"turtle_conv3x3_launch": (_LAUNCH_ARGS, ctypes.c_int),
                 "turtle_conv3x3_smem": ([ctypes.c_int] * 2,
                                         ctypes.c_size_t)},
+    "conv_f32": {"turtle_conv_f32_launch": (_LAUNCH_ARGS, ctypes.c_int),
+                 "turtle_conv_f32_smem": ([ctypes.c_int] * 2, ctypes.c_size_t)},
+    "attn_v_f32": {"turtle_attn_v_f32_launch": (_LAUNCH_ARGS, ctypes.c_int),
+                   "turtle_attn_v_f32_smem": ([], ctypes.c_size_t)},
     "chm_stats": {"turtle_chm_stats_launch": (_LAUNCH_ARGS, ctypes.c_int),
                   "turtle_chm_stats_smem": ([ctypes.c_int] * 3,
                                             ctypes.c_size_t)},

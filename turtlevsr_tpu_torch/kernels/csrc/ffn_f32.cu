@@ -80,8 +80,8 @@ __global__ void __launch_bounds__(256) dw_act_kernel(const float* __restrict__ h
 
 }  // namespace turtle
 
-// the static shared memory of the body's product blocks for outputs of n
-// channels (the taps' kernel uses none)
+// the shared memory of the body's product blocks for outputs of n channels
+// (dynamic, under 48 KiB; the taps' kernel uses none)
 extern "C" size_t turtle_ffn_f32_smem(int n) {
   return turtle::f32_gemm_smem(turtle::f32_gemm_tn(n));
 }

@@ -118,8 +118,8 @@ __global__ void __launch_bounds__(256, 2) qkv_gram_kernel(const __grid_constant_
 
 }  // namespace turtle
 
-// static shared memory of the body's two kernels: the product's for 3C
-// output channels, the Gram kernel's q and k tiles
+// shared memory of the body's two kernels: the product's (dynamic) for 3C
+// output channels, the Gram kernel's q and k tiles (static)
 extern "C" size_t turtle_qkv_f32_smem(int C) {
   const size_t gemm = turtle::f32_gemm_smem(turtle::f32_gemm_tn(3 * C));
   const size_t gram = sizeof(float) * (2 * turtle::QG_P + 30) * turtle::QG_CT;

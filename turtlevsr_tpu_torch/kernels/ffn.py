@@ -19,7 +19,8 @@ the body of csrc/ffn_pw.cu), ``fused_block_ffn.launches_wg`` those on the
 wgmma body of csrc/ffn_wg.cu, ``fused_block_ffn.launches_c64`` those on the
 C = 64 body of csrc/ffn_c64.cu; ``fused_block_ffn.launches_f32`` and
 ``fused_qkv_stats.launches_f32`` those on the float32 bodies of
-csrc/ffn_f32.cu and csrc/qkv_f32.cu; ``fused_qkv_stats.launches_wg`` and
+csrc/ffn_f32.cu and csrc/qkv_f32.cu, ``fused_conv3x3.launches_f32`` those
+on the float32 body of csrc/conv_f32.cu; ``fused_qkv_stats.launches_wg`` and
 ``fused_chm_stats.launches_wg`` those of the statistics on the wgmma body of
 csrc/stats_wg.cuh (qkv_wg.cu, chm_wg.cu); ``fused_ln_split_proj.launches_wg``
 and ``.launches_c64`` those of the split projection on the wgmma body of
@@ -430,13 +431,16 @@ _CV_BN, _CV_KC, _CV_STAGES_F32 = 64, 32, 2
 
 
 def _conv_f32_plan(b, h, w, cin, cout, ln: bool):
-    """The geometry of one float32 fused_conv3x3 call, on csrc/conv3x3.cu's
-    mma.sync body (choose_plan<float>, conv_smem of GeoF32): the halo tile
-    (100 rows of Cin + 8) beside two weight stages (32 x 72 each) where it
-    fits, else (no LayerNorm, or Cin not a multiple of 16) the gathered A
-    stages; with the LayerNorm Cin a multiple of 16 up to 512, 226,432 bytes
-    at Cin = 512. Raises ValueError, naming the body and the limit, for a
-    call it does not take."""
+    """The geometry of one float32 fused_conv3x3 call on csrc/conv3x3.cu's
+    mma.sync body, which no float32 call reaches unforced (its forms lie
+    within csrc/conv_f32.cu's, :func:`_conv_plan`): it is kept as the new
+    body's yardstick (chip_smoke.py's tile_ms; ROADMAP Queue 7 item 2
+    queues its removal). Mirrored from choose_plan<float>, conv_smem of
+    GeoF32: the halo tile (100 rows of Cin + 8) beside two weight stages (32
+    x 72 each) where it fits, else (no LayerNorm, or Cin not a multiple of
+    16) the gathered A stages; with the LayerNorm Cin a multiple of 16 up to
+    512, 226,432 bytes at Cin = 512. Raises ValueError, naming the body and the
+    limit, for a call it does not take."""
     name, body = "fused_conv3x3", "csrc/conv3x3.cu"
     if ln and (cin % 16 or not 16 <= cin <= _MAX_C):
         raise _f32_plan_error(name + " with LayerNorm", body, "Cin a multiple"
@@ -456,27 +460,26 @@ def _conv_f32_plan(b, h, w, cin, cout, ln: bool):
 
 
 # the float32 bodies of rows 1 and 3 (csrc/ffn_f32.cu, csrc/qkv_f32.cu on
-# csrc/f32_tile.cuh): the product tile (128 rows a block, 128 columns, or 64
-# for outputs of at most 64 channels; two stages of 8 rows of K, the A stage
-# k-major in rows of 132 floats, the rows' LayerNorm statistics), the taps'
-# blocks of row 1 (16 pixels x 64 channels, 4 rows a thread) and row 3's Gram
-# tile (4 x 16 pixels, 64 channels a head), mirrored from the sources (a
-# card test holds the shared memory equal)
-_FG_NT, _FG_BM, _FG_BK, _FG_AS, _FG_LN_MAX_K = 256, 128, 8, 132, 512
+# csrc/f32_tile.cuh): the product on its "wide" tile, or "half" for outputs
+# of at most 64 channels (_FP_KINDS below; the rows' LayerNorm statistics a
+# warp a row), the taps' blocks of row 1 (16 pixels x 64 channels, 4 rows a
+# thread) and row 3's Gram tile (4 x 16 pixels, 64 channels a head),
+# mirrored from the sources (a card test holds the shared memory equal)
+_FG_NT, _FG_BK, _FG_LN_MAX_K = 256, 8, 512
 _DW_TX, _DW_RT, _QG_TH, _QG_TW, _QG_CT = 16, 4, 4, 16, 64
 
 
-def _fg_bn(n: int) -> int:
-    return 64 if n <= 64 else 128
+def _fg_kind(n: int) -> str:
+    return "half" if n <= 64 else "wide"
 
 
 def _fg_smem(n: int) -> int:
-    """Static shared memory of a product block with n output columns."""
-    return (2 * _FG_BK * _FG_AS + 2 * _FG_BK * _fg_bn(n)) * _F32
+    """Shared memory of a product block with n output columns."""
+    return _fp_smem(_fg_kind(n))
 
 
 def _fg_blocks(b: int, m: int, n: int) -> int:
-    return b * -(-m // _FG_BM) * -(-n // _fg_bn(n))
+    return _fp_blocks(b, m, n, _fg_kind(n))
 
 
 def _ffn_f32_form(c, ch, e, mode, n_x2, has_po, f, has_dw) -> bool:
@@ -551,6 +554,119 @@ def _qkv_f32_geometry(b, h, w, c, heads, n_sm: int = 132):
                 smem=max(_fg_smem(3 * c),
                          (2 * _QG_TH * _QG_TW + 30) * _QG_CT * _F32),
                 scratch=b * h * w * (3 * c + 2))
+
+
+# csrc/f32_tile.cuh's product (rows 1 and 3 in float32, and rows 5 and 11:
+# csrc/conv_f32.cu, csrc/attn_v_f32.cu), mirrored from FpTile: each tile
+# kind's id (FpKind), (RM rows, TN columns) a thread, TX threads across a
+# block's 256 threads, and its flags (FpFlag: the cp.async ring of
+# _FP_STAGES stages, else two register-fed ones; the warps' layout; stages of
+# 16 k, else 8); a card test holds the shared memory to the sources. Each
+# kind is a configuration some call of the paths runs; the others measured
+# on rows 5 and 11 (PERF.md row 5) were no faster and are not built
+_FP_STAGES = 4
+_FP_ASYNC, _FP_WARP, _FP_BK16 = 1, 2, 4
+_FP_KINDS = {"wide": (0, 8, 8, 16, 0),
+             "ring": (1, 8, 8, 16, _FP_ASYNC | _FP_WARP | _FP_BK16),
+             "half": (2, 8, 4, 16, 0),
+             "half_w": (3, 8, 4, 16, _FP_WARP | _FP_BK16),
+             "quarter": (4, 8, 4, 8, _FP_WARP | _FP_BK16),
+             "small": (5, 4, 4, 16, _FP_WARP | _FP_BK16)}
+# a grid of fewer blocks of its tile than half the card's 132 SMs takes the
+# 64 x 64 tile (the harness's 256 x 256 and the train step's 192 x 192 at
+# the narrow levels: down3_4 at 256 x 256, 32 blocks of 128 x 128, ran 1.6x
+# slower than conv3x3.cu's float tile and 2.5x faster on the 64 x 64 tile;
+# grids of 72-128 blocks measured faster on their own tile; PERF.md row 5)
+_FP_SMALL_GRID = 66
+
+# csrc/conv_f32.cu's narrow body: 32 x 32 pixels a block, the 34 x 34 halo 16
+# channels at a time (pixel stride 20 floats) beside the chunk's weights
+_CN_T, _CN_CC = 32, 16
+_CN_SMEM = ((_CN_T + 2) ** 2 * (_CN_CC + 4) + 9 * _CN_CC * 4) * _F32
+
+
+def _fp_tile(kind: str) -> tuple[int, int]:
+    """(rows, columns) of a block of the product's tile kind."""
+    _, rm, tn, tx, _ = _FP_KINDS[kind]
+    return rm * (_FG_NT // tx), tn * tx
+
+
+def _fp_smem(kind: str) -> int:
+    """Dynamic shared memory of a product block (fp_smem of the source)."""
+    bm, bn = _fp_tile(kind)
+    flags = _FP_KINDS[kind][4]
+    stages = _FP_STAGES if flags & _FP_ASYNC else 2
+    bk = 16 if flags & _FP_BK16 else _FG_BK
+    return stages * bk * (bm + 4 + bn) * _F32
+
+
+def _fp_blocks(b: int, m: int, n: int, kind: str) -> int:
+    bm, bn = _fp_tile(kind)
+    return b * -(-m // bm) * -(-n // bn)
+
+
+def _conv_f32_form(b, h, w, cin, cout, ln: bool) -> bool:
+    """Whether a float32 fused_conv3x3 call has a form of csrc/conv_f32.cu:
+    any Cin and Cout, the LayerNorm at Cin a multiple of 4 up to 512, up to
+    65535 batch entries of fewer than 2^31 pixels."""
+    return (cin >= 1 and cout >= 1 and 1 <= b <= 65535 and h * w < 2 ** 31
+            and (not ln or (cin % 4 == 0 and cin <= _FG_LN_MAX_K)))
+
+
+@functools.lru_cache(maxsize=None)
+def _conv_f32_geometry(b, h, w, cin, cout, ln: bool):
+    """The launches of one float32 fused_conv3x3 call on csrc/conv_f32.cu,
+    mirrored from turtle_conv_f32_launch: the narrow body for Cout <= 4
+    without the LayerNorm at Cin a multiple of 4 (32 x 32 pixels a block),
+    else the rows' statistics with the LayerNorm and the implicit GEMM on
+    the tile kind of Cout: "quarter" (256 x 32) up to 32 channels, "half_w"
+    (128 x 64) up to 64, else "wide" (128 x 128), or "ring" (the same tile
+    through the cp.async ring) at Cin >= 512 where the loader copies as it
+    reads (no LayerNorm, Cout a multiple of 4: up4_3, K = 4608, 3.5 waves of
+    blocks, 8 % faster there and 5-6 % slower at up3_2 and up2_1, NVIDIA
+    H100, PERF.md row 5); "small" (64 x 64) where the 128-row tile's grid has
+    fewer blocks than half the card's SMs. The blocks of each launch, the
+    shared memory, the LayerNorm's scratch (float2 a pixel) and the launch's
+    ints; cached a shape (the plan is asked at every launch). Raises
+    ValueError, naming the body and its forms, for a call it does not
+    take."""
+    if not _conv_f32_form(b, h, w, cin, cout, ln):
+        raise _f32_plan_error(
+            "fused_conv3x3", "csrc/conv_f32.cu", "calls with the LayerNorm "
+            f"at Cin a multiple of 4 up to {_FG_LN_MAX_K}, up to 65535 "
+            "entries of fewer than 2^31 pixels",
+            f"B={b}, {h}x{w}, Cin={cin}, LN={ln}")
+    m = h * w
+    if cout <= 4 and not ln and cin % 4 == 0:
+        blocks = b * -(-w // _CN_T) * -(-h // _CN_T)
+        return dict(body="narrow", kind=None, launches={"narrow": blocks},
+                    blocks=blocks, smem=_CN_SMEM, scratch=0, ints=[0, 0])
+    kind = ("quarter" if cout <= 32 else "half_w" if cout <= 64
+            else "ring" if cin >= 512 and not ln and cout % 4 == 0
+            else "wide")
+    if kind != "quarter" and _fp_blocks(b, m, cout, kind) < _FP_SMALL_GRID:
+        kind = "small"
+    launches = {"product": _fp_blocks(b, m, cout, kind)}
+    if ln:  # the rows' statistics, a warp a pixel
+        launches["LN"] = b * -(-m // (_FG_NT // 32))
+    return dict(body="product", kind=kind, launches=launches,
+                blocks=sum(launches.values()), smem=_fp_smem(kind),
+                scratch=b * m * 2 if ln else 0,
+                ints=[1, _FP_KINDS[kind][0]])
+
+
+def _conv_plan(b, h, w, cin, cout, ln: bool, dtype):
+    """The body of one fused_conv3x3 call: ("f32", geometry) for the float32
+    body of csrc/conv_f32.cu (every float32 call in its forms,
+    :func:`_conv_f32_form`; :func:`_conv_f32_geometry`), else ("tile",
+    None) for csrc/conv3x3.cu. The float32 forms of conv3x3.cu's tile
+    (:func:`_conv_f32_plan`) lie within conv_f32.cu's, so in float32 the
+    "tile" answer comes only where a caller forces it (chip_smoke.py's
+    tile_ms, the card tests' yardstick) or where neither body takes the
+    call, and then :func:`_conv_f32_plan` raises before any build."""
+    if dtype == torch.float32 and _conv_f32_form(b, h, w, cin, cout, ln):
+        return "f32", _conv_f32_geometry(b, h, w, cin, cout, ln)
+    return "tile", None
 
 
 def _halo_scratch(geo, x: torch.Tensor):
@@ -1260,17 +1376,26 @@ def _conv3x3_launch(x, weight, bias, ln_w, ln_b):
         raise ValueError("ln_b needs ln_w")
     if ln_w is not None:
         _check_width("fused_conv3x3 with LayerNorm", x)
-    if x.dtype == torch.float32:  # raises before any launch if not taken
-        _conv_f32_plan(b, h, w, cin, cout, ln_w is not None)
+    body, geo = _conv_plan(b, h, w, cin, cout, ln_w is not None, x.dtype)
+    if x.dtype == torch.float32 and body == "tile":  # forced, or outside
+        _conv_f32_plan(b, h, w, cin, cout, ln_w is not None)  # its limits
     out = torch.empty((b, h, w, cout), dtype=x.dtype, device=x.device)
     ptrs = [_check("x", x, x), _check("weight", weight, x),
             _check("bias", bias, x, (cout,)), out.data_ptr(),
             _check("ln_w", ln_w, x, (cin,)), _check("ln_b", ln_b, x, (cin,))]
-    lib = build.load("conv3x3")
-    _check_smem("fused_conv3x3", lib.turtle_conv3x3_smem(
-        cin, int(x.dtype == torch.bfloat16)))
-    _call(lib.turtle_conv3x3_launch, ptrs, [b, h, w, cin, cout], x,
-          "fused_conv3x3")
+    if body == "f32":  # the LayerNorm's row statistics between its launches
+        stats = (torch.empty((b, h, w, 2), dtype=x.dtype, device=x.device)
+                 if geo["scratch"] else None)
+        _call(build.load("conv_f32").turtle_conv_f32_launch,
+              ptrs + [None if stats is None else stats.data_ptr()],
+              [b, h, w, cin, cout, *geo["ints"]], x, "fused_conv3x3")
+        fused_conv3x3.launches_f32 += 1
+    else:
+        lib = build.load("conv3x3")
+        _check_smem("fused_conv3x3", lib.turtle_conv3x3_smem(
+            cin, int(x.dtype == torch.bfloat16)))
+        _call(lib.turtle_conv3x3_launch, ptrs, [b, h, w, cin, cout], x,
+              "fused_conv3x3")
     fused_conv3x3.launches += 1
     return out
 
@@ -1282,7 +1407,11 @@ def fused_conv3x3(x, weight, bias=None, *, ln_w=None, ln_b=None):
 
     Replaces ``fused_conv3x3`` in turtlevsr_tpu/kernels/ffn.py (kernel:
     csrc/conv3x3.cu; bound by operations at the wide levels, by bytes at
-    the 3-channel ends)."""
+    the 3-channel ends). Float32 calls go to csrc/conv_f32.cu
+    (:func:`_conv_plan`: f32_tile.cuh's product as an implicit GEMM over
+    shifted, zero-padded pixel rows, the LayerNorm as its prologue; a body
+    of its own for Cout <= 4; ``fused_conv3x3.launches_f32`` counts them,
+    one wrapper launch of one or two CUDA launches)."""
     if x.device.type == "cpu":
         return conv3x3_plain(x, weight, bias, ln_w=ln_w, ln_b=ln_b)
     _need_cuda("fused_conv3x3", x)
@@ -1290,6 +1419,7 @@ def fused_conv3x3(x, weight, bias=None, *, ln_w=None, ln_b=None):
 
 
 fused_conv3x3.launches = 0
+fused_conv3x3.launches_f32 = 0  # those on the float32 body, conv_f32.cu
 
 
 # ---------------------------------------------------------------------------

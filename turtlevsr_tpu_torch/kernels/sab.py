@@ -6,7 +6,8 @@ stored slot by slot or straight as merged maps.
 ``sab_attn_probs`` launches the kernels of ``csrc/sab_wg.cu`` (bf16),
 ``csrc/sab_f32.cu`` (float32) or ``csrc/sab.cu``, ``sab_sparse_softmax``
 that of ``csrc/sparse_wg.cu`` (bf16) or ``csrc/sab.cu``,
-``sab_attn_v_slots`` and ``sab_attn_v_merge`` that of ``csrc/attn_v.cu``, on
+``sab_attn_v_slots`` and ``sab_attn_v_merge`` that of ``csrc/attn_v_f32.cu``
+(float32) or ``csrc/attn_v.cu``, on
 CUDA tensors (or they raise); on CPU tensors, and only there, each runs the
 plain version beside it. The plain versions round where the kernels round
 (the scores before the selection, the product once, to the map's type) and
@@ -23,6 +24,9 @@ from turtlevsr_tpu_torch.kernels.ffn import (
     _SMEM_LIMIT,
     _call,
     _check,
+    _f32_plan_error,
+    _fp_blocks,
+    _fp_smem,
     _need_cuda,
 )
 from turtlevsr_tpu_torch.kernels.lattice import lattice_merge_plain
@@ -437,7 +441,37 @@ def attn_v_merge_plain(a, v, ws: int, h: int, w: int, out=None):
     return out
 
 
-def _attn_v_launch(what, a, vs, out, c, merge, ws, hh, ww):
+def _attn_v_f32_geometry(bn: int, hw: int, d: int) -> dict:
+    """The launch of one float32 attention @ v call on csrc/attn_v_f32.cu,
+    mirrored from turtle_attn_v_f32_launch: the product M = HW queries by N
+    = D columns over K = HW keys a batch entry on f32_tile.cuh's "wide"
+    tile (128 x 128; no other configuration of the product measured faster
+    at dec3's, dec2's and dec1's whole frame, NVIDIA H100, PERF.md row 11);
+    its blocks and shared memory. Raises ValueError, naming the body and its
+    forms, for a call it does not take."""
+    if not 1 <= bn <= 65535 or hw < 1 or d < 8 or d % 8:
+        raise _f32_plan_error("sab_attn_v_merge", "csrc/attn_v_f32.cu",
+                              "up to 65535 entries, D a multiple of 8",
+                              f"BN={bn}, D={d}")
+    return dict(kind="wide", blocks=_fp_blocks(bn, hw, d, "wide"),
+                smem=_fp_smem("wide"))
+
+
+def _attn_v_plan(bn: int, hw: int, d: int, dtype):
+    """The body of one attention @ v call: ("f32", geometry) for the float32
+    body of csrc/attn_v_f32.cu (every float32 call: f32_tile.cuh's product,
+    :func:`_attn_v_f32_geometry`), else ("tile", None) for csrc/attn_v.cu
+    (bf16). attn_v.cu's float tile takes a float32 call only where a caller
+    forces it (chip_smoke.py's tile_ms, the card tests' yardstick; ROADMAP
+    Queue 7 item 2 queues its removal)."""
+    if dtype == torch.float32:
+        return "f32", _attn_v_f32_geometry(bn, hw, d)
+    return "tile", None
+
+
+def _attn_v_launch(what, a, vs, out, c, merge, ws, hh, ww) -> bool:
+    """Launch attention @ v into ``out`` on the body :func:`_attn_v_plan`
+    gives; whether it was the float32 body (the wrapper's counter)."""
     if a.dtype not in _KERNEL_DTYPES:
         raise ValueError(f"{what}: the kernel takes bfloat16 or float32, "
                          f"got {a.dtype}")
@@ -468,10 +502,15 @@ def _attn_v_launch(what, a, vs, out, c, merge, ws, hh, ww):
         raise ValueError(f"{what}: batch strides must stay below 2^31")
     pad = _MAX_V - len(vs)
     ptrs = [_check("a", a, a), _check("out", out, a), *v_ptrs, *[None] * pad]
-    _call(build.load("attn_v").turtle_attn_v_launch, ptrs,
-          [bn, len(vs), hw, d, c, int(merge), ws, hh, ww, hw * hw, *v_bs,
-           *[0] * pad], a, what)
-    return out
+    ints = [bn, len(vs), hw, d, c, int(merge), ws, hh, ww, hw * hw, *v_bs,
+            *[0] * pad]
+    body, geo = _attn_v_plan(bn, hw, d, a.dtype)
+    if body == "f32":
+        _call(build.load("attn_v_f32").turtle_attn_v_f32_launch, ptrs, ints,
+              a, what)
+    else:
+        _call(build.load("attn_v").turtle_attn_v_launch, ptrs, ints, a, what)
+    return body == "f32"
 
 
 def sab_attn_v_slots(a, v, c_slot: int):
@@ -484,7 +523,8 @@ def sab_attn_v_slots(a, v, c_slot: int):
 
     Replaces ``sab_attn_v_slots`` in turtlevsr_tpu/kernels/sab.py (kernel:
     csrc/attn_v.cu, the `slots` epilogue; bound by bytes at a chunk of
-    tiles, by operations at the whole frame)."""
+    tiles, by operations at the whole frame); float32 on csrc/attn_v_f32.cu
+    (:func:`_attn_v_plan`, ``sab_attn_v_slots.launches_f32``)."""
     vs = _v_list(a, v)
     if vs[0].shape[2] % c_slot:
         raise ValueError(f"c_slot={c_slot} must divide D={vs[0].shape[2]}")
@@ -494,12 +534,15 @@ def sab_attn_v_slots(a, v, c_slot: int):
     bn, hw, d = a.shape[0], a.shape[1], vs[0].shape[2]
     out = torch.empty((bn, d // c_slot, hw, c_slot), dtype=a.dtype,
                       device=a.device)
-    _attn_v_launch("sab_attn_v_slots", a, vs, out, c_slot, False, 1, 1, hw)
+    f32 = _attn_v_launch("sab_attn_v_slots", a, vs, out, c_slot, False, 1,
+                         1, hw)
     sab_attn_v_slots.launches += 1
+    sab_attn_v_slots.launches_f32 += f32
     return out
 
 
 sab_attn_v_slots.launches = 0
+sab_attn_v_slots.launches_f32 = 0  # those on the float32 body, attn_v_f32.cu
 
 
 def sab_attn_v_merge(a, v, ws: int, h: int, w: int, out=None):
@@ -512,7 +555,9 @@ def sab_attn_v_merge(a, v, ws: int, h: int, w: int, out=None):
 
     Replaces ``sab_attn_v_merge`` in turtlevsr_tpu/kernels/sab.py (kernel:
     csrc/attn_v.cu, the `merge` epilogue; bound by bytes at a chunk of
-    tiles, by operations at the whole frame)."""
+    tiles, by operations at the whole frame); float32 on csrc/attn_v_f32.cu
+    (f32_tile.cuh's product, the merge as its store; :func:`_attn_v_plan`,
+    ``sab_attn_v_merge.launches_f32``)."""
     vs = _v_list(a, v)
     bn, hw, d = a.shape[0], a.shape[1], vs[0].shape[2]
     if ws < 1 or h % ws or w % ws or (h // ws) * (w // ws) != hw or d % (
@@ -529,10 +574,12 @@ def sab_attn_v_merge(a, v, ws: int, h: int, w: int, out=None):
     _need_cuda("sab_attn_v_merge", a)
     if out is None:
         out = torch.empty((bn, h, w, c), dtype=a.dtype, device=a.device)
-    _attn_v_launch("sab_attn_v_merge", a, vs, out, c, True, ws, h // ws,
-                   w // ws)
+    f32 = _attn_v_launch("sab_attn_v_merge", a, vs, out, c, True, ws,
+                         h // ws, w // ws)
     sab_attn_v_merge.launches += 1
+    sab_attn_v_merge.launches_f32 += f32
     return out
 
 
 sab_attn_v_merge.launches = 0
+sab_attn_v_merge.launches_f32 = 0  # those on the float32 body, attn_v_f32.cu
