@@ -40,14 +40,15 @@ Phases, one JSON object per line on standard output:
            wg_ms; the mma.sync bodies of rows 3, 4, 6 and 7, off the path
            now, at the latent's or dec3's shape); attention @ v also at
            the whole frame's dec3 shape, the 3x3 conv also on maps and Cout
-           that its tiles do not divide; then the float32 forms of rows 1
-           and 3 at every width of the float32 paths (C = 64-512) on their
-           float32 bodies (csrc/ffn_f32.cu, qkv_f32.cu: the old bodies' time
-           on the same inputs beside each, tile_ms, and each CUDA launch's
-           device time at the whole frame, launch_ms), of rows 4, 5 (with
-           LayerNorm) and 6 at C = 256 and 512, whole frames and 15 tiles,
-           on their mma.sync bodies (the LN halo in device memory at C =
-           512), csrc/ffn.cu and qkv_stats.cu in float32 (forced), rows 5
+           that its tiles do not divide; then the float32 forms of rows 1,
+           3, 4 and 6 at every width of the float32 paths (C = 64-512),
+           whole frames and 15 tiles, on their float32 bodies
+           (csrc/ffn_f32.cu, qkv_f32.cu, split_f32.cu, chm_f32.cu: the old
+           bodies' time on the same inputs beside each, tile_ms, pw1's
+           product alone on cuBLAS, pw1_matmul_ms, and each CUDA launch's
+           device time at the whole frame, launch_ms), csrc/ffn.cu,
+           qkv_stats.cu, split_proj.cu and chm_stats.cu in float32 (forced;
+           the LN halo in device memory at C = 512), rows 5
            and 11 on their float32 bodies (csrc/conv_f32.cu: the eight convs
            without LayerNorm at the frame beside F.conv2d, TF32 off, and the
            LayerNorm forms of dec3, dec2, dec1; csrc/attn_v_f32.cu at dec3's,
@@ -313,7 +314,7 @@ TASKS = {"gopro": "deblur", "derain": "derain", "sr": "sr",
 # split_proj.cu has none.
 _NONE = {"attn_v_slots": 0, "attn_v_merge": 0, "level_run": 0, "level_wg": 0,
          "ffn_no_dw": 0, "sab_f32": 0, "ffn_f32": 0, "qkv_f32": 0,
-         "conv3x3_f32": 0, "attn_v_f32": 0,
+         "conv3x3_f32": 0, "attn_v_f32": 0, "split_f32": 0, "chm_f32": 0,
          "ffn_pw": 0, "two_stage": 0, "two_stage_wg": 0,
          "sab_sparse_softmax": 0, "sparse_wg": 0}
 _GOPRO = {"ffn": 51, "ffn_wg": 43, "ffn_c64": 8, "qkv_stats": 34,
@@ -346,12 +347,11 @@ LAUNCHES_PER_CALL = {
     "sr_two_stage": {**_GOPRO, **_NONE, **_TWO_STAGE},
 }
 # float32 serving (InferenceEngine(dtype=torch.float32), --dtype float32):
-# the same calls a model call, every one of rows 1, 3 and 5 on its float32
-# body (csrc/ffn_f32.cu, qkv_f32.cu, conv_f32.cu: kernels/ffn.py _ffn_plan,
-# _qkv_plan, _conv_plan), under the full plan row 11 on csrc/attn_v_f32.cu
-# (kernels/sab.py _attn_v_plan), rows 4
-# and 6 on their mma.sync bodies (split_proj.cu, chm_stats.cu, widened to C
-# = 256 and 512), row 7 on csrc/sab_f32.cu at a whole frame
+# the same calls a model call, every one of rows 1, 3, 4, 5 and 6 on its
+# float32 body (csrc/ffn_f32.cu, qkv_f32.cu, split_f32.cu, conv_f32.cu,
+# chm_f32.cu: kernels/ffn.py _ffn_plan, _qkv_plan, _split_plan, _conv_plan,
+# _chm_plan), under the full plan row 11 on csrc/attn_v_f32.cu
+# (kernels/sab.py _attn_v_plan), row 7 on csrc/sab_f32.cu at a whole frame
 # (its grid of at least one block an SM; kernels/sab.py _sab_plan) and on
 # sab.cu at the harness's 256 x 256 and the train step's 192 x 192 (`_small`:
 # at most 24 blocks), and under the fused plans row 14 on level.cu (widened
@@ -369,7 +369,9 @@ LAUNCHES_PER_CALL_F32 = {
     config: {**LAUNCHES_PER_CALL[config], **dict.fromkeys(BF16_ONLY, 0),
              "ffn_f32": LAUNCHES_PER_CALL[config]["ffn"],
              "qkv_f32": LAUNCHES_PER_CALL[config]["qkv_stats"],
-             "conv3x3_f32": LAUNCHES_PER_CALL[config]["conv3x3"]}
+             "conv3x3_f32": LAUNCHES_PER_CALL[config]["conv3x3"],
+             "split_f32": LAUNCHES_PER_CALL[config]["split_proj"],
+             "chm_f32": LAUNCHES_PER_CALL[config]["chm_stats"]}
     for config in ("gopro", "derain")}
 LAUNCHES_PER_CALL_F32["gopro_small"] = dict(LAUNCHES_PER_CALL_F32["gopro"])
 LAUNCHES_PER_CALL_F32["gopro"]["sab_f32"] = 3
@@ -672,10 +674,18 @@ KERNEL_INFO = {
                     "turtlevsr_tpu/kernels/ffn.py:1622"),
     "attn_v_f32": ("turtlevsr_tpu_torch/kernels/csrc/attn_v_f32.cu",
                    "turtlevsr_tpu/kernels/sab.py:223"),
+    # rows 4 and 6 in float32 on their float32 bodies (f32_tile.cuh's product
+    # into hidden maps, then the taps; row 6 with row 3's Gram pass,
+    # csrc/gram_f32.cuh): every float32 call of the paths (kernels/ffn.py
+    # _split_plan, _chm_plan)
+    "split_f32": ("turtlevsr_tpu_torch/kernels/csrc/split_f32.cu",
+                  "turtlevsr_tpu/kernels/ffn.py:1732"),
+    "chm_f32": ("turtlevsr_tpu_torch/kernels/csrc/chm_f32.cu",
+                "turtlevsr_tpu/kernels/ffn.py:1267"),
     # the float32 forms of rows 1, 3, 4, 5 and 6 on their mma.sync bodies,
-    # widened to C = 256 and 512 for float32 serving (rows 1, 3 and 5 off the
-    # paths now: their cases force the old body); their launches are those
-    # of the float32 paths (F32_PATHS), which the rows above do not count
+    # widened to C = 256 and 512 for float32 serving (off the paths now:
+    # their cases force the old body); their launches are those of the
+    # float32 paths (F32_PATHS), which the rows above do not count
     "ffn_tile_f32": ("turtlevsr_tpu_torch/kernels/csrc/ffn.cu",
                      "turtlevsr_tpu/kernels/ffn.py:2024"),
     "qkv_stats_f32": ("turtlevsr_tpu_torch/kernels/csrc/qkv_stats.cu",
@@ -950,8 +960,10 @@ def partial_row_bytes(batch, h, w, c, heads, nf, body):
     ctok = c // heads
     width = (nf + 1) * heads * ctok * ctok + (nf + 2) * c
     if body == "f32":
-        return batch * K._qkv_f32_grid(batch, h, w, heads, K._sm_count(
-            torch.device("cuda", 0))) * width * 4
+        n_sm = K._sm_count(torch.device("cuda", 0))
+        rows = (K._chm_f32_geometry(batch, h, w, c, heads, nf, n_sm)["rows"]
+                if nf else K._qkv_f32_grid(batch, h, w, heads, n_sm))
+        return batch * rows * width * 4
     rows = K._tiles(h, w) if body == "tile" else K._sw_rows(
         batch, K._tiles(h, w), min(batch * K._tiles(h, w),
                                    K._sm_count(torch.device("cuda", 0))))
@@ -1032,29 +1044,40 @@ def split_case(inp: Inputs, name, h, w, c, n_out, iters=5, batch=1,
                tile=False):
     """Row 4 on the body its plan gives the call (tile: on the mma.sync
     body): kernel "split_wg" for the wgmma body, "split_c64" for the C = 64
-    body, else "split_proj"."""
+    body, "split_f32" for the float32 body of csrc/split_f32.cu
+    (split_proj.cu's time on the same inputs beside it, tile_ms; pw1's
+    product alone on cuBLAS, pw1_matmul_ms; at one entry each CUDA launch's
+    device time, launch_ms), else "split_proj" ("split_proj_f32":
+    split_proj.cu in float32)."""
     body = "tile" if tile else K._split_plan(
         batch, h, w, c, c, n_out, True, False, inp.dtype,
         K._sm_count(torch.device("cuda", 0)))[0]
-    kernel = {"wg": "split_wg", "c64": "split_c64"}.get(
+    kernel = {"wg": "split_wg", "c64": "split_c64", "f32": "split_f32"}.get(
         body, "split_proj_f32" if inp.dtype == torch.float32
         else "split_proj")
     if skipped(kernel, name):
         return None
     x = inp(batch, h, w, c)
     kw = chain_weights(inp, c, n_out * c)
-    before = (K.fused_ln_split_proj.launches_wg,
-              K.fused_ln_split_proj.launches_c64)
+    fn = lambda: K.fused_ln_split_proj(x, n_out=n_out, **kw)  # noqa: E731
+    counters = ("launches_wg", "launches_c64", "launches_f32")
+    before = [getattr(K.fused_ln_split_proj, k) for k in counters]
     with forced_body(K, "_split_plan", OLD_PLAN) if tile else contextlib.nullcontext():
-        got = K.fused_ln_split_proj(x, n_out=n_out, **kw)
+        got = fn()
         torch.cuda.synchronize()
-        ms = cuda_ms(lambda: K.fused_ln_split_proj(x, n_out=n_out, **kw),
-                     iters)
-    after = (K.fused_ln_split_proj.launches_wg,
-             K.fused_ln_split_proj.launches_c64)
-    require(((body == "wg", body == "c64")
-             == (after[0] > before[0], after[1] > before[1])),
+        ms = cuda_ms(fn, iters)
+    moved = tuple(getattr(K.fused_ln_split_proj, k) > n
+                  for k, n in zip(counters, before))
+    require(moved == (body == "wg", body == "c64", body == "f32"),
             f"split_proj {name}: body")
+    tile_ms = launches = matmul_ms = None
+    if body == "f32":  # the old body on the same inputs; pw1 on cuBLAS
+        tile_ms = timed_in(lambda: forced_body(K, "_split_plan", OLD_PLAN),
+                           fn, 2)
+        if batch == 1:
+            launches = launch_ms(fn)
+        a2, w1 = x.reshape(-1, c), kw["w1"]
+        matmul_ms = cuda_ms(lambda: torch.matmul(a2, w1), iters)
     want = K.split_proj_plain(x, n_out=n_out, **kw)
     errs = [rel_err(a, b) for a, b in zip(got, want)]
     err, rel = max(e[0] for e in errs), max(e[1] for e in errs)
@@ -1062,7 +1085,8 @@ def split_case(inp: Inputs, name, h, w, c, n_out, iters=5, batch=1,
     b_ms, b_by = bound(numel_bytes(x, *got, *kw.values()), flops, x.dtype)
     return dict(kernel=kernel, case=name, shape=[batch, h, w, c],
                 n_out=n_out, max_abs_err=err, rel_err=rel,
-                body=body, dtype=str(x.dtype),
+                body=body, dtype=str(x.dtype), tile_ms=tile_ms,
+                launch_ms=launches, pw1_matmul_ms=matmul_ms,
                 tol_rel=KERNEL_REL_TOL, tol_abs_f32=F32_KERNEL_TOL,
                 ok=within(err, rel, x, KERNEL_REL_TOL), ms=ms,
                 plain_ms=cuda_ms(
@@ -1131,8 +1155,14 @@ def conv_case(inp: Inputs, name, h, w, cin, cout, bias, iters=5, ln=False,
 def chm_case(inp: Inputs, name, h, w, c, heads, nf, iters=3, batch=1,
              tile=False):
     """Row 6 on the body its plan gives the call (tile: on the mma.sync
-    body): kernel "chm_wg" for the wgmma body, else "chm_stats"."""
-    kernel = ("chm_stats_f32" if inp.dtype == torch.float32 else "chm_stats"
+    body): kernel "chm_wg" for the wgmma body, "chm_f32" for the float32
+    body of csrc/chm_f32.cu (chm_stats.cu's time on the same inputs beside
+    it, tile_ms; the two pw1 products alone on cuBLAS, pw1_matmul_ms; at one
+    entry each CUDA launch's device time, launch_ms), else "chm_stats"
+    ("chm_stats_f32": chm_stats.cu in float32)."""
+    f32 = inp.dtype == torch.float32
+    kernel = (("chm_stats_f32" if tile or not K._chm_f32_form(c, heads)
+               else "chm_f32") if f32 else "chm_stats"
               if tile or c not in K._CHM_WG_WIDTHS else "chm_wg")
     if skipped(kernel, name):
         return None
@@ -1142,13 +1172,29 @@ def chm_case(inp: Inputs, name, h, w, c, heads, nf, iters=3, batch=1,
               wd_qkv=inp(3, 3, 3 * c, scale=0.3),
               w_kv=inp(c, 2 * c, scale=c ** -0.5),
               wd_kv=inp(3, 3, 2 * c, scale=0.3), heads=heads)
+    fn = lambda: K.fused_chm_stats(x, x_sp, **kw)  # noqa: E731
+    old = (lambda: forced_body(K, "_chm_plan", OLD_PLAN)) if tile and f32 \
+        else contextlib.nullcontext
     wg_before = K.fused_chm_stats.launches_wg
-    with stats_widths(K._QKV_WG_WIDTHS, () if tile else K._CHM_WG_WIDTHS):
-        got = K.fused_chm_stats(x, x_sp, **kw)
+    f32_before = K.fused_chm_stats.launches_f32
+    with stats_widths(K._QKV_WG_WIDTHS, () if tile else K._CHM_WG_WIDTHS), \
+            old():
+        got = fn()
         torch.cuda.synchronize()
         on_wg = K.fused_chm_stats.launches_wg > wg_before
-        ms = cuda_ms(lambda: K.fused_chm_stats(x, x_sp, **kw), iters)
-    require(on_wg == (kernel == "chm_wg"), f"chm_stats {name}: body")
+        on_f32 = K.fused_chm_stats.launches_f32 > f32_before
+        ms = cuda_ms(fn, iters)
+    require(on_wg == (kernel == "chm_wg") and on_f32 == (kernel == "chm_f32"),
+            f"chm_stats {name}: body")
+    tile_ms = launches = matmul_ms = None
+    if on_f32:  # the old body on the same inputs; pw1 on cuBLAS
+        tile_ms = timed_in(lambda: forced_body(K, "_chm_plan", OLD_PLAN), fn,
+                           2)
+        if batch == 1:
+            launches = launch_ms(fn)
+        a2, f2 = x.reshape(-1, c), x_sp.reshape(-1, c)
+        matmul_ms = cuda_ms(lambda: (torch.matmul(a2, kw["w_qkv"]),
+                                     torch.matmul(f2, kw["w_kv"])), iters)
     want = K.chm_stats_plain(x, x_sp, **kw)
     (err_v, rel_v), (err_vh, rel_vh) = (rel_err(got[i], want[i])
                                         for i in (0, 1))
@@ -1162,10 +1208,11 @@ def chm_case(inp: Inputs, name, h, w, c, heads, nf, iters=3, batch=1,
                                 + (nf + 1) * c * ctok + (nf + 2) * c)
     tensors = [v for v in kw.values() if torch.is_tensor(v)]
     b_ms, b_by = bound(numel_bytes(x, x_sp, *got, *tensors), flops, x.dtype)
-    body = "wg" if on_wg else "tile"
+    body = "wg" if on_wg else "f32" if on_f32 else "tile"
     err = max(err_v, err_vh, err_stats / px)
     return dict(kernel=kernel, case=name, shape=[batch, nf, h, w, c],
-                body=body, dtype=str(x.dtype),
+                body=body, dtype=str(x.dtype), tile_ms=tile_ms,
+                launch_ms=launches, pw1_matmul_ms=matmul_ms,
                 partial_row_bytes=partial_row_bytes(batch, h, w, c, heads, nf,
                                                     body),
                 tile_partial_row_bytes=partial_row_bytes(batch, h, w, c,
@@ -2245,10 +2292,13 @@ def f32_cases(seed: int, h: int, w: int) -> list:
                 inp, "float32 latent (halo in device memory)" + tag, h4, w4,
                 512, 8, **kw),
             lambda h4=h4, w4=w4, tag=tag, kw=kw: split_case(
-                inp, "float32 latent FHR q,k,v (halo in device memory)" + tag,
-                h4, w4, 512, 3, **kw),
+                inp, "float32 latent FHR q,k,v" + tag, h4, w4, 512, 3, **kw),
             lambda h3=h3, w3=w3, tag=tag, kw=kw: split_case(
                 inp, "float32 SAB q,k dec3" + tag, h3, w3, 256, 2, **kw),
+            lambda h2=h2, w2=w2, tag=tag, kw=kw: split_case(
+                inp, "float32 SAB q,k dec2" + tag, h2, w2, 128, 2, **kw),
+            lambda hh=hh, ww=ww, tag=tag, kw=kw: split_case(
+                inp, "float32 SAB q,k dec1" + tag, hh, ww, 64, 2, **kw),
             lambda h3=h3, w3=w3, tag=tag, kw=kw: conv_case(
                 inp, "float32 LN + composite v dec3 256->256" + tag, h3, w3,
                 256, 256, False, ln=True, **kw),
@@ -2260,6 +2310,12 @@ def f32_cases(seed: int, h: int, w: int) -> list:
                 64, False, ln=True, **kw),
             lambda h3=h3, w3=w3, tag=tag, b=b: chm_case(
                 inp, "float32 dec3" + tag, h3, w3, 256, 4, 4, batch=b,
+                iters=2),
+            lambda h2=h2, w2=w2, tag=tag, b=b: chm_case(
+                inp, "float32 dec2" + tag, h2, w2, 128, 2, 4, batch=b,
+                iters=2),
+            lambda hh=hh, ww=ww, tag=tag, b=b: chm_case(
+                inp, "float32 dec1" + tag, hh, ww, 64, 1, 3, batch=b,
                 iters=2),
         ] + narrow
     # row 5 at the other shapes the float32 paths give it, each beside the
@@ -2277,9 +2333,9 @@ def f32_cases(seed: int, h: int, w: int) -> list:
         cases += [lambda a=a, b=b, tag=tag: conv_case(
             inp, "float32 " + a[0] + tag, *a[1:-1], ln=a[-1], batch=b,
             iters=2) for a in shapes]
-    # csrc/ffn.cu, csrc/qkv_stats.cu and conv3x3.cu's float tile in float32,
-    # forced (off the paths now; their checks against the plain versions
-    # stay), at the padded frame
+    # csrc/ffn.cu, csrc/qkv_stats.cu, split_proj.cu, chm_stats.cu and
+    # conv3x3.cu's float tile in float32, forced (off the paths now; their
+    # checks against the plain versions stay), at the padded frame
     h2, w2, h3, w3, h4, w4 = h // 2, w // 2, h // 4, w // 4, h // 8, w // 8
     cases += [
         lambda: ffn_case(inp, "float32 gate+pair+po(B,C,C) dec3/enc3 on "
@@ -2287,6 +2343,11 @@ def f32_cases(seed: int, h: int, w: int) -> list:
                          po=True, iters=2, tile=True),
         lambda: qkv_case(inp, "float32 enc3/dec3 on qkv_stats.cu", h3, w3,
                          256, 4, iters=2, tile=True),
+        lambda: split_case(inp, "float32 latent FHR q,k,v on split_proj.cu "
+                           "(halo in device memory)", h4, w4, 512, 3, iters=2,
+                           tile=True),
+        lambda: chm_case(inp, "float32 dec3 on chm_stats.cu", h3, w3, 256, 4,
+                         4, iters=2, tile=True),
         lambda: conv_case(inp, "float32 LN + composite v dec3 256->256 on "
                           "conv3x3.cu", h3, w3, 256, 256, False, ln=True,
                           iters=2, tile=True),
@@ -4164,13 +4225,14 @@ def run_train_dist(yml: str, seed: int, width: int, height: int) -> dict:
 
 
 # the kernels line's float32 rows of the widened bodies: the row whose
-# counters they read on the float32 paths (every float32 launch of rows 4,
-# 6, 13, 14 is on the body widened for float32; rows 1, 3, 5 and 11 on
-# csrc/ffn.cu, qkv_stats.cu, conv3x3.cu and attn_v.cu are those not on their
-# float32 bodies, none on the paths; row 1's calls there all have a
-# depthwise stage)
+# counters they read on the float32 paths (every float32 launch of rows 13
+# and 14 is on the body widened for float32; rows 1, 3, 4, 5, 6 and 11 on
+# csrc/ffn.cu, qkv_stats.cu, split_proj.cu, conv3x3.cu, chm_stats.cu and
+# attn_v.cu are those not on their float32 bodies, none on the paths; row
+# 1's calls there all have a depthwise stage)
 F32_NEW_BODY = {"ffn": "ffn_f32", "qkv_stats": "qkv_f32",
-                "conv3x3": "conv3x3_f32", "attn_v": "attn_v_f32"}
+                "split_proj": "split_f32", "conv3x3": "conv3x3_f32",
+                "chm_stats": "chm_f32", "attn_v": "attn_v_f32"}
 F32_ROWS = {"ffn_tile_f32": "ffn", "qkv_stats_f32": "qkv_stats",
             "split_proj_f32": "split_proj", "conv3x3_tile_f32": "conv3x3",
             "chm_stats_f32": "chm_stats", "level_run_f32": "level_run",
@@ -4412,8 +4474,8 @@ def main(argv=None) -> int:
                       "conv3x3", "chm_wg", "lattice_merge", "lattice_split")
             t1_chm = t0_chm + ("sab_wg", "split_c64")
             f32_t0 = ("ffn", "ffn_f32", "qkv_stats", "qkv_f32", "split_proj",
-                      "conv3x3", "conv3x3_f32", "chm_stats", "lattice_merge",
-                      "lattice_split")
+                      "split_f32", "conv3x3", "conv3x3_f32", "chm_stats",
+                      "chm_f32", "lattice_merge", "lattice_split")
             f32_t1 = f32_t0 + ("sab",)  # sab.cu at 256 x 256 and 192 x 192
             on_path = {
                 "gopro_t1_fhr": ("ffn", "ffn_wg", "ffn_c64", "qkv_wg",
@@ -4457,8 +4519,8 @@ def main(argv=None) -> int:
                                       "chm_wg", "sab_wg", "lattice_split",
                                       "lattice_merge", "attn_v_merge",
                                       "level_run", "level_wg"),
-                # float32 serving: the float32 bodies of rows 1, 3 and 5,
-                # the widened mma.sync bodies of rows 4 and 6, row 7
+                # float32 serving: the float32 bodies of rows 1, 3, 4, 5 and
+                # 6, row 7
                 # (`gopro`: sab_f32.cu at whole frames, sab.cu at 256 x 256
                 # and 192 x 192) and the lattice pair; under the full plan
                 # also level.cu, attn_v_f32.cu and chain2.cu
@@ -4467,8 +4529,9 @@ def main(argv=None) -> int:
                                 f32_t1),
                 "gopro_f32": f32_t1 + ("sab_f32",),
                 "gopro_f32_fused": ("ffn", "ffn_f32", "qkv_stats", "qkv_f32",
-                                    "split_proj", "conv3x3", "conv3x3_f32",
-                                    "chm_stats", "lattice_split",
+                                    "split_proj", "split_f32", "conv3x3",
+                                    "conv3x3_f32", "chm_stats", "chm_f32",
+                                    "lattice_split",
                                     "sab", "sab_f32", "attn_v_merge",
                                     "attn_v_f32", "level_run", "two_stage"),
                 "derain_tiled_f32": f32_t0,
@@ -4493,22 +4556,27 @@ def main(argv=None) -> int:
             # split_proj.cu, none on level.cu or chain2.cu. The float32
             # paths are exempt from these checks by name: the Hopper bodies
             # (level_wg.cu and chain2_wg.cu among them) take bf16 only, so
-            # every float32 call of rows 1, 3, 4, 6, 7, 13 and 14 is on the
-            # body widened for it, and none launches a bf16-only body
+            # every float32 call of rows 1, 3, 4, 5, 6 and 11 is on its
+            # float32 body, of rows 7, 13 and 14 on the body widened for it,
+            # and none launches a bf16-only body
             for path, c in by_path.items():
                 if path in F32_PATHS:
                     require(not any(c[k] for k in BF16_ONLY),
                             f"the {path} path launched a bf16-only body")
                     require(c["ffn"] == c["ffn_f32"]
                             and c["qkv_stats"] == c["qkv_f32"]
+                            and c["split_proj"] == c["split_f32"]
                             and c["conv3x3"] == c["conv3x3_f32"]
+                            and c["chm_stats"] == c["chm_f32"]
                             and c["attn_v_merge"] + c["attn_v_slots"]
                             == c["attn_v_f32"],
                             f"the {path} path launched ffn.cu, qkv_stats.cu, "
-                            "conv3x3.cu or attn_v.cu in float32")
+                            "split_proj.cu, conv3x3.cu, chm_stats.cu or "
+                            "attn_v.cu in float32")
                     continue
                 require(not any(c[k] for k in ("ffn_f32", "qkv_f32",
-                                               "conv3x3_f32", "attn_v_f32")),
+                                               "split_f32", "conv3x3_f32",
+                                               "chm_f32", "attn_v_f32")),
                         f"the {path} path launched a float32 body")
                 require(c["ffn"] == c["ffn_wg"] + c["ffn_c64"]
                         + c["ffn_pw"] and c["split_proj"]

@@ -750,12 +750,16 @@ def test_qkv_stats_float32_wide_matches_plain(dev, shape, monkeypatch):
 
 
 @pytest.mark.parametrize("shape", F32_WIDE_SPLIT_SHAPES, ids=str)
-def test_split_proj_float32_wide_matches_plain(dev, shape):
+def test_split_proj_float32_wide_matches_plain(dev, shape, monkeypatch):
+    """csrc/split_proj.cu's float32 forms up to C = 512, forced onto it (the
+    plan sends the LayerNorm forms to csrc/split_f32.cu:
+    test_split_f32_body_matches_plain)."""
     b, h, w, c, e, n, ln = shape
     x, kw = chain_kernel_case(Maker(23, torch.float32, dev), b, h, w, c, n * e,
                               False)
     if not ln:
         kw["ln_w"] = kw["ln_b"] = None
+    monkeypatch.setattr(K, "_split_plan", lambda *a: ("tile", None))
     got, moved = _one_launch_on_the_tile_body(
         lambda: K.fused_ln_split_proj(x, n_out=n, **kw), KP.launch_counts())
     assert moved == {"split_proj": 1}
@@ -785,9 +789,13 @@ def test_conv3x3_float32_wide_with_layernorm_matches_plain(dev, shape,
 
 
 @pytest.mark.parametrize("shape", F32_WIDE_CHM_SHAPES, ids=str)
-def test_chm_stats_float32_wide_matches_plain(dev, shape):
+def test_chm_stats_float32_wide_matches_plain(dev, shape, monkeypatch):
+    """csrc/chm_stats.cu's float32 form up to C = 512, forced onto it (the
+    plan sends 64 channels a head to csrc/chm_f32.cu:
+    test_chm_f32_body_matches_plain)."""
     b, h, w, c, heads, nf, ln_bias = shape
     x, x_sp, kw = chm_kernel_case(Maker(25, torch.float32, dev), *shape)
+    monkeypatch.setattr(K, "_chm_plan", lambda *a, **kw: ("tile", None))
     got, moved = _one_launch_on_the_tile_body(
         lambda: K.fused_chm_stats(x, x_sp, **kw), KP.launch_counts())
     assert moved == {"chm_stats": 1}
@@ -947,6 +955,131 @@ def test_f32_bodies_smem_mirror_the_sources(dev):
             assert ffn.turtle_ffn_f32_smem(n) == K._fg_smem(n)
         assert qkv.turtle_qkv_f32_smem(c) == K._qkv_f32_geometry(
             1, 8, 8, c, c // 64)["smem"]
+
+
+# the float32 body of row 4 (csrc/split_f32.cu): (B, H, W, C, n_out, biases,
+# ln_bias). The paths' shapes (the latent FHR q, k, v at C = 512, the SAB
+# q, k at dec3, dec2, dec1) at a padded 720p frame, at 15 tiles of 320, at a
+# padded 1080p frame, the harness's 256 x 256 and the train step's 2 x 192 x
+# 192; then the edges: biases, the LayerNorm without its bias, one and four
+# maps, ragged maps
+F32_BODY_SPLIT_CASES = {
+    "latent_qkv_720p": (1, 92, 160, 512, 3, False, True),
+    "sab_qk_dec3_720p": (1, 184, 320, 256, 2, False, True),
+    "sab_qk_dec2_720p": (1, 368, 640, 128, 2, False, True),
+    "sab_qk_dec1_720p": (1, 736, 1280, 64, 2, False, True),
+    "latent_qkv_15_tiles": (15, 40, 40, 512, 3, False, True),
+    "sab_qk_dec3_15_tiles": (15, 80, 80, 256, 2, False, True),
+    "sab_qk_dec2_15_tiles": (15, 160, 160, 128, 2, False, True),
+    "sab_qk_dec1_15_tiles": (15, 320, 320, 64, 2, False, True),
+    "latent_qkv_1080p": (1, 136, 240, 512, 3, False, True),
+    "sab_qk_dec1_1080p": (1, 1088, 1920, 64, 2, False, True),
+    "latent_qkv_256": (1, 32, 32, 512, 3, False, True),
+    "sab_qk_dec3_2x192": (2, 48, 48, 256, 2, False, True),
+    "biases_ragged_c128": (2, 37, 53, 128, 2, True, False),
+    "one_map_biases_c256": (1, 19, 27, 256, 1, True, True),
+    "four_maps_c64_ragged": (1, 23, 29, 64, 4, False, True),
+    "tiny_c512": (1, 3, 5, 512, 3, False, False),
+}
+
+
+@pytest.mark.parametrize("case", list(F32_BODY_SPLIT_CASES))
+def test_split_f32_body_matches_plain(dev, case, monkeypatch):
+    """Row 4's float32 body against the plain version in float32 and against
+    csrc/split_proj.cu's float32 form (forced) on the same inputs, both
+    within the float32 limit; its plan takes the call, one launch of the
+    wrapper, counted on the body; two launches agree bit for bit."""
+    b, h, w, c, n, biases, ln_bias = F32_BODY_SPLIT_CASES[case]
+    x, kw = chain_kernel_case(Maker(26, torch.float32, dev), b, h, w, c, n * c,
+                              biases, ln_bias)
+    got, moved = _one_launch_on_the_tile_body(
+        lambda: K.fused_ln_split_proj(x, n_out=n, **kw), KP.launch_counts())
+    assert moved == {"split_proj": 1, "split_f32": 1}
+    tol = KERNEL_TOL[torch.float32]
+    want = K.split_proj_plain(x, n_out=n, **kw)
+    assert len(got) == n and all(g.shape == (b, h, w, c) for g in got)
+    assert max(max_err(g, w_) for g, w_ in zip(got, want)) <= tol
+    del want
+    again = K.fused_ln_split_proj(x, n_out=n, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+    del again
+    monkeypatch.setattr(K, "_split_plan", lambda *a: ("tile", None))
+    old = K.fused_ln_split_proj(x, n_out=n, **kw)
+    torch.cuda.synchronize()
+    assert max(max_err(g, o) for g, o in zip(got, old)) <= 2 * tol
+
+
+# the float32 body of row 6 (csrc/chm_f32.cu): (B, H, W, C, heads, NF,
+# ln_bias). The paths' CHM levels (dec3 256 + 4 frames, dec2 128 + 4, dec1
+# 64 + 3) at a padded 720p frame and at 15 tiles of 320, dec1 at a padded
+# 1080p frame, dec3 of the train step's 2 x 192 x 192; then the edges: C =
+# 512, one frame, ragged and tiny maps, the LayerNorm without its bias
+F32_BODY_CHM_CASES = {
+    "dec3_720p": (1, 184, 320, 256, 4, 4, True),
+    "dec2_720p": (1, 368, 640, 128, 2, 4, True),
+    "dec1_720p": (1, 736, 1280, 64, 1, 3, True),
+    "dec3_15_tiles": (15, 80, 80, 256, 4, 4, True),
+    "dec2_15_tiles": (15, 160, 160, 128, 2, 4, True),
+    "dec1_15_tiles": (15, 320, 320, 64, 1, 3, True),
+    "dec1_1080p": (1, 1088, 1920, 64, 1, 3, True),
+    "dec3_2x192": (2, 48, 48, 256, 4, 4, True),
+    "ragged_c128_two_entries": (2, 37, 53, 128, 2, 2, False),
+    "c512_one_frame": (1, 19, 27, 512, 8, 1, True),
+    "tiny_c64": (1, 3, 5, 64, 1, 4, False),
+}
+
+
+@pytest.mark.parametrize("case", list(F32_BODY_CHM_CASES))
+def test_chm_f32_body_matches_plain(dev, case, monkeypatch):
+    """Row 6's float32 body against the plain version (v, vh, and the Grams
+    and sums over the pixels) and against csrc/chm_stats.cu's float32 form
+    (forced) on the same inputs; its plan takes the call, one launch of the
+    wrapper, counted on the body; the fixed-order sums repeat bit for bit.
+    The plain version runs in float64 on the same float32 inputs: the
+    Grams and sums run over a whole level (58,880 to 942,080 pixels), where a
+    float32 contraction's own rounding is of the order of the limit, so the
+    float32 plain version is no yardstick for the body's at these shapes."""
+    b, h, w, c, heads, nf, ln_bias = F32_BODY_CHM_CASES[case]
+    x, x_sp, kw = chm_kernel_case(Maker(27, torch.float32, dev), b, h, w, c,
+                                  heads, nf, ln_bias)
+    got, moved = _one_launch_on_the_tile_body(
+        lambda: K.fused_chm_stats(x, x_sp, **kw), KP.launch_counts())
+    assert moved == {"chm_stats": 1, "chm_f32": 1}
+    want = K.chm_stats_plain(x.double(), x_sp.double(), **{
+        k: v.double() if torch.is_tensor(v) else v for k, v in kw.items()})
+    tol = KERNEL_TOL[torch.float32]
+    assert got[1].shape == (b, nf, h, w, c)
+    assert got[3].shape == (b, nf, heads, c // heads, c // heads)
+    assert max_err(got[0], want[0]) <= tol
+    assert max_err(got[1], want[1]) <= tol
+    for g, w_ in zip(got[2:], want[2:]):  # sums over h * w pixels
+        assert max_err(g / (h * w), w_ / (h * w)) <= tol
+    del want
+    again = K.fused_chm_stats(x, x_sp, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+    del again
+    monkeypatch.setattr(K, "_chm_plan", lambda *a, **kw: ("tile", None))
+    old = K.fused_chm_stats(x, x_sp, **kw)
+    torch.cuda.synchronize()
+    assert max_err(got[1], old[1]) <= 2 * tol
+    assert max_err(got[3] / (h * w), old[3] / (h * w)) <= 2 * tol
+
+
+def test_split_chm_f32_smem_mirror_the_sources(dev):
+    """Rows 4 and 6's float32 plans give each source's shared memory: the
+    product's for N E (row 4) and the largest of the two products' and the
+    Gram pass's (row 6)."""
+    from turtlevsr_tpu_torch.kernels import build
+
+    split, chm = build.load("split_f32"), build.load("chm_f32")
+    for c in (64, 128, 256, 512):
+        for n in (1, 2, 3, 4):
+            assert split.turtle_split_f32_smem(n * c) == \
+                K._split_f32_geometry(1, 8, 8, c, c, n, True)["smem"]
+        assert chm.turtle_chm_f32_smem(c) == K._chm_f32_geometry(
+            1, 8, 8, c, c // 64, 2)["smem"]
 
 
 # the float32 body of row 5 (csrc/conv_f32.cu): (B, H, W, Cin, Cout, bias, LN

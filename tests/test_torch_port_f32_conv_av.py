@@ -45,10 +45,12 @@ WRAPPERS = ("fused_conv3x3", "sab_attn_v_merge")
 ALL_SIZES = {**SIZES, "deblur_1920x1080": ("deblur", (1, 1080, 1920))}
 
 
-def _record(path: str, h: int, w: int, batch: int):
-    """[(wrapper, args, kwargs)] of rows 5 and 11 in one float32 model call
-    on a batch of [previous, current] pairs of (h, w) frames, on fake
-    tensors, under the ``attn_v_merge`` plan (row 11's only caller)."""
+def _record(path: str, h: int, w: int, batch: int, wrappers=WRAPPERS,
+            fuse=("attn_v_merge",)):
+    """[(wrapper, args, kwargs)] of the wrappers' calls (rows 5 and 11) in
+    one float32 model call on a batch of [previous, current] pairs of (h, w)
+    frames, on fake tensors, under the plan ``fuse`` (``attn_v_merge``: row
+    11's only caller)."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     from turtlevsr_tpu_torch.models.blocks import KernelWeights
@@ -57,10 +59,10 @@ def _record(path: str, h: int, w: int, batch: int):
     cfg = model_config_from_options(load_options(os.path.join(ROOT, path),
                                                  is_train=False))
     with torch.device("meta"):
-        model = Turtle(cfg, fuse=("attn_v_merge",)).eval().to(torch.float32)
+        model = Turtle(cfg, fuse=fuse).eval().to(torch.float32)
     calls, saved = [], []
     for mod in (blocks_mod, turtle_mod):
-        for name in WRAPPERS:
+        for name in wrappers:
             if hasattr(mod, name):
                 fn = getattr(mod, name)
                 saved.append((mod, name, fn))

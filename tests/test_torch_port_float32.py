@@ -85,14 +85,13 @@ def _chip_smoke():
     spec.loader.exec_module(mod)
     return mod
 # the bodies whose LN halo lives in device memory above C = 256 in float32
-# (row 5's halo and two weight stages fit in shared memory at 512; rows 1
-# and 3's float32 bodies keep no halo: their LayerNorm is a product's
-# prologue)
-HALO_IN_DEVICE_MEMORY_AT_512 = ("fused_ln_split_proj", "fused_chm_stats",
-                                "fused_channel_gffw_run")
+# (rows 1, 3, 4 and 6's float32 bodies keep no halo: their LayerNorm is a
+# product's prologue)
+HALO_IN_DEVICE_MEMORY_AT_512 = ("fused_channel_gffw_run",)
 # the wrappers whose every float32 call of the paths goes to a float32 body
-# of its own (csrc/ffn_f32.cu, csrc/qkv_f32.cu)
-ON_FLOAT32_BODIES = ("fused_block_ffn", "fused_qkv_stats")
+# of its own (csrc/ffn_f32.cu, qkv_f32.cu, split_f32.cu, chm_f32.cu)
+ON_FLOAT32_BODIES = ("fused_block_ffn", "fused_qkv_stats",
+                     "fused_ln_split_proj", "fused_chm_stats")
 # rows 5 and 11 on their float32 bodies (csrc/conv_f32.cu, attn_v_f32.cu):
 # every float32 call, no halo
 ON_PRODUCT_BODIES = ("fused_conv3x3", "sab_attn_v_merge")
@@ -157,14 +156,26 @@ def _f32_plan(name, args, kw):
         return (dict(geo, body=body) if body == "f32"
                 else dict(K._qkv_f32_plan(b, h, w, c, kw["heads"]), body=body))
     if name == "fused_ln_split_proj":
-        return K._split_f32_plan(b, h, w, c)
+        n_out = kw["n_out"]
+        e = kw["w1"].shape[1] // n_out
+        body, geo = K._split_plan(b, h, w, c, e, n_out,
+                                  kw.get("ln_w") is not None,
+                                  kw.get("b1") is not None
+                                  or kw.get("bd") is not None, torch.float32)
+        return (dict(geo, body=body) if body == "f32"
+                else dict(K._split_f32_plan(b, h, w, c), body=body))
     if name == "fused_conv3x3":
         cout, ln = args[1].shape[3], kw.get("ln_w") is not None
         body, geo = K._conv_plan(b, h, w, c, cout, ln, torch.float32)
         return (dict(geo, body=body) if body == "f32"
                 else dict(K._conv_f32_plan(b, h, w, c, cout, ln), body=body))
     if name == "fused_chm_stats":
-        return K._chm_f32_plan(b, h, w, c, kw["heads"], args[1].shape[1])
+        nf = args[1].shape[1]
+        body, geo = K._chm_plan(b, h, w, c, kw["heads"], torch.float32,
+                                nf=nf)
+        return (dict(geo, body=body) if body == "f32"
+                else dict(K._chm_f32_plan(b, h, w, c, kw["heads"], nf),
+                          body=body))
     if name == "fused_two_stage":
         return C2._two_stage_f32_plan(b, h, w, c)
     if name == "fused_channel_gffw_run":
@@ -197,8 +208,8 @@ def test_every_float32_call_is_taken_by_a_card_body(family, fuse):
     row 6 at 256. Under the full plan the Channel blocks' rows 1 and 3 run
     inside row 14's runs, at C = 128, 256 and 512 (the scratch at 512 one
     slice a tile of the batch), and row 11 takes every CHM block of the
-    files that have the alignment attention. Rows 1, 3, 5 and 11 are on
-    their float32 bodies (no halo)."""
+    files that have the alignment attention. Rows 1, 3, 4, 5, 6 and 11 are
+    on their float32 bodies (no halo)."""
     calls = _record(*FILES[family], fuse=fuse)
     wide = set()
     for name, args, kw in calls:
@@ -328,13 +339,12 @@ class _FakeLib:
 @pytest.mark.parametrize("row", ["1", "3", "4", "5", "6"])
 def test_float32_wide_calls_pass_the_wrapper_checks(row, c, monkeypatch):
     """The launch code of each widened wrapper, on a float32 map at C = 256
-    and 512, reaches its kernel's launch (stubbed here: one launch recorded)
-    with the LN halo's scratch address last where the halo lives in device
-    memory, and null at C = 256; rows 1 and 3 reach their float32 bodies
-    (csrc/ffn_f32.cu, qkv_f32.cu) with the maps between their launches
-    last; rows 1, 3 and 5 reach their float32 bodies (csrc/ffn_f32.cu,
-    qkv_f32.cu, conv_f32.cu) with the maps between their launches last.
-    Before the bodies widened these calls were refused with "up to 128"."""
+    and 512, reaches its float32 body's launch (stubbed here: one launch
+    recorded) with the maps between its launches last (rows 1, 3, 4 and 6:
+    csrc/ffn_f32.cu, qkv_f32.cu, split_f32.cu, chm_f32.cu; row 3 and 6's
+    partial rows before them) or the LayerNorm's statistics (row 5:
+    conv_f32.cu), counted on the body. Before the bodies widened these calls
+    were refused with "up to 128"."""
     fake = _FakeLib()
     monkeypatch.setattr(K.build, "load", lambda name: fake)
     monkeypatch.setattr(K, "_stream", lambda x: 0)
@@ -349,23 +359,18 @@ def test_float32_wide_calls_pass_the_wrapper_checks(row, c, monkeypatch):
         K._ffn_launch(x, m(b, h, w, c), m(b, c, c), None, ln["ln_w"],
                       ln["ln_b"], m(c, 2 * c), None, m(3, 3, 2 * c), None,
                       m(c, c), None, None, "gate", None)
-        tail = 20 + 5
     elif row == "3":
         K._qkv_stats_launch(x, ln["ln_w"], ln["ln_b"], m(c, 3 * c), None,
                             m(3, 3, 3 * c), None, heads)
-        tail = 9
     elif row == "4":
         K._split_proj_launch(x, ln["ln_w"], ln["ln_b"], m(c, 3 * c), None,
                              m(3, 3, 3 * c), None, 3)
-        tail = 11
     elif row == "5":
         K._conv3x3_launch(x, m(3, 3, c, c), None, ln["ln_w"], ln["ln_b"])
-        tail = 6
     else:
         K._chm_stats_launch(x, m(b, 2, h, w, c), ln["ln_w"], ln["ln_b"],
                             m(c, 3 * c), m(3, 3, 3 * c), m(c, 2 * c),
                             m(3, 3, 2 * c), heads)
-        tail = 11
     assert len(fake.launches) == 1
     ptrs, _, is_bf16 = fake.launches[0]
     assert is_bf16 == 0
@@ -376,17 +381,14 @@ def test_float32_wide_calls_pass_the_wrapper_checks(row, c, monkeypatch):
                                                       False, False, True]
         assert sum(counts.values()) == 2 and counts["ffn_f32"] == 1
         return
-    if row == "3":  # the partial rows, h, the LN statistics
-        assert len(ptrs) == 11 and None not in ptrs[8:]
-        assert sum(counts.values()) == 2 and counts["qkv_f32"] == 1
-        return
-    if row == "5":  # the LN statistics
-        assert len(ptrs) == tail + 1 and ptrs[tail] is not None
-        assert sum(counts.values()) == 2 and counts["conv3x3_f32"] == 1
-        return
-    assert len(ptrs) == tail + 1  # the halo's scratch: the last address
-    assert (ptrs[tail] is not None) == (c > 256)
-    assert sum(counts.values()) == 1  # the wrapper's own count, no Hopper body
+    # (pointers, the first of the trailing ones, the body's counter): 3 the
+    # partial rows, h, the LN statistics; 4 h, the LN statistics; 5 the LN
+    # statistics; 6 the partial rows, h, hh, the LN statistics
+    n, first, counter = {"3": (11, 8, "qkv_f32"), "4": (13, 11, "split_f32"),
+                         "5": (7, 6, "conv3x3_f32"),
+                         "6": (14, 10, "chm_f32")}[row]
+    assert len(ptrs) == n and None not in ptrs[first:]
+    assert sum(counts.values()) == 2 and counts[counter] == 1
 
 
 @pytest.mark.parametrize("c", [256, 512])

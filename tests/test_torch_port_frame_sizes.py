@@ -166,11 +166,13 @@ def _taken(name, args, kw, dtype) -> list:
                                   kw.get("ln_w") is not None,
                                   kw.get("b1") is not None
                                   or kw.get("bd") is not None, dtype)
-        counters = ["split_proj"] + {"wg": ["split_wg"],
-                                     "c64": ["split_c64"]}.get(body, [])
+        counters = ["split_proj"] + {"wg": ["split_wg"], "c64": ["split_c64"],
+                                     "f32": ["split_f32"]}.get(body, [])
     elif name == "fused_chm_stats":
-        body, geo = K._chm_plan(*x.shape, kw["heads"], dtype)
-        counters = ["chm_stats"] + (["chm_wg"] if body == "wg" else [])
+        body, geo = K._chm_plan(*x.shape, kw["heads"], dtype,
+                                nf=args[1].shape[1])
+        counters = ["chm_stats"] + {"wg": ["chm_wg"], "f32": ["chm_f32"]}.get(
+            body, [])
     elif name == "fused_conv3x3":
         body, geo = K._conv_plan(*x.shape, args[1].shape[3],
                                  kw.get("ln_w") is not None, dtype)
@@ -203,8 +205,9 @@ def _taken(name, args, kw, dtype) -> list:
         body, geo, counters = "tile", None, [name]
     if geo is not None:
         assert geo["smem"] <= SMEM_LIMIT, (name, x.shape, body)
-    if f32 and name in ("fused_block_ffn", "fused_qkv_stats"):
-        # every float32 call of rows 1 and 3 on its float32 body
+    if f32 and name in ("fused_block_ffn", "fused_qkv_stats",
+                        "fused_ln_split_proj", "fused_chm_stats"):
+        # every float32 call of rows 1, 3, 4 and 6 on its float32 body
         assert body == "f32", (name, x.shape)
     if not f32 and name not in ("fused_conv3x3", "lattice_split",
                                 "lattice_merge"):

@@ -68,12 +68,14 @@ def test_port_has_the_expected_modules():
         assert want in rel, want
     from turtlevsr_tpu_torch.kernels import build
 
-    assert len(build.KERNEL_SOURCES) == 26
-    assert {"conv_f32", "attn_v_f32"} <= set(build.KERNEL_SOURCES)
+    assert len(build.KERNEL_SOURCES) == 28
+    assert {"conv_f32", "attn_v_f32", "split_f32", "chm_f32"} <= set(
+        build.KERNEL_SOURCES)
     # the framepack reader's own copy of its C++ source (built by g++)
     assert os.path.isfile(os.path.join(PORT, "data", "framepack.cc"))
     headers = ("common.cuh", "ffn_tile.cuh", "qkv_tile.cuh", "pipe.cuh",
-               "stats_wg.cuh", "c64_tile.cuh", "ffn_wg.cuh", "f32_tile.cuh")
+               "stats_wg.cuh", "c64_tile.cuh", "ffn_wg.cuh", "f32_tile.cuh",
+               "gram_f32.cuh")
     for cu in (*headers, *(n + ".cu" for n in build.KERNEL_SOURCES)):
         assert os.path.isfile(os.path.join(PORT, "kernels", "csrc", cu)), cu
         assert cu in headers or cu[:-3] in build._SIGNATURES
@@ -339,7 +341,7 @@ def test_launch_counters_cover_every_wrapper():
                            "chm_wg", "sab_wg", "level_wg", "two_stage",
                            "two_stage_wg", "sab_sparse_softmax", "sparse_wg",
                            "sab_f32", "ffn_f32", "qkv_f32", "conv3x3_f32",
-                           "attn_v_f32"}
+                           "attn_v_f32", "split_f32", "chm_f32"}
     kernels.reset_launch_counts()
     assert set(kernels.launch_counts().values()) == {0}
 

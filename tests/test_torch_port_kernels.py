@@ -310,7 +310,7 @@ def test_launch_counters_do_not_count_plain_runs():
         "split_c64": 0, "chm_wg": 0, "sab_wg": 0, "level_wg": 0,
         "two_stage": 0, "two_stage_wg": 0, "sab_sparse_softmax": 0,
         "sparse_wg": 0, "sab_f32": 0, "ffn_f32": 0, "qkv_f32": 0,
-        "conv3x3_f32": 0, "attn_v_f32": 0}
+        "conv3x3_f32": 0, "attn_v_f32": 0, "split_f32": 0, "chm_f32": 0}
 
 
 def _no_dw(p):

@@ -230,7 +230,9 @@ def test_split_c64_plan_keeps_the_other_c64_calls_on_the_tile_body(change):
     assert K._split_plan(**SPLIT_PATH)[0] == "c64"
     assert K._split_plan(**dict(SPLIT_PATH, b=1, h=736, w=1280))[1][
         "tiles"] == 46 * 160
-    args = dict(SPLIT_PATH, **{"float32": dict(dtype=torch.float32),
+    args = dict(SPLIT_PATH, **{  # float32 outside csrc/split_f32.cu's forms
+                               "float32": dict(dtype=torch.float32, e=32,
+                                               n_out=4),
                                "biases": dict(has_bias=True),
                                "no_ln": dict(has_ln=False),
                                "e32": dict(e=32, n_out=4)}[change])

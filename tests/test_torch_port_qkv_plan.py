@@ -120,7 +120,8 @@ def test_qkv_plan_keeps_the_other_calls_on_the_tile_body(change):
 def test_chm_plan_keeps_the_other_calls_on_the_tile_body(change):
     args = dict(b=2, h=37, w=53, c=128, heads=2, dtype=torch.bfloat16)
     assert K._chm_plan(**args)[0] == "wg"
-    args.update({"float32": dict(dtype=torch.float32),
+    args.update({  # float32 outside csrc/chm_f32.cu's forms: 32 a head
+                 "float32": dict(dtype=torch.float32, heads=4),
                  "ctok32": dict(heads=4),
                  "c96": dict(c=96, heads=2),
                  "c512": dict(c=512, heads=8)}[change])

@@ -38,7 +38,9 @@ def launch_counts() -> dict:
     ``qkv_stats`` on the float32 bodies of csrc/ffn_f32.cu and
     csrc/qkv_f32.cu, ``conv3x3_f32`` those of ``conv3x3`` on the float32
     body of csrc/conv_f32.cu, ``attn_v_f32`` those of ``attn_v_merge`` and
-    ``attn_v_slots`` on the float32 body of csrc/attn_v_f32.cu."""
+    ``attn_v_slots`` on the float32 body of csrc/attn_v_f32.cu,
+    ``split_f32`` and ``chm_f32`` those of ``split_proj`` and ``chm_stats``
+    on the float32 bodies of csrc/split_f32.cu and csrc/chm_f32.cu."""
     fns = _counted()
     counts = {name: fn.launches for name, fn in fns.items()}
     counts["ffn_no_dw"] = fns["ffn"].launches_no_dw
@@ -53,6 +55,8 @@ def launch_counts() -> dict:
     counts["conv3x3_f32"] = fns["conv3x3"].launches_f32
     counts["attn_v_f32"] = (fns["attn_v_merge"].launches_f32
                             + fns["attn_v_slots"].launches_f32)
+    counts["split_f32"] = fns["split_proj"].launches_f32
+    counts["chm_f32"] = fns["chm_stats"].launches_f32
     for name in _WG_BODIES:
         counts[name.split("_")[0] + "_wg"] = fns[name].launches_wg
     return counts
@@ -76,7 +80,8 @@ def reset_launch_counts() -> None:
     fns["sab"].launches_f32 = 0
     fns["ffn"].launches_f32 = 0
     fns["qkv_stats"].launches_f32 = 0
-    for name in ("conv3x3", "attn_v_merge", "attn_v_slots"):
+    for name in ("conv3x3", "attn_v_merge", "attn_v_slots", "split_proj",
+                 "chm_stats"):
         fns[name].launches_f32 = 0
     for name in _WG_BODIES:
         fns[name].launches_wg = 0

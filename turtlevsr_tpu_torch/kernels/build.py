@@ -21,8 +21,8 @@ CSRC_DIR = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
 KERNEL_SOURCES = ("ffn", "ffn_wg", "ffn_c64", "ffn_pw", "ffn_f32", "qkv_stats",
                   "qkv_wg", "qkv_f32",
-                  "split_proj", "split_wg", "split_c64", "conv3x3", "conv_f32", "chm_stats",
-                  "chm_wg", "sab", "sab_wg", "sab_f32", "sparse_wg", "lattice", "level",
+                  "split_proj", "split_wg", "split_c64", "split_f32", "conv3x3", "conv_f32",
+                  "chm_stats", "chm_wg", "chm_f32", "sab", "sab_wg", "sab_f32", "sparse_wg", "lattice", "level",
                   "level_wg", "attn_v", "attn_v_f32", "chain2", "chain2_wg")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
@@ -58,6 +58,10 @@ _SIGNATURES = {
     "split_proj": {"turtle_split_proj_launch": (_LAUNCH_ARGS, ctypes.c_int),
                    "turtle_split_proj_smem": ([ctypes.c_int] * 2,
                                               ctypes.c_size_t)},
+    "split_f32": {"turtle_split_f32_launch": (_LAUNCH_ARGS, ctypes.c_int),
+                  "turtle_split_f32_smem": ([ctypes.c_int], ctypes.c_size_t)},
+    "chm_f32": {"turtle_chm_f32_launch": (_LAUNCH_ARGS, ctypes.c_int),
+                "turtle_chm_f32_smem": ([ctypes.c_int], ctypes.c_size_t)},
     "split_wg": {"turtle_split_wg_launch": (_LAUNCH_ARGS, ctypes.c_int),
                  "turtle_split_wg_smem": ([ctypes.c_int], ctypes.c_size_t)},
     "split_c64": {"turtle_split_c64_launch": (_LAUNCH_ARGS, ctypes.c_int),

@@ -551,6 +551,12 @@ static int run_row_stats(const float* x, int B, int M, int C, float2* stats, cud
 }
 
 
+// the taps' kernels (ffn_f32.cu's dw_act_kernel, split_f32.cu's
+// split_taps_kernel): a thread four channels of one column and DW_RT rows,
+// a block DW_TX columns by 16 threads (64 channels)
+constexpr int DW_RT = 4;
+constexpr int DW_TX = 16;
+
 // Depthwise 3x3 of four channels c .. c + 3 down column x, rows y0 .. y0 + RT
 // - 1: emit(r, bias + sum over (ty, tx) in row-major order of h[y0 + r - 1 +
 // ty][x - 1 + tx] tap(3 ty + tx)), the hidden map zero outside the image (h:

@@ -36,9 +36,6 @@
 
 namespace turtle {
 
-constexpr int DW_RT = 4;  // rows of a thread in dw_act_kernel
-constexpr int DW_TX = 16;  // pixels of a block along x (16 threads a pixel)
-
 // act[b][y][x][c..c+3] for c < E: grid (ceil(W / 16), ceil(H / 4), B *
 // ceil(E / 64)); a thread owns four channels of one column and four rows,
 // the nine taps of its channels in registers

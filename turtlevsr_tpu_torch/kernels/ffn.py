@@ -20,7 +20,9 @@ wgmma body of csrc/ffn_wg.cu, ``fused_block_ffn.launches_c64`` those on the
 C = 64 body of csrc/ffn_c64.cu; ``fused_block_ffn.launches_f32`` and
 ``fused_qkv_stats.launches_f32`` those on the float32 bodies of
 csrc/ffn_f32.cu and csrc/qkv_f32.cu, ``fused_conv3x3.launches_f32`` those
-on the float32 body of csrc/conv_f32.cu; ``fused_qkv_stats.launches_wg`` and
+on the float32 body of csrc/conv_f32.cu, ``fused_ln_split_proj.launches_f32``
+and ``fused_chm_stats.launches_f32`` those on the float32 bodies of
+csrc/split_f32.cu and csrc/chm_f32.cu; ``fused_qkv_stats.launches_wg`` and
 ``fused_chm_stats.launches_wg`` those of the statistics on the wgmma body of
 csrc/stats_wg.cuh (qkv_wg.cu, chm_wg.cu); ``fused_ln_split_proj.launches_wg``
 and ``.launches_c64`` those of the split projection on the wgmma body of
@@ -406,8 +408,9 @@ def _chm_f32_plan(b, h, w, c, heads, nf):
     """The geometry of one float32 fused_chm_stats call, on
     csrc/chm_stats.cu (turtle_chm_stats_smem): C up to 512, the LN halo in
     device memory at C = 512, C / heads <= 64, at least one aligned frame.
-    Raises ValueError, naming the body and the limit, for a call it does not
-    take."""
+    It binds the float32 calls outside csrc/chm_f32.cu's forms (other head
+    widths: :func:`_chm_plan`), none of the paths'. Raises ValueError,
+    naming the body and the limit, for a call it does not take."""
     name, body = "fused_chm_stats", "csrc/chm_stats.cu"
     if c % heads or c // heads > 64 or nf < 1:
         raise _f32_plan_error(name, body, "C / heads <= 64 and NF >= 1",
@@ -419,8 +422,10 @@ def _chm_f32_plan(b, h, w, c, heads, nf):
 def _split_f32_plan(b, h, w, c):
     """The geometry of one float32 fused_ln_split_proj call, on
     csrc/split_proj.cu (turtle_split_proj_smem): C up to 512, the LN halo in
-    device memory at C = 512. Raises ValueError, naming the body and the
-    limit, for a call it does not take."""
+    device memory at C = 512. It binds the float32 calls outside
+    csrc/split_f32.cu's forms (no LayerNorm, E != C, C < 64:
+    :func:`_split_plan`), none of the paths'. Raises ValueError, naming the
+    body and the limit, for a call it does not take."""
     return _f32_geometry("fused_ln_split_proj", "csrc/split_proj.cu", b, h,
                          w, c, _NPH * _HS * 4)
 
@@ -535,6 +540,25 @@ def _qkv_f32_grid(b, h, w, heads, n_sm):
     return max(1, min(tiles, -(-2 * n_sm // (heads * b))))
 
 
+# row 6's Gram pass sums at most this many of a block's tiles (512 pixels)
+# in registers a partial row: at a batch of tiles the grid falls to one
+# block an entry, and one fp32 sum over all of dec2's 160 x 160 pixels
+# drifted 1.8e-4 from the float64 sum on an NVIDIA H100 (limit 3e-5;
+# PERF.md row 6)
+_GRAM_CHUNK_TILES = 8
+
+
+def _chm_f32_grid(b, h, w, heads, nf, n_sm):
+    """Blocks a head, batch entry and part (the current map and each of the
+    nf frames) of row 6's Gram pass: at most two blocks an SM in all, so
+    that the grid is one wave of the two blocks an SM the kernel's launch
+    bounds give (the ceiling's few blocks more, e.g. 280 at dec3's 4 heads x
+    5 parts, would wait for a second wave), and at most one a tile of 4 x 16
+    pixels."""
+    tiles = -(-h // _QG_TH) * -(-w // _QG_TW)
+    return max(1, min(tiles, 2 * n_sm // (heads * b * (nf + 1))))
+
+
 def _qkv_f32_geometry(b, h, w, c, heads, n_sm: int = 132):
     """The launches of one float32 fused_qkv_stats call on csrc/qkv_f32.cu,
     mirrored from turtle_qkv_f32_launch: pw1 with the LayerNorm into h (B,
@@ -554,6 +578,74 @@ def _qkv_f32_geometry(b, h, w, c, heads, n_sm: int = 132):
                 smem=max(_fg_smem(3 * c),
                          (2 * _QG_TH * _QG_TW + 30) * _QG_CT * _F32),
                 scratch=b * h * w * (3 * c + 2))
+
+
+def _split_f32_form(c, e, n_out, has_ln) -> bool:
+    """Whether a float32 fused_ln_split_proj call has the form of
+    csrc/split_f32.cu: the LayerNorm, E = C a multiple of 16 from 64 to 512,
+    1-4 maps, biases or not."""
+    return (has_ln and e == c and c % 16 == 0 and 64 <= c <= _FG_LN_MAX_K
+            and 1 <= n_out <= 4)
+
+
+def _split_f32_geometry(b, h, w, c, e, n_out, has_ln):
+    """The launches of one float32 fused_ln_split_proj call on
+    csrc/split_f32.cu, mirrored from turtle_split_f32_launch: the rows'
+    LayerNorm statistics (a warp a pixel), pw1 into the hidden map h (B, H,
+    W, N E) on the tile kind of N E, then the taps' blocks (16 pixels x 64
+    hidden channels, 4 rows a thread) writing the N maps; the tile kind, the
+    shared memory and the scratch the wrapper allocates (floats: h and the
+    statistics). Raises ValueError, naming the body and its forms, for a
+    call it does not take."""
+    if not _split_f32_form(c, e, n_out, has_ln):
+        raise _f32_plan_error(
+            "fused_ln_split_proj", "csrc/split_f32.cu", "calls with the "
+            "LayerNorm, E = C a multiple of 16 from 64 to 512, 1-4 maps",
+            f"C={c}, E={e}, {n_out} maps, LN={has_ln}")
+    m, ch = h * w, n_out * e
+    launches = {"pw1 LN": b * -(-m // (_FG_NT // 32)),
+                "pw1": _fg_blocks(b, m, ch),
+                "taps": -(-w // _DW_TX) * -(-h // _DW_RT) * b * -(-ch // 64)}
+    return dict(launches=launches, blocks=sum(launches.values()),
+                kind=_fg_kind(ch), smem=_fg_smem(ch),
+                scratch=b * m * (ch + 2))
+
+
+def _chm_f32_form(c, heads) -> bool:
+    """Whether a float32 fused_chm_stats call has the form of
+    csrc/chm_f32.cu: 64 channels a head, C up to 512 (row 3's float32 form,
+    :func:`_qkv_f32_form`)."""
+    return _qkv_f32_form(c, heads)
+
+
+def _chm_f32_geometry(b, h, w, c, heads, nf, n_sm: int = 132):
+    """The launches of one float32 fused_chm_stats call on csrc/chm_f32.cu,
+    mirrored from turtle_chm_f32_launch: the LayerNorm's statistics and pw1
+    of x into h (B, H, W, 3C), pw1 of the B NF frames into hh (B NF, H, W,
+    2C), then the Gram pass's G x heads x B (NF + 1) blocks, each writing its
+    head's and part's piece of R partial rows, one a chunk of at most
+    _GRAM_CHUNK_TILES of its tiles (G R rows a batch entry); the largest
+    shared memory and the scratch (floats: h, hh, the statistics).
+    Raises ValueError, naming the body and its forms, for a call it does not
+    take."""
+    if not _chm_f32_form(c, heads) or nf < 1:
+        raise _f32_plan_error("fused_chm_stats", "csrc/chm_f32.cu",
+                              "maps of 64 channels a head, C up to 512, at "
+                              "least one aligned frame",
+                              f"C={c}, heads={heads}, NF={nf}")
+    m = h * w
+    g = _chm_f32_grid(b, h, w, heads, nf, n_sm)
+    tiles = -(-h // _QG_TH) * -(-w // _QG_TW)
+    chunks = -(-(-(-tiles // g)) // _GRAM_CHUNK_TILES)
+    launches = {"pw1 LN": b * -(-m // (_FG_NT // 32)),
+                "pw1": _fg_blocks(b, m, 3 * c),
+                "kv": _fg_blocks(b * nf, m, 2 * c),
+                "gram": g * heads * b * (nf + 1)}
+    return dict(launches=launches, blocks=sum(launches.values()), grid=g,
+                chunks=chunks, rows=g * chunks,
+                smem=max(_fg_smem(3 * c), _fg_smem(2 * c),
+                         (2 * _QG_TH * _QG_TW + 30) * _QG_CT * _F32),
+                scratch=b * m * (3 * c + 2 + nf * 2 * c))
 
 
 # csrc/f32_tile.cuh's product (rows 1 and 3 in float32, and rows 5 and 11:
@@ -1125,10 +1217,18 @@ def _qkv_plan(b, h, w, c, heads, has_bias, dtype, n_sm: int = 132):
     return "wg", _sw_geometry(b, h, w, c, False, n_sm)
 
 
-def _chm_plan(b, h, w, c, heads, dtype, n_sm: int = 132):
+def _chm_plan(b, h, w, c, heads, dtype, n_sm: int = 132, nf=None):
     """The body of one fused_chm_stats call: ("wg", geometry) for the wgmma
     body of csrc/chm_wg.cu (bf16, C in 64 / 128 / 256, 64 channels a head),
-    else ("tile", None) for csrc/chm_stats.cu; as :func:`_qkv_plan`."""
+    ("f32", geometry) for the float32 body of csrc/chm_f32.cu (float32, 64
+    channels a head, C up to 512: every float32 call of the paths;
+    :func:`_chm_f32_geometry`, which needs the aligned frames' count nf),
+    else ("tile", None) for csrc/chm_stats.cu (its float32 limits are
+    :func:`_chm_f32_plan`'s); as :func:`_qkv_plan`."""
+    if dtype == torch.float32 and _chm_f32_form(c, heads):
+        if nf is None:
+            raise TypeError("_chm_plan: a float32 call's geometry needs nf")
+        return "f32", _chm_f32_geometry(b, h, w, c, heads, nf, n_sm)
     if dtype != torch.bfloat16 or c not in _CHM_WG_WIDTHS or c != 64 * heads:
         return "tile", None
     return "wg", _sw_geometry(b, h, w, c, True, n_sm)
@@ -1273,7 +1373,12 @@ def _split_plan(b, h, w, c, e, n_out, has_ln, has_bias, dtype,
     8; 16 x 8 at C = 64), the persistent grid (one block an SM, n_sm of them
     at most), the ring stages and the shared memory; for the wgmma body also
     the 128-column passes of a tile, for the C = 64 body the tiles'
-    count."""
+    count. ("f32", geometry) for the float32 body of csrc/split_f32.cu
+    (float32, LayerNorm, E = C from 64 to 512, 1-4 maps, biases or not:
+    every float32 call of the paths; :func:`_split_f32_geometry`); the other
+    float32 calls go to split_proj.cu (:func:`_split_f32_plan`)."""
+    if dtype == torch.float32 and _split_f32_form(c, e, n_out, has_ln):
+        return "f32", _split_f32_geometry(b, h, w, c, e, n_out, has_ln)
     if (dtype != torch.bfloat16 or not has_ln or has_bias or e != c
             or not 1 <= n_out <= 4):
         return "tile", None
@@ -1311,10 +1416,17 @@ def _split_proj_launch(x, ln_w, ln_b, w1, b1, wd, bd, n_out):
     body, geo = _split_plan(b, h, w, c, e, n_out, ln_w is not None,
                             b1 is not None or bd is not None, x.dtype,
                             _sm_count(x.device))
-    halo = None  # float32's LN halo in device memory
-    if x.dtype == torch.float32:  # raises before any launch if not taken
+    halo = None  # float32's LN halo in device memory (csrc/split_proj.cu)
+    if x.dtype == torch.float32 and body == "tile":  # raises if not taken
         halo = _halo_scratch(_split_f32_plan(b, h, w, c), x)
-    if body == "wg":  # its shared memory fits by construction (_spw_smem)
+    if body == "f32":  # h and the LN statistics between the launches
+        hid = torch.empty((b, h, w, ch), dtype=x.dtype, device=x.device)
+        stats = torch.empty((b, h, w, 2), dtype=x.dtype, device=x.device)
+        _call(build.load("split_f32").turtle_split_f32_launch,
+              ptrs + [hid.data_ptr(), stats.data_ptr()],
+              [b, h, w, c, e, n_out], x, "fused_ln_split_proj")
+        fused_ln_split_proj.launches_f32 += 1
+    elif body == "wg":  # its shared memory fits by construction (_spw_smem)
         _call(build.load("split_wg").turtle_split_wg_launch,
               ptrs[:4] + ptrs[5:6] + ptrs[7:],
               [b, h, w, c, e, n_out, geo["blocks"]], x, "fused_ln_split_proj")
@@ -1341,13 +1453,17 @@ def fused_ln_split_proj(x, *, ln_w=None, ln_b=None, w1, b1=None, wd, bd=None,
     side by side. Without ``ln_w`` the chains run on x itself.
 
     Replaces ``fused_ln_split_proj`` in turtlevsr_tpu/kernels/ffn.py; bound
-    by operations on an H100 at C >= 256, by bytes at C <= 128. Three
-    kernels, chosen by shape before the launch (:func:`_split_plan`): the
+    by operations on an H100 at C >= 256, by bytes at C <= 128. Four
+    bodies, chosen by shape before the launch (:func:`_split_plan`): the
     wgmma body of csrc/split_wg.cu for bf16 calls with LayerNorm, no b1 or bd
     and E = C = 128, 256 or 512 (``fused_ln_split_proj.launches_wg`` counts
     them), the C = 64 body of csrc/split_c64.cu for those at E = C = 64
-    (``fused_ln_split_proj.launches_c64``), csrc/split_proj.cu for every
-    other call; one launch either way."""
+    (``fused_ln_split_proj.launches_c64``), the float32 body of
+    csrc/split_f32.cu for float32 calls with LayerNorm and E = C from 64 to
+    512 (``fused_ln_split_proj.launches_f32``: f32_tile.cuh's product with
+    the LayerNorm as its prologue into one hidden map, then the taps into
+    the maps; one wrapper launch of three CUDA launches),
+    csrc/split_proj.cu for every other call; one launch either way."""
     if x.device.type == "cpu":
         return split_proj_plain(x, ln_w=ln_w, ln_b=ln_b, w1=w1, b1=b1, wd=wd,
                                 bd=bd, n_out=n_out)
@@ -1358,6 +1474,7 @@ def fused_ln_split_proj(x, *, ln_w=None, ln_b=None, w1, b1=None, wd, bd=None,
 fused_ln_split_proj.launches = 0
 fused_ln_split_proj.launches_wg = 0  # those of them on the wgmma body (split_wg.cu)
 fused_ln_split_proj.launches_c64 = 0  # those on the C = 64 body (split_c64.cu)
+fused_ln_split_proj.launches_f32 = 0  # those on the float32 body (split_f32.cu)
 
 
 # ---------------------------------------------------------------------------
@@ -1449,11 +1566,25 @@ def _chm_stats_launch(x, x_sp, ln_w, ln_b, w_qkv, wd_qkv, w_kv, wd_kv, heads):
             _check("w_kv", w_kv, x, (c, 2 * c)),
             _check("wd_kv", wd_kv, x, (3, 3, 2 * c)),
             v.data_ptr(), vh.data_ptr()]
-    body, geo = _chm_plan(b, h, w, c, heads, x.dtype, _sm_count(x.device))
-    halo = None  # float32's LN halo in device memory
-    if x.dtype == torch.float32:  # raises before any launch if not taken
+    body, geo = _chm_plan(b, h, w, c, heads, x.dtype, _sm_count(x.device),
+                          nf=nf)
+    halo = None  # float32's LN halo in device memory (csrc/chm_stats.cu)
+    if x.dtype == torch.float32 and body == "tile":  # raises if not taken
         halo = _halo_scratch(_chm_f32_plan(b, h, w, c, heads, nf), x)
-    if body == "wg":  # its shared memory fits by construction (_sw_smem)
+    if body == "f32":  # G R partial rows an entry; h, hh between launches
+        part = torch.empty((b, geo["rows"], width), dtype=torch.float32,
+                           device=x.device)
+        hid = torch.empty((b, h, w, 3 * c), dtype=x.dtype, device=x.device)
+        hh = torch.empty((b * nf, h, w, 2 * c), dtype=x.dtype,
+                         device=x.device)
+        stats = torch.empty((b, h, w, 2), dtype=x.dtype, device=x.device)
+        _call(build.load("chm_f32").turtle_chm_f32_launch,
+              ptrs + [part.data_ptr(), hid.data_ptr(), hh.data_ptr(),
+                      stats.data_ptr()],
+              [b, h, w, c, heads, nf, geo["grid"], geo["chunks"]], x,
+              "fused_chm_stats")
+        fused_chm_stats.launches_f32 += 1
+    elif body == "wg":  # its shared memory fits by construction (_sw_smem)
         part = torch.zeros((b, geo["rows"], width), dtype=torch.float32,
                            device=x.device)
         _call(build.load("chm_wg").turtle_chm_wg_launch,
@@ -1489,9 +1620,13 @@ def fused_chm_stats(x, x_sp, *, ln_w, ln_b=None, w_qkv, wd_qkv, w_kv, wd_kv,
     fp32 = the per-channel sums of q^2, k^2 and each kh_n^2). No biases.
 
     Replaces ``fused_chm_stats`` in turtlevsr_tpu/kernels/ffn.py; bound by
-    operations on an H100. Two kernels, chosen by shape (:func:`_chm_plan`):
+    operations on an H100. Three bodies, chosen by shape (:func:`_chm_plan`):
     the wgmma body of csrc/chm_wg.cu for bf16 calls with 64 channels a head
     and C = 64, 128 or 256 (``fused_chm_stats.launches_wg`` counts them),
+    the float32 body of csrc/chm_f32.cu for float32 calls with 64 channels a
+    head, C up to 512 (``fused_chm_stats.launches_f32``: the two pointwise
+    products on f32_tile.cuh into hidden maps, then row 3's Gram pass over
+    the current map and each frame, a partial row a chunk of 8 tiles),
     csrc/chm_stats.cu for every other call. Only the per-head diagonal blocks
     of that kernel's (C, C) Grams are computed."""
     if x.device.type == "cpu":
@@ -1505,3 +1640,4 @@ def fused_chm_stats(x, x_sp, *, ln_w, ln_b=None, w_qkv, wd_qkv, w_kv, wd_kv,
 
 fused_chm_stats.launches = 0
 fused_chm_stats.launches_wg = 0  # those of them on the wgmma body (chm_wg.cu)
+fused_chm_stats.launches_f32 = 0  # those on the float32 body (chm_f32.cu)
